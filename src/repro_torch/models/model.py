@@ -1,0 +1,169 @@
+"""The dense language model — the port of ``repro/models/model.py`` for
+the plain layout ([attn, mlp] x L, every layer global).
+
+Parameters are the reference's tree (``LM.param_specs``) as nested dicts
+of tensors: per-layer leaves stacked on a leading layer axis under
+``"layers"``, so ``bridge.py`` maps a JAX tree onto it leaf for leaf.
+The cache is {"k", "v": (L, B, max_seq, KV, hd), "pos": int}; decode
+writes into it in place (the reference returns an updated copy, which
+the port saves).  The grouped (gemma3), MoE, SSM, audio and vision
+layouts, qk-norm, biases, untied embeddings, ring caches and the
+paged/speculative helpers are later slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as ATT
+from repro_torch.models import layers as L
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _leaf(shape, init: str = "fan_in", scale: float = 1.0):
+    return (tuple(shape), init, scale)
+
+
+def dense_layer(cfg, p, x, *, positions, mode, cache):
+    """Pre-norm attention + MLP.  Returns (x, fresh (k, v) or None)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, kv = ATT.attention_block(cfg, p["attn"], h, positions=positions,
+                                cache=cache, mode=mode)
+    x = x + a
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(cfg, p["mlp"], h), kv
+
+
+class LM:
+    """Dense model bundle for one ModelConfig on one device."""
+
+    def __init__(self, cfg, device=None):
+        if cfg.family != "dense" or cfg.attn_type != "full" \
+                or cfg.use_qk_norm or cfg.qkv_bias \
+                or not cfg.tie_embeddings or cfg.norm_type != "rmsnorm":
+            raise NotImplementedError(
+                f"{cfg.name}: only the plain dense layout of the 2b pair "
+                "(full attention, tied embeddings, RMSNorm) is ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[cfg.dtype]
+
+    # -------------------------------------------------------------- params
+    def param_shapes(self) -> Dict[str, Any]:
+        """The reference's spec tree for the plain layout: leaves are
+        (shape, init, scale) with init in {embed, fan_in, ones, zeros}."""
+        cfg = self.cfg
+        n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+        gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
+        return {
+            "embed": {"tok": {"w": _leaf((cfg.vocab_size, d), "embed",
+                                         d ** -0.5)}},
+            "ln_f": {"scale": _leaf((d,), "ones")},
+            "layers": {
+                "ln1": {"scale": _leaf((n, d), "ones")},
+                "attn": {"q": {"w": _leaf((n, d, h * hd))},
+                         "k": {"w": _leaf((n, d, kv * hd))},
+                         "v": {"w": _leaf((n, d, kv * hd))},
+                         "o": {"w": _leaf((n, h * hd, d))}},
+                "ln2": {"scale": _leaf((n, d), "ones")},
+                "mlp": {"in": {"w": _leaf((n, d, gate * f))},
+                        "out": {"w": _leaf((n, f, d))}},
+            },
+        }
+
+    def init(self, seed: int) -> Dict[str, Any]:
+        """Random parameters made on the device from a seeded
+        ``torch.Generator``, with the reference's initialiser laws
+        (fan-in over every axis but the last, as the reference counts
+        it for stacked leaves).  The values differ from the JAX
+        package's, whose generator is threefry; tests that compare the
+        two bring the JAX parameters over with ``bridge.py``.  Stacked
+        leaves are drawn one layer at a time, which bounds the float32
+        scratch at full width."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        def make(spec):
+            shape, init, scale = spec
+            if init in ("ones", "zeros"):
+                fill = torch.ones if init == "ones" else torch.zeros
+                return fill(shape, dtype=self.dtype, device=self.device)
+            std = scale if init == "embed" else \
+                scale / math.sqrt(max(1, math.prod(shape[:-1])))
+            out = torch.empty(shape, dtype=self.dtype, device=self.device)
+            slices = out if len(shape) == 3 else [out]
+            for sl in slices:
+                sl.copy_(torch.randn(sl.shape, generator=gen,
+                                     device=self.device) * std)
+            return out
+
+        return _map_specs(self.param_shapes(), make)
+
+    # --------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "pos": 0}
+
+    # ---------------------------------------------------------- entry points
+    def _layer(self, params, i):
+        return _map_tree(params["layers"], lambda t: t[i])
+
+    @torch.inference_mode()
+    def prefill(self, params, tokens: torch.Tensor, max_seq: int):
+        """Process the prompt (B, S) and build a max_seq cache.
+        Returns (last-position logits (B, 1, V) float32, cache)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        if s > max_seq:
+            raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
+        cache = self.init_cache(b, max_seq)
+        x = L.embed(cfg, params["embed"], tokens)
+        positions = torch.arange(s, device=tokens.device)
+        for i in range(cfg.num_layers):
+            x, (k, v) = dense_layer(cfg, self._layer(params, i), x,
+                                    positions=positions, mode="prefill",
+                                    cache=None)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+        cache["pos"] = s
+        x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+        return L.unembed(cfg, params["embed"], x), cache
+
+    @torch.inference_mode()
+    def decode_step(self, params, cache, tokens: torch.Tensor):
+        """One-token decode.  tokens (B, 1).  Returns (logits (B, 1, V)
+        float32, cache) — the same cache dict, updated IN PLACE (new K/V
+        written at ``pos``, ``pos`` advanced by one)."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        x = L.embed(cfg, params["embed"], tokens)
+        for i in range(cfg.num_layers):
+            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+            x, _ = dense_layer(cfg, self._layer(params, i), x,
+                               positions=pos, mode="decode",
+                               cache=layer_cache)
+        cache["pos"] = pos + 1
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return L.unembed(cfg, params["embed"], x), cache
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _map_specs(tree, fn):
+    """Map a spec tree in the reference's leaf order (sorted keys)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(tree[k], fn) for k in sorted(tree)}
+    return fn(tree)

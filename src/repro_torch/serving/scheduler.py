@@ -1,0 +1,148 @@
+"""Sequential request scheduler — the port of ``Scheduler``,
+``Request``, ``Response``, ``ResponseStatus`` and ``summarize`` from
+``repro/serving/scheduler.py``.
+
+``Response.wall_seconds`` is measured from ``Request.submitted_at`` and
+includes the queue wait, broken out as ``Response.queue_wait_seconds``.
+Private prompts are served first: they never wait on the network path.
+"""
+from __future__ import annotations
+
+import enum
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.serving.deployment import ServingDeployment
+from repro_torch.serving.engine import GenStats, HybridEngine
+
+
+class ResponseStatus(enum.Enum):
+    """Request outcome; severity order REJECTED > CANCELLED > TRUNCATED
+    > OK."""
+    OK = "ok"
+    TRUNCATED = "truncated"
+    REJECTED = "rejected"
+    CANCELLED = "cancelled"
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: str
+    max_new_tokens: int = 16
+    submitted_at: float = 0.0
+    greedy: bool = True
+    deadline_ms: Optional[float] = None  # simulated-clock decode budget
+
+
+@dataclass
+class Response:
+    rid: int
+    text: str
+    stats: GenStats
+    wall_seconds: float              # submit -> finish (incl. queue wait)
+    queue_wait_seconds: float = 0.0  # submit -> start of service
+    error: Optional[str] = None
+    truncated: bool = False          # prompt clipped to fit the cache
+    cancelled: bool = False          # deadline hit; ``text`` is partial
+
+    @property
+    def status(self) -> ResponseStatus:
+        if self.error is not None:
+            return ResponseStatus.REJECTED
+        if self.cancelled:
+            return ResponseStatus.CANCELLED
+        if self.truncated:
+            return ResponseStatus.TRUNCATED
+        return ResponseStatus.OK
+
+    @property
+    def degraded_tokens(self) -> int:
+        return self.stats.degraded_tokens
+
+    @property
+    def cloud_lost(self) -> int:
+        return self.stats.cloud_lost
+
+
+class Scheduler:
+    """FIFO scheduler; private traffic is split from cloud-eligible
+    traffic so a network stall never blocks on-device requests."""
+
+    def __init__(self, engine: HybridEngine):
+        self.engine = engine
+        self.queue: List[Request] = []
+        self._next = 0
+
+    @classmethod
+    def from_deployment(cls, deployment: ServingDeployment) -> "Scheduler":
+        return cls(HybridEngine(deployment))
+
+    def submit(self, prompt: str, max_new_tokens: int = 16,
+               greedy: bool = True,
+               deadline_ms: Optional[float] = None) -> int:
+        rid = self._next
+        self._next += 1
+        self.queue.append(Request(rid, prompt, max_new_tokens, time.time(),
+                                  greedy, deadline_ms))
+        return rid
+
+    def run(self) -> List[Response]:
+        """Serve the queue one request at a time, private ones first."""
+        private, public = [], []
+        for r in self.queue:
+            (private if self.engine.detector.detect(r.prompt)
+             else public).append(r)
+        self.queue = []
+        out = []
+        for r in private + public:
+            t0 = time.time()
+            text, stats = self.engine.generate(
+                r.prompt, r.max_new_tokens, greedy=r.greedy, rid=r.rid,
+                deadline_ms=r.deadline_ms)
+            out.append(Response(r.rid, text, stats,
+                                wall_seconds=time.time() - r.submitted_at,
+                                queue_wait_seconds=t0 - r.submitted_at,
+                                truncated=stats.truncated,
+                                cancelled=stats.cancelled))
+        return sorted(out, key=lambda x: x.rid)
+
+
+def summarize(responses: List[Response]) -> Dict[str, float]:
+    lat = [r.stats.mean_latency_ms for r in responses if r.stats.latency_ms]
+    waits = [r.queue_wait_seconds for r in responses]
+    drafted = sum(r.stats.spec_drafted for r in responses)
+    accepted = sum(r.stats.spec_accepted for r in responses)
+    all_lat = [x for r in responses for x in r.stats.latency_ms]
+    return {
+        "requests": len(responses),
+        "private_frac": float(np.mean([r.stats.private for r in responses])),
+        "cloud_token_frac": float(np.mean(
+            [r.stats.cloud_tokens / max(1, r.stats.tokens)
+             for r in responses])),
+        "fallback_token_frac": float(np.mean(
+            [r.stats.fallback_tokens / max(1, r.stats.tokens)
+             for r in responses])),
+        "mean_token_latency_ms": float(np.mean(lat)) if lat else 0.0,
+        "p95_token_latency_ms": float(np.percentile(all_lat, 95))
+        if lat else 0.0,
+        "p99_token_latency_ms": float(np.percentile(all_lat, 99))
+        if lat else 0.0,
+        "cloud_calls_per_token": float(np.mean(
+            [r.stats.cloud_calls / max(1, r.stats.tokens)
+             for r in responses])),
+        "cloud_used_frac": float(np.mean(
+            [r.stats.cloud_calls / max(1, r.stats.tokens)
+             for r in responses])),
+        "accept_rate": float(accepted / max(1, drafted)),
+        "degraded_token_frac": float(np.mean(
+            [r.stats.degraded_tokens / max(1, r.stats.tokens)
+             for r in responses])),
+        "cancelled": int(sum(bool(r.cancelled) for r in responses)),
+        "mean_queue_wait_s": float(np.mean(waits)) if waits else 0.0,
+        "p95_queue_wait_s": float(np.percentile(waits, 95))
+        if waits else 0.0,
+    }

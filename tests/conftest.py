@@ -28,3 +28,8 @@ def llm():
     lm = LM(cfg, remat=False)
     params = lm.init(jax.random.key(1))
     return lm, params
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU and nvcc (skips without them)")

@@ -1,0 +1,81 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at the full-width serving shapes.  Skipped without a card.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine without them (``tests/conftest.py`` imports JAX, hence
+``--noconftest`` there):
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: K1 1e-5 relative, each f32 probability against its own
+|ref| (the softmax sums are reduced in another order); most of a row's
+probabilities lie far below any useful absolute limit.  K3 2**-6 per
+query row, max|out - ref| / max|ref|: two bf16 roundings of the output
+(one ulp is 2**-7 of a value) plus P rounded to bf16 before P V, where
+the plain version keeps f32.  A row's own scale keeps the limit strict
+for the late rows of a long prompt, whose outputs are small."""
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as K3
+from repro_torch.kernels.logit_fusion import kernel as K1
+
+
+def row_rel_err(out, ref):
+    """max over rows (the last axis) of max|out - ref| / max|ref|."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fuse_logits_matches_plain(cuda, b, dtype):
+    g = torch.Generator(device=cuda).manual_seed(b)
+    sl = (3 * torch.randn(b, 256_000, device=cuda, generator=g)).to(dtype)
+    ll = (3 * torch.randn(b, 256_000, device=cuda, generator=g)).to(dtype)
+    w = torch.rand(b, device=cuda, generator=g)
+    arrived = torch.tensor([True, False, True, False][:b], device=cuda)
+    before = K1.fuse_logits.launches
+    out = K1.fuse_logits(sl, ll, w, arrived)
+    torch.cuda.synchronize()
+    assert K1.fuse_logits.launches == before + 1
+    ref = K1.fuse_logits_plain(sl, ll, w, arrived)
+    assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh", [(8, 1), (16, 16)])
+@pytest.mark.parametrize("s,window", [(31, 0), (200, 64), (2048, 0),
+                                      (2048, 512)])
+def test_flash_attention_matches_plain(cuda, h, kvh, s, window):
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    q = torch.randn(1, h, s, 256, device=cuda, generator=g).bfloat16()
+    k = torch.randn(1, kvh, s, 256, device=cuda, generator=g).bfloat16()
+    v = torch.randn(1, kvh, s, 256, device=cuda, generator=g).bfloat16()
+    before = K3.flash_attention.launches
+    out = K3.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert K3.flash_attention.launches == before + 1
+    ref = K3.flash_attention_plain(q, k, v, window=window)
+    assert row_rel_err(out, ref) <= 2 ** -6
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.randn(2, 16, 8, 256, device=cuda)           # f32, not bf16
+    with pytest.raises(TypeError):
+        K3.flash_attention(x, x, x)
+    with pytest.raises(ValueError):
+        K3.flash_attention(x.bfloat16()[..., :48], x.bfloat16()[..., :48],
+                           x.bfloat16()[..., :48])         # head_dim 48
+    z = torch.randn(2, 100, device=cuda)
+    with pytest.raises(ValueError):
+        K1.fuse_logits(z, z, torch.ones(3, device=cuda))  # w not (B,)

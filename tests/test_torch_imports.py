@@ -1,0 +1,75 @@
+"""The port stands alone: importing it pulls in neither JAX nor the JAX
+package, and its entry points refuse to fall back to the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs.floe_pair import pair_configs
+from repro_torch.core import fusion as FUS
+from repro_torch.launch import serve
+from repro_torch.models.model import LM
+from repro_torch.serving.deployment import ServingDeployment
+
+PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_import_all_submodules_leaves_jax_out():
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
+        " or n == 'repro' or n.startswith('repro.'))\n"
+        "print(len(list(pkgutil.walk_packages(repro_torch.__path__))), bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_or_jax_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("repro", "jax", "jaxlib"), (path, n)
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the entry points run on it")
+    scfg, lcfg = pair_configs("2b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(scfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FUS.init_alignment(0, scfg.vocab_size)
+    slm, llm = LM(scfg, device="cpu"), LM(lcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingDeployment(slm, slm.init(0), llm, llm.init(1),
+                          FUS.init_alignment(2, scfg.vocab_size,
+                                             device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--local"])
+
+
+def test_serve_refuses_later_slice_flags(capsys):
+    for argv in (["--local", "--spec-k", "4"], ["--local", "--batch", "4"],
+                 ["--local", "--sample"], ["--local", "--pair", "gemma3"]):
+        with pytest.raises(SystemExit):
+            serve.main(argv)
+        assert "later slice" in capsys.readouterr().err
