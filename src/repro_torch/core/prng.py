@@ -19,11 +19,16 @@ without JAX, vectorised over arrays of (rid, step), following jax
   (nextafter(-1, 0), 1), ``erf_inv`` being XLA's single-precision
   polynomial (M. Giles, "Approximating the erfinv function").
 
-The threefry bits, keys and uniforms are bit-exact.  ``erf_inv`` takes
-``log1p`` from numpy, which is correctly rounded, where XLA's CPU
-``log1p`` is a polynomial of its own; so about one normal in twenty
-differs from JAX's in the last one to three ulps (see
-``tests/test_torch_prng.py``).
+Every step is bit-exact against ``jax.random`` on the CPU, the normals
+included: ``erf_inv`` is computed as XLA's CPU code computes it, with
+fused multiply-adds where LLVM contracts them and XLA's own ``log1p``
+(the Cephes rational branch for |a| < sqrt(2) - 1, else ``log(1 + a)``
+through XLA's Cephes-derived CPU ``log``).  An f32 fused multiply-add
+is emulated as ``float32(float64(a) * float64(b) + float64(c))``: the
+product of two f32 values is exact in f64, and a check over every f32
+input of ``log1p`` in (-1, 0] and every uniform ``erf_inv`` can be
+given found no double-rounding case.  XLA's CPU code reads subnormal
+inputs as zero, and so does this one.
 """
 from __future__ import annotations
 
@@ -92,25 +97,118 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                -0.00367342844, 0.00573950773, -0.0076224613,
                0.00943887047, 1.00167406, 2.83297682)
+# log1p's rational branch (Cephes, as XLA's elemental EmitLog1p has it),
+# highest degree first
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+# XLA's CPU f32 log (Cephes, via Eigen's plog)
+_LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+          -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+          2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """float32 a * b + c with one rounding (see the module note)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(_F32)
+
+
+def _mul(a, b) -> np.ndarray:
+    return (np.asarray(a, _F32) * np.asarray(b, _F32)).astype(_F32)
+
+
+def _daz(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU code runs with denormals-are-zero: a subnormal input
+    reads as a zero of its sign."""
+    return np.where(np.abs(x) < np.finfo(_F32).tiny, x * _F32(0.0), x)
+
+
+def log(x) -> np.ndarray:
+    """XLA's CPU float32 ``log``: frexp into [sqrt(1/2), sqrt(2)), a
+    degree-8 polynomial in three fused-multiply-add chains, and the
+    exponent added back as e * (q1 + q2)."""
+    x = _daz(np.asarray(x, _F32))
+    m, e = np.frexp(np.maximum(x, np.finfo(_F32).tiny))
+    m, e = m.astype(_F32), e.astype(_F32)
+    small = m < _F32(0.707106781186547524)
+    e = (e - small.astype(_F32)).astype(_F32)
+    r = ((m - _F32(1.0)) + np.where(small, m, _F32(0.0))).astype(_F32)
+    r2 = _mul(r, r)
+    r3 = _mul(r2, r)
+    p = [_F32(c) for c in _LOG_P]
+    y = _fma(_fma(p[0], r, p[1]), r, p[2])
+    y1 = _fma(_fma(p[3], r, p[4]), r, p[5])
+    y2 = _fma(_fma(p[6], r, p[7]), r, p[8])
+    y = _fma(_fma(y, r3, y1), r3, y2)
+    y = _fma(y, r3, _mul(_F32(_LOG_Q1), e))
+    out = (_fma(_F32(-0.5), r2, r) + y).astype(_F32)
+    out = _fma(_F32(_LOG_Q2), e, out)
+    with np.errstate(invalid="ignore"):
+        out = np.where(x < 0, _F32(np.nan), out)
+    return np.where(x == 0, _F32(-np.inf),
+                    np.where(np.isposinf(x), x, out)).astype(_F32)
+
+
+def log1p(a) -> np.ndarray:
+    """XLA's ``log1p``: for |a| < sqrt(2) - 1 the Cephes rational
+    approximation (fused-multiply-add Horner steps), else
+    ``log(1 + a)``."""
+    a = _daz(np.asarray(a, _F32))
+    num = np.zeros_like(a)
+    den = np.zeros_like(a)
+    for c in _LOG1P_NUM:
+        num = _fma(num, a, _F32(c))
+    for c in _LOG1P_DEN:
+        den = _fma(den, a, _F32(c))
+    with np.errstate(all="ignore"):
+        ratio = (num.astype(np.float64) / den).astype(_F32)
+    a2 = _mul(a, a)
+    tail = _fma(_F32(-0.5), a2, _mul(_mul(a, a2), ratio))
+    small = (a + tail).astype(_F32)
+    with np.errstate(all="ignore"):
+        large = log((a + _F32(1.0)).astype(_F32))
+    return np.where(np.abs(a) < _F32(0.41421356237309504880), small,
+                    large).astype(_F32)
 
 
 def erf_inv(x: np.ndarray) -> np.ndarray:
-    """Single-precision inverse error function, XLA's polynomial."""
+    """Single-precision inverse error function, as XLA's CPU code
+    computes it (its polynomial, its ``log1p``, fused Horner steps)."""
     x = np.asarray(x, _F32)
-    w = -np.log1p(-x * x)
+    w = -log1p(-_mul(x, x))
     lt = w < _F32(5.0)
     w = np.where(lt, w - _F32(2.5), np.sqrt(w) - _F32(3.0)).astype(_F32)
     p = np.where(lt, _F32(_ERFINV_LT5[0]), _F32(_ERFINV_GE5[0])).astype(_F32)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = (np.where(lt, _F32(a), _F32(b)).astype(_F32) + p * w).astype(_F32)
-    out = p * x
+        p = _fma(p, w, np.where(lt, _F32(a), _F32(b)))
+    out = _mul(p, x)
     with np.errstate(over="ignore"):
         edge = x * np.finfo(_F32).max
     return np.where(np.abs(x) == _F32(1.0), edge, out).astype(_F32)
 
 
+def _erf_inv_uniform(k: Key) -> np.ndarray:
+    lo = np.nextafter(_F32(-1.0), _F32(0.0), dtype=_F32)
+    return erf_inv(uniform(k, lo, _F32(1.0)))
+
+
 def normal(k: Key) -> np.ndarray:
     """Scalar ``jax.random.normal(k)`` (float32) per key."""
-    lo = np.nextafter(_F32(-1.0), _F32(0.0), dtype=_F32)
-    u = uniform(k, lo, _F32(1.0))
-    return (_F32(np.sqrt(2)) * erf_inv(u)).astype(_F32)
+    return (_F32(np.sqrt(2)) * _erf_inv_uniform(k)).astype(_F32)
+
+
+def normal_affine(k: Key, scale, offset) -> np.ndarray:
+    """``offset + scale * jax.random.normal(k)`` in float32 as XLA
+    compiles it under ``jax.jit``: the simplifier folds ``scale *
+    sqrt(2)`` into one float32 constant and LLVM contracts the add into
+    a fused multiply-add, fma(f32(scale * sqrt(2)), erf_inv(u), offset).
+    (Evaluated op by op, outside ``jit``, the same expression rounds
+    differently in a few percent of draws.)"""
+    c = _F32(_F32(scale) * _F32(np.sqrt(2)))
+    return _fma(c, _erf_inv_uniform(k), _F32(offset))

@@ -4,7 +4,8 @@
 It pads a ragged decode batch up to a ``block_b`` multiple (padded rows
 carry arrived=False and are sliced away) and threads the per-row
 Sec. IV-D ``arrived`` mask into the kernel, so the kernel sees the same
-(B, V) shapes as the Pallas one does.
+(B, V) shapes as the Pallas one does.  ``cloud_arrival_mask`` builds
+that mask (the port of the reference's function of the same name).
 """
 from __future__ import annotations
 
@@ -29,3 +30,12 @@ def fused_probs_masked(slm_logits: torch.Tensor, llm_logits: torch.Tensor,
         arrived = F.pad(arrived, (0, pad), value=False)
     out = fuse_logits(slm_logits, llm_logits, w, arrived)
     return out[:b]
+
+
+def cloud_arrival_mask(ok, active):
+    """The Sec. IV-D fallback mask: a row's cloud logits take part in the
+    fusion iff the reply arrived within the timeout AND the row is
+    active.  Elementwise boolean algebra on numpy arrays or tensors
+    alike.  The reference's fault terms (lost reply, outage, breaker)
+    come with the fault slice."""
+    return ok & active

@@ -1,14 +1,21 @@
 """Serving launcher — the port of ``repro/launch/serve.py --local``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --local [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
+        --macro-k 0 [--page-size 16] [--no-lazy-pages] [--device cpu]
 
-serves the four demo prompts through the sequential hybrid engine on the
-reduced ``2b`` pair, printing one line per request and the summary, as
-the reference does.  It runs on CUDA unless ``--device cpu`` is given;
-on CUDA the pair is served in bfloat16 (the flash-attention kernel takes
-bfloat16), on the CPU in the configs' float32.
-``--batch`` takes 0 or 1 (both the sequential engine); the reference's
-other flags belong to later slices and are refused.
+serves the four demo prompts on the reduced ``2b`` pair, printing one
+line per request and the summary, as the reference does.  ``--batch``
+0 or 1 is the sequential engine; ``--batch N>1`` builds the
+continuous-batching scheduler on paged lanes and prints the
+``lane KV: paged, pool capacity ...`` line.  The reference's macro step
+(its ``--macro-k`` default, 8) is a later slice, so a batched run must
+say ``--macro-k 0``, and on CUDA ``--page-size`` must be 16, the page
+size of the paged decode kernel.  It runs on CUDA unless ``--device
+cpu`` is given; on CUDA the pair is served in bfloat16 (the attention
+kernels take bfloat16), on the CPU in the configs' float32.  The
+reference's other
+flags belong to later slices and are refused.
 """
 import argparse
 import dataclasses
@@ -16,8 +23,8 @@ import sys
 
 LATER_SLICE_FLAGS = (
     "--arch", "--shape", "--multi-pod", "--mesh-devices", "--rules",
-    "--model-parallel", "--macro-k", "--spec-k", "--dense", "--page-size",
-    "--pool-pages", "--no-lazy-pages", "--max-ctx", "--chunk-width",
+    "--model-parallel", "--spec-k", "--dense",
+    "--pool-pages", "--max-ctx", "--chunk-width",
     "--fault-rate", "--outage", "--fault-seed", "--deadline-ms", "--sample",
     "--sample-seed", "--adapters", "--adapter-slots", "--adapter-rank")
 
@@ -35,8 +42,12 @@ def main(argv=None):
     ap.add_argument("--rtt-ms", type=float, default=50.0)
     ap.add_argument("--timeout-ms", type=float, default=200.0)
     ap.add_argument("--batch", type=int, default=0,
-                    help="0 or 1: the sequential engine (continuous "
-                         "batching is a later slice)")
+                    help="decode-batch width; >1 uses the continuous-"
+                         "batching engine on paged lanes")
+    ap.add_argument("--macro-k", type=int, default=8,
+                    help="only 0 (the per-token step) is ported")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--no-lazy-pages", action="store_true")
     ap.add_argument("--pair", default="2b",
                     help="2b (the gemma3 pair is a later slice)")
     ap.add_argument("--device", default=None,
@@ -47,8 +58,9 @@ def main(argv=None):
         if flag in LATER_SLICE_FLAGS:
             ap.error(f"{flag}: later slice")
         ap.error(f"unrecognized argument {arg}")
-    if args.batch > 1:
-        ap.error("--batch > 1 (continuous batching): later slice")
+    if args.batch > 1 and args.macro_k != 0:
+        ap.error(f"--macro-k {args.macro_k} (macro-step): later slice; "
+                 "pass --macro-k 0")
     if args.pair != "2b":
         ap.error(f"--pair {args.pair}: later slice")
     if not args.local:
@@ -58,12 +70,17 @@ def main(argv=None):
     from repro_torch import resolve_device
     from repro_torch.configs.floe_pair import pair_configs
     from repro_torch.core import fusion as FUS
+    from repro_torch.kernels.paged_attention.kernel import PAGE_SIZE
     from repro_torch.models.model import LM
     from repro_torch.serving.deployment import ServingDeployment
     from repro_torch.serving.latency import LatencyModel
-    from repro_torch.serving.scheduler import Scheduler, summarize
+    from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
+                                               Scheduler, summarize)
 
     device = resolve_device(args.device)
+    if device.type == "cuda" and args.page_size != PAGE_SIZE:
+        ap.error(f"--page-size {args.page_size}: the paged decode kernel "
+                 f"on CUDA takes {PAGE_SIZE}")
     slm_cfg, llm_cfg = pair_configs(args.pair)
     if device.type == "cuda":
         slm_cfg, llm_cfg = (dataclasses.replace(c, dtype="bfloat16")
@@ -73,8 +90,16 @@ def main(argv=None):
         slm, slm.init(0), llm, llm.init(1),
         FUS.init_alignment(2, slm_cfg.vocab_size, device=device),
         latency=LatencyModel(rtt_ms=args.rtt_ms),
-        timeout_ms=args.timeout_ms, device=device)
-    sched = Scheduler.from_deployment(dep)
+        timeout_ms=args.timeout_ms, page_size=args.page_size,
+        device=device)
+    if args.batch > 1:
+        sched = ContinuousBatchScheduler.from_deployment(
+            dep, batch_size=args.batch, macro_k=0,
+            lazy_pages=not args.no_lazy_pages)
+        print(f"lane KV: paged, pool capacity "
+              f"{sched.engine.kv_pool_bytes()}B")
+    else:
+        sched = Scheduler.from_deployment(dep)
     for prompt in DEMO_PROMPTS:
         sched.submit(prompt, max_new_tokens=8)
     res = sched.run()

@@ -2,24 +2,46 @@
 ``repro/models/attention.py`` for the plain dense layout.
 
 ``attention_block`` covers ``prefill`` (no history; the reference's
-branch at ``attention.py:343-345``) and scalar-position ``decode``
-against a dense cache (``attention.py:396-415``, non-ring).  On CUDA,
+branch at ``attention.py:343-345``) and two decode forms:
+scalar-position decode against a dense cache (``attention.py:396-415``,
+non-ring) and **paged** decode with per-row positions against a page
+pool and block table (``:346-371``).  Per-row decode against a dense
+cache (``:372-395``) comes with the dense-lanes slice.  On CUDA,
 prefill attention is the hand-written kernel K3
-(``kernels/flash_attention``), which launches or raises; on the CPU it
-is ``chunked_causal_attention``, the reference's own prefill math.
-Decode attention is ``decode_attention`` in plain PyTorch on both, as
-the reference computes it outside any Pallas kernel.
+(``kernels/flash_attention``) and paged decode
+attention is K2 (``kernels/paged_attention``); each launches or raises.
+On the CPU, prefill is ``chunked_causal_attention`` and paged decode
+``gather_pages`` plus ``rowwise_decode_attention``, the reference's own
+math.  Dense decode attention is plain PyTorch on both, as the
+reference computes it outside any Pallas kernel.
+
+Decode writes the new token's K/V into the cache IN PLACE (the
+reference returns an updated copy).  torch has neither
+``mode="drop"`` nor ``mode="clip"``, so the writes the reference drops
+are masked explicitly: a parked row (pos >= FREED_POS), a slot past the
+cache and an unmapped NO_PAGE table entry write nothing.  A paged pool
+carries one extra SINK page after its P real pages, (P + 1, ps, KV,
+hd): dropped writes land there, so the scatter needs no host sync and
+no out-of-range index ever reaches the device.  Nothing reads the sink:
+gathers clamp page ids into [0, P - 1], as the reference does.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.paged_attention.kernel import \
+    paged_decode_attention
 from repro_torch.models import layers as L
 
 NEG_INF = -2.0 ** 30
+# Continuous batching: a freed batch row is "parked" at this position
+# until re-admission; its cache writes drop and decode freezes its
+# position (reference ``attention.py:36``).
+FREED_POS = 1 << 30
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -83,23 +105,93 @@ def decode_attention(q, cache_k, cache_v, pos: int, window: int = 0):
     return _sdpa(_group(q, kvh), k, v, mask, scale).reshape(b, 1, h, hd)
 
 
-def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill"):
+def rowwise_decode_attention(q, cache_k, cache_v, pos_b):
+    """One-token decode with PER-ROW positions (every layer of the plain
+    layout is global, so no window) — the CPU path of paged decode, over
+    ``gather_pages`` views.  q (B,1,H,hd), cache (B,S,KV,hd), pos_b (B,)
+    integer tensor."""
+    b, _, h, hd = q.shape
+    s_max = cache_k.shape[1]
+    kvh = cache_k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    kv_pos = torch.arange(s_max, device=q.device)
+    mask = kv_pos[None, None, :] <= pos_b[:, None, None]       # (B,1,S)
+    return _sdpa(_group(q, kvh), cache_k, cache_v, mask,
+                 scale).reshape(b, 1, h, hd)
+
+
+def gather_pages(pool_flat, table, n_slots: int, page_size: int):
+    """Dense per-row view of a paged pool.  pool_flat: (P*ps, ...)
+    slot-flattened pool of P real pages; table: (B, n_pages).  Returns
+    (B, n_slots, ...): row b, slot j = pool[table[b, j//ps], j%ps], with
+    sentinel page ids clamped into [0, P - 1] (callers mask them)."""
+    n_pool = pool_flat.shape[0] // page_size
+    j = torch.arange(n_slots, device=table.device)
+    pid = table[:, j // page_size].long()                      # (B, n)
+    flat = pid.clamp(0, n_pool - 1) * page_size + (j % page_size)[None, :]
+    return pool_flat[flat]
+
+
+def scatter_page_token(pool, table, row_pos, slot, token_kv,
+                       slot_limit: int):
+    """Write one decode token per row into its mapped page, IN PLACE.
+
+    pool: (P + 1, ps, ...) with the sink page last; table: (B, n_pages);
+    slot: (B,) in-row slot index; token_kv: (B, ...).  Parked rows
+    (row_pos >= FREED_POS), slots at or past ``slot_limit`` and unmapped
+    (NO_PAGE) entries write into the sink page instead, as the
+    reference's out-of-pool index drops."""
+    n_pool, ps = pool.shape[0] - 1, pool.shape[1]
+    slot = slot.long()
+    page_ix = torch.clamp(slot // ps, max=table.shape[1] - 1)
+    pid = table.gather(1, page_ix[:, None])[:, 0].long()
+    ok = (row_pos < FREED_POS) & (slot < slot_limit) & (pid < n_pool)
+    flat = torch.where(ok, pid * ps + slot % ps,
+                       torch.full_like(pid, n_pool * ps))
+    pool.view((n_pool + 1) * ps, *pool.shape[2:])[flat] = token_kv
+
+
+def check_row_positions(host_pos, n_slots: int) -> None:
+    """Host-side guard before a per-row decode dispatch, as a scalar
+    position past the cache raises: a live row (pos < FREED_POS) at or
+    past the cache's ``n_slots`` raises instead of having its write
+    dropped silently, as the reference's scatter would."""
+    host_pos = np.asarray(host_pos)
+    live = host_pos < FREED_POS
+    if (host_pos[live] >= n_slots).any() or (host_pos < 0).any():
+        raise ValueError(f"decode positions {host_pos.tolist()} outside "
+                         f"the {n_slots}-slot cache")
+
+
+def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
+                    pages=None, host_pos=None):
     """Attention sub-layer of one layer.
 
     prefill: ``positions`` (S,) tensor; returns (y, (k, v)) with the
     fresh (B, S, KV, hd) keys and values.
-    decode: ``positions`` an int, ``cache`` this layer's {"k", "v"}
-    (B, max_seq, KV, hd) views; the new token's K/V are written into the
-    cache IN PLACE at ``positions`` (the reference returns an updated
-    copy; the port saves the copy).  Returns (y, None)."""
+    decode: ``cache`` is this layer's {"k", "v"}; the new token's K/V
+    are written into it IN PLACE (the reference returns an updated
+    copy; the port saves the copy).  ``positions`` is an int (dense
+    (B, max_seq, KV, hd) cache, every row at one depth) or, with
+    ``pages`` = {"block": (B, nb) int32 table}, a (B,) int32 tensor of
+    per-row depths against page pools (P + 1, ps, KV, hd) with the sink
+    page last.  ``host_pos``, the host's mirror of per-row
+    ``positions``, is validated before any dispatch.  Returns
+    (y, None)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = L.linear(p["q"], x).reshape(b, s, h, hd)
     k = L.linear(p["k"], x).reshape(b, s, kvh, hd)
     v = L.linear(p["v"], x).reshape(b, s, kvh, hd)
 
-    rope_pos = positions if mode == "prefill" else torch.tensor(
-        positions, device=x.device)
+    row_pos = positions if mode == "decode" and isinstance(
+        positions, torch.Tensor) and positions.dim() == 1 else None
+    if mode == "prefill":
+        rope_pos = positions
+    elif row_pos is not None:
+        rope_pos = row_pos[:, None]
+    else:
+        rope_pos = torch.tensor(positions, device=x.device)
     # every layer of the plain layout is global
     theta = cfg.rope_theta_global or cfg.rope_theta
     q = L.rope(q, rope_pos, theta)
@@ -114,7 +206,30 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill"):
         else:
             out = chunked_causal_attention(q, k, v, positions, positions)
         new_kv = (k, v)
+    elif mode == "decode" and pages is not None:
+        pool_k, pool_v = cache["k"], cache["v"]
+        ps = pool_k.shape[1]
+        table = pages["block"]
+        n_slots = table.shape[1] * ps
+        if host_pos is not None:
+            check_row_positions(host_pos, n_slots)
+        scatter_page_token(pool_k, table, row_pos, row_pos, k[:, 0], n_slots)
+        scatter_page_token(pool_v, table, row_pos, row_pos, v[:, 0], n_slots)
+        n_pool = pool_k.shape[0] - 1
+        if x.device.type == "cuda":
+            out = paged_decode_attention(
+                q[:, 0].contiguous(), pool_k[:n_pool], pool_v[:n_pool],
+                table, row_pos).reshape(b, 1, h, hd)
+        else:
+            flat = lambda a: a[:n_pool].reshape(n_pool * ps, *a.shape[2:])
+            out = rowwise_decode_attention(
+                q, gather_pages(flat(pool_k), table, n_slots, ps),
+                gather_pages(flat(pool_v), table, n_slots, ps), row_pos)
+        new_kv = None
     elif mode == "decode":
+        if row_pos is not None:
+            raise NotImplementedError("per-row decode against a dense cache "
+                                      "(dense lanes): later slice")
         pos = positions
         if not 0 <= pos < cache["k"].shape[1]:
             raise ValueError(f"decode position {pos} outside the cache")

@@ -4,17 +4,27 @@ the plain layout ([attn, mlp] x L, every layer global).
 Parameters are the reference's tree (``LM.param_specs``) as nested dicts
 of tensors: per-layer leaves stacked on a leading layer axis under
 ``"layers"``, so ``bridge.py`` maps a JAX tree onto it leaf for leaf.
-The cache is {"k", "v": (L, B, max_seq, KV, hd), "pos": int}; decode
-writes into it in place (the reference returns an updated copy, which
-the port saves).  The grouped (gemma3), MoE, SSM, audio and vision
-layouts, qk-norm, biases, untied embeddings, ring caches and the
-paged/speculative helpers are later slices.
+Two cache forms, both written in place by decode (the reference
+returns an updated copy, which the port saves):
+
+* dense: {"k", "v": (L, B, max_seq, KV, hd), "pos": int} — every row
+  at one depth, the sequential engine;
+* paged (a lane of the batched engine, built by the deployment):
+  {"k", "v": page pools (L, P + 1, ps, KV, hd) whose last page is the
+  write sink, "block": (B, nb) int32 block table, "pos": (B,) int32 on
+  the device, "pos_host": its host mirror}.  The host mirror is
+  validated before each dispatch, so no layer syncs with the device.
+
+The grouped (gemma3), MoE, SSM, audio and vision layouts, qk-norm,
+biases, untied embeddings, ring caches and the prefix/speculative
+helpers are later slices.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -28,11 +38,13 @@ def _leaf(shape, init: str = "fan_in", scale: float = 1.0):
     return (tuple(shape), init, scale)
 
 
-def dense_layer(cfg, p, x, *, positions, mode, cache):
+def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
+                host_pos=None):
     """Pre-norm attention + MLP.  Returns (x, fresh (k, v) or None)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, kv = ATT.attention_block(cfg, p["attn"], h, positions=positions,
-                                cache=cache, mode=mode)
+                                cache=cache, mode=mode, pages=pages,
+                                host_pos=host_pos)
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + L.mlp(cfg, p["mlp"], h), kv
@@ -139,19 +151,69 @@ class LM:
         return L.unembed(cfg, params["embed"], x), cache
 
     @torch.inference_mode()
+    def prefill_packed(self, params, tokens: torch.Tensor, lengths,
+                       max_seq: int, write_kv):
+        """Packed ragged-batch prefill: B prompts right-padded to one
+        shared length, in a single pass.  tokens (B, Lpad); lengths (B,)
+        valid token counts (host ints).  Causal masking keeps every
+        valid position independent of the padding, so row b's K/V at
+        [0, lengths[b]) and its last-token logits match a B=1 prefill of
+        the unpadded prompt.
+
+        Each layer's fresh (B, Lpad, KV, hd) K and V go to
+        ``write_kv(layer, k, v)`` (the deployment streams them into pool
+        pages), so no dense (L, B, max_seq) cache is built.  Returns the
+        per-row last-valid-token logits (B, 1, V) float32."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        if s > max_seq:
+            raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
+        lengths = np.asarray(lengths, np.int64)
+        if lengths.shape != (b,) or (lengths < 1).any() \
+                or (lengths > s).any():
+            raise ValueError(f"lengths {lengths.tolist()} do not fit "
+                             f"(B={b}, Lpad={s})")
+        x = L.embed(cfg, params["embed"], tokens)
+        positions = torch.arange(s, device=tokens.device)
+        for i in range(cfg.num_layers):
+            x, (k, v) = dense_layer(cfg, self._layer(params, i), x,
+                                    positions=positions, mode="prefill",
+                                    cache=None)
+            write_kv(i, k, v)
+        # per-row last VALID position (x[:, -1:] would read padding)
+        idx = torch.as_tensor(lengths - 1, device=tokens.device)
+        last = x[torch.arange(b, device=tokens.device), idx][:, None]
+        last = L.rmsnorm(params["ln_f"], last, cfg.norm_eps)
+        return L.unembed(cfg, params["embed"], last)
+
+    @torch.inference_mode()
     def decode_step(self, params, cache, tokens: torch.Tensor):
         """One-token decode.  tokens (B, 1).  Returns (logits (B, 1, V)
         float32, cache) — the same cache dict, updated IN PLACE (new K/V
-        written at ``pos``, ``pos`` advanced by one)."""
+        written at each row's position, positions advanced by one).
+
+        With an int "pos" every row sits at that depth (dense cache).
+        With a (B,) "pos" tensor and a "block" table (paged lane) each
+        row decodes at its own depth against the page pools.  Parked
+        rows (pos >= FREED_POS) write nothing and keep their position."""
         cfg = self.cfg
         pos = cache["pos"]
+        pages = {"block": cache["block"]} if "block" in cache else None
+        host_pos = cache.get("pos_host")
         x = L.embed(cfg, params["embed"], tokens)
         for i in range(cfg.num_layers):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
             x, _ = dense_layer(cfg, self._layer(params, i), x,
                                positions=pos, mode="decode",
-                               cache=layer_cache)
-        cache["pos"] = pos + 1
+                               cache=layer_cache, pages=pages,
+                               host_pos=host_pos)
+        if isinstance(pos, torch.Tensor):
+            # parked rows hold position, so "freed" stays an exact marker
+            pos.add_((pos < ATT.FREED_POS).to(pos.dtype))
+            if host_pos is not None:
+                host_pos += host_pos < ATT.FREED_POS
+        else:
+            cache["pos"] = pos + 1
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return L.unembed(cfg, params["embed"], x), cache
 

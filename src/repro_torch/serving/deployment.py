@@ -2,10 +2,20 @@
 of ``repro/serving/deployment.py``.
 
 One object owns the models, their parameters on the device and the
-entry points the sequential engine calls: B=1 prefill and one-token
-decode of each model, the Eq. 14-15 fusion step (through K1), and a
-request's counter-based network weather.  Meshes, paging, macro-steps
-and speculation are later slices.
+entry points the engines call: B=1 and packed B>1 prefill and one-token
+decode of each model, the Eq. 14-15 fusion step (through K1, one row or
+a batch with a per-row arrived mask), the counter-based network weather
+of one request or of a batch of rows, and the paged lane caches of the
+batched engine — page pools, block tables, per-row positions and the
+admission scatter that streams prefilled K/V into pool pages.  Meshes,
+macro-steps, dense lanes, prefix sharing, chunked prefill and
+speculation are later slices.
+
+The reference's jitted functions return updated copies of a lane cache;
+the port's update the cache dict IN PLACE and return it.  Index
+arguments (rows, slots, page ids) arrive as host lists or numpy arrays,
+and every lane cache keeps a host mirror of its per-row positions
+("pos_host"), so no entry point reads the device back.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import fusion as FUS
+from repro_torch.models.attention import FREED_POS
+from repro_torch.serving import paging as PAG
 from repro_torch.serving.latency import LatencyModel
 
 
@@ -35,8 +47,25 @@ class ServingDeployment:
                  alignment_mlp: Optional[Dict[str, Any]] = None,
                  latency: Optional[LatencyModel] = None,
                  timeout_ms: float = 200.0, max_seq: int = 96,
-                 block_b: int = 4, device=None):
+                 block_b: int = 4, page_size: int = 16,
+                 max_ctx: Optional[int] = None, fault=None, device=None):
+        if fault is not None:
+            raise NotImplementedError("a fault model (fault injection): "
+                                      "later slice")
         self.device = resolve_device(device)
+        # paged lanes gather exactly nb * page_size slots; a page-aligned
+        # max_seq makes that extent the dense cache's
+        if max_seq % page_size:
+            raise ValueError(f"max_seq={max_seq} must be a multiple of "
+                             f"page_size={page_size}")
+        self.max_ctx = max_ctx or max_seq
+        if self.max_ctx > max_seq:
+            raise NotImplementedError(
+                "max_ctx > max_seq (chunked prefill): later slice")
+        if self.max_ctx != max_seq:
+            raise ValueError(f"max_ctx={self.max_ctx} must be >= "
+                             f"max_seq={max_seq}")
+        self.page_size = page_size
         for lm in (slm, llm):
             if lm is not None and lm.device != self.device:
                 raise ValueError(f"{lm.cfg.name} lives on {lm.device}, the "
@@ -69,12 +98,132 @@ class ServingDeployment:
     def llm_decode(self, params, cache, toks):
         return self.llm.decode_step(params, cache, toks)
 
+    def slm_prefill_packed(self, params, toks, lens, write_kv):
+        return self.slm.prefill_packed(params, toks, lens, self.max_seq,
+                                       write_kv)
+
+    def llm_prefill_packed(self, params, toks, lens, write_kv):
+        return self.llm.prefill_packed(params, toks, lens, self.max_seq,
+                                       write_kv)
+
+    @staticmethod
+    def insert_row(full: torch.Tensor, rows: torch.Tensor, src, dst):
+        """full[dst] = rows[src], in place; returns ``full``."""
+        full[_index(dst, full.device)] = rows[_index(src, rows.device)]
+        return full
+
+    # ------------------------------------------------------ paged lanes
+    def paged_geometry(self, lm) -> Dict[str, int]:
+        """Static page geometry of ``lm``'s plain-layout cache: table
+        width and the bytes one page id costs across every layer (ring/
+        local pools are a later slice)."""
+        cfg = lm.cfg
+        return dict(nb=PAG.pages_for(self.max_ctx, self.page_size),
+                    page_bytes_full=PAG.page_bytes(
+                        cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                        self.page_size, lm.dtype.itemsize))
+
+    def init_paged_lane_cache(self, lm, batch: int, pages: int
+                              ) -> Dict[str, Any]:
+        """A fresh paged lane cache: zeroed pools (L, pages + 1, ps, KV,
+        hd) — the last page is the sink that dropped writes land in —
+        block tables full of NO_PAGE and every row parked (pos =
+        FREED_POS) until an admission sets its position.  The reference
+        starts rows at 0; a row that is never admitted then advances one
+        slot per lane step, which the port's guard on live positions
+        would refuse once it passed the table.  Parked, it writes to the
+        sink, holds its position and K2 skips it."""
+        cfg, dev = lm.cfg, self.device
+        shape = (cfg.num_layers, pages + 1, self.page_size,
+                 cfg.num_kv_heads, cfg.head_dim)
+        nb = self.paged_geometry(lm)["nb"]
+        return {"k": torch.zeros(shape, dtype=lm.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=lm.dtype, device=dev),
+                "pos": torch.full((batch,), FREED_POS, dtype=torch.int32,
+                                  device=dev),
+                "pos_host": np.full((batch,), FREED_POS, np.int64),
+                "block": torch.full((batch, nb), PAG.NO_PAGE,
+                                    dtype=torch.int32, device=dev)}
+
+    def set_row_pos(self, cache, idx, val):
+        """pos[idx] = val on the device and in the host mirror."""
+        idx, val = np.asarray(idx, np.int64), np.asarray(val, np.int64)
+        cache["pos"][_index(idx, self.device)] = torch.as_tensor(
+            val, dtype=torch.int32, device=self.device)
+        cache["pos_host"][idx] = val
+        return cache
+
+    def free_paged_rows(self, cache, idx):
+        """Park drained rows and unmap their pages: pos to FREED_POS and
+        table rows to NO_PAGE, so later decode writes drop and the freed
+        page ids can be handed to a new admission."""
+        idx = np.asarray(idx, np.int64)
+        self.set_row_pos(cache, idx, np.full(idx.shape, FREED_POS))
+        cache["block"][_index(idx, self.device)] = PAG.NO_PAGE
+        return cache
+
+    def grow_block_pages(self, cache, rows, cols, pids):
+        """Map freshly grown pages: block[rows[i], cols[i]] = pids[i]."""
+        cache["block"][_index(rows, self.device),
+                       _index(cols, self.device)] = torch.as_tensor(
+            np.asarray(pids), dtype=torch.int32, device=self.device)
+        return cache
+
+    def page_writer(self, full, src, dpf):
+        """``write_kv`` callback for ``LM.prefill_packed`` that streams
+        each layer's fresh (B, Lpad, KV, hd) K/V straight into the pool
+        pages of ``full`` — the paged admission scatter.  Row src[i] of
+        the prefill goes to the (n, cols) destination page ids dpf[i]
+        (NO_PAGE columns drop).  The pool gets what the reference's
+        dense packed prefill and page-row scatter give it, without a
+        dense (L, B, max_seq) transient."""
+        plan = _page_plan(dpf, src, full["k"].shape[1] - 1)
+        ps = self.page_size
+
+        def write(i, k, v):
+            for name, t in (("k", k), ("v", v)):
+                b, s_len = t.shape[:2]
+                n_pages = PAG.pages_for(s_len, ps)
+                if n_pages * ps != s_len:
+                    t = torch.nn.functional.pad(
+                        t, (0, 0, 0, 0, 0, n_pages * ps - s_len))
+                _write_pages(full[name][i],
+                             t.reshape(b, n_pages, ps, *t.shape[2:]), plan)
+        return write
+
+    def finish_paged_insert(self, full, dst, lengths, block_rows):
+        """Row positions (the prompt lengths) and table rows at ``dst``
+        of a paged admission whose K/V are in the pool."""
+        self.set_row_pos(full, dst, lengths)
+        full["block"][_index(dst, self.device)] = torch.as_tensor(
+            np.asarray(block_rows), dtype=torch.int32, device=self.device)
+        return full
+
     def fuse(self, sl: torch.Tensor, ll: torch.Tensor, arrived: bool):
         """Eq. 14-15 on (B, V) logits, Eq. 15 through K1; ``arrived``
         applies to every row.  Returns (P_out (B, V), w (B,))."""
-        mask = torch.full((sl.shape[0],), bool(arrived), device=sl.device)
+        return self.fuse_batched(sl, ll, np.full(sl.shape[0], bool(arrived)))
+
+    def fuse_batched(self, sl: torch.Tensor, ll: torch.Tensor, arrived):
+        """Eq. 14-15 on a lane batch (B, V) with a per-row arrived mask
+        (host bools), Eq. 15 through K1.  Returns (P_out (B, V), w (B,))."""
+        mask = torch.as_tensor(np.asarray(arrived, bool), device=sl.device)
         return FUS.fused_distribution_kernel(self.mlp, sl, ll, mask,
                                              block_b=self.block_b)
+
+    @staticmethod
+    def softmax_batched(sl: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(sl.float(), dim=-1)
+
+    @staticmethod
+    def argmax_batched(p: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(p, dim=-1)
+
+    def lat_batched(self, rids, steps):
+        """One vectorised weather draw for a batch of rows: (lat_ms (B,)
+        float32, cloud_used (B,) bool) numpy arrays."""
+        return self.latency.token_latency_device(self.timeout_ms, rids,
+                                                 steps)
 
     def lat_request(self, rid: int, steps):
         """A whole request's network weather in one vectorised draw:
@@ -82,3 +231,31 @@ class ServingDeployment:
         steps = np.asarray(steps, np.int32)
         return self.latency.token_latency_device(
             self.timeout_ms, np.full_like(steps, rid), steps)
+
+
+def _page_plan(dpf, src, n_pool: int):
+    """Host plan of an admission scatter: the mapped (row, column, page
+    id) entries of the (n, cols) destination-page rows ``dpf`` (NO_PAGE
+    entries are dropped), row i taking source row src[i]."""
+    dpf = np.asarray(dpf, np.int64)
+    jj, cc = np.nonzero(dpf < n_pool)
+    return np.asarray(src, np.int64)[jj], cc, dpf[jj, cc]
+
+
+def _write_pages(pool, pages, plan):
+    """pool (P + 1, ps, KV, hd) <- page content ``pages`` (n_src, np, ps,
+    KV, hd) at the plan's page ids; mapped columns past the content get
+    zeros, as the reference's zero-padded dense rows give them."""
+    srow, cc, pid = plan
+    have = cc < pages.shape[1]
+    dev = pool.device
+    if have.any():
+        pool[_index(pid[have], dev)] = pages[_index(srow[have], dev),
+                                             _index(cc[have], dev)]
+    if (~have).any():
+        pool[_index(pid[~have], dev)] = 0
+
+
+def _index(idx, device) -> torch.Tensor:
+    """A host index list or array as an int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(idx, np.int64), device=device)

@@ -1,5 +1,6 @@
 """Hybrid LLM-SLM serving engine — the sequential path of
-``repro/serving/engine.py`` (``HybridEngine.generate``).
+``repro/serving/engine.py`` (``HybridEngine.generate``) and its
+continuous-batching engine on paged lanes (``BatchedHybridEngine``).
 
 Pipeline per request (paper Fig. 8):
   1. Privacy detector (Alg. 2): sensitive -> SLM-only, never leaves the
@@ -10,20 +11,29 @@ Pipeline per request (paper Fig. 8):
      is forced to w = 1 (Sec. IV-D fallback).
 
 The port serves greedy decoding without router, adapters or fault
-injection; keyed sampling, the batched engines and the fault path are
-later slices.
+injection.  The batched engine serves paged lanes through the per-token
+step (``macro_k=0``) with lazy or eager page reservation; the K-token
+macro step, dense lanes, COW prefix sharing, chunked prefill, park/evict
+under pool pressure, keyed sampling, adapters, faults, deadlines and
+speculation are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.privacy import PrivacyDetector
 from repro_torch.data import tokenizer as TOK
+from repro_torch.kernels.logit_fusion import ops as OPS
+from repro_torch.serving import paging as PAG
 from repro_torch.serving.deployment import ServingDeployment
+
+# admission prompts are right-padded to a multiple of this many tokens,
+# as the reference pads them, so K3 sees the reference's prefill shapes
+PREFILL_CHUNK = 16
 
 
 @dataclass
@@ -36,6 +46,9 @@ class GenStats:
     fusion_w: List[float] = field(default_factory=list)
     # the prompt was cut to fit the context budget
     truncated: bool = False
+    # engine-wide admission sequence number (batched engine): the
+    # observable FIFO order
+    admit_seq: int = -1
     degraded_tokens: int = 0
     cloud_lost: int = 0
     # cloud DISPATCHES (one per cloud-eligible token on this path)
@@ -55,14 +68,6 @@ class GenStats:
     def push_latency(self, lat_ms: float):
         self.latency_ms.append(lat_ms)
         self.clock_ms += lat_ms
-
-
-@dataclass
-class _Slot:
-    """Host-side bookkeeping for one request being decoded (the batched
-    engine of a later slice keeps one per lane row)."""
-    stats: GenStats
-    out_ids: List[int] = field(default_factory=list)
 
 
 class HybridEngine:
@@ -110,12 +115,12 @@ class HybridEngine:
         lat_row = ok_row = None
         if use_cloud and rid is not None:
             lat_row, ok_row = dep.lat_request(rid, np.arange(max_new_tokens))
-        slot = _Slot(stats)
+        out_ids: List[int] = []
         for _ in range(max_new_tokens):
             if deadline_ms is not None and stats.clock_ms >= deadline_ms:
                 stats.cancelled = True
                 break
-            step = len(slot.out_ids)
+            step = len(out_ids)
             if use_cloud:
                 if lat_row is not None:
                     lat_ms, arrived = float(lat_row[step]), bool(ok_row[step])
@@ -134,7 +139,7 @@ class HybridEngine:
             stats.fusion_w.append(float(w[0]))
 
             nxt = int(torch.argmax(p_out[0]))
-            slot.out_ids.append(nxt)
+            out_ids.append(nxt)
             stats.tokens += 1
             if nxt == TOK.EOS:
                 break
@@ -145,4 +150,496 @@ class HybridEngine:
                 l_logits, l_cache = dep.llm_decode(self.llm_params, l_cache,
                                                    t)
                 ll = l_logits[:, 0]
-        return TOK.decode(slot.out_ids), stats
+        return TOK.decode(out_ids), stats
+
+
+# ===========================================================================
+# Batched continuous decode on paged lanes
+# ===========================================================================
+
+
+@dataclass
+class _Slot:
+    """Host-side bookkeeping for one occupied decode-batch row (greedy:
+    sampling is a later slice)."""
+    rid: int
+    max_new: int
+    stats: GenStats
+    out_ids: List[int] = field(default_factory=list)
+    seq: int = -1                    # admission order (FIFO observable)
+    # lazy growth: token n writes at position prompt_len + n
+    prompt_len: int = 0
+
+
+@dataclass
+class _PagedJob:
+    """One paged admission: tokenization and page reservation happen at
+    ``add_requests`` time (the admission gate needs the page demand), so
+    the job carries them to the lane's prefill and page scatter."""
+    slot: int
+    max_new: int
+    rid: int
+    private: bool
+    ids: List[int]                   # token ids (already truncated)
+    rows_s: Any                      # RowPages in the lane's SLM pager
+    rows_l: Any                      # RowPages in the LLM pager (cloud)
+    seq: int = -1
+    truncated: bool = False
+
+
+class _Lane:
+    """One decode batch on paged lanes: SLM (+ LLM) page pools with block
+    tables, and a free-slot list.  The cloud lane fuses SLM+LLM logits
+    per row; the edge lane is SLM-only (private traffic, Alg. 2)."""
+
+    def __init__(self, engine: "BatchedHybridEngine", batch: int,
+                 use_cloud: bool):
+        self.eng = engine
+        self.batch = batch
+        self.use_cloud = use_cloud
+        self.slots: List[Optional[_Slot]] = [None] * batch
+        self.s_cache = None          # allocated on first admission
+        self.l_cache = None
+        self.sl = None               # (B, V) current SLM logits
+        self.ll = None               # (B, V) current LLM logits
+        self.pager_s = engine._make_pager(engine.dep.slm, batch)
+        self.pager_l = (engine._make_pager(engine.dep.llm, batch)
+                        if use_cloud else None)
+
+    # ----------------------------------------------------------- helpers
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    @property
+    def active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def _alloc(self):
+        dep = self.eng.dep
+        b = self.batch
+        vocab = dep.slm.cfg.vocab_size
+        self.s_cache = dep.init_paged_lane_cache(
+            dep.slm, b, self.pager_s.alloc.num_pages)
+        if self.use_cloud:
+            self.l_cache = dep.init_paged_lane_cache(
+                dep.llm, b, self.pager_l.alloc.num_pages)
+            self.ll = torch.zeros((b, vocab), dtype=torch.float32,
+                                  device=dep.device)
+        self.sl = torch.zeros((b, vocab), dtype=torch.float32,
+                              device=dep.device)
+
+    # --------------------------------------------------------- admission
+    def _finish_admit(self, j: _PagedJob):
+        self.slots[j.slot] = _Slot(
+            j.rid, j.max_new,
+            GenStats(private=j.private, truncated=j.truncated,
+                     admit_seq=j.seq),
+            seq=j.seq, prompt_len=len(j.ids))
+
+    def _pad_group(self, ids: List[List[int]], width_cap: int):
+        """Shared right-padding for an admission group: chunk-rounded
+        length, power-of-two batch, dummy pad rows of length 1 — the
+        reference's padding, so K3 sees its shapes.  Returns (tokens
+        (bp, Lpad) int64 on the device, lengths (bp,) host int32)."""
+        n = len(ids)
+        lens = np.asarray([len(seq) for seq in ids], np.int32)
+        lpad = min(-(-int(lens.max()) // PREFILL_CHUNK) * PREFILL_CHUNK,
+                   width_cap)
+        bp = 1 << (n - 1).bit_length()
+        toks = np.zeros((bp, lpad), np.int64)
+        for j, seq in enumerate(ids):
+            toks[j, :len(seq)] = seq
+        lens_p = np.ones((bp,), np.int32)
+        lens_p[:n] = lens
+        return torch.as_tensor(toks, device=self.eng.dep.device), lens_p
+
+    @torch.inference_mode()
+    def admit_many(self, jobs: List[_PagedJob]):
+        """Admit a burst of requests (unshared paged admission): ONE
+        packed B>1 prefill per model whose per-layer K/V stream straight
+        into the rows' reserved pool pages — the pool contents the
+        reference's dense prefill + page-row scatter gives.  The rows'
+        block-table rows double as their destination pages."""
+        if not jobs:
+            return
+        eng = self.eng
+        dep = eng.dep
+        n = len(jobs)
+        toks, lens = self._pad_group([j.ids for j in jobs], eng.max_seq)
+        if self.s_cache is None:
+            self._alloc()
+        src = list(range(n))
+        dst = [j.slot for j in jobs]
+        block = np.stack([self.pager_s.table_row(j.rows_s) for j in jobs])
+        s_logits = dep.slm_prefill_packed(
+            eng.slm_params, toks, lens,
+            dep.page_writer(self.s_cache, src, block))
+        dep.finish_paged_insert(self.s_cache, dst, lens[:n], block)
+        dep.insert_row(self.sl, s_logits[:, 0], src, dst)
+        if self.use_cloud:
+            blk_l = np.stack([self.pager_l.table_row(j.rows_l)
+                              for j in jobs])
+            l_logits = dep.llm_prefill_packed(
+                eng.llm_params, toks, lens,
+                dep.page_writer(self.l_cache, src, blk_l))
+            dep.finish_paged_insert(self.l_cache, dst, lens[:n], blk_l)
+            dep.insert_row(self.ll, l_logits[:, 0], src, dst)
+        for j in jobs:
+            self._finish_admit(j)
+
+    # ------------------------------------------------------------- decode
+    @torch.inference_mode()
+    def step(self) -> List[Tuple[int, str, GenStats]]:
+        """One fused decode step over every occupied row (the per-token
+        path, ``macro_k=0``).  Returns the requests that finished this
+        step as (rid, text, stats)."""
+        eng = self.eng
+        dep = eng.dep
+        self._provision(1)
+        if self.active == 0:
+            return []
+        b = self.batch
+        if self.use_cloud:
+            occ = np.zeros((b,), bool)
+            rids = np.zeros((b,), np.int32)
+            steps = np.zeros((b,), np.int32)
+            for i, s in enumerate(self.slots):
+                if s is not None:
+                    occ[i], rids[i], steps[i] = True, s.rid, len(s.out_ids)
+            # one vectorised counter-based draw for the whole batch
+            lat, ok = dep.lat_batched(rids, steps)
+            arrived = OPS.cloud_arrival_mask(ok, occ)
+            probs, w = dep.fuse_batched(self.sl, self.ll, arrived)
+        else:
+            probs = dep.softmax_batched(self.sl)
+            w = torch.ones((b,))
+        nxt = dep.argmax_batched(probs).cpu().numpy()
+        w_host = w.cpu().numpy()
+
+        done: List[Tuple[int, str, GenStats]] = []
+        freed: List[int] = []
+        next_tok = np.zeros((b, 1), np.int64)
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            st = s.stats
+            if self.use_cloud:
+                st.cloud_tokens += int(arrived[i])
+                st.fallback_tokens += int(not arrived[i])
+                st.cloud_calls += 1
+                st.push_latency(float(lat[i]))
+            else:
+                st.push_latency(float(eng.latency.edge_compute_ms))
+            st.fusion_w.append(float(w_host[i]))
+            tok = int(nxt[i])
+            s.out_ids.append(tok)
+            st.tokens += 1
+            if tok == TOK.EOS or len(s.out_ids) >= s.max_new:
+                done.append((s.rid, TOK.decode(s.out_ids), st))
+                self.slots[i] = None        # freed: admit into this row
+                freed.append(i)
+            else:
+                next_tok[i, 0] = tok
+        if freed:
+            # park even when the lane drains: a later partial admission
+            # must not revive stale rows at live positions
+            self._release_rows(freed)
+        if self.active:
+            # freed rows ride along in the fixed-width batch, parked at
+            # FREED_POS with NO_PAGE tables: their writes drop
+            toks = torch.as_tensor(next_tok, device=dep.device)
+            s_logits, self.s_cache = dep.slm_decode(eng.slm_params,
+                                                    self.s_cache, toks)
+            self.sl = s_logits[:, 0]
+            if self.use_cloud:
+                l_logits, self.l_cache = dep.llm_decode(
+                    eng.llm_params, self.l_cache, toks)
+                self.ll = l_logits[:, 0]
+        return done
+
+    def _release_rows(self, freed: List[int]):
+        """Parking releases memory for real: pos to FREED_POS AND table
+        rows to NO_PAGE on the device, then the pages go back to the
+        host free lists for the next admission."""
+        dep = self.eng.dep
+        dep.free_paged_rows(self.s_cache, freed)
+        if self.use_cloud:
+            dep.free_paged_rows(self.l_cache, freed)
+        for i in freed:
+            self.pager_s.release(i)
+            if self.pager_l is not None:
+                self.pager_l.release(i)
+
+    # ------------------------------------------------------- lazy growth
+    def _apply_growth(self, which: str, ups: List[Tuple[int, int, int]]):
+        """ONE block-table scatter per model per boundary for all rows'
+        freshly grown pages."""
+        if not ups:
+            return
+        rows, cols, pids = (list(x) for x in zip(*ups))
+        cache = self.s_cache if which == "s" else self.l_cache
+        self.eng.dep.grow_block_pages(cache, rows, cols, pids)
+
+    def _grow_row(self, i: int, s: _Slot, k: int, ups_s, ups_l) -> bool:
+        """Ensure row ``i`` has pages for its next (up to) ``k`` decode
+        writes.  Token n writes at position prompt_len + n and the last
+        selected token is never fed, so a row with <= 1 budget left
+        writes nothing.  Growth is atomic across both pagers; True means
+        the row can decode this boundary."""
+        ps = self.eng.dep.page_size
+        n = len(s.out_ids)
+        rem = s.max_new - n
+        if rem <= 1:
+            return True
+        hi = s.prompt_len + n + min(k, rem - 1) - 1
+        need = hi // ps + 1
+        g_s = need - len(self.pager_s.rows[i].full)
+        g_l = need - len(self.pager_l.rows[i].full) if self.use_cloud else 0
+        if g_s <= 0 and g_l <= 0:
+            return True
+        got_s = self.pager_s.grow(i, g_s) if g_s > 0 else []
+        if got_s is None:
+            return False
+        got_l: List[int] = []
+        if g_l > 0:
+            got_l = self.pager_l.grow(i, g_l)
+            if got_l is None:
+                if got_s:
+                    self.pager_s.ungrow(i, got_s)
+                return False
+        for t, pid in enumerate(got_s):
+            ups_s.append((i, need - g_s + t, pid))
+        for t, pid in enumerate(got_l):
+            ups_l.append((i, need - g_l + t, pid))
+        self.eng._stat["grown_pages"] += len(got_s) + len(got_l)
+        return True
+
+    def _provision(self, k: int):
+        """Lazy-growth pass at a decode boundary: extend live rows' block
+        tables (oldest admission first) before the next k tokens.  The
+        reference parks a row whose growth cannot be met and evicts
+        when the lane wedges; the port raises instead.  With the default
+        pools (batch x full table width) growth always succeeds.  Eager
+        reservation (``lazy_pages=False``) makes this a no-op."""
+        if not self.eng.lazy_pages:
+            return
+        order = sorted((i for i, s in enumerate(self.slots)
+                        if s is not None), key=lambda i: self.slots[i].seq)
+        ups_s: List[Tuple[int, int, int]] = []
+        ups_l: List[Tuple[int, int, int]] = []
+        for i in order:
+            if not self._grow_row(i, self.slots[i], k, ups_s, ups_l):
+                raise NotImplementedError(
+                    "park/evict under pool pressure: later slice")
+        self._apply_growth("s", ups_s)
+        if self.use_cloud:
+            self._apply_growth("l", ups_l)
+
+
+class BatchedHybridEngine(HybridEngine):
+    """Continuous-batching Floe engine on paged lanes.
+
+    Two fixed-width decode batches ("lanes"): cloud-eligible requests
+    share a hybrid SLM+LLM batch whose per-token fusion runs through K1
+    with a per-row Sec. IV-D arrived mask; private requests share an
+    SLM-only batch (Alg. 2).  Admissions that arrive in the same step
+    share one packed B>1 prefill (prompts padded to a chunk-rounded
+    length, per-row lengths masked) whose K/V are scattered into the
+    rows' reserved pool pages; decode attention reads the pages through
+    K2.  Admission is gated on free slots and free pages: the lazy
+    demand (prompt pages + one decode page) is reserved and grown at
+    page boundaries; a worst-case demand beyond the total pool is a
+    hard reject (``pop_rejected``).
+
+    The port serves ``paged=True`` with ``macro_k=0`` (the per-token
+    reference path); the other options raise ``NotImplementedError``."""
+
+    def __init__(self, deployment: ServingDeployment, batch_size: int = 8,
+                 edge_batch_size: Optional[int] = None,
+                 macro_k: int = 8, paged: bool = True,
+                 pool_pages: Optional[int] = None,
+                 local_pool_pages: Optional[int] = None,
+                 llm_pool_pages: Optional[int] = None,
+                 lazy_pages: bool = True,
+                 chunk_width: Optional[int] = None, spec_k: int = 0):
+        later = [(macro_k != 0, "the K-token macro step (macro_k != 0)"),
+                 (not paged, "dense lanes (paged=False)"),
+                 (spec_k != 0, "speculative decode (spec_k)"),
+                 (pool_pages is not None or local_pool_pages is not None
+                  or llm_pool_pages is not None,
+                  "pool budgets below the default (park/evict under pool "
+                  "pressure)"),
+                 (chunk_width not in (None, deployment.max_seq),
+                  "chunked prefill (chunk_width)")]
+        for bad, what in later:
+            if bad:
+                raise NotImplementedError(f"{what}: later slice")
+        super().__init__(deployment)
+        for lm in (self.dep.slm, self.dep.llm):
+            if lm.cfg.family != "dense":
+                raise NotImplementedError(
+                    "batched continuous decode supports dense-family "
+                    f"models (got {lm.cfg.family})")
+        self.slm, self.llm = deployment.slm, deployment.llm
+        self.lazy_pages = lazy_pages
+        self.max_ctx = deployment.max_ctx
+        self._seq = 0
+        self._stat = dict(grown_pages=0, parks=0, evictions=0, forced=0)
+        self._rejected: List[Tuple[int, str]] = []
+        self.cloud_lane = _Lane(self, batch_size, use_cloud=True)
+        self.edge_lane = _Lane(self, edge_batch_size or batch_size,
+                               use_cloud=False)
+
+    def _next_seq(self) -> int:
+        s = self._seq
+        self._seq += 1
+        return s
+
+    def growth_stats(self) -> Dict[str, int]:
+        """Lazy-growth counters: pages grown at boundaries; parks,
+        evictions and forced completions stay 0 (pool pressure raises)."""
+        return dict(self._stat)
+
+    def _make_pager(self, lm, batch: int) -> PAG.LanePager:
+        """Host page bookkeeping for one (lane, model): the default pool
+        is the dense equivalent, batch x full table width."""
+        geo = self.dep.paged_geometry(lm)
+        pager = PAG.LanePager(batch, self.max_seq, self.dep.page_size,
+                              batch * geo["nb"], max_ctx=self.max_ctx)
+        pager.geo = geo
+        return pager
+
+    # ------------------------------------------------------------- public
+    def add_request(self, prompt: str, max_new_tokens: int = 16,
+                    greedy: bool = True, rid: int = 0,
+                    seed: Optional[int] = None) -> bool:
+        """Admit one request; False if it could not be admitted now (lane
+        full or free pages short).  A page demand beyond the total pool
+        is a hard reject, surfaced through ``pop_rejected``."""
+        return self.add_requests([(prompt, max_new_tokens, greedy, rid,
+                                   seed)])[0]
+
+    def add_requests(self, reqs: List[Tuple]) -> List[bool]:
+        """Admit a burst of (prompt, max_new_tokens, greedy, rid[, seed
+        [, prefix[, adapter_id[, deadline_ms]]]]) requests.  Requests
+        landing in the same lane share ONE packed B>1 prefill.  Returns
+        per-request admitted flags; soft-refused requests are retried
+        later, hard rejects land in ``pop_rejected``."""
+        for prompt, max_new, greedy, rid, *rest in reqs:
+            rest = list(rest) + [None] * (4 - len(rest))
+            for bad, what in ((not greedy, "sampling (greedy=False)"),
+                              (rest[1] is not None,
+                               "COW prefix sharing (prefix=)"),
+                              (rest[2] is not None,
+                               "per-user adapters (adapter_id=)"),
+                              (rest[3] is not None,
+                               "deadline cancellation (deadline_ms=)")):
+                if bad:
+                    raise NotImplementedError(f"{what} on the batched "
+                                              "engine: later slice")
+        return self._add_requests_paged(reqs)
+
+    def _add_requests_paged(self, reqs: List[Tuple]) -> List[bool]:
+        """Paged admission gate: free SLOT and free PAGES, per lane and
+        model.  The lazy demand (prompt pages + one decode page, capped
+        at the worst case) is reserved here; the hard-reject predicate
+        is the worst case against TOTAL pool capacity.  A soft refusal
+        blocks the lane for the rest of the burst (FIFO: later arrivals
+        never overtake a waiting request)."""
+        flags = [False] * len(reqs)
+        jobs: Dict[bool, List[_PagedJob]] = {True: [], False: []}
+        free = {True: self.edge_lane.free_slots(),
+                False: self.cloud_lane.free_slots()}
+        blocked = {True: False, False: False}
+        for i, (prompt, max_new, _, rid, *_) in enumerate(reqs):
+            private = self.detector.detect(prompt)
+            lane = self.edge_lane if private else self.cloud_lane
+            raw = TOK.encode(prompt + " ")
+            cap_ids = self.max_ctx - max_new - 1
+            ids = raw[:cap_ids]
+            truncated = len(raw) > cap_ids
+            alloc_len = min(len(ids) + max_new, self.max_ctx)
+            cap_pages = PAG.pages_for(alloc_len, self.dep.page_size)
+            worst_s = lane.pager_s.demand(alloc_len)
+            worst_l = (lane.pager_l.demand(alloc_len) if lane.use_cloud
+                       else (0, 0))
+            if not lane.pager_s.fits_pool(*worst_s):
+                self._rejected.append((rid, (
+                    f"slm page demand {worst_s[0]} exceeds pool "
+                    f"capacity {lane.pager_s.alloc.num_pages} pages")))
+                continue
+            if lane.use_cloud and not lane.pager_l.fits_pool(*worst_l):
+                self._rejected.append((rid, (
+                    f"llm page demand {worst_l[0]} exceeds pool "
+                    f"capacity {lane.pager_l.alloc.num_pages} pages")))
+                continue
+            if blocked[private]:
+                continue                   # FIFO: no overtaking
+            if self.lazy_pages:
+                nf_s, nl_s = lane.pager_s.demand_lazy(len(ids), alloc_len)
+                nf_l, nl_l = (lane.pager_l.demand_lazy(len(ids), alloc_len)
+                              if lane.use_cloud else (0, 0))
+            else:
+                (nf_s, nl_s), (nf_l, nl_l) = worst_s, worst_l
+            if not free[private] \
+                    or not lane.pager_s.fits_free(nf_s, nl_s) or (
+                        lane.use_cloud
+                        and not lane.pager_l.fits_free(nf_l, nl_l)):
+                blocked[private] = True    # soft: retry when pages free
+                continue
+            slot = free[private].pop(0)
+            rows_s = lane.pager_s.admit(slot, nf_s, cap_pages=cap_pages)
+            rows_l = (lane.pager_l.admit(slot, nf_l, cap_pages=cap_pages)
+                      if lane.use_cloud else None)
+            jobs[private].append(_PagedJob(
+                slot, max_new, rid, private, ids, rows_s, rows_l,
+                seq=self._next_seq(), truncated=truncated))
+            flags[i] = True
+        self.edge_lane.admit_many(jobs[True])
+        self.cloud_lane.admit_many(jobs[False])
+        return flags
+
+    def pop_rejected(self) -> List[Tuple[int, str]]:
+        """Drain the hard-reject log: (rid, reason) for requests whose
+        page demand can NEVER fit the pools."""
+        out, self._rejected = self._rejected, []
+        return out
+
+    def resident_kv_bytes(self) -> int:
+        """Bytes of KV state currently LIVE: allocated pages."""
+        total = 0
+        for lane in (self.cloud_lane, self.edge_lane):
+            for pager in (lane.pager_s, lane.pager_l):
+                if pager is not None:
+                    total += pager.live_bytes(pager.geo["page_bytes_full"], 0)
+        return total
+
+    def kv_pool_bytes(self) -> int:
+        """Total KV capacity in bytes: every lane's pool pages (computed
+        from the geometry, so it is meaningful before first admission;
+        the sink page each pool carries is not capacity)."""
+        total = 0
+        for lane in (self.cloud_lane, self.edge_lane):
+            for pager in (lane.pager_s, lane.pager_l):
+                if pager is not None:
+                    total += (pager.alloc.num_pages
+                              * pager.geo["page_bytes_full"])
+        return total
+
+    def active_count(self) -> int:
+        return self.cloud_lane.active + self.edge_lane.active
+
+    def dispatch_step(self):
+        """No-op on the per-token path (``macro_k=0``), which is
+        host-synchronous; kept for the scheduler's dispatch/collect
+        protocol."""
+
+    def collect_step(self) -> List[Tuple[int, str, GenStats]]:
+        """Run one per-token step of both lanes; returns the requests
+        that finished."""
+        out = self.edge_lane.step()
+        return out + self.cloud_lane.step()
+
+    def step(self) -> List[Tuple[int, str, GenStats]]:
+        self.dispatch_step()
+        return self.collect_step()

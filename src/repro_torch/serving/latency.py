@@ -5,7 +5,10 @@ Per-token cloud-logit arrival is RTT/2 each way plus cloud compute, with
 Gaussian jitter.  Counter-based draws are keyed by ``(seed, rid, step)``
 through the numpy threefry of ``core/prng.py``, which reproduces the
 reference's ``jax.random`` keys and bits, so the port sees the same
-per-(request, token) network weather as the JAX package.  The "device"
+per-(request, token) network weather as the JAX package, bit for bit.
+Every engine of the reference draws its weather under ``jax.jit``, so
+the arrival is computed as XLA compiles ``base + jitter * normal``
+(``prng.normal_affine``).  The "device"
 names mirror the reference's batched entry points; here they run in
 numpy on the host (a handful of scalars per request).
 """
@@ -43,10 +46,9 @@ class LatencyModel:
         rids = np.asarray(rids, np.int32)
         steps = np.asarray(steps, np.int32)
         k = prng.fold_in(prng.fold_in(prng.key(self.seed), rids), steps)
-        noise = prng.normal(k)
         base = np.float32(self.rtt_ms + self.cloud_compute_ms)
         return np.maximum(np.float32(0.0),
-                          base + np.float32(self.jitter_ms) * noise)
+                          prng.normal_affine(k, self.jitter_ms, base))
 
     def token_latency_device(self, timeout_ms: float, rids, steps):
         """Batched Sec. IV-D decision: (lat_ms (B,) float32, cloud_used

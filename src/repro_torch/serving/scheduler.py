@@ -1,22 +1,26 @@
-"""Sequential request scheduler — the port of ``Scheduler``,
-``Request``, ``Response``, ``ResponseStatus`` and ``summarize`` from
-``repro/serving/scheduler.py``.
+"""Request schedulers — the port of ``Scheduler``,
+``ContinuousBatchScheduler``, ``Request``, ``Response``,
+``ResponseStatus`` and ``summarize`` from ``repro/serving/scheduler.py``.
 
-``Response.wall_seconds`` is measured from ``Request.submitted_at`` and
-includes the queue wait, broken out as ``Response.queue_wait_seconds``.
-Private prompts are served first: they never wait on the network path.
+``Scheduler`` serves one request at a time, private prompts first (they
+never wait on the network path).  ``ContinuousBatchScheduler`` packs
+requests into the ``BatchedHybridEngine`` lanes and refills freed rows
+as sequences finish.  ``Response.wall_seconds`` is measured from
+``Request.submitted_at`` and includes the queue wait, broken out as
+``Response.queue_wait_seconds``.
 """
 from __future__ import annotations
 
 import enum
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.serving.deployment import ServingDeployment
-from repro_torch.serving.engine import GenStats, HybridEngine
+from repro_torch.serving.engine import (BatchedHybridEngine, GenStats,
+                                        HybridEngine)
 
 
 class ResponseStatus(enum.Enum):
@@ -35,6 +39,9 @@ class Request:
     max_new_tokens: int = 16
     submitted_at: float = 0.0
     greedy: bool = True
+    seed: Optional[int] = None       # sampling-key override (else rid)
+    prefix: Optional[str] = None     # shared preamble (later slice)
+    adapter_id: Optional[Any] = None  # per-user adapter (later slice)
     deadline_ms: Optional[float] = None  # simulated-clock decode budget
 
 
@@ -87,7 +94,7 @@ class Scheduler:
         rid = self._next
         self._next += 1
         self.queue.append(Request(rid, prompt, max_new_tokens, time.time(),
-                                  greedy, deadline_ms))
+                                  greedy, deadline_ms=deadline_ms))
         return rid
 
     def run(self) -> List[Response]:
@@ -108,6 +115,117 @@ class Scheduler:
                                 queue_wait_seconds=t0 - r.submitted_at,
                                 truncated=stats.truncated,
                                 cancelled=stats.cancelled))
+        return sorted(out, key=lambda x: x.rid)
+
+
+class ContinuousBatchScheduler:
+    """Continuous batching: cloud-eligible requests share a hybrid decode
+    batch, private requests an SLM-only batch; freed batch rows are
+    refilled from the queue as sequences finish.  On the per-token path
+    (``macro_k=0``) each boundary admits one burst (one packed prefill
+    per lane) and then decodes one token per occupied row."""
+
+    def __init__(self, engine: BatchedHybridEngine,
+                 watchdog_iters: int = 5000):
+        self.engine = engine
+        self.queue: List[Request] = []
+        self._next = 0
+        # no-progress bound for run(): after this many consecutive
+        # boundaries with no admission, rejection or completion the loop
+        # raises a diagnostic instead of hanging
+        self.watchdog_iters = watchdog_iters
+
+    @classmethod
+    def from_deployment(cls, deployment: ServingDeployment,
+                        **engine_kw) -> "ContinuousBatchScheduler":
+        """Build the continuous-batching engine on a deployment."""
+        return cls(BatchedHybridEngine(deployment, **engine_kw))
+
+    def submit(self, prompt: str, max_new_tokens: int = 16,
+               greedy: bool = True, seed: Optional[int] = None,
+               prefix: Optional[str] = None,
+               adapter_id: Optional[Any] = None,
+               deadline_ms: Optional[float] = None) -> int:
+        rid = self._next
+        self._next += 1
+        self.queue.append(Request(rid, prompt, max_new_tokens, time.time(),
+                                  greedy, seed, prefix, adapter_id,
+                                  deadline_ms))
+        return rid
+
+    def _wedge_diagnostics(self, pending: List[Request]) -> str:
+        """What a post-mortem needs when the loop stops making progress:
+        who waits, and lane and pool occupancy."""
+        eng = self.engine
+        lines = [f"pending rids: {[r.rid for r in pending]}",
+                 f"active rows: {eng.active_count()}"]
+        for name, lane in (("cloud", eng.cloud_lane),
+                           ("edge", eng.edge_lane)):
+            pools = [f"{pager.alloc.free_pages}/{pager.alloc.num_pages}"
+                     for pager in (lane.pager_s, lane.pager_l)
+                     if pager is not None]
+            lines.append(f"{name} lane: {len(lane.free_slots())}/"
+                         f"{lane.batch} slots free, free pages={pools}")
+        lines.append(f"growth: {eng.growth_stats()}")
+        return "; ".join(lines)
+
+    def run(self) -> List[Response]:
+        pending = list(self.queue)
+        self.queue = []
+        submitted_at = {r.rid: r.submitted_at for r in pending}
+        admitted_at: Dict[int, float] = {}
+        out: List[Response] = []
+        stalled = 0
+        while pending or self.engine.active_count():
+            progressed = False
+            self.engine.dispatch_step()
+            # fill freed slots as ONE admission burst per boundary (FIFO
+            # per lane: a soft-refused request holds back later arrivals
+            # bound for the same lane)
+            if pending:
+                flags = self.engine.add_requests(
+                    [(r.prompt, r.max_new_tokens, r.greedy, r.rid, r.seed,
+                      r.prefix, r.adapter_id, r.deadline_ms)
+                     for r in pending])
+                now = time.time()
+                # hard rejects error out instead of spinning in the queue
+                rejected = dict(self.engine.pop_rejected())
+                still: List[Request] = []
+                for r, ok in zip(pending, flags):
+                    if ok:
+                        admitted_at[r.rid] = now
+                        progressed = True
+                    elif r.rid in rejected:
+                        out.append(Response(
+                            r.rid, "", GenStats(),
+                            wall_seconds=now - r.submitted_at,
+                            queue_wait_seconds=now - r.submitted_at,
+                            error=rejected[r.rid]))
+                        progressed = True
+                    else:
+                        still.append(r)
+                pending = still
+            for rid, text, stats in self.engine.collect_step():
+                now = time.time()
+                out.append(Response(
+                    rid, text, stats,
+                    wall_seconds=now - submitted_at[rid],
+                    queue_wait_seconds=(admitted_at[rid]
+                                        - submitted_at[rid]),
+                    truncated=stats.truncated,
+                    cancelled=stats.cancelled))
+                progressed = True
+            # watchdog: a bounded run of boundaries that admit, reject
+            # and complete nothing is normal; an unbounded one is a wedge
+            if progressed:
+                stalled = 0
+            else:
+                stalled += 1
+                if stalled >= self.watchdog_iters:
+                    raise RuntimeError(
+                        "ContinuousBatchScheduler wedged: "
+                        f"{stalled} boundaries with no progress — "
+                        + self._wedge_diagnostics(pending))
         return sorted(out, key=lambda x: x.rid)
 
 

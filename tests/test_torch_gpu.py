@@ -13,12 +13,21 @@ probabilities lie far below any useful absolute limit.  K3 2**-6 per
 query row, max|out - ref| / max|ref|: two bf16 roundings of the output
 (one ulp is 2**-7 of a value) plus P rounded to bf16 before P V, where
 the plain version keeps f32.  A row's own scale keeps the limit strict
-for the late rows of a long prompt, whose outputs are small."""
+for the late rows of a long prompt, whose outputs are small.  K2 2**-6
+per (row, head), max|out - ref| / max|ref| over head_dim: one bf16
+rounding of the output (2**-8 relative at most, 2**-7 of a row maximum
+just above a power of two) plus f32 sums in another order; parked rows
+are held to zeros instead, which the kernel writes for them (their
+output is never read)."""
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as K3
 from repro_torch.kernels.logit_fusion import kernel as K1
+from repro_torch.kernels.paged_attention import kernel as K2
+
+FREED_POS = 1 << 30
+NO_PAGE = 1 << 20
 
 
 def row_rel_err(out, ref):
@@ -79,3 +88,58 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     z = torch.randn(2, 100, device=cuda)
     with pytest.raises(ValueError):
         K1.fuse_logits(z, z, torch.ones(3, device=cuda))  # w not (B,)
+
+
+def paged_case(dev, g, b, h, kvh, hd, n_pool, nb, window, positions):
+    """A pool of random bf16 pages and block tables as the allocator
+    builds them: a live plain row maps the pages its position needs
+    (NO_PAGE past that), a ring row a full ring of window / 16 pages; a
+    parked row (pos = FREED_POS) maps nothing."""
+    ps = 16
+    q = torch.randn(b, h, hd, device=dev, generator=g).bfloat16()
+    pk = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
+    pv = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
+    free = torch.randperm(n_pool, device=dev, generator=g).tolist()
+    table = torch.full((b, nb), NO_PAGE, dtype=torch.int32)
+    for i, p in enumerate(positions):
+        if p >= FREED_POS:
+            continue
+        n = window // ps if window else p // ps + 1
+        table[i, :n] = torch.tensor([free.pop() for _ in range(n)])
+    pos = torch.tensor(positions, dtype=torch.int32)
+    return q, pk, pv, table.to(dev), pos.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,hd", [(8, 1, 256), (16, 16, 256),
+                                      (4, 1, 32), (4, 2, 32)])
+@pytest.mark.parametrize("window", [0, 512])
+def test_paged_attention_matches_plain(cuda, h, kvh, hd, window):
+    positions = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
+    nb = window // 16 if window else 128
+    g = torch.Generator(device=cuda).manual_seed(h + kvh + window)
+    case = paged_case(cuda, g, 8, h, kvh, hd, 1024, nb, window, positions)
+    before = K2.paged_decode_attention.launches
+    out = K2.paged_decode_attention(*case, window=window)
+    torch.cuda.synchronize()
+    assert K2.paged_decode_attention.launches == before + 1
+    ref = K2.paged_decode_attention_plain(*case, window=window)
+    live = [i for i, p in enumerate(positions) if p < FREED_POS]
+    assert row_rel_err(out[live], ref[live]) <= 2 ** -6
+    assert torch.isfinite(out.float()).all()
+    assert not out[positions.index(FREED_POS)].any()   # parked: zeros
+
+
+@pytest.mark.gpu
+def test_paged_attention_raises_instead_of_falling_back(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, pk, pv, table, pos = paged_case(cuda, g, 2, 8, 1, 256, 16, 4, 0,
+                                       [3, 40])
+    with pytest.raises(TypeError):
+        K2.paged_decode_attention(q.float(), pk.float(), pv.float(), table,
+                                  pos)
+    with pytest.raises(TypeError):
+        K2.paged_decode_attention(q, pk, pv, table.long(), pos)
+    with pytest.raises(ValueError):                       # page_size 8
+        K2.paged_decode_attention(q, pk.reshape(32, 8, 1, 256),
+                                  pv.reshape(32, 8, 1, 256), table, pos)

@@ -65,11 +65,30 @@ def test_entry_points_raise_without_a_card():
                                              device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--local"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--local", "--batch", "4", "--macro-k", "0"])
 
 
 def test_serve_refuses_later_slice_flags(capsys):
     for argv in (["--local", "--spec-k", "4"], ["--local", "--batch", "4"],
-                 ["--local", "--sample"], ["--local", "--pair", "gemma3"]):
+                 ["--local", "--sample"], ["--local", "--pair", "gemma3"],
+                 ["--local", "--batch", "4", "--macro-k", "4"],
+                 ["--local", "--batch", "4", "--macro-k", "0", "--dense"],
+                 ["--local", "--batch", "4", "--macro-k", "0",
+                  "--pool-pages", "8"],
+                 ["--local", "--max-ctx", "192"]):
         with pytest.raises(SystemExit):
             serve.main(argv)
         assert "later slice" in capsys.readouterr().err
+
+
+def test_serve_refuses_other_page_sizes_on_cuda(monkeypatch, capsys):
+    """The paged decode kernel takes 16-slot pages: on CUDA the launcher
+    refuses any other ``--page-size`` before it builds a model."""
+    import repro_torch
+    monkeypatch.setattr(repro_torch, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    with pytest.raises(SystemExit):
+        serve.main(["--local", "--batch", "4", "--macro-k", "0",
+                    "--page-size", "8"])
+    assert "--page-size 8" in capsys.readouterr().err
