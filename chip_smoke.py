@@ -9,17 +9,22 @@ Phases, in order; any failure exits non-zero before the result lines:
   2. build    every CUDA kernel of the serving paths, from ``csrc/``, one
               ``nvcc`` per source, all started together;
   3. kernels  each kernel (K1 fusion, K2 paged decode attention, K3
-              prefill flash attention) against its plain PyTorch version
+              prefill flash attention, K4 slot-gather LoRA delta, K5
+              gated multi-LoRA delta) against its plain PyTorch version
               on the card at the main paths' shapes, timed with CUDA
-              events beside its bound and (where one exists) a library
-              call;
+              events beside its bound and a library call; K5 on one-hot
+              gate rows must equal K4 bit for bit;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
-              ragged batch of three, and the batched engine;
+              ragged batch of three, the batched engine, and LoRA: SLM
+              logits under adapter slots and router gates, the batched
+              engine with mixed adapters (use_slot_kernel False and
+              True) and a router-gated sequential request;
   5. cli      ``python -m repro_torch.launch.serve --local`` as a user
-              runs it on the card (the reduced pair, bf16), sequential
-              and ``--batch 4 --macro-k 0``;
+              runs it on the card (the reduced pair, bf16), sequential,
+              ``--batch 4 --macro-k 0`` and with ``--adapters 3
+              --adapter-slots 2``;
   6. serve    the full-width 2b pair (floe-slm-2b + floe-llm-7b, bf16,
               random weights from a seed) through ServingDeployment and
               Scheduler.from_deployment: the four demo prompts of the
@@ -35,11 +40,21 @@ Phases, in order; any failure exits non-zero before the result lines:
               pages); every launch count read around the run, K2's held
               to the decode layer-steps; then a torch.profiler breakdown
               of one full boundary step and one tail step (a few short
-              rows among parked ones).
+              rows among parked ones);
+  8. serve_adapters  the same traffic with six per-user adapters (random
+              B, rank 16) and adapter-free rows mixed over a 4-slot bank
+              (evictions, soft refusals), run with use_slot_kernel False
+              and True: equal tokens, K4/K5 launches held to 6 x the SLM
+              layer passes, adapter stats, tokens changed by adapters;
+  9. serve_router  the same traffic with a 4-expert bank gated by the
+              Router (Eq. 8-11), then one request through
+              HybridEngine.generate; K5 launches held to 6 x the SLM
+              layer passes.
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -73,6 +88,30 @@ NO_PAGE = 1 << 20
 K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
 # the tail of a batched run: a few short live rows among parked ones
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
+# K4/K5: per row, max|out - ref| / max|ref|: f32 sums of up to 16,384
+# products in another order (read 2.7e-6 at most on the card, at the
+# admission shape with k 16,384; 8.7e-7 at T = 8); rows without an
+# adapter must be exact zeros.
+LORA_ROW_RTOL = 1e-5
+LORA_E, LORA_R = 4, 16
+# (k, n) of the SLM's LoRA targets: q and o, k and v, mlp_in, mlp_out
+LORA_SHAPES = [(2048, 2048), (2048, 256), (2048, 32768), (16384, 2048)]
+K4_SLOTS = [0, 1, 2, 3, -1, 0, 2, -1]
+# the router's four domains, each a few public samples (Eq. 9)
+# serve_adapters: six users and adapter-free rows over the 20 requests
+ADAPTER_OF = [None if i % 4 == 3 else f"user{i % 6}" for i in range(20)]
+# B ~ N(0, 0.5^2) at rank 16: a projection's delta is ~2.8x its output
+# (rms), enough to move a random-weight model off its own greedy tokens
+LORA_B_SCALE = 0.5
+ROUTER_DOMAINS = [
+    ("math", ["compute 2 plus 2", "what is 3 times 9", "sort ascending: 3 1"]),
+    ("language", ["translate water to french", "give two synonyms for big",
+                  "translate to german: cat"]),
+    ("science", ["explain how rain forms", "describe photosynthesis",
+                 "why is the sky blue"]),
+    ("general", ["what is the capital of spain", "write a short poem",
+                 "name a large animal"]),
+]
 LONG_PROMPT = ("explain how rainbows form when sunlight passes through "
                "falling raindrops and why the colors always appear in the "
                "same order across the sky. ") * 11
@@ -286,6 +325,124 @@ def phase_kernels(torch, long_len: int):
     return k1_cases, k3_cases
 
 
+def lora_inputs(torch, g, t, k, n):
+    """bf16 activations and an f32 bank of E = 4 experts at rank 16, the
+    full-width serving shapes."""
+    dev = torch.device("cuda")
+    x = torch.randn(t, k, device=dev, generator=g).bfloat16()
+    a = torch.randn(LORA_E, LORA_R, k, device=dev, generator=g) / k ** 0.5
+    b = torch.randn(LORA_E, n, LORA_R, device=dev, generator=g)
+    return x, a, b
+
+
+def lora_case(torch, which, fn, plain, lib, args, live, nbytes, flops,
+              iters, shape):
+    """Run, hold against the plain version (per live row) and time one
+    K4/K5 case; rows outside ``live`` must be exact zeros."""
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    dead = [i for i in range(out.shape[0]) if i not in set(live)]
+    if dead and out[dead].any():
+        raise SystemExit(f"{which}: a row without an adapter is not 0")
+    bms, by = bound(nbytes, flops, F32_FLOP_PER_S)
+    case = dict(
+        shape=shape, dtype="x bfloat16, bank float32",
+        max_abs_err=(out[live] - ref[live]).abs().max().item(),
+        max_rel_err=row_rel_err(out[live], ref[live]),
+        ms=time_ms(torch, lambda: fn(*args), iters),
+        plain_ms=time_ms(torch, lambda: plain(*args), max(3, iters // 10)),
+        library_ms=time_ms(torch, lambda: lib(*args), iters),
+        bound_ms=bms, bound_by=by)
+    print(f"{which}: {case}")
+    return out, case
+
+
+def phase_lora(torch):
+    """K4 and K5 against their plain versions at the serving shapes: the
+    four (k, n) projection shapes of the 2b SLM at the decode lane batch
+    (T = 8) — K4 on slots with repeats and adapter-free rows, K5 on soft
+    gates with a one-hot and an all-zero row, and K5 on the K4 rows'
+    one-hot gates, which must equal K4 bit for bit — then K5 at the
+    packed admission shape (8 requests x 1,552 positions, one gate row
+    per request)."""
+    from repro_torch.kernels.moe_lora import kernel as KL
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    slots = torch.tensor(K4_SLOTS, dtype=torch.int32, device=dev)
+    hot = torch.zeros(8, LORA_E, device=dev)
+    for i, s in enumerate(K4_SLOTS):
+        if s >= 0:
+            hot[i, s] = 1.0
+    soft = torch.rand(8, LORA_E, device=dev, generator=g)
+    soft[1] = torch.eye(LORA_E, device=dev)[2]          # one-hot row
+    soft[5] = 0.0                                       # all-zero row
+    live4 = [i for i, s in enumerate(K4_SLOTS) if s >= 0]
+    live5 = [i for i in range(8) if i != 5]
+
+    def lib5(x, a, b, gates, rows_per_gate=1):
+        u = torch.einsum("tk,erk->ter", x.float(), a)
+        return torch.einsum("ter,enr->tn", u * gates.repeat_interleave(
+            rows_per_gate, 0)[:, :, None], b)
+
+    def lib4(x, a, b, sl):
+        idx = sl.long().clamp(min=0)
+        u = torch.bmm(a.index_select(0, idx),
+                      x.float()[:, :, None])               # (T, r, 1)
+        return torch.bmm(b.index_select(0, idx), u)[:, :, 0]
+
+    k4_cases, k5_cases = [], []
+    for k, n in LORA_SHAPES:
+        x, a, b = lora_inputs(torch, g, 8, k, n)
+        used = len({s for s in K4_SLOTS if s >= 0})
+        out4, c4 = lora_case(
+            torch, f"K4 moe_lora_delta_slots k={k} n={n}",
+            KL.moe_lora_delta_slots, KL.moe_lora_delta_slots_plain, lib4,
+            (x, a, b, slots), live4,
+            8 * k * 2 + used * LORA_R * (k + n) * 4 + 8 * 4 + 8 * n * 4,
+            2 * len(live4) * LORA_R * (k + n), 200,
+            dict(T=8, k=k, n=n, E=LORA_E, r=LORA_R, slots=K4_SLOTS))
+        k4_cases.append(c4)
+        hot_out = KL.moe_lora_delta(x, a, b, hot)
+        torch.cuda.synchronize()
+        if not torch.equal(hot_out, out4):
+            raise SystemExit(f"K5 on one-hot gates differs from K4 at "
+                             f"k={k} n={n}")
+        nbytes5 = (8 * k * 2 + LORA_E * LORA_R * (k + n) * 4
+                   + 8 * LORA_E * 4 + 8 * n * 4)
+        _, c5 = lora_case(
+            torch, f"K5 moe_lora_delta k={k} n={n}", KL.moe_lora_delta,
+            KL.moe_lora_delta_plain, lib5, (x, a, b, soft), live5, nbytes5,
+            2 * 8 * LORA_E * LORA_R * (k + n), 200,
+            dict(T=8, k=k, n=n, E=LORA_E, r=LORA_R, gates="soft, one "
+                 "one-hot row, one zero row"))
+        k5_cases.append(c5)
+        del x, a, b
+    # the admission burst of serve_adapters: 8 requests x 1,552 slots
+    t, s = 8 * 1552, 1552
+    for k, n in LORA_SHAPES:
+        x, a, b = lora_inputs(torch, g, t, k, n)
+        gates = torch.rand(8, LORA_E, device=dev, generator=g)
+        _, c5 = lora_case(
+            torch, f"K5 moe_lora_delta admission k={k} n={n}",
+            lambda *z: KL.moe_lora_delta(*z, rows_per_gate=s),
+            lambda *z: KL.moe_lora_delta_plain(*z, rows_per_gate=s),
+            lambda *z: lib5(*z, rows_per_gate=s), (x, a, b, gates),
+            list(range(t)),
+            t * k * 2 + LORA_E * LORA_R * (k + n) * 4 + 8 * LORA_E * 4
+            + t * n * 4, 2 * t * LORA_E * LORA_R * (k + n), 5,
+            dict(T=t, rows_per_gate=s, k=k, n=n, E=LORA_E, r=LORA_R))
+        k5_cases.append(c5)
+        del x, a, b
+        torch.cuda.empty_cache()
+    bad = [c for c in k4_cases + k5_cases
+           if not c["max_rel_err"] <= LORA_ROW_RTOL]
+    if bad:
+        raise SystemExit(f"K4/K5 disagree with their plain versions: {bad}")
+    return k4_cases, k5_cases
+
+
 def phase_check(torch):
     """Reduced 2b pair: bf16 on the card (K1, K3) vs f32 on the CPU."""
     from repro_torch import bridge
@@ -339,6 +496,124 @@ def phase_check(torch):
             and runs["cuda"].latency_ms == runs["cpu"].latency_ms):
         raise SystemExit("reduced-pair check failed")
     check_paged(torch, deps)
+    check_lora(torch, deps)
+
+
+def random_adapters(torch, lm, n, scale, seed, device):
+    """``n`` adapters of full rank for ``lm`` on ``device``: A from
+    ``init_adapter``, B ~ N(0, scale^2) from a seeded generator (an
+    adapter fresh from ``init_adapter`` has B = 0 and changes nothing)."""
+    from repro_torch.core import lora as LORA
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for j in range(n):
+        ad = LORA.init_adapter(lm, seed + j, rank=lm.cfg.lora_rank_max,
+                               device=device)
+        for leaf in ad["layers"].values():
+            leaf["B"].normal_(0.0, scale, generator=gen)
+        out.append(ad)
+    return out
+
+
+def check_router(n: int = 4):
+    """A Router over the first ``n`` domains (Eq. 9 centroids)."""
+    from repro_torch.core.router import ExpertMeta, Router, expert_embedding
+    return Router([ExpertMeta(name, expert_embedding(samples), i)
+                   for i, (name, samples) in enumerate(ROUTER_DOMAINS[:n])])
+
+
+def check_lora(torch, deps):
+    """The reduced pair with LoRA, bf16 on the card (K4, K5) vs f32 on
+    the CPU: SLM prefill + decode of a mixed batch under one-hot gate
+    rows then slot ids, and under soft router gates (logits); the
+    batched engine serving mixed adapters with use_slot_kernel False and
+    True, and one router-gated sequential request (latencies equal,
+    fusion weights close)."""
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.core import lora as LORA
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import HybridEngine
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    cpu = deps["cpu"]
+    # B ~ N(0, 0.1^2) at rank 4: a delta ~0.3x its projection.  At 2.0
+    # (~5.6x) the residual stream grows until bf16 and f32 logits part
+    # (1.6e-2 and 1.05 of max|ref| on the port's CPU path alone).
+    ads = [bridge.to_numpy(a) for a in random_adapters(
+        torch, cpu.slm, 3, 0.1, 70, "cpu")]
+    bank = bridge.to_numpy(LORA.stack_adapters(
+        [bridge.from_numpy(a) for a in ads]))
+    router = check_router(3)
+    prompts = ["translate to french: water ->", "math: compute 12 plus 7 =",
+               "explain how rainbows form when sunlight passes through rain"]
+    ids = [TOK.encode(p + " ")[:24] for p in prompts]
+    toks = [[t[i % len(t)] for i in range(24)] for t in ids]
+    worst = 0.0
+    for name, g_pre, g_dec in (
+            ("adapters", LORA.slot_gates([2, None, 0], 3),
+             np.asarray([2, -1, 0], np.int32)),
+            ("router", router.gate_weights_batch(prompts), None)):
+        logits = {}
+        for dev, dep in deps.items():
+            lm, params, at = dep.slm, dep.slm_params, dep.device
+            lora = bridge.from_numpy(LORA.bank_for_model(bank), device=at)
+            gp = torch.as_tensor(np.ascontiguousarray(g_pre), device=at)
+            gd = gp if g_dec is None else torch.as_tensor(g_dec, device=at)
+            lg, cache = lm.prefill(params, torch.as_tensor(toks, device=at),
+                                   dep.max_seq, lora, gp)
+            steps = [lg]
+            for t in (40, 41, 42, 43):
+                lg, cache = lm.decode_step(params, cache, torch.full(
+                    (3, 1), t, dtype=torch.int64, device=at), lora, gd)
+                steps.append(lg)
+            logits[dev] = torch.cat(steps, 1).float().cpu()
+        ref = logits["cpu"]
+        rel = ((logits["cuda"] - ref).abs().max() / ref.abs().max()).item()
+        print(f"check lora {name}: SLM prefill (B=3) + 4 decode steps with a "
+              f"3-expert bank, bf16 card vs f32 cpu, max|diff|/max|ref| = "
+              f"{rel:.3e}")
+        worst = max(worst, rel)
+    ok, lat_eq, dw = True, True, 0.0
+    for flag in (False, True):
+        res = {}
+        for dev, dep in deps.items():
+            ad_dep = ServingDeployment(
+                dep.slm, dep.slm_params, dep.llm, dep.llm_params, dep.mlp,
+                max_seq=dep.max_seq, adapter_slots=2, device=dep.device)
+            sched = ContinuousBatchScheduler.from_deployment(
+                ad_dep, batch_size=4, macro_k=0, use_slot_kernel=flag)
+            for j, a in enumerate(ads):
+                sched.engine.adapters.register(
+                    f"user{j}", bridge.from_numpy(a, device=dep.device))
+            for i, p in enumerate(prompts + prompts[:2]):
+                sched.submit(p, 6, adapter_id=[f"user{i % 3}", None][i % 2])
+            res[dev] = (sched.run(), sched.engine.adapter_stats())
+        (rc, sc), (rg, sg) = res["cuda"], res["cpu"]
+        lat_eq &= all(a.stats.latency_ms == b.stats.latency_ms
+                      for a, b in zip(rc, rg))
+        dw = max([dw] + [abs(x - y) for a, b in zip(rc, rg)
+                         for x, y in zip(a.stats.fusion_w, b.stats.fusion_w)])
+        ok &= sc == sg and sc["evictions"] > 0 and sc["pinned"] == 0
+        print(f"check adapters batched (use_slot_kernel={flag}): "
+              f"adapter_stats {sc} (cpu {sg})")
+    runs = {}
+    for dev, dep in deps.items():
+        r_dep = ServingDeployment(
+            dep.slm, dep.slm_params, dep.llm, dep.llm_params, dep.mlp,
+            expert_bank=bridge.from_numpy(bank, device=dep.device),
+            max_seq=dep.max_seq, device=dep.device)
+        runs[dev] = HybridEngine(r_dep, router=router).generate(
+            prompts[0], 6, rid=3)[1]
+    lat_eq &= runs["cuda"].latency_ms == runs["cpu"].latency_ms
+    dw = max([dw] + [abs(a - b) for a, b in zip(runs["cuda"].fusion_w,
+                                                runs["cpu"].fusion_w)])
+    print(f"check lora engines: latency_ms equal={lat_eq}, max |fusion_w "
+          f"diff| = {dw:.3e}")
+    if not (ok and lat_eq and worst <= LOGITS_TOL and dw <= FUSION_W_TOL):
+        raise SystemExit("reduced-pair LoRA check failed")
 
 
 def paged_logits(torch, dep, lm, params, prompts, forced):
@@ -410,7 +685,9 @@ def phase_cli():
     """The serving launcher's ``--local`` run, on its default device,
     sequential and batched."""
     from repro_torch.launch import serve
-    for argv in (["--local"], ["--local", "--batch", "4", "--macro-k", "0"]):
+    for argv in (["--local"], ["--local", "--batch", "4", "--macro-k", "0"],
+                 ["--local", "--batch", "4", "--macro-k", "0", "--adapters",
+                  "3", "--adapter-slots", "2"]):
         res = serve.main(argv)
         for r in res:
             if r.stats.tokens == 0 or (r.stats.private
@@ -530,7 +807,8 @@ def phase_serve_batched(torch, dep):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = sched.run()
+    with TokenIds():
+        res = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -540,7 +818,7 @@ def phase_serve_batched(torch, dep):
         print(f"[{r.rid}] {r.status.value} private={r.stats.private} "
               f"cloud={r.stats.cloud_tokens}/{r.stats.tokens} "
               f"lat={r.stats.mean_latency_ms:.0f}ms "
-              f"wait={r.queue_wait_seconds * 1e3:.0f}ms  {r.text!r}")
+              f"wait={r.queue_wait_seconds * 1e3:.0f}ms ids={r.text[:48]}")
     print(summarize(res))
     tokens = sum(r.stats.tokens for r in res)
     layer_steps = (calls["slm"] * dep.slm.cfg.num_layers
@@ -576,7 +854,232 @@ def phase_serve_batched(torch, dep):
     if eng.resident_kv_bytes() != 0:
         raise SystemExit("pages leaked after the run")
     trace_batched(torch, eng)
-    return launches
+    return launches, [r.text for r in res]
+
+
+class TokenIds:
+    """Within the block, a finished request's ``text`` is its greedy
+    token ids ("12,7,2"): the byte-level tokenizer drops every id past
+    258, which is most of a 256,000-entry vocabulary, so the decoded
+    text alone cannot tell two token streams apart."""
+
+    def __enter__(self):
+        from repro_torch.data import tokenizer as TOK
+        self.tok, self.decode = TOK, TOK.decode
+        TOK.decode = lambda ids: ",".join(str(int(i)) for i in ids)
+
+    def __exit__(self, *exc):
+        self.tok.decode = self.decode
+
+
+def counted(dep, names):
+    """Count calls of the deployment's entry points ``names`` (instance
+    attributes shadowing the methods; ``uncounted`` removes them)."""
+    calls = dict.fromkeys(names, 0)
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+    for name in names:
+        setattr(dep, name, wrap(name, getattr(dep, name)))
+    return calls
+
+
+def uncounted(dep, calls):
+    for name in calls:
+        delattr(dep, name)
+
+
+def lora_kernels():
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.logit_fusion import kernel as K1
+    from repro_torch.kernels.moe_lora import kernel as KL
+    from repro_torch.kernels.paged_attention import kernel as K2
+    return (K1.fuse_logits, K2.paged_decode_attention, K3.flash_attention,
+            KL.moe_lora_delta_slots, KL.moe_lora_delta)
+
+
+def run_counted(torch, sched, dep, names):
+    """One scheduler run with every kernel's count set to 0 just before
+    and read just after, and the deployment's ``names`` entry points
+    counted: (responses, wall s, launches, calls, peak GiB)."""
+    kernels = lora_kernels()
+    calls = counted(dep, names)
+    for fn in kernels:
+        fn.launches = 0
+    # an engine and its lanes refer to each other: free the last phase's
+    # lane caches before the peak is read
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TokenIds():
+        res = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    uncounted(dep, calls)
+    return res, wall, launches, calls, \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_batched_responses(tag, eng, res, requests):
+    """Every request served within budget, the privacy split right, no
+    cloud token on a private request, sane fusion weights/latencies."""
+    private = {i for i, (p, _) in enumerate(requests)
+               if eng.detector.detect(p)}
+    if len(private) != 4 or {r.rid for r in res if r.stats.private} \
+            != private:
+        raise SystemExit(f"{tag}: privacy split is wrong: {private}")
+    for r, (_, n) in zip(res, requests):
+        if r.stats.private and (r.stats.cloud_tokens or r.stats.cloud_calls):
+            raise SystemExit(f"{tag}: private rid {r.rid} used the cloud")
+        w = r.stats.fusion_w
+        if r.error or r.stats.tokens == 0 or r.stats.tokens > n \
+                or not all(0.0 <= x <= 1.0 for x in w) \
+                or not all(math.isfinite(x) for x in r.stats.latency_ms):
+            raise SystemExit(f"{tag}: bad output on rid {r.rid}: {r.stats}")
+
+
+def print_batched(tag, res, wall, launches, calls, peak, extra=""):
+    from repro_torch.serving.scheduler import summarize
+    for r in res:
+        print(f"[{r.rid}] {r.status.value} private={r.stats.private} "
+              f"cloud={r.stats.cloud_tokens}/{r.stats.tokens} "
+              f"lat={r.stats.mean_latency_ms:.0f}ms ids={r.text[:48]}")
+    print(summarize(res))
+    tokens = sum(r.stats.tokens for r in res)
+    print(f"{tag}: {tokens} tokens in {wall:.3f} s = {tokens / wall:.2f} "
+          f"tokens/s ({len(res)} requests, batch 8, macro_k=0, prefill "
+          f"included); peak memory {peak:.2f} GiB; launches {launches}; "
+          f"SLM calls {calls}{extra}")
+
+
+def phase_serve_adapters(torch, dep, plain_ids):
+    """Per-user adapters on the full-width pair: six users with random B
+    over a 4-slot bank, the serve_batched traffic with users and
+    adapter-free rows mixed, run with use_slot_kernel False (decode LoRA
+    through K5 on one-hot gate rows) and True (through K4 on slot ids).
+    The two runs must give the same tokens; some request's tokens must
+    differ from the adapter-free serve_batched run."""
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    ad_dep = ServingDeployment(dep.slm, dep.slm_params, dep.llm,
+                               dep.llm_params, dep.mlp, max_seq=dep.max_seq,
+                               adapter_slots=LORA_E, device=dep.device)
+    users = random_adapters(torch, dep.slm, 6, LORA_B_SCALE, 300,
+                            dep.device)
+    n_layers = dep.slm.cfg.num_layers
+    runs = {}
+    for flag in (False, True):
+        sched = ContinuousBatchScheduler.from_deployment(
+            ad_dep, batch_size=8, macro_k=0, lazy_pages=True,
+            use_slot_kernel=flag)
+        eng = sched.engine
+        for j, ad in enumerate(users):
+            eng.adapters.register(f"user{j}", ad)
+        for (p, n), aid in zip(BATCHED_REQUESTS, ADAPTER_OF):
+            sched.submit(p, max_new_tokens=n, adapter_id=aid)
+        res, wall, launches, calls, peak = run_counted(
+            torch, sched, ad_dep, ("slm_prefill_packed", "slm_decode"))
+        st = eng.adapter_stats()
+        tag = f"serve_adapters (use_slot_kernel={flag})"
+        print_batched(tag, res, wall, launches, calls, peak,
+                      f"; adapter_stats {st}")
+        check_batched_responses(tag, eng, res, BATCHED_REQUESTS)
+        pre = 6 * n_layers * calls["slm_prefill_packed"]
+        dec = 6 * n_layers * calls["slm_decode"]
+        want = ({"moe_lora_delta_slots": dec, "moe_lora_delta": pre}
+                if flag else {"moe_lora_delta_slots": 0,
+                              "moe_lora_delta": pre + dec})
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise SystemExit(f"{tag}: LoRA launches {got}, expected {want} "
+                             "(6 targets x SLM layer passes)")
+        if min(launches[k] for k in ("fuse_logits", "paged_decode_attention",
+                                     "flash_attention")) <= 0:
+            raise SystemExit(f"{tag}: a kernel never launched: {launches}")
+        if st["evictions"] <= 0 or st["pinned"] != 0:
+            raise SystemExit(f"{tag}: adapter cache {st}")
+        if eng.resident_kv_bytes() != 0:
+            raise SystemExit(f"{tag}: pages leaked")
+        runs[flag] = dict(ids=[r.text for r in res], launches=launches,
+                          calls=calls, stats=st, wall=wall, peak=peak)
+        del sched, eng
+    if runs[False]["ids"] != runs[True]["ids"]:
+        raise SystemExit("serve_adapters: K4 and K5 decode runs gave "
+                         "different tokens")
+    moved = [a != b for a, b in zip(runs[True]["ids"], plain_ids)]
+    with_ad = sum(m for m, aid in zip(moved, ADAPTER_OF) if aid)
+    print(f"serve_adapters: tokens equal across the two runs; tokens "
+          f"differ from the adapter-free serve_batched run on {with_ad} of "
+          f"{sum(a is not None for a in ADAPTER_OF)} requests with an "
+          f"adapter and {sum(moved) - with_ad} without")
+    if with_ad == 0:
+        raise SystemExit("serve_adapters: the adapters changed no token")
+    return runs
+
+
+def phase_serve_router(torch, dep, plain_ids):
+    """Router-gated experts on the full-width pair: a 4-expert bank with
+    random B and a Router over four domains, the serve_batched traffic
+    through ContinuousBatchScheduler, then one request through
+    HybridEngine.generate; every SLM projection through K5."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import HybridEngine
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    bank = LORA.stack_adapters(random_adapters(
+        torch, dep.slm, LORA_E, LORA_B_SCALE, 400, dep.device))
+    r_dep = ServingDeployment(dep.slm, dep.slm_params, dep.llm,
+                              dep.llm_params, dep.mlp, expert_bank=bank,
+                              max_seq=dep.max_seq, device=dep.device)
+    router = check_router(LORA_E)
+    n_layers = dep.slm.cfg.num_layers
+    sched = ContinuousBatchScheduler.from_deployment(
+        r_dep, batch_size=8, macro_k=0, lazy_pages=True, router=router)
+    for p, n in BATCHED_REQUESTS:
+        sched.submit(p, max_new_tokens=n)
+    res, wall, launches, calls, peak = run_counted(
+        torch, sched, r_dep, ("slm_prefill_packed", "slm_decode"))
+    print_batched("serve_router", res, wall, launches, calls, peak)
+    check_batched_responses("serve_router", sched.engine, res,
+                            BATCHED_REQUESTS)
+    want = 6 * n_layers * (calls["slm_prefill_packed"] + calls["slm_decode"])
+    if launches["moe_lora_delta"] != want \
+            or launches["moe_lora_delta_slots"] != 0:
+        raise SystemExit(f"serve_router: LoRA launches {launches}, K5 "
+                         f"expected {want}")
+    moved = sum(r.text != b for r, b in zip(res, plain_ids))
+    print(f"serve_router: {moved} of {len(res)} requests' tokens differ "
+          "from the adapter-free serve_batched run")
+    del sched
+    eng = HybridEngine(r_dep, router=router)
+    seq_calls = counted(r_dep, ("slm_prefill", "slm_decode"))
+    for fn in lora_kernels():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text, st = eng.generate(DEMO_PROMPTS[2], 16, rid=99)
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    seq_launches = {fn.__name__: fn.launches for fn in lora_kernels()}
+    uncounted(r_dep, seq_calls)
+    print(f"serve_router sequential: {st.tokens} tokens in {seq_wall:.3f} "
+          f"s, cloud={st.cloud_tokens}/{st.tokens}; launches "
+          f"{seq_launches}; SLM calls {seq_calls}; gates "
+          f"{router.gate_weights(DEMO_PROMPTS[2]).tolist()}")
+    want = 6 * n_layers * (seq_calls["slm_prefill"] + seq_calls["slm_decode"])
+    if seq_launches["moe_lora_delta"] != want or st.tokens == 0:
+        raise SystemExit(f"serve_router sequential: K5 launched "
+                         f"{seq_launches['moe_lora_delta']}, expected {want}")
+    return dict(launches=launches, calls=calls, wall=wall, peak=peak,
+                seq_launches=seq_launches)
 
 
 def profile_rows(torch, prof):
@@ -681,9 +1184,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     card = smi()
-    print(f"device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"device: {kind} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
@@ -697,14 +1200,22 @@ def main() -> int:
     long_len = len(TOK.encode(LONG_PROMPT + " "))
     k1_cases, k3_cases = phase_kernels(torch, long_len)
     k2_cases = phase_k2(torch)
+    k4_cases, k5_cases = phase_lora(torch)
     phase_check(torch)
     phase_cli()
     dep = full_pair(torch)
     seq_launches = phase_serve(torch, dep)
-    launches = phase_serve_batched(torch, dep)
-    by_path = {name: {"serve": seq_launches.get(name, 0),
-                      "serve_batched": launches[name]}
-               for name in launches}
+    launches, plain_ids = phase_serve_batched(torch, dep)
+    ad_runs = phase_serve_adapters(torch, dep, plain_ids)
+    router_run = phase_serve_router(torch, dep, plain_ids)
+    paths = {"serve": seq_launches, "serve_batched": launches,
+             "serve_adapters_k5": ad_runs[False]["launches"],
+             "serve_adapters_k4": ad_runs[True]["launches"],
+             "serve_router": router_run["launches"],
+             "serve_router_sequential": router_run["seq_launches"]}
+    by_path = {fn: {path: got.get(fn, 0) for path, got in paths.items()}
+               for fn in router_run["launches"]}
+    lora_paths = ("serve_adapters_k5", "serve_adapters_k4", "serve_router")
 
     # (8, V) f32; H=16, S=2048, B=1; LLM B=8, plain table
     k1, k3, k2 = k1_cases[-1], k3_cases[5], k2_cases[2]
@@ -741,10 +1252,28 @@ def main() -> int:
              bound_by=k3["bound_by"], library_ms=k3["library_ms"],
              cases=k3_cases),
     ]
+    # K4 and K5 at mlp_in (k 2048, n 32768, the largest bank share),
+    # T = 8; launches summed over the LoRA serving paths
+    for fn_name, cases, line in (
+            ("moe_lora_delta_slots", k4_cases, 108),
+            ("moe_lora_delta", k5_cases, 53)):
+        main_case = cases[2]
+        kernels.append(dict(
+            name=fn_name, route="cuda",
+            source="src/repro_torch/kernels/csrc/moe_lora.cu",
+            replaces=f"src/repro/kernels/moe_lora/kernel.py:{line}",
+            launches=sum(by_path[fn_name][p] for p in lora_paths),
+            launches_by_path=by_path[fn_name],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            max_rel_err=max(c["max_rel_err"] for c in cases),
+            rel_tol=LORA_ROW_RTOL, shape=main_case["shape"],
+            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], cases=cases))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -3,12 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --local [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
         --macro-k 0 [--page-size 16] [--no-lazy-pages] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
+        --macro-k 0 --adapters 3 --adapter-slots 2 [--adapter-rank 4]
 
 serves the four demo prompts on the reduced ``2b`` pair, printing one
 line per request and the summary, as the reference does.  ``--batch``
 0 or 1 is the sequential engine; ``--batch N>1`` builds the
 continuous-batching scheduler on paged lanes and prints the
-``lane KV: paged, pool capacity ...`` line.  The reference's macro step
+``lane KV: paged, pool capacity ...`` line.  ``--adapters N
+--adapter-slots E`` registers N per-user adapters (``user{j}``, rank
+``--adapter-rank``) over an E-slot bank, spreads the demo requests over
+them with one adapter-free row, and prints the cache's stats; fewer
+slots than adapters exercises eviction.  The reference's macro step
 (its ``--macro-k`` default, 8) is a later slice, so a batched run must
 say ``--macro-k 0``, and on CUDA ``--page-size`` must be 16, the page
 size of the paged decode kernel.  It runs on CUDA unless ``--device
@@ -26,7 +32,7 @@ LATER_SLICE_FLAGS = (
     "--model-parallel", "--spec-k", "--dense",
     "--pool-pages", "--max-ctx", "--chunk-width",
     "--fault-rate", "--outage", "--fault-seed", "--deadline-ms", "--sample",
-    "--sample-seed", "--adapters", "--adapter-slots", "--adapter-rank")
+    "--sample-seed")
 
 DEMO_PROMPTS = (
     "math: compute 12 plus 7 =",
@@ -52,6 +58,15 @@ def main(argv=None):
                     help="2b (the gemma3 pair is a later slice)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--adapters", type=int, default=0,
+                    help="register N per-user LoRA adapters and spread the "
+                         "demo requests over them (one adapter-free row "
+                         "stays in the mix); requires --adapter-slots")
+    ap.add_argument("--adapter-slots", type=int, default=0,
+                    help="resident adapter-cache capacity E (0 = no "
+                         "adapter serving; E < --adapters evicts)")
+    ap.add_argument("--adapter-rank", type=int, default=4,
+                    help="LoRA rank of the demo adapters and their bank")
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
@@ -66,10 +81,14 @@ def main(argv=None):
     if not args.local:
         ap.error("only --local serving is ported; the dry-run lowering is "
                  "a later slice")
+    if args.adapters and not args.adapter_slots:
+        ap.error("--adapters requires --adapter-slots > 0 (the resident "
+                 "device-bank capacity)")
 
     from repro_torch import resolve_device
     from repro_torch.configs.floe_pair import pair_configs
     from repro_torch.core import fusion as FUS
+    from repro_torch.core import lora as LORA
     from repro_torch.kernels.paged_attention.kernel import PAGE_SIZE
     from repro_torch.models.model import LM
     from repro_torch.serving.deployment import ServingDeployment
@@ -91,6 +110,7 @@ def main(argv=None):
         FUS.init_alignment(2, slm_cfg.vocab_size, device=device),
         latency=LatencyModel(rtt_ms=args.rtt_ms),
         timeout_ms=args.timeout_ms, page_size=args.page_size,
+        adapter_slots=args.adapter_slots, adapter_rank=args.adapter_rank,
         device=device)
     if args.batch > 1:
         sched = ContinuousBatchScheduler.from_deployment(
@@ -100,8 +120,20 @@ def main(argv=None):
               f"{sched.engine.kv_pool_bytes()}B")
     else:
         sched = Scheduler.from_deployment(dep)
-    for prompt in DEMO_PROMPTS:
-        sched.submit(prompt, max_new_tokens=8)
+    aids = []
+    if args.adapters:
+        for j in range(args.adapters):
+            sched.engine.adapters.register(f"user{j}", LORA.init_adapter(
+                slm, 100 + j, rank=args.adapter_rank,
+                r_max=dep.adapter_rank))
+        print(f"adapters: {args.adapters} registered over "
+              f"{args.adapter_slots} resident slots "
+              f"(rank {args.adapter_rank})")
+        # round-robin user ids, one adapter-free row in the mix
+        aids = [f"user{j % args.adapters}" for j in range(3)] + [None]
+    for i, prompt in enumerate(DEMO_PROMPTS):
+        sched.submit(prompt, max_new_tokens=8,
+                     adapter_id=aids[i] if aids else None)
     res = sched.run()
     for r in res:
         print(f"[{r.rid}] {r.status.value} private={r.stats.private} "
@@ -110,6 +142,8 @@ def main(argv=None):
               f"lat={r.stats.mean_latency_ms:.0f}ms "
               f"wait={r.queue_wait_seconds * 1e3:.0f}ms  {r.text!r}")
     print(summarize(res))
+    if args.adapters:
+        print(f"adapter cache: {sched.engine.adapter_stats()}")
     return res
 
 

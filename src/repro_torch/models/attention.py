@@ -164,7 +164,7 @@ def check_row_positions(host_pos, n_slots: int) -> None:
 
 
 def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
-                    pages=None, host_pos=None):
+                    pages=None, host_pos=None, lora=None, gates=None):
     """Attention sub-layer of one layer.
 
     prefill: ``positions`` (S,) tensor; returns (y, (k, v)) with the
@@ -177,12 +177,17 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
     per-row depths against page pools (P + 1, ps, KV, hd) with the sink
     page last.  ``host_pos``, the host's mirror of per-row
     ``positions``, is validated before any dispatch.  Returns
-    (y, None)."""
+    (y, None).
+
+    ``lora`` is this layer's {"q", "k", "v", "o": {"A", "B"}} bank slice
+    (any target may be missing) and ``gates`` its gates, as
+    ``layers.lora_delta`` takes them."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = L.linear(p["q"], x).reshape(b, s, h, hd)
-    k = L.linear(p["k"], x).reshape(b, s, kvh, hd)
-    v = L.linear(p["v"], x).reshape(b, s, kvh, hd)
+    get = (lora or {}).get
+    q = L.linear(p["q"], x, get("q"), gates).reshape(b, s, h, hd)
+    k = L.linear(p["k"], x, get("k"), gates).reshape(b, s, kvh, hd)
+    v = L.linear(p["v"], x, get("v"), gates).reshape(b, s, kvh, hd)
 
     row_pos = positions if mode == "decode" and isinstance(
         positions, torch.Tensor) and positions.dim() == 1 else None
@@ -239,5 +244,5 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
         new_kv = None
     else:
         raise ValueError(mode)
-    y = L.linear(p["o"], out.reshape(b, s, h * hd))
+    y = L.linear(p["o"], out.reshape(b, s, h * hd), get("o"), gates)
     return y, new_kv

@@ -1,6 +1,6 @@
 """Core layer primitives — the port of ``repro/models/layers.py``
-(``rmsnorm``, ``linear`` without LoRA or bias, ``rope``, ``mlp``,
-``embed``, tied ``unembed``).
+(``rmsnorm``, ``linear`` without bias and its merged multi-LoRA delta
+``lora_delta``, ``rope``, ``mlp``, ``embed``, tied ``unembed``).
 
 Parameters are plain dicts of tensors in the reference's layout:
 weights ``(in, out)``, norm scales ``(d,)``, the embedding ``(V, d)``.
@@ -15,6 +15,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.moe_lora.kernel import (moe_lora_delta,
+                                                 moe_lora_delta_slots)
+
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
@@ -24,9 +27,44 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * p["scale"].float()).to(dt)
 
 
-def linear(p, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W in the activation dtype (float32 accumulation)."""
-    return torch.matmul(x, p["w"])
+def linear(p, x: torch.Tensor, lora=None, gates=None) -> torch.Tensor:
+    """y = x @ W in the activation dtype (float32 accumulation), plus the
+    Floe merged-LoRA delta Σ_j ω_j · x A_jᵀ B_jᵀ rounded to that dtype
+    when ``lora`` = {"A": (E, r, d_in), "B": (E, d_out, r)} is given."""
+    y = torch.matmul(x, p["w"])
+    if lora is not None:
+        y = y + lora_delta(lora, x, gates).to(y.dtype)
+    return y
+
+
+def lora_delta(lora, x: torch.Tensor, gates) -> torch.Tensor:
+    """Σ_j ω_j B_j A_j x (paper Eq. 8), float32, shaped (..., d_out).
+
+    ``gates``: float (B, E) per-request weights (row b's gate covers
+    every position of x[b]), float (E,) global weights, None (every
+    expert at weight 1, the reference's ungated sum) — all through K5
+    ``moe_lora_delta`` — or a 1-D INTEGER tensor of per-row adapter
+    slots (negative = no adapter) through K4 ``moe_lora_delta_slots``,
+    the slot kernel's decode path.  A bank with a ``rank_mask`` leaf
+    (adaptive-rank compression) belongs to the federated slice."""
+    if "rank_mask" in lora:
+        raise NotImplementedError("rank-masked LoRA banks (rank_mask): the "
+                                  "federated slice")
+    a, b = lora["A"], lora["B"]
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1]).contiguous()
+    if gates is not None and gates.dim() == 1 \
+            and not gates.is_floating_point():
+        delta = moe_lora_delta_slots(xf, a, b, gates.to(torch.int32),
+                                     xf.shape[0] // gates.shape[0])
+    else:
+        if gates is None:
+            gates = torch.ones((1, a.shape[0]), device=x.device)
+        elif gates.dim() == 1:
+            gates = gates[None]
+        delta = moe_lora_delta(xf, a, b, gates.float(),
+                               xf.shape[0] // gates.shape[0])
+    return delta.reshape(*lead, b.shape[1])
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -45,8 +83,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    h = linear(p["in"], x)
+def mlp(cfg, p, x: torch.Tensor, lora_in=None, lora_out=None,
+        gates=None) -> torch.Tensor:
+    h = linear(p["in"], x, lora_in, gates)
     if cfg.mlp_type in ("swiglu", "geglu"):
         g, u = torch.chunk(h, 2, dim=-1)
         # jax.nn.gelu defaults to the tanh approximation
@@ -55,7 +94,7 @@ def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
         h = act * u
     else:
         h = F.gelu(h, approximate="tanh")
-    return linear(p["out"], h)
+    return linear(p["out"], h, lora_out, gates)
 
 
 def embed(cfg, p, tokens: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,11 @@ returns an updated copy, which the port saves):
   the device, "pos_host": its host mirror}.  The host mirror is
   validated before each dispatch, so no layer syncs with the device.
 
+Every entry point takes an optional merged-LoRA bank (``lora``, the
+``core/lora.py`` tree without metadata: {"layers": {target: {"A"
+(L, E, r, d_in), "B" (L, E, d_out, r)}}}) and its ``gates``; layer i
+reads slice [i] of every leaf, as the reference's layer scan does.
+
 The grouped (gemma3), MoE, SSM, audio and vision layouts, qk-norm,
 biases, untied embeddings, ring caches and the prefix/speculative
 helpers are later slices.
@@ -39,15 +44,18 @@ def _leaf(shape, init: str = "fan_in", scale: float = 1.0):
 
 
 def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
-                host_pos=None):
-    """Pre-norm attention + MLP.  Returns (x, fresh (k, v) or None)."""
+                host_pos=None, lora=None, gates=None):
+    """Pre-norm attention + MLP.  ``lora`` is this layer's slice of the
+    bank ({target: {"A", "B"}}).  Returns (x, fresh (k, v) or None)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, kv = ATT.attention_block(cfg, p["attn"], h, positions=positions,
                                 cache=cache, mode=mode, pages=pages,
-                                host_pos=host_pos)
+                                host_pos=host_pos, lora=lora, gates=gates)
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(cfg, p["mlp"], h), kv
+    get = (lora or {}).get
+    return x + L.mlp(cfg, p["mlp"], h, get("mlp_in"), get("mlp_out"),
+                     gates), kv
 
 
 class LM:
@@ -116,6 +124,19 @@ class LM:
 
         return _map_specs(self.param_shapes(), make)
 
+    def lora_layout(self) -> Dict[str, Any]:
+        """{stack: (stack dims, {target: (d_in, d_out)})} — the contract
+        between ``core/lora.py`` adapter trees and the per-layer LoRA
+        slices the entry points take (the reference's ``lora_layout``
+        for the plain dense layout)."""
+        cfg = self.cfg
+        d, f = cfg.d_model, cfg.d_ff
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
+        return {"layers": ((cfg.num_layers,), {
+            "q": (d, h * hd), "k": (d, kv * hd), "v": (d, kv * hd),
+            "o": (h * hd, d), "mlp_in": (d, gate * f), "mlp_out": (f, d)})}
+
     # --------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
         cfg = self.cfg
@@ -129,10 +150,21 @@ class LM:
     def _layer(self, params, i):
         return _map_tree(params["layers"], lambda t: t[i])
 
+    @staticmethod
+    def _lora_layer(lora, i):
+        """Layer i's slice of a LoRA bank tree ({"layers": {target:
+        {"A", "B"}}}), as the reference's layer scan slices it."""
+        return None if lora is None else _map_tree(lora["layers"],
+                                                   lambda t: t[i])
+
     @torch.inference_mode()
-    def prefill(self, params, tokens: torch.Tensor, max_seq: int):
+    def prefill(self, params, tokens: torch.Tensor, max_seq: int,
+                lora=None, gates=None):
         """Process the prompt (B, S) and build a max_seq cache.
-        Returns (last-position logits (B, 1, V) float32, cache)."""
+        ``lora``/``gates``: a LoRA bank tree and its gates (a (B, E) gate
+        row covers every position of its row), as ``layers.lora_delta``
+        takes them.  Returns (last-position logits (B, 1, V) float32,
+        cache)."""
         cfg = self.cfg
         b, s = tokens.shape
         if s > max_seq:
@@ -143,7 +175,9 @@ class LM:
         for i in range(cfg.num_layers):
             x, (k, v) = dense_layer(cfg, self._layer(params, i), x,
                                     positions=positions, mode="prefill",
-                                    cache=None)
+                                    cache=None,
+                                    lora=self._lora_layer(lora, i),
+                                    gates=gates)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         cache["pos"] = s
@@ -152,7 +186,7 @@ class LM:
 
     @torch.inference_mode()
     def prefill_packed(self, params, tokens: torch.Tensor, lengths,
-                       max_seq: int, write_kv):
+                       max_seq: int, write_kv, lora=None, gates=None):
         """Packed ragged-batch prefill: B prompts right-padded to one
         shared length, in a single pass.  tokens (B, Lpad); lengths (B,)
         valid token counts (host ints).  Causal masking keeps every
@@ -162,8 +196,9 @@ class LM:
 
         Each layer's fresh (B, Lpad, KV, hd) K and V go to
         ``write_kv(layer, k, v)`` (the deployment streams them into pool
-        pages), so no dense (L, B, max_seq) cache is built.  Returns the
-        per-row last-valid-token logits (B, 1, V) float32."""
+        pages), so no dense (L, B, max_seq) cache is built.  ``lora``/
+        ``gates`` as in ``prefill``.  Returns the per-row last-valid-token
+        logits (B, 1, V) float32."""
         cfg = self.cfg
         b, s = tokens.shape
         if s > max_seq:
@@ -178,7 +213,9 @@ class LM:
         for i in range(cfg.num_layers):
             x, (k, v) = dense_layer(cfg, self._layer(params, i), x,
                                     positions=positions, mode="prefill",
-                                    cache=None)
+                                    cache=None,
+                                    lora=self._lora_layer(lora, i),
+                                    gates=gates)
             write_kv(i, k, v)
         # per-row last VALID position (x[:, -1:] would read padding)
         idx = torch.as_tensor(lengths - 1, device=tokens.device)
@@ -187,7 +224,8 @@ class LM:
         return L.unembed(cfg, params["embed"], last)
 
     @torch.inference_mode()
-    def decode_step(self, params, cache, tokens: torch.Tensor):
+    def decode_step(self, params, cache, tokens: torch.Tensor, lora=None,
+                    gates=None):
         """One-token decode.  tokens (B, 1).  Returns (logits (B, 1, V)
         float32, cache) — the same cache dict, updated IN PLACE (new K/V
         written at each row's position, positions advanced by one).
@@ -195,7 +233,9 @@ class LM:
         With an int "pos" every row sits at that depth (dense cache).
         With a (B,) "pos" tensor and a "block" table (paged lane) each
         row decodes at its own depth against the page pools.  Parked
-        rows (pos >= FREED_POS) write nothing and keep their position."""
+        rows (pos >= FREED_POS) write nothing and keep their position.
+        ``lora``/``gates`` as in ``prefill``; integer (B,) gates are
+        per-row adapter slots (K4)."""
         cfg = self.cfg
         pos = cache["pos"]
         pages = {"block": cache["block"]} if "block" in cache else None
@@ -206,7 +246,8 @@ class LM:
             x, _ = dense_layer(cfg, self._layer(params, i), x,
                                positions=pos, mode="decode",
                                cache=layer_cache, pages=pages,
-                               host_pos=host_pos)
+                               host_pos=host_pos,
+                               lora=self._lora_layer(lora, i), gates=gates)
         if isinstance(pos, torch.Tensor):
             # parked rows hold position, so "freed" stays an exact marker
             pos.add_((pos < ATT.FREED_POS).to(pos.dtype))

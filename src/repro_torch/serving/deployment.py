@@ -1,5 +1,5 @@
-"""ServingDeployment — the single-device, fault-free, adapter-free subset
-of ``repro/serving/deployment.py``.
+"""ServingDeployment — the single-device, fault-free subset of
+``repro/serving/deployment.py``.
 
 One object owns the models, their parameters on the device and the
 entry points the engines call: B=1 and packed B>1 prefill and one-token
@@ -7,8 +7,12 @@ decode of each model, the Eq. 14-15 fusion step (through K1, one row or
 a batch with a per-row arrived mask), the counter-based network weather
 of one request or of a batch of rows, and the paged lane caches of the
 batched engine — page pools, block tables, per-row positions and the
-admission scatter that streams prefilled K/V into pool pages.  Meshes,
-macro-steps, dense lanes, prefix sharing, chunked prefill and
+admission scatter that streams prefilled K/V into pool pages.  The
+SLM's entry points take a merged-LoRA bank and its gates: a router-gated
+expert bank (``expert_bank=``, placed once as ``lora``) or the per-user
+adapter slot bank (``adapter_slots=``) that an engine's
+``AdapterCache`` owns and writes through ``write_adapter_slot``.
+Meshes, macro-steps, dense lanes, prefix sharing, chunked prefill and
 speculation are later slices.
 
 The reference's jitted functions return updated copies of a lane cache;
@@ -26,8 +30,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import fusion as FUS
+from repro_torch.core import lora as LORA
 from repro_torch.models.attention import FREED_POS
 from repro_torch.serving import paging as PAG
+from repro_torch.serving.adapters import AdapterCache
 from repro_torch.serving.latency import LatencyModel
 
 
@@ -41,14 +47,20 @@ class ServingDeployment:
     """Models, parameters and entry points of one hybrid deployment.
 
     ``device`` defaults to CUDA; pass ``device="cpu"`` to run the plain
-    PyTorch path.  Parameters are moved onto the device once, here."""
+    PyTorch path.  Parameters (and an expert bank) are moved onto the
+    device once, here.  ``adapter_slots`` E > 0 serves per-user adapters
+    from E-slot banks of rank ``adapter_rank`` (default the SLM's
+    ``lora_rank_max``)."""
 
     def __init__(self, slm, slm_params, llm=None, llm_params=None,
                  alignment_mlp: Optional[Dict[str, Any]] = None,
+                 expert_bank: Optional[Dict[str, Any]] = None,
                  latency: Optional[LatencyModel] = None,
                  timeout_ms: float = 200.0, max_seq: int = 96,
                  block_b: int = 4, page_size: int = 16,
-                 max_ctx: Optional[int] = None, fault=None, device=None):
+                 max_ctx: Optional[int] = None, adapter_slots: int = 0,
+                 adapter_rank: Optional[int] = None, fault=None,
+                 device=None):
         if fault is not None:
             raise NotImplementedError("a fault model (fault injection): "
                                       "later slice")
@@ -76,6 +88,13 @@ class ServingDeployment:
                            if llm_params is not None else None)
         self.mlp = (_to_device(alignment_mlp, self.device)
                     if alignment_mlp is not None else None)
+        self.bank = expert_bank
+        self.lora = (_to_device(LORA.bank_for_model(expert_bank),
+                                self.device)
+                     if expert_bank is not None else None)
+        self.adapter_slots = adapter_slots
+        self.adapter_rank = ((adapter_rank or slm.cfg.lora_rank_max)
+                             if adapter_slots else 0)
         self.latency = latency or LatencyModel()
         self.timeout_ms = timeout_ms
         self.max_seq = max_seq
@@ -86,21 +105,45 @@ class ServingDeployment:
         return torch.tensor([list(ids)], dtype=torch.int64,
                             device=self.device)
 
-    def slm_prefill(self, params, toks):
-        return self.slm.prefill(params, toks, self.max_seq)
+    # ------------------------------------------------------ adapter bank
+    def init_adapter_bank(self) -> Dict[str, Any]:
+        """A fresh all-zero E-slot bank on the device; every
+        AdapterCache owns its own."""
+        if not self.adapter_slots:
+            raise ValueError("deployment built without adapter_slots")
+        return LORA.empty_bank(self.slm, self.adapter_slots,
+                               self.adapter_rank, device=self.device)
+
+    def make_adapter_cache(self) -> AdapterCache:
+        """Host-side refcounted residency manager over a fresh slot
+        bank, wired to ``write_adapter_slot``."""
+        return AdapterCache(self.adapter_slots, self.init_adapter_bank(),
+                            self.write_adapter_slot)
+
+    @staticmethod
+    def write_adapter_slot(bank, adapter, slot: int):
+        """Write ``adapter`` into slot ``slot`` of ``bank`` IN PLACE (the
+        reference's jitted write donates the bank and returns a new
+        one); returns the bank."""
+        return LORA.write_slot(bank, adapter, slot)
+
+    # ------------------------------------------------------ entry points
+    def slm_prefill(self, params, toks, lora=None, gates=None):
+        return self.slm.prefill(params, toks, self.max_seq, lora, gates)
 
     def llm_prefill(self, params, toks):
         return self.llm.prefill(params, toks, self.max_seq)
 
-    def slm_decode(self, params, cache, toks):
-        return self.slm.decode_step(params, cache, toks)
+    def slm_decode(self, params, cache, toks, lora=None, gates=None):
+        return self.slm.decode_step(params, cache, toks, lora, gates)
 
     def llm_decode(self, params, cache, toks):
         return self.llm.decode_step(params, cache, toks)
 
-    def slm_prefill_packed(self, params, toks, lens, write_kv):
+    def slm_prefill_packed(self, params, toks, lens, write_kv, lora=None,
+                           gates=None):
         return self.slm.prefill_packed(params, toks, lens, self.max_seq,
-                                       write_kv)
+                                       write_kv, lora, gates)
 
     def llm_prefill_packed(self, params, toks, lens, write_kv):
         return self.llm.prefill_packed(params, toks, lens, self.max_seq,
@@ -108,7 +151,8 @@ class ServingDeployment:
 
     @staticmethod
     def insert_row(full: torch.Tensor, rows: torch.Tensor, src, dst):
-        """full[dst] = rows[src], in place; returns ``full``."""
+        """full[dst] = rows[src], in place; returns ``full`` (logit rows,
+        and the gate rows of an admission into a lane's (B, E) gates)."""
         full[_index(dst, full.device)] = rows[_index(src, rows.device)]
         return full
 

@@ -5,17 +5,22 @@ continuous-batching engine on paged lanes (``BatchedHybridEngine``).
 Pipeline per request (paper Fig. 8):
   1. Privacy detector (Alg. 2): sensitive -> SLM-only, never leaves the
      device.
-  2. Prefill of the SLM and, for cloud-eligible prompts, the LLM.
-  3. Token loop: both models decode; their logits are fused per
+  2. The SLM's merged-LoRA gates: a per-user adapter's one-hot slot row
+     (``adapter_id=``), or the parameter-free router's soft weights ω
+     over an expert bank (Eq. 8-11), or none.
+  3. Prefill of the SLM and, for cloud-eligible prompts, the LLM.
+  4. Token loop: both models decode; their logits are fused per
      Eq. 14-15 (K1); if the cloud misses the timeout the fusion weight
      is forced to w = 1 (Sec. IV-D fallback).
 
-The port serves greedy decoding without router, adapters or fault
-injection.  The batched engine serves paged lanes through the per-token
-step (``macro_k=0``) with lazy or eager page reservation; the K-token
-macro step, dense lanes, COW prefix sharing, chunked prefill, park/evict
-under pool pressure, keyed sampling, adapters, faults, deadlines and
-speculation are later slices and raise ``NotImplementedError``.
+The port serves greedy decoding without fault injection.  The batched
+engine serves paged lanes through the per-token step (``macro_k=0``)
+with lazy or eager page reservation; its LoRA decode goes through K5 on
+the lane's (B, E) gate rows, or through K4 on per-row slot ids with
+``use_slot_kernel=True``.  The K-token macro step, dense lanes, COW
+prefix sharing, chunked prefill, park/evict under pool pressure, keyed
+sampling, faults, deadlines and speculation are later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import lora as LORA
 from repro_torch.core.privacy import PrivacyDetector
+from repro_torch.core.router import Router
 from repro_torch.data import tokenizer as TOK
 from repro_torch.kernels.logit_fusion import ops as OPS
 from repro_torch.serving import paging as PAG
@@ -34,6 +41,34 @@ from repro_torch.serving.deployment import ServingDeployment
 # admission prompts are right-padded to a multiple of this many tokens,
 # as the reference pads them, so K3 sees the reference's prefill shapes
 PREFILL_CHUNK = 16
+
+_BANK_NEEDS_GATING = (
+    "expert_bank is set but nothing gates it — the bank would be "
+    "silently dropped.  Pass router= to serve router-gated experts, or "
+    "build the ServingDeployment with adapter_slots= and submit per-user "
+    "requests with adapter_id=")
+
+
+def _admission_gates(eng, items: List[Tuple[str, Optional[int]]],
+                     bp: Optional[int] = None) -> Optional[torch.Tensor]:
+    """One (n, E) float32 gate-row block per admission group on the
+    device: one-hot adapter-slot rows on an adapter-serving engine (slot
+    None -> an all-zero row, an exact 0.0 delta) or the router's softmax
+    gates, zero-padded to ``bp`` rows for a packed prefill.  ``items``
+    is [(prompt, adapter_slot)].  None when the engine serves no LoRA."""
+    if eng.adapters is not None:
+        rows = LORA.slot_gates([a for _, a in items],
+                               eng.adapters.num_slots)
+    elif eng.router is not None and eng.bank is not None:
+        rows = np.stack([np.asarray(eng.router.gate_weights(p))
+                         for p, _ in items])
+    else:
+        return None
+    if bp is not None:
+        g = np.zeros((bp, rows.shape[1]), rows.dtype)
+        g[:rows.shape[0]] = rows
+        rows = g
+    return torch.as_tensor(rows, device=eng.dep.device)
 
 
 @dataclass
@@ -71,41 +106,98 @@ class GenStats:
 
 
 class HybridEngine:
-    """Floe inference engine pairing an edge SLM with a cloud LLM."""
+    """Floe inference engine pairing an edge SLM with a cloud LLM.
 
-    def __init__(self, deployment: ServingDeployment):
+    ``router`` gates the deployment's expert bank (Eq. 8-11); a
+    deployment with ``adapter_slots`` gives the engine its own
+    ``AdapterCache`` (``engine.adapters``) for per-user adapters.  A bank
+    without a router, or a bank with adapter slots, raises."""
+
+    def __init__(self, deployment: ServingDeployment,
+                 router: Optional[Router] = None):
         if deployment.llm is None or deployment.mlp is None:
             raise ValueError("HybridEngine needs a hybrid deployment (llm + "
                              "alignment mlp)")
         self.dep = deployment
         self.slm_params = deployment.slm_params
         self.llm_params = deployment.llm_params
+        self.bank = deployment.bank
+        self.router = router
         self.detector = PrivacyDetector()
         self.latency = deployment.latency
         self.timeout_ms = deployment.timeout_ms
         self.max_seq = deployment.max_seq
+        self.adapters = (deployment.make_adapter_cache()
+                         if deployment.adapter_slots else None)
+        if self.bank is not None and router is None:
+            raise ValueError(_BANK_NEEDS_GATING)
+        if self.bank is not None and self.adapters is not None:
+            raise ValueError(
+                "router-gated expert bank and per-user adapter slots "
+                "are mutually exclusive — one lane gates buffer cannot "
+                "carry both semantics")
+        self._lora = (deployment.lora
+                      if router is not None and self.bank is not None
+                      else None)
+
+    @property
+    def lora(self):
+        """The LoRA tree the SLM's entry points take: the adapter cache's
+        slot bank, the placed router bank, or None."""
+        if self.adapters is not None:
+            return LORA.bank_for_model(self.adapters.bank)
+        return self._lora
+
+    def adapter_stats(self) -> Dict[str, int]:
+        """Residency telemetry of the per-user adapter cache: hits,
+        loads, evictions, refusals, resident and pinned slots.  Empty on
+        engines without adapter slots."""
+        return self.adapters.stats() if self.adapters is not None else {}
+
+    def _release_adapter(self, s: "_Slot"):
+        """Drop a finished request's adapter pin."""
+        if self.adapters is not None and s.aslot is not None:
+            self.adapters.release(s.aslot)
 
     @torch.inference_mode()
     def generate(self, prompt: str, max_new_tokens: int = 16,
                  greedy: bool = True, rid: Optional[int] = None,
+                 adapter_id: Optional[Any] = None,
                  deadline_ms: Optional[float] = None
                  ) -> Tuple[str, GenStats]:
         """``rid``, when given, keys the latency draws per (request,
         token), order-independently; without it they come from the
-        latency model's stateful stream.  ``deadline_ms`` bounds the
-        simulated decode clock: token t is emitted iff the clock after
-        token t-1 is still under it."""
+        latency model's stateful stream.  ``adapter_id`` pins a
+        registered per-user adapter for the whole request (unknown ids
+        raise ``adapters.UnknownAdapter``); otherwise a router-gated
+        engine gates its bank with the prompt's ω.  ``deadline_ms``
+        bounds the simulated decode clock: token t is emitted iff the
+        clock after token t-1 is still under it."""
         if not greedy:
             raise NotImplementedError("sampling: later slice")
         dep = self.dep
         stats = GenStats()
         stats.private = self.detector.detect(prompt)
+        gates = lora = aslot = None
+        if adapter_id is not None:
+            if self.adapters is None:
+                raise ValueError("adapter_id= needs a deployment built with "
+                                 "adapter_slots=")
+            aslot = self.adapters.acquire(adapter_id)
+            if aslot is None:       # a B=1 engine releases every pin
+                raise RuntimeError("no adapter slot free")
+            gates = _admission_gates(self, [(prompt, aslot)])
+            lora = self.lora
+        elif self.router is not None and self.bank is not None:
+            gates = _admission_gates(self, [(prompt, None)])
+            lora = self.lora
 
         raw = TOK.encode(prompt + " ")
         cap = self.max_seq - max_new_tokens - 1
         stats.truncated = len(raw) > cap
         toks = dep.tokens(raw[:cap])
-        s_logits, s_cache = dep.slm_prefill(self.slm_params, toks)
+        s_logits, s_cache = dep.slm_prefill(self.slm_params, toks, lora,
+                                            gates)
         use_cloud = not stats.private
         if use_cloud:
             l_logits, l_cache = dep.llm_prefill(self.llm_params, toks)
@@ -144,12 +236,15 @@ class HybridEngine:
             if nxt == TOK.EOS:
                 break
             t = dep.tokens([nxt])
-            s_logits, s_cache = dep.slm_decode(self.slm_params, s_cache, t)
+            s_logits, s_cache = dep.slm_decode(self.slm_params, s_cache, t,
+                                               lora, gates)
             sl = s_logits[:, 0]
             if use_cloud:
                 l_logits, l_cache = dep.llm_decode(self.llm_params, l_cache,
                                                    t)
                 ll = l_logits[:, 0]
+        if aslot is not None:
+            self.adapters.release(aslot)
         return TOK.decode(out_ids), stats
 
 
@@ -169,6 +264,7 @@ class _Slot:
     seq: int = -1                    # admission order (FIFO observable)
     # lazy growth: token n writes at position prompt_len + n
     prompt_len: int = 0
+    aslot: Optional[int] = None      # pinned adapter slot, or None
 
 
 @dataclass
@@ -177,6 +273,7 @@ class _PagedJob:
     ``add_requests`` time (the admission gate needs the page demand), so
     the job carries them to the lane's prefill and page scatter."""
     slot: int
+    prompt: str
     max_new: int
     rid: int
     private: bool
@@ -185,6 +282,7 @@ class _PagedJob:
     rows_l: Any                      # RowPages in the LLM pager (cloud)
     seq: int = -1
     truncated: bool = False
+    aslot: Optional[int] = None      # pinned adapter slot, or None
 
 
 class _Lane:
@@ -202,6 +300,7 @@ class _Lane:
         self.l_cache = None
         self.sl = None               # (B, V) current SLM logits
         self.ll = None               # (B, V) current LLM logits
+        self.gates = None            # (B, E) gate rows, or None
         self.pager_s = engine._make_pager(engine.dep.slm, batch)
         self.pager_l = (engine._make_pager(engine.dep.llm, batch)
                         if use_cloud else None)
@@ -214,9 +313,29 @@ class _Lane:
     def active(self) -> int:
         return sum(s is not None for s in self.slots)
 
-    def _alloc(self):
+    def _decode_gates(self):
+        """The gates of a decode dispatch: the (B, E) gate rows, or, with
+        ``use_slot_kernel`` on an adapter-serving engine, the (B,) int32
+        per-row adapter slots (-1 = adapter-free), which
+        ``layers.lora_delta`` sends through K4.  Prefill keeps the gate
+        rows (K5), and so do router-gated engines (soft weights)."""
+        eng = self.eng
+        if not eng.use_slot_kernel or eng.adapters is None \
+                or self.gates is None:
+            return self.gates
+        slots = np.full((self.batch,), -1, np.int32)
+        for i, s in enumerate(self.slots):
+            if s is not None and s.aslot is not None:
+                slots[i] = s.aslot
+        return torch.as_tensor(slots, device=eng.dep.device)
+
+    def _alloc(self, n_experts: Optional[int]):
         dep = self.eng.dep
         b = self.batch
+        if self.eng.adapters is not None:
+            # adapter lanes always carry gates: the first admission may
+            # be adapter-free, later rows scatter their one-hot rows in
+            n_experts = self.eng.adapters.num_slots
         vocab = dep.slm.cfg.vocab_size
         self.s_cache = dep.init_paged_lane_cache(
             dep.slm, b, self.pager_s.alloc.num_pages)
@@ -227,6 +346,9 @@ class _Lane:
                                   device=dep.device)
         self.sl = torch.zeros((b, vocab), dtype=torch.float32,
                               device=dep.device)
+        if n_experts is not None:
+            self.gates = torch.zeros((b, n_experts), dtype=torch.float32,
+                                     device=dep.device)
 
     # --------------------------------------------------------- admission
     def _finish_admit(self, j: _PagedJob):
@@ -234,7 +356,7 @@ class _Lane:
             j.rid, j.max_new,
             GenStats(private=j.private, truncated=j.truncated,
                      admit_seq=j.seq),
-            seq=j.seq, prompt_len=len(j.ids))
+            seq=j.seq, prompt_len=len(j.ids), aslot=j.aslot)
 
     def _pad_group(self, ids: List[List[int]], width_cap: int):
         """Shared right-padding for an admission group: chunk-rounded
@@ -266,14 +388,16 @@ class _Lane:
         dep = eng.dep
         n = len(jobs)
         toks, lens = self._pad_group([j.ids for j in jobs], eng.max_seq)
+        g = _admission_gates(eng, [(j.prompt, j.aslot) for j in jobs],
+                             bp=int(toks.shape[0]))
         if self.s_cache is None:
-            self._alloc()
+            self._alloc(None if g is None else g.shape[-1])
         src = list(range(n))
         dst = [j.slot for j in jobs]
         block = np.stack([self.pager_s.table_row(j.rows_s) for j in jobs])
         s_logits = dep.slm_prefill_packed(
             eng.slm_params, toks, lens,
-            dep.page_writer(self.s_cache, src, block))
+            dep.page_writer(self.s_cache, src, block), eng.lora, g)
         dep.finish_paged_insert(self.s_cache, dst, lens[:n], block)
         dep.insert_row(self.sl, s_logits[:, 0], src, dst)
         if self.use_cloud:
@@ -284,6 +408,8 @@ class _Lane:
                 dep.page_writer(self.l_cache, src, blk_l))
             dep.finish_paged_insert(self.l_cache, dst, lens[:n], blk_l)
             dep.insert_row(self.ll, l_logits[:, 0], src, dst)
+        if g is not None:
+            dep.insert_row(self.gates, g, src, dst)
         for j in jobs:
             self._finish_admit(j)
 
@@ -336,6 +462,7 @@ class _Lane:
             st.tokens += 1
             if tok == TOK.EOS or len(s.out_ids) >= s.max_new:
                 done.append((s.rid, TOK.decode(s.out_ids), st))
+                eng._release_adapter(s)
                 self.slots[i] = None        # freed: admit into this row
                 freed.append(i)
             else:
@@ -348,8 +475,9 @@ class _Lane:
             # freed rows ride along in the fixed-width batch, parked at
             # FREED_POS with NO_PAGE tables: their writes drop
             toks = torch.as_tensor(next_tok, device=dep.device)
-            s_logits, self.s_cache = dep.slm_decode(eng.slm_params,
-                                                    self.s_cache, toks)
+            s_logits, self.s_cache = dep.slm_decode(
+                eng.slm_params, self.s_cache, toks, eng.lora,
+                self._decode_gates())
             self.sl = s_logits[:, 0]
             if self.use_cloud:
                 l_logits, self.l_cache = dep.llm_decode(
@@ -449,7 +577,12 @@ class BatchedHybridEngine(HybridEngine):
     K2.  Admission is gated on free slots and free pages: the lazy
     demand (prompt pages + one decode page) is reserved and grown at
     page boundaries; a worst-case demand beyond the total pool is a
-    hard reject (``pop_rejected``).
+    hard reject (``pop_rejected``).  A request naming a per-user adapter
+    pins it into a slot of the engine's ``AdapterCache`` for its
+    lifetime; every slot pinned is a soft refusal (FIFO, like pages),
+    an unknown adapter id a hard reject.  Decode LoRA runs through K5 on
+    the lane's gate rows, or through K4 on per-row slot ids with
+    ``use_slot_kernel=True``; admission prefill always takes K5.
 
     The port serves ``paged=True`` with ``macro_k=0`` (the per-token
     reference path); the other options raise ``NotImplementedError``."""
@@ -461,7 +594,9 @@ class BatchedHybridEngine(HybridEngine):
                  local_pool_pages: Optional[int] = None,
                  llm_pool_pages: Optional[int] = None,
                  lazy_pages: bool = True,
-                 chunk_width: Optional[int] = None, spec_k: int = 0):
+                 chunk_width: Optional[int] = None, spec_k: int = 0,
+                 router: Optional[Router] = None,
+                 use_slot_kernel: bool = False):
         later = [(macro_k != 0, "the K-token macro step (macro_k != 0)"),
                  (not paged, "dense lanes (paged=False)"),
                  (spec_k != 0, "speculative decode (spec_k)"),
@@ -474,7 +609,7 @@ class BatchedHybridEngine(HybridEngine):
         for bad, what in later:
             if bad:
                 raise NotImplementedError(f"{what}: later slice")
-        super().__init__(deployment)
+        super().__init__(deployment, router=router)
         for lm in (self.dep.slm, self.dep.llm):
             if lm.cfg.family != "dense":
                 raise NotImplementedError(
@@ -483,6 +618,9 @@ class BatchedHybridEngine(HybridEngine):
         self.slm, self.llm = deployment.slm, deployment.llm
         self.lazy_pages = lazy_pages
         self.max_ctx = deployment.max_ctx
+        # decode LoRA through K4 on per-row adapter slots instead of K5
+        # on one-hot gate rows
+        self.use_slot_kernel = use_slot_kernel
         self._seq = 0
         self._stat = dict(grown_pages=0, parks=0, evictions=0, forced=0)
         self._rejected: List[Tuple[int, str]] = []
@@ -512,26 +650,49 @@ class BatchedHybridEngine(HybridEngine):
     # ------------------------------------------------------------- public
     def add_request(self, prompt: str, max_new_tokens: int = 16,
                     greedy: bool = True, rid: int = 0,
-                    seed: Optional[int] = None) -> bool:
+                    seed: Optional[int] = None,
+                    prefix: Optional[str] = None,
+                    adapter_id: Optional[Any] = None) -> bool:
         """Admit one request; False if it could not be admitted now (lane
-        full or free pages short).  A page demand beyond the total pool
-        is a hard reject, surfaced through ``pop_rejected``."""
+        full, free pages short or every adapter slot pinned).  A page
+        demand beyond the total pool or an unknown adapter id is a hard
+        reject, surfaced through ``pop_rejected``."""
         return self.add_requests([(prompt, max_new_tokens, greedy, rid,
-                                   seed)])[0]
+                                   seed, prefix, adapter_id)])[0]
+
+    def _adapter_reject_msg(self, aid) -> str:
+        if self.adapters is None:
+            return (f"adapter_id={aid!r} on an engine without adapter "
+                    "slots — build the ServingDeployment with "
+                    "adapter_slots=")
+        return (f"unknown adapter id {aid!r}: register it on "
+                "engine.adapters before submitting requests that name it")
+
+    def _acquire_or_block(self, aid, blocked, private) -> Tuple:
+        """The admission-side adapter gate: (ok, slot).  A refused
+        acquire BLOCKS the lane for the rest of the burst (FIFO: later
+        arrivals must not overtake a request waiting on a slot), as a
+        page refusal does."""
+        if aid is None:
+            return True, None
+        aslot = self.adapters.acquire(aid)
+        if aslot is None:
+            blocked[private] = True
+            return False, None
+        return True, aslot
 
     def add_requests(self, reqs: List[Tuple]) -> List[bool]:
         """Admit a burst of (prompt, max_new_tokens, greedy, rid[, seed
-        [, prefix[, adapter_id[, deadline_ms]]]]) requests.  Requests
-        landing in the same lane share ONE packed B>1 prefill.  Returns
-        per-request admitted flags; soft-refused requests are retried
-        later, hard rejects land in ``pop_rejected``."""
+        [, prefix[, adapter_id[, deadline_ms]]]]) requests; adapter_id
+        pins a registered per-user adapter for the request's lifetime.
+        Requests landing in the same lane share ONE packed B>1 prefill.
+        Returns per-request admitted flags; soft-refused requests are
+        retried later, hard rejects land in ``pop_rejected``."""
         for prompt, max_new, greedy, rid, *rest in reqs:
             rest = list(rest) + [None] * (4 - len(rest))
             for bad, what in ((not greedy, "sampling (greedy=False)"),
                               (rest[1] is not None,
                                "COW prefix sharing (prefix=)"),
-                              (rest[2] is not None,
-                               "per-user adapters (adapter_id=)"),
                               (rest[3] is not None,
                                "deadline cancellation (deadline_ms=)")):
                 if bad:
@@ -551,9 +712,14 @@ class BatchedHybridEngine(HybridEngine):
         free = {True: self.edge_lane.free_slots(),
                 False: self.cloud_lane.free_slots()}
         blocked = {True: False, False: False}
-        for i, (prompt, max_new, _, rid, *_) in enumerate(reqs):
+        for i, (prompt, max_new, _, rid, *rest) in enumerate(reqs):
+            aid = rest[2] if len(rest) > 2 else None
             private = self.detector.detect(prompt)
             lane = self.edge_lane if private else self.cloud_lane
+            if aid is not None and (self.adapters is None
+                                    or not self.adapters.known(aid)):
+                self._rejected.append((rid, self._adapter_reject_msg(aid)))
+                continue
             raw = TOK.encode(prompt + " ")
             cap_ids = self.max_ctx - max_new - 1
             ids = raw[:cap_ids]
@@ -587,13 +753,16 @@ class BatchedHybridEngine(HybridEngine):
                         and not lane.pager_l.fits_free(nf_l, nl_l)):
                 blocked[private] = True    # soft: retry when pages free
                 continue
+            ok, aslot = self._acquire_or_block(aid, blocked, private)
+            if not ok:                     # soft: retry when pins drop
+                continue
             slot = free[private].pop(0)
             rows_s = lane.pager_s.admit(slot, nf_s, cap_pages=cap_pages)
             rows_l = (lane.pager_l.admit(slot, nf_l, cap_pages=cap_pages)
                       if lane.use_cloud else None)
             jobs[private].append(_PagedJob(
-                slot, max_new, rid, private, ids, rows_s, rows_l,
-                seq=self._next_seq(), truncated=truncated))
+                slot, prompt, max_new, rid, private, ids, rows_s, rows_l,
+                seq=self._next_seq(), truncated=truncated, aslot=aslot))
             flags[i] = True
         self.edge_lane.admit_many(jobs[True])
         self.cloud_lane.admit_many(jobs[False])
@@ -601,7 +770,8 @@ class BatchedHybridEngine(HybridEngine):
 
     def pop_rejected(self) -> List[Tuple[int, str]]:
         """Drain the hard-reject log: (rid, reason) for requests whose
-        page demand can NEVER fit the pools."""
+        page demand can NEVER fit the pools or whose adapter id is
+        unknown."""
         out, self._rejected = self._rejected, []
         return out
 

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.serving.adapters import UnknownAdapter
 from repro_torch.serving.deployment import ServingDeployment
 from repro_torch.serving.engine import (BatchedHybridEngine, GenStats,
                                         HybridEngine)
@@ -41,7 +42,7 @@ class Request:
     greedy: bool = True
     seed: Optional[int] = None       # sampling-key override (else rid)
     prefix: Optional[str] = None     # shared preamble (later slice)
-    adapter_id: Optional[Any] = None  # per-user adapter (later slice)
+    adapter_id: Optional[Any] = None  # per-user adapter (slot-cached)
     deadline_ms: Optional[float] = None  # simulated-clock decode budget
 
 
@@ -52,7 +53,7 @@ class Response:
     stats: GenStats
     wall_seconds: float              # submit -> finish (incl. queue wait)
     queue_wait_seconds: float = 0.0  # submit -> start of service
-    error: Optional[str] = None
+    error: Optional[str] = None      # hard admission reject (never ran)
     truncated: bool = False          # prompt clipped to fit the cache
     cancelled: bool = False          # deadline hit; ``text`` is partial
 
@@ -90,11 +91,13 @@ class Scheduler:
 
     def submit(self, prompt: str, max_new_tokens: int = 16,
                greedy: bool = True,
+               adapter_id: Optional[Any] = None,
                deadline_ms: Optional[float] = None) -> int:
         rid = self._next
         self._next += 1
         self.queue.append(Request(rid, prompt, max_new_tokens, time.time(),
-                                  greedy, deadline_ms=deadline_ms))
+                                  greedy, adapter_id=adapter_id,
+                                  deadline_ms=deadline_ms))
         return rid
 
     def run(self) -> List[Response]:
@@ -107,9 +110,17 @@ class Scheduler:
         out = []
         for r in private + public:
             t0 = time.time()
-            text, stats = self.engine.generate(
-                r.prompt, r.max_new_tokens, greedy=r.greedy, rid=r.rid,
-                deadline_ms=r.deadline_ms)
+            try:
+                text, stats = self.engine.generate(
+                    r.prompt, r.max_new_tokens, greedy=r.greedy, rid=r.rid,
+                    adapter_id=r.adapter_id, deadline_ms=r.deadline_ms)
+            except UnknownAdapter as e:
+                # a hard reject, as the batched scheduler's pop_rejected
+                out.append(Response(
+                    r.rid, "", GenStats(),
+                    wall_seconds=time.time() - r.submitted_at,
+                    queue_wait_seconds=t0 - r.submitted_at, error=str(e)))
+                continue
             out.append(Response(r.rid, text, stats,
                                 wall_seconds=time.time() - r.submitted_at,
                                 queue_wait_seconds=t0 - r.submitted_at,
@@ -167,6 +178,8 @@ class ContinuousBatchScheduler:
             lines.append(f"{name} lane: {len(lane.free_slots())}/"
                          f"{lane.batch} slots free, free pages={pools}")
         lines.append(f"growth: {eng.growth_stats()}")
+        if eng.adapter_stats():
+            lines.append(f"adapters: {eng.adapter_stats()}")
         return "; ".join(lines)
 
     def run(self) -> List[Response]:

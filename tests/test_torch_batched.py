@@ -306,10 +306,15 @@ def test_unported_options_raise(pair):
             BatchedHybridEngine(dep, **kw)
     eng = BatchedHybridEngine(dep, batch_size=2, macro_k=0)
     for req in (("hi", 2, False, 0), ("hi", 2, True, 0, None, "pre "),
-                ("hi", 2, True, 0, None, None, "user0"),
                 ("hi", 2, True, 0, None, None, None, 50.0)):
         with pytest.raises(NotImplementedError, match="later slice"):
             eng.add_requests([req])
+    # per-user adapters are ported: on an engine without adapter slots
+    # an adapter_id is a hard reject, as in the reference
+    assert eng.add_requests([("hi", 2, True, 7, None, None, "user0")]) \
+        == [False]
+    (rid, why), = eng.pop_rejected()
+    assert rid == 7 and "adapter_slots" in why
     assert eng.active_count() == 0
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         ServingDeployment(pair[1][0], pair[1][1], max_seq=48, max_ctx=96,

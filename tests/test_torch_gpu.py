@@ -18,12 +18,16 @@ per (row, head), max|out - ref| / max|ref| over head_dim: one bf16
 rounding of the output (2**-8 relative at most, 2**-7 of a row maximum
 just above a power of two) plus f32 sums in another order; parked rows
 are held to zeros instead, which the kernel writes for them (their
-output is never read)."""
+output is never read).  K4 and K5 1e-5 per row, max|out - ref| /
+max|ref|: f32 sums of up to 16,384 products in another order; rows
+without an adapter are held to exact zeros, and K5 on one-hot gate rows
+to K4's output bit for bit."""
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as K3
 from repro_torch.kernels.logit_fusion import kernel as K1
+from repro_torch.kernels.moe_lora import kernel as KL
 from repro_torch.kernels.paged_attention import kernel as K2
 
 FREED_POS = 1 << 30
@@ -143,3 +147,68 @@ def test_paged_attention_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                       # page_size 8
         K2.paged_decode_attention(q, pk.reshape(32, 8, 1, 256),
                                   pv.reshape(32, 8, 1, 256), table, pos)
+
+
+def lora_case(dev, g, t, k, n, e=4, r=16):
+    x = torch.randn(t, k, device=dev, generator=g).bfloat16()
+    a = torch.randn(e, r, k, device=dev, generator=g) / k ** 0.5
+    b = torch.randn(e, n, r, device=dev, generator=g)
+    return x, a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (2048, 32768),
+                                 (16384, 2048)])
+def test_moe_lora_kernels_match_plain(cuda, k, n):
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x, a, b = lora_case(cuda, g, 8, k, n)
+    slots = torch.tensor([0, 1, 2, 3, -1, 0, 2, -1], dtype=torch.int32,
+                         device=cuda)
+    before = (KL.moe_lora_delta_slots.launches, KL.moe_lora_delta.launches)
+    k4 = KL.moe_lora_delta_slots(x, a, b, slots)
+    one_hot = torch.nn.functional.one_hot(slots.clamp(min=0).long(), 4)
+    one_hot = (one_hot * (slots >= 0)[:, None]).float()
+    k5_hot = KL.moe_lora_delta(x, a, b, one_hot)
+    soft = torch.rand(8, 4, device=cuda, generator=g)
+    soft[3] = 0.0
+    k5 = KL.moe_lora_delta(x, a, b, soft)
+    torch.cuda.synchronize()
+    assert (KL.moe_lora_delta_slots.launches,
+            KL.moe_lora_delta.launches) == (before[0] + 1, before[1] + 2)
+    live = slots >= 0
+    assert row_rel_err(k4[live], KL.moe_lora_delta_slots_plain(
+        x, a, b, slots)[live]) <= 1e-5
+    assert not k4[~live].any() and not k5[3].any()
+    assert torch.equal(k5_hot, k4)                      # bit for bit
+    ref = KL.moe_lora_delta_plain(x, a, b, soft)
+    rows = [i for i in range(8) if i != 3]
+    assert row_rel_err(k5[rows], ref[rows]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_moe_lora_admission_shape_matches_plain(cuda):
+    """K5 at a packed admission prefill: 8 requests x 1,552 positions,
+    one gate row per request (rows_per_gate = 1,552)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, a, b = lora_case(cuda, g, 8 * 1552, 2048, 2048)
+    gates = torch.rand(8, 4, device=cuda, generator=g)
+    out = KL.moe_lora_delta(x, a, b, gates, rows_per_gate=1552)
+    torch.cuda.synchronize()
+    ref = KL.moe_lora_delta_plain(x, a, b, gates, rows_per_gate=1552)
+    assert row_rel_err(out, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_moe_lora_raises_instead_of_falling_back(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, a, b = lora_case(cuda, g, 4, 64, 32, e=2, r=4)
+    slots = torch.tensor([0, 1, -1, 0], device=cuda)        # int64
+    with pytest.raises(TypeError):
+        KL.moe_lora_delta_slots(x, a, b, slots)
+    with pytest.raises(TypeError):
+        KL.moe_lora_delta(x, a.bfloat16(), b, torch.ones(4, 2, device=cuda))
+    with pytest.raises(TypeError):                           # f32 x
+        KL.moe_lora_delta(x.float(), a, b, torch.ones(4, 2, device=cuda))
+    with pytest.raises(ValueError):                          # r % 4 != 0
+        KL.moe_lora_delta(x, a[:, :3], b[..., :3].contiguous(),
+                          torch.ones(4, 2, device=cuda))
