@@ -10,21 +10,34 @@ Phases, in order; any failure exits non-zero before the result lines:
               ``nvcc`` per source, all started together;
   3. kernels  each kernel (K1 fusion, K2 paged decode attention, K3
               prefill flash attention, K4 slot-gather LoRA delta, K5
-              gated multi-LoRA delta) against its plain PyTorch version
-              on the card at the main paths' shapes, timed with CUDA
-              events beside its bound and a library call; K5 on one-hot
-              gate rows must equal K4 bit for bit;
+              gated multi-LoRA delta, K6 Mamba-1 selective scan) against
+              its plain PyTorch version on the card at the main paths'
+              shapes, timed with CUDA events beside its bound and a
+              library call where one exists; K5 on one-hot gate rows must
+              equal K4 bit for bit;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
               ragged batch of three, the batched engine, and LoRA: SLM
               logits under adapter slots and router gates, the batched
               engine with mixed adapters (use_slot_kernel False and
-              True) and a router-gated sequential request;
+              True) and a router-gated sequential request; then the
+              reduced falcon-mamba the same way (prefill through K6, four
+              decode steps);
   5. cli      ``python -m repro_torch.launch.serve --local`` as a user
               runs it on the card (the reduced pair, bf16), sequential,
               ``--batch 4 --macro-k 0`` and with ``--adapters 3
               --adapter-slots 2``;
+  5b. serve_ssm  the full-width falcon-mamba-7b (Mamba-1, 64 layers,
+              bf16, random weights from a seed) through
+              ServingDeployment and SoloEngine: the four demo prompts
+              and a 1,536-token one, 16 greedy tokens each, every
+              kernel's launch count read around the run (K6 = 64 per
+              prefill, no other kernel); the full-width prefill (logits
+              and every layer's scan state) through K6 against the plain
+              scan; then a torch.profiler
+              breakdown of the long request; the model is freed before
+              the pair's phases;
   6. serve    the full-width 2b pair (floe-slm-2b + floe-llm-7b, bf16,
               random weights from a seed) through ServingDeployment and
               Scheduler.from_deployment: the four demo prompts of the
@@ -97,6 +110,15 @@ LORA_E, LORA_R = 4, 16
 # (k, n) of the SLM's LoRA targets: q and o, k and v, mlp_in, mlp_out
 LORA_SHAPES = [(2048, 2048), (2048, 256), (2048, 32768), (16384, 2048)]
 K4_SLOTS = [0, 1, 2, 3, -1, 0, 2, -1]
+# K6: y per (batch, position) row, max|out - ref| / max|ref| over d_inner:
+# the kernel and the plain version round their f32 y to bf16 apart (one
+# ulp, 2**-8 of a value and at most 2**-7 of a row's max); h_final
+# against 1e-5 of its max (f32 recurrences, the plain update rounds once
+# more per step).
+K6_ROW_RTOL = 2 ** -7
+K6_H_RTOL = 1e-5
+# serve_ssm: falcon-mamba-7b's d_inner, state size and dt_rank
+SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
 # the router's four domains, each a few public samples (Eq. 9)
 # serve_adapters: six users and adapter-free rows over the 20 requests
 ADAPTER_OF = [None if i % 4 == 3 else f"user{i % 6}" for i in range(20)]
@@ -115,6 +137,13 @@ ROUTER_DOMAINS = [
 LONG_PROMPT = ("explain how rainbows form when sunlight passes through "
                "falling raindrops and why the colors always appear in the "
                "same order across the sky. ") * 11
+# serve_ssm's long prompt: exactly 1,536 tokens (12 x 128, a length the
+# reference's chunked Mamba-1 scan serves too)
+SSM_LONG_PROMPT = LONG_PROMPT[:1534]
+SSM_LONG_TOKENS = 1536
+# max_seq of serve_ssm: page-aligned, with room for the long prompt and
+# 16 new tokens (cap = max_seq - 16 - 1)
+SSM_MAX_SEQ = 1568
 # serve_batched traffic: (prompt, max_new_tokens); 16 cloud-eligible, the
 # long prompt twice, and 4 private (rids 2, 7, 12, 17)
 BATCHED_REQUESTS = [
@@ -443,6 +472,110 @@ def phase_lora(torch):
     return k4_cases, k5_cases
 
 
+def ssm_inputs(torch, g, s):
+    """One falcon-mamba prefill scan's inputs on the card: dt a softplus
+    (f32), x bf16, B and C bf16 column slices of an x_proj-like output
+    (1, S, dt_rank + 2 N) as the model hands them over, A = -exp(A_log)
+    (f32)."""
+    dev = torch.device("cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, s, SSM_DI, device=dev, generator=g) - 1.0)
+    x = torch.randn(1, s, SSM_DI, device=dev, generator=g).bfloat16()
+    xdbc = torch.randn(1, s, SSM_DT_RANK + 2 * SSM_N, device=dev,
+                       generator=g).bfloat16()
+    bm = xdbc[..., SSM_DT_RANK:SSM_DT_RANK + SSM_N]
+    cm = xdbc[..., SSM_DT_RANK + SSM_N:]
+    a = -torch.exp(0.5 * torch.randn(SSM_DI, SSM_N, device=dev,
+                                     generator=g))
+    return dt, x, bm, cm, a
+
+
+def phase_k6(torch, short_len: int):
+    """K6 against its plain version at serve_ssm's shapes: the 1,536-token
+    prefill and a short demo prompt's, d_inner 8,192, N 16, B and C
+    strided.  Bound: bytes (dt f32, x and y bf16, A, h_final, B and C
+    once) against ~7 f32 operations per (t, d, n), the exponential
+    counted as one."""
+    from repro_torch.kernels.ssm_scan import kernel as K6
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = []
+    for s in (SSM_LONG_TOKENS, short_len):
+        args = ssm_inputs(torch, g, s)
+        y, h = K6.ssm_scan(*args)
+        torch.cuda.synchronize()
+        ry, rh = K6.ssm_scan_plain(*args)
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()):
+            raise SystemExit("K6 wrote a non-finite value")
+        nbytes = (s * SSM_DI * (4 + 2 + 2) + 2 * SSM_DI * SSM_N * 4
+                  + 2 * s * SSM_N * 2)
+        bms, by = bound(nbytes, 7 * s * SSM_DI * SSM_N, F32_FLOP_PER_S)
+        cases.append(dict(
+            shape=dict(B=1, S=s, di=SSM_DI, N=SSM_N,
+                       bc="strided slices of (1, S, 288)"),
+            dtype="dt/A f32, x/B/C/y bf16, h f32",
+            max_abs_err=(y.float() - ry.float()).abs().max().item(),
+            max_rel_err=row_rel_err(y, ry),
+            h_max_abs_err=(h - rh).abs().max().item(),
+            h_rel_err=((h - rh).abs().max() / rh.abs().max()).item(),
+            ms=time_ms(torch, lambda: K6.ssm_scan(*args), 50),
+            plain_ms=time_ms(torch, lambda: K6.ssm_scan_plain(*args),
+                             2 if s > 512 else 5),
+            library_ms=None, bound_ms=bms, bound_by=by))
+        print(f"K6 ssm_scan: {cases[-1]}")
+        del args, y, h, ry, rh
+    bad = [c for c in cases if not (c["max_rel_err"] <= K6_ROW_RTOL
+                                    and c["h_rel_err"] <= K6_H_RTOL)]
+    if bad:
+        raise SystemExit(f"K6 disagrees with its plain version: {bad}")
+    return cases
+
+
+def check_ssm(torch):
+    """Reduced falcon-mamba: bf16 on the card (prefill through K6) vs f32
+    on the CPU (the plain scan), prefill + 4 decode steps of a SoloEngine
+    deployment."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import SoloEngine
+
+    cfg = get_config("falcon-mamba-7b").reduced()          # float32
+    base = bridge.to_numpy(LM(cfg, device="cpu").init(3))
+    logits, before = {}, K6.ssm_scan.launches
+    # bf16 on the CPU too: the share of the card's error that bf16 itself
+    # makes through the plain path
+    runs = (("cpu", "float32"), ("cpu", "bfloat16"), ("cuda", "bfloat16"))
+    for dev, dtype in runs:
+        lm = LM(dataclasses.replace(cfg, dtype=dtype), device=dev)
+        dep = ServingDeployment(lm, bridge.from_numpy(
+            base, device=dev, dtype=getattr(torch, dtype)), max_seq=96,
+            device=dev)
+        toks = dep.tokens(TOK.encode("translate to french: water -> "))
+        lg, cache = dep.slm_prefill(dep.slm_params, toks)
+        steps = [lg]
+        for t in (40, 41, 42, 43):
+            lg, cache = dep.slm_decode(dep.slm_params, cache,
+                                       dep.tokens([t]))
+            steps.append(lg)
+        logits[dev, dtype] = torch.cat(steps, 1).float().cpu()
+        with TokenIds():
+            print(f"check ssm {dev} {dtype}: SoloEngine ids "
+                  f"{SoloEngine(dep).generate('math: compute 12 plus 7 =', 8)}")
+    ref = logits["cpu", "float32"]
+    rel, rel_cpu = (((logits[k] - ref).abs().max() / ref.abs().max()).item()
+                    for k in (("cuda", "bfloat16"), ("cpu", "bfloat16")))
+    print(f"check ssm: reduced falcon-mamba prefill+4 decode logits, bf16 "
+          f"card vs f32 cpu, max|diff|/max|ref| = {rel:.3e} (bf16 cpu vs "
+          f"f32 cpu {rel_cpu:.3e}); K6 launches "
+          f"{K6.ssm_scan.launches - before}")
+    if not rel <= LOGITS_TOL or K6.ssm_scan.launches - before != 2 * 2:
+        raise SystemExit("reduced falcon-mamba check failed")
+
+
 def phase_check(torch):
     """Reduced 2b pair: bf16 on the card (K1, K3) vs f32 on the CPU."""
     from repro_torch import bridge
@@ -497,6 +630,7 @@ def phase_check(torch):
         raise SystemExit("reduced-pair check failed")
     check_paged(torch, deps)
     check_lora(torch, deps)
+    check_ssm(torch)
 
 
 def random_adapters(torch, lm, n, scale, seed, device):
@@ -697,6 +831,156 @@ def phase_cli():
         if sum(r.stats.private for r in res) != 2:
             raise SystemExit(f"serve {argv}: the detector missed a private "
                              "prompt")
+
+
+def all_kernels():
+    """Every kernel wrapper of the port, K1-K6."""
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    return lora_kernels() + (K6.ssm_scan,)
+
+
+def phase_serve_ssm(torch):
+    """SLM-only serving of the full-width falcon-mamba-7b: SoloEngine over
+    an SLM-only ServingDeployment, the four demo prompts and the
+    1,536-token one, 16 greedy tokens each.  Every prefill runs K6 once
+    per layer; no other kernel of the port is on this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import SoloEngine
+
+    cfg = get_config("falcon-mamba-7b")
+    prompts = list(DEMO_PROMPTS) + [SSM_LONG_PROMPT]
+    lens = [len(TOK.encode(p + " ")) for p in prompts]
+    if lens[-1] != SSM_LONG_TOKENS or max(lens[:-1]) > 128:
+        raise SystemExit(f"serve_ssm: prompt lengths {lens}")
+    t0 = time.perf_counter()
+    lm = LM(cfg)
+    dep = ServingDeployment(lm, lm.init(7), max_seq=SSM_MAX_SEQ)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(dep.slm_params))
+    print(f"serve_ssm: {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, vocab "
+          f"{cfg.vocab_size}, {n_params} parameters) initialised on the card "
+          f"in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    eng = SoloEngine(dep)
+    prefill_ms = []
+    calls = counted(dep, ("slm_prefill", "slm_decode"))
+    timed = dep.slm_prefill
+
+    def prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = timed(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    dep.slm_prefill = prefill
+    kernels = all_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TokenIds():
+        outs = [eng.generate(p, 16) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    uncounted(dep, calls)
+
+    ids = [[int(i) for i in o.split(",") if i] for o in outs]
+    for n, (p, got) in enumerate(zip(lens, ids)):
+        print(f"[{n}] prompt {p} tokens, prefill {prefill_ms[n]:.2f} ms, "
+              f"ids={got}")
+    tokens = sum(len(i) for i in ids)
+    decode_s = wall - sum(prefill_ms) / 1e3
+    print(f"serve_ssm: {tokens} tokens in {wall:.3f} s = {tokens / wall:.2f} "
+          f"tokens/s (5 requests, one at a time, prefill included); decode "
+          f"{calls['slm_decode']} steps in {decode_s:.3f} s = "
+          f"{calls['slm_decode'] / decode_s:.2f} steps/s; prefill of the "
+          f"{SSM_LONG_TOKENS}-token prompt {prefill_ms[-1]:.2f} ms; peak "
+          f"memory {peak:.2f} GiB; launches {launches}")
+    if any(not 0 < len(i) <= 16 for i in ids) or calls["slm_prefill"] != 5:
+        raise SystemExit(f"serve_ssm: bad output {ids}")
+    if launches["ssm_scan"] != cfg.num_layers * calls["slm_prefill"] or \
+            any(n for k, n in launches.items() if k != "ssm_scan"):
+        raise SystemExit(f"serve_ssm: K6 must launch once per prefill "
+                         f"layer and nothing else: {launches}")
+    # the full-width prefill through K6 against the same prefill through
+    # the plain scan.  At the reference's init law the projections add
+    # little to the residual stream, so greedy ids follow the last token
+    # and the logits hardly see the scan; every layer's final scan state
+    # (the cache's "h", f32) does.  Limit 1e-2 for both: a layer's bf16
+    # output may round apart by an ulp and feed the next layer
+    toks = dep.tokens(TOK.encode(DEMO_PROMPTS[0] + " "))
+    logits, cache = dep.slm_prefill(dep.slm_params, toks)
+    scan, SSM.ssm_scan = SSM.ssm_scan, K6.ssm_scan_plain
+    try:
+        ref, ref_cache = dep.slm_prefill(dep.slm_params, toks)
+    finally:
+        SSM.ssm_scan = scan
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    h, rh = cache["h"], ref_cache["h"]
+    h_rel = ((h - rh).abs().amax((1, 2, 3))
+             / rh.abs().amax((1, 2, 3))).max().item()
+    print(f"serve_ssm: full-width prefill of a {toks.shape[1]}-token prompt, "
+          f"K6 vs the plain scan: logits max|diff|/max|ref| = {rel:.3e}; "
+          f"final scan states, worst layer's max|diff|/max|ref| = "
+          f"{h_rel:.3e}")
+    if logits.shape != (1, 1, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or not rel <= LOGITS_TOL \
+            or not h_rel <= LOGITS_TOL:
+        raise SystemExit("serve_ssm: the prefill disagrees with the plain "
+                         "scan")
+    trace_solo(torch, eng, SSM_LONG_PROMPT)
+    return launches, dict(wall_s=wall, tokens=tokens, peak_gib=peak,
+                          prefill_long_ms=prefill_ms[-1],
+                          decode_steps_per_s=calls["slm_decode"] / decode_s)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def trace_solo(torch, eng, prompt):
+    """Device time by kernel and the device's busy share over one
+    SoloEngine request (16 tokens), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompt, 16)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms = one()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_ms = one()
+    rows = profile_rows(torch, prof)
+    busy = sum(r[0] for r in rows)
+    k6 = [r for r in rows if "ssm_scan" in r[2]]
+    print(f"trace_solo: one request of 16 tokens on a "
+          f"{len(prompt) + 2}-token prompt: {wall_ms:.2f} ms untraced, "
+          f"{traced_ms:.2f} ms traced; device busy {busy:.2f} ms = "
+          f"{100 * busy / wall_ms:.1f}% of the untraced wall; K6 "
+          f"{sum(r[0] for r in k6):.3f} ms over {sum(r[1] for r in k6)} "
+          f"launches; {sum(r[1] for r in rows)} kernel launches")
+    for ms, n, key in rows[:12]:
+        print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
 
 
 def full_pair(torch):
@@ -1181,6 +1465,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.data import tokenizer as TOK
+    from repro_torch.launch.serve import DEMO_PROMPTS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1201,8 +1486,13 @@ def main() -> int:
     k1_cases, k3_cases = phase_kernels(torch, long_len)
     k2_cases = phase_k2(torch)
     k4_cases, k5_cases = phase_lora(torch)
+    k6_cases = phase_k6(torch, len(TOK.encode(DEMO_PROMPTS[0] + " ")))
     phase_check(torch)
     phase_cli()
+    ssm_launches, ssm_run = phase_serve_ssm(torch)
+    # the 7B SSM is freed before the pair is built and read
+    gc.collect()
+    torch.cuda.empty_cache()
     dep = full_pair(torch)
     seq_launches = phase_serve(torch, dep)
     launches, plain_ids = phase_serve_batched(torch, dep)
@@ -1212,9 +1502,11 @@ def main() -> int:
              "serve_adapters_k5": ad_runs[False]["launches"],
              "serve_adapters_k4": ad_runs[True]["launches"],
              "serve_router": router_run["launches"],
-             "serve_router_sequential": router_run["seq_launches"]}
-    by_path = {fn: {path: got.get(fn, 0) for path, got in paths.items()}
-               for fn in router_run["launches"]}
+             "serve_router_sequential": router_run["seq_launches"],
+             "serve_ssm": ssm_launches}
+    by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
+                             for path, got in paths.items()}
+               for fn in all_kernels()}
     lora_paths = ("serve_adapters_k5", "serve_adapters_k4", "serve_router")
 
     # (8, V) f32; H=16, S=2048, B=1; LLM B=8, plain table
@@ -1270,6 +1562,22 @@ def main() -> int:
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], cases=cases))
+    # K6 at the 1,536-token prefill; launches from serve_ssm
+    k6 = k6_cases[0]
+    kernels.append(dict(
+        name="ssm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/kernel.py:64",
+        launches=ssm_launches["ssm_scan"],
+        launches_by_path=by_path["ssm_scan"],
+        max_abs_err=max(c["max_abs_err"] for c in k6_cases),
+        max_rel_err=max(c["max_rel_err"] for c in k6_cases),
+        rel_tol=K6_ROW_RTOL,
+        h_rel_err=max(c["h_rel_err"] for c in k6_cases),
+        h_rel_tol=K6_H_RTOL, shape=k6["shape"], ms=k6["ms"],
+        plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
+        bound_by=k6["bound_by"], library_ms=None, cases=k6_cases,
+        serve_ssm=ssm_run))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

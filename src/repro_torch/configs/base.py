@@ -85,6 +85,19 @@ class ModelConfig:
     lora_rank_max: int = 16
     num_lora_experts: int = 4
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        # mamba1 convention: ceil(d_model / 16)
+        return -(-self.d_model // 16)
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family/code path, tiny dims."""
         d = min(self.d_model, 256)

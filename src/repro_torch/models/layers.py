@@ -1,6 +1,7 @@
 """Core layer primitives — the port of ``repro/models/layers.py``
-(``rmsnorm``, ``linear`` without bias and its merged multi-LoRA delta
-``lora_delta``, ``rope``, ``mlp``, ``embed``, tied ``unembed``).
+(``rmsnorm`` and the ``norm`` dispatch, ``linear`` with an optional bias
+and its merged multi-LoRA delta ``lora_delta``, ``rope``, ``mlp``,
+``embed``, tied and untied ``unembed``).
 
 Parameters are plain dicts of tensors in the reference's layout:
 weights ``(in, out)``, norm scales ``(d,)``, the embedding ``(V, d)``.
@@ -27,11 +28,22 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * p["scale"].float()).to(dt)
 
 
+def norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm: RMSNorm (LayerNorm is a later slice)."""
+    if cfg.norm_type != "rmsnorm":
+        raise NotImplementedError(f"{cfg.norm_type}: later slice")
+    return rmsnorm(p, x, cfg.norm_eps)
+
+
 def linear(p, x: torch.Tensor, lora=None, gates=None) -> torch.Tensor:
     """y = x @ W in the activation dtype (float32 accumulation), plus the
-    Floe merged-LoRA delta Σ_j ω_j · x A_jᵀ B_jᵀ rounded to that dtype
-    when ``lora`` = {"A": (E, r, d_in), "B": (E, d_out, r)} is given."""
+    bias ``b`` (added after the product is rounded, as the reference
+    adds it) and the Floe merged-LoRA delta Σ_j ω_j · x A_jᵀ B_jᵀ rounded
+    to that dtype when ``lora`` = {"A": (E, r, d_in), "B": (E, d_out, r)}
+    is given."""
     y = torch.matmul(x, p["w"])
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
     if lora is not None:
         y = y + lora_delta(lora, x, gates).to(y.dtype)
     return y
@@ -117,5 +129,8 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """Float32 logits (..., V) through the tied embedding."""
-    return _matmul_f32(x, p["tok"]["w"].t())
+    """Float32 logits (..., V) through the tied embedding, or through
+    the untied ``unembed`` projection (d, V)."""
+    if cfg.tie_embeddings:
+        return _matmul_f32(x, p["tok"]["w"].t())
+    return _matmul_f32(x, p["unembed"]["w"])

@@ -1,5 +1,6 @@
-"""The dense language model — the port of ``repro/models/model.py`` for
-the plain layout ([attn, mlp] x L, every layer global).
+"""The language model — the port of ``repro/models/model.py`` for the
+plain dense layout ([attn, mlp] x L, every layer global) and the
+Mamba-1 SSM family ([mamba1] x L, falcon-mamba).
 
 Parameters are the reference's tree (``LM.param_specs``) as nested dicts
 of tensors: per-layer leaves stacked on a leading layer axis under
@@ -15,14 +16,19 @@ returns an updated copy, which the port saves):
   the device, "pos_host": its host mirror}.  The host mirror is
   validated before each dispatch, so no layer syncs with the device.
 
+The SSM family keeps one cache form: {"conv": (L, B, k-1, d_inner) in
+the model dtype, "h": (L, B, d_inner, N) float32, "pos": int}; its
+prefill scan runs K6 (``models/ssm.py``).
+
 Every entry point takes an optional merged-LoRA bank (``lora``, the
 ``core/lora.py`` tree without metadata: {"layers": {target: {"A"
 (L, E, r, d_in), "B" (L, E, d_out, r)}}}) and its ``gates``; layer i
 reads slice [i] of every leaf, as the reference's layer scan does.
+LoRA on the SSM projections is a later slice.
 
-The grouped (gemma3), MoE, SSM, audio and vision layouts, qk-norm,
-biases, untied embeddings, ring caches and the prefix/speculative
-helpers are later slices.
+The grouped (gemma3), MoE, MLA, hybrid (zamba2), audio and vision
+layouts, qk-norm, qkv biases, untied embeddings of a dense model, ring
+caches and the prefix/speculative helpers are later slices.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -47,43 +54,85 @@ def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
                 host_pos=None, lora=None, gates=None):
     """Pre-norm attention + MLP.  ``lora`` is this layer's slice of the
     bank ({target: {"A", "B"}}).  Returns (x, fresh (k, v) or None)."""
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = L.norm(cfg, p["ln1"], x)
     a, kv = ATT.attention_block(cfg, p["attn"], h, positions=positions,
                                 cache=cache, mode=mode, pages=pages,
                                 host_pos=host_pos, lora=lora, gates=gates)
     x = x + a
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = L.norm(cfg, p["ln2"], x)
     get = (lora or {}).get
     return x + L.mlp(cfg, p["mlp"], h, get("mlp_in"), get("mlp_out"),
                      gates), kv
 
 
+def ssm_layer(cfg, p, x, *, mode, cache, lora=None):
+    """Pre-norm Mamba-1 block with a residual.  Returns (x, {"conv",
+    "h"})."""
+    h = L.norm(cfg, p["ln"], x)
+    y, state = SSM.mamba1_block(cfg, p["ssm"], h, cache=cache, mode=mode,
+                                lora=lora)
+    return x + y, state
+
+
 class LM:
-    """Dense model bundle for one ModelConfig on one device."""
+    """Model bundle for one ModelConfig on one device: the plain dense
+    layout or the Mamba-1 SSM family."""
 
     def __init__(self, cfg, device=None):
-        if cfg.family != "dense" or cfg.attn_type != "full" \
+        if cfg.family == "ssm":
+            if cfg.ssm_version != 1 or cfg.norm_type != "rmsnorm":
+                raise NotImplementedError(
+                    f"{cfg.name}: only Mamba-1 with RMSNorm is ported "
+                    "(Mamba-2 is the zamba2 slice)")
+        elif cfg.family != "dense" or cfg.attn_type != "full" \
                 or cfg.use_qk_norm or cfg.qkv_bias \
                 or not cfg.tie_embeddings or cfg.norm_type != "rmsnorm":
             raise NotImplementedError(
                 f"{cfg.name}: only the plain dense layout of the 2b pair "
-                "(full attention, tied embeddings, RMSNorm) is ported")
+                "(full attention, tied embeddings, RMSNorm) and the Mamba-1 "
+                "SSM family are ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
 
     # -------------------------------------------------------------- params
     def param_shapes(self) -> Dict[str, Any]:
-        """The reference's spec tree for the plain layout: leaves are
-        (shape, init, scale) with init in {embed, fan_in, ones, zeros}."""
+        """The reference's spec tree for the plain dense layout or the
+        Mamba-1 stack: leaves are (shape, init, scale) with init in
+        {embed, fan_in, ones, zeros}."""
         cfg = self.cfg
         n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
+        embed = {"tok": {"w": _leaf((cfg.vocab_size, d), "embed",
+                                    d ** -0.5)}}
+        if not cfg.tie_embeddings:
+            embed["unembed"] = {"w": _leaf((d, cfg.vocab_size))}
+        if cfg.family == "ssm":
+            di, ns, dtr, k = (cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                              cfg.ssm_conv)
+            return {
+                "embed": embed,
+                "ln_f": {"scale": _leaf((d,), "ones")},
+                "layers": {
+                    "ln": {"scale": _leaf((n, d), "ones")},
+                    "ssm": {
+                        "in_proj": {"w": _leaf((n, d, 2 * di))},
+                        "conv_w": _leaf((n, k, di)),
+                        "conv_b": _leaf((n, di), "zeros"),
+                        "x_proj": {"w": _leaf((n, di, dtr + 2 * ns))},
+                        "dt_proj": {"w": _leaf((n, dtr, di)),
+                                    "b": _leaf((n, di), "zeros")},
+                        "A_log": _leaf((n, di, ns), "ones"),
+                        "D": _leaf((n, di), "ones"),
+                        "out_proj": {"w": _leaf((n, di, d))},
+                    },
+                },
+            }
+
         gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
         return {
-            "embed": {"tok": {"w": _leaf((cfg.vocab_size, d), "embed",
-                                         d ** -0.5)}},
+            "embed": embed,
             "ln_f": {"scale": _leaf((d,), "ones")},
             "layers": {
                 "ln1": {"scale": _leaf((n, d), "ones")},
@@ -130,6 +179,10 @@ class LM:
         slices the entry points take (the reference's ``lora_layout``
         for the plain dense layout)."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{cfg.name}: LoRA on the SSM projections (ssm_in, ssm_x, "
+                "ssm_dt, ssm_out): later slice")
         d, f = cfg.d_model, cfg.d_ff
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
@@ -140,6 +193,16 @@ class LM:
     # --------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
         cfg = self.cfg
+        if cfg.family == "ssm":
+            # the recurrent state does not grow with max_seq
+            nl = cfg.num_layers
+            return {"conv": torch.zeros(
+                        (nl, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                        dtype=self.dtype, device=self.device),
+                    "h": torch.zeros(
+                        (nl, batch, cfg.d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=self.device),
+                    "pos": 0}
         shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
                  cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
@@ -164,7 +227,9 @@ class LM:
         ``lora``/``gates``: a LoRA bank tree and its gates (a (B, E) gate
         row covers every position of its row), as ``layers.lora_delta``
         takes them.  Returns (last-position logits (B, 1, V) float32,
-        cache)."""
+        cache).  An SSM's cache holds every layer's last k-1 conv inputs
+        and final scan state; its prefill scan runs K6 and keeps the
+        reference's 128-token chunk rule (``models/ssm.py``)."""
         cfg = self.cfg
         b, s = tokens.shape
         if s > max_seq:
@@ -173,15 +238,20 @@ class LM:
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(s, device=tokens.device)
         for i in range(cfg.num_layers):
-            x, (k, v) = dense_layer(cfg, self._layer(params, i), x,
-                                    positions=positions, mode="prefill",
-                                    cache=None,
-                                    lora=self._lora_layer(lora, i),
+            p_i, l_i = self._layer(params, i), self._lora_layer(lora, i)
+            if cfg.family == "ssm":
+                x, state = ssm_layer(cfg, p_i, x, mode="prefill",
+                                     cache=None, lora=l_i)
+                cache["conv"][i] = state["conv"]
+                cache["h"][i] = state["h"]
+                continue
+            x, (k, v) = dense_layer(cfg, p_i, x, positions=positions,
+                                    mode="prefill", cache=None, lora=l_i,
                                     gates=gates)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         cache["pos"] = s
-        x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+        x = L.norm(cfg, params["ln_f"], x[:, -1:])
         return L.unembed(cfg, params["embed"], x), cache
 
     @torch.inference_mode()
@@ -200,6 +270,9 @@ class LM:
         ``gates`` as in ``prefill``.  Returns the per-row last-valid-token
         logits (B, 1, V) float32."""
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(f"packed prefill of the {cfg.family} "
+                                      "family: later slice")
         b, s = tokens.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
@@ -220,7 +293,7 @@ class LM:
         # per-row last VALID position (x[:, -1:] would read padding)
         idx = torch.as_tensor(lengths - 1, device=tokens.device)
         last = x[torch.arange(b, device=tokens.device), idx][:, None]
-        last = L.rmsnorm(params["ln_f"], last, cfg.norm_eps)
+        last = L.norm(cfg, params["ln_f"], last)
         return L.unembed(cfg, params["embed"], last)
 
     @torch.inference_mode()
@@ -235,27 +308,34 @@ class LM:
         row decodes at its own depth against the page pools.  Parked
         rows (pos >= FREED_POS) write nothing and keep their position.
         ``lora``/``gates`` as in ``prefill``; integer (B,) gates are
-        per-row adapter slots (K4)."""
+        per-row adapter slots (K4).  An SSM advances its conv and scan
+        state in place by the O(1) recurrence."""
         cfg = self.cfg
         pos = cache["pos"]
         pages = {"block": cache["block"]} if "block" in cache else None
         host_pos = cache.get("pos_host")
         x = L.embed(cfg, params["embed"], tokens)
         for i in range(cfg.num_layers):
+            p_i, l_i = self._layer(params, i), self._lora_layer(lora, i)
+            if cfg.family == "ssm":
+                x, state = ssm_layer(
+                    cfg, p_i, x, mode="decode", lora=l_i,
+                    cache={"conv": cache["conv"][i], "h": cache["h"][i]})
+                cache["conv"][i] = state["conv"]
+                cache["h"][i] = state["h"]
+                continue
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-            x, _ = dense_layer(cfg, self._layer(params, i), x,
-                               positions=pos, mode="decode",
+            x, _ = dense_layer(cfg, p_i, x, positions=pos, mode="decode",
                                cache=layer_cache, pages=pages,
-                               host_pos=host_pos,
-                               lora=self._lora_layer(lora, i), gates=gates)
+                               host_pos=host_pos, lora=l_i, gates=gates)
+        # parked rows hold position, so "freed" stays an exact marker
         if isinstance(pos, torch.Tensor):
-            # parked rows hold position, so "freed" stays an exact marker
             pos.add_((pos < ATT.FREED_POS).to(pos.dtype))
             if host_pos is not None:
                 host_pos += host_pos < ATT.FREED_POS
         else:
-            cache["pos"] = pos + 1
-        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+            cache["pos"] = pos if pos >= ATT.FREED_POS else pos + 1
+        x = L.norm(cfg, params["ln_f"], x)
         return L.unembed(cfg, params["embed"], x), cache
 
 

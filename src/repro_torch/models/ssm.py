@@ -1,0 +1,112 @@
+"""Mamba-1 state-space block (falcon-mamba) — the port of the Mamba-1
+part of ``repro/models/ssm.py``.
+
+Prefill runs the selective scan through K6 (``kernels/ssm_scan``: the
+CUDA kernel on a CUDA tensor, its plain step-by-step version on a CPU
+tensor); decode is the O(1) single-step recurrence against (conv
+state, ssm state) in plain torch ops, as the reference writes it in jnp
+outside any kernel.
+
+The reference's prefill scan is chunked (``_mamba1_inner``: chunk 128)
+and asserts s % min(128, s) == 0, so it serves prompts of at most 128
+tokens or a multiple of 128.  The port keeps that rule and refuses the
+other lengths with a ``ValueError``, although K6 takes any length.
+Mamba-2 (the zamba2 hybrid) and LoRA on the SSM projections are later
+slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan
+from repro_torch.models import layers as L
+
+# the reference's mamba1_block default chunk
+CHUNK = 128
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                conv_state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: (B, S, C); w: (k, C); b: (C,).
+
+    With ``conv_state`` (B, k-1, C) (decode) it is the left context;
+    otherwise the input is zero-padded (prefill).  The conv runs in
+    float32 and rounds to x's dtype before the bias, as the reference's.
+    Returns (y, the last k-1 inputs of the context) — zero padding
+    included when S < k-1 — for the cache."""
+    k, s = w.shape[0], x.shape[1]
+    if conv_state is not None:
+        ctx = torch.cat([conv_state, x], dim=1)            # (B, k-1+S, C)
+    else:
+        ctx = F.pad(x, (0, 0, k - 1, 0))
+    cf, wf = ctx.float(), w.float()
+    y = cf[:, :s] * wf[0]
+    for j in range(1, k):
+        y = y + cf[:, j:j + s] * wf[j]
+    y = y.to(x.dtype) + b.to(x.dtype)
+    new_state = ctx[:, ctx.shape[1] - (k - 1):]
+    return y, new_state
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def check_prefill_length(s: int, chunk: int = CHUNK) -> None:
+    """The reference's chunked-scan rule: s <= chunk or s % chunk == 0."""
+    if s % min(chunk, s):
+        raise ValueError(
+            f"a Mamba-1 prefill of {s} tokens: the reference's chunked scan "
+            f"(models/ssm.py _mamba1_inner, chunk {chunk}) takes at most "
+            f"{chunk} tokens or a multiple of {chunk}, and the port keeps "
+            "its rule")
+
+
+def mamba1_block(cfg, p, x: torch.Tensor, *,
+                 cache: Optional[Dict[str, torch.Tensor]] = None,
+                 mode: str = "prefill", lora=None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One Mamba-1 block in ``prefill`` or ``decode`` mode (S = 1 against
+    ``cache`` {"conv" (B, k-1, di), "h" (B, di, N) float32}).  Returns
+    (out (B, S, d), {"conv", "h"}) — the state after the last position."""
+    if lora:
+        raise NotImplementedError("LoRA on the SSM projections (ssm_in, "
+                                  "ssm_x, ssm_dt, ssm_out): later slice")
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mamba1_block: mode {mode!r}")
+    dtr, n = cfg.dt_rank, cfg.ssm_state
+    if mode == "prefill":
+        check_prefill_length(x.shape[1])
+
+    xz = L.linear(p["in_proj"], x)
+    xin, z = torch.chunk(xz, 2, dim=-1)
+    conv_state = cache["conv"] if mode == "decode" else None
+    xin, new_conv = causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
+    xin = F.silu(xin)
+
+    xdbc = L.linear(p["x_proj"], xin)
+    dt_r, bm, cm = torch.split(xdbc, [dtr, n, n], dim=-1)
+    dt = softplus(L.linear(p["dt_proj"], dt_r).float())
+    a = -torch.exp(p["A_log"].float())                     # (di, N)
+
+    if mode == "decode":
+        da = torch.exp(dt[:, 0, :, None] * a)              # (B, di, N)
+        dbx = (dt[:, 0] * xin[:, 0].float())[..., None] \
+            * bm[:, 0, None, :].float()
+        h = cache["h"].float() * da + dbx
+        y = torch.einsum("bdn,bn->bd", h, cm[:, 0].float())[:, None]
+    else:
+        y, h = ssm_scan(dt, xin, bm, cm, a)
+
+    y = y.to(x.dtype) + xin * p["D"].to(x.dtype)
+    y = y * F.silu(z)
+    return L.linear(p["out_proj"], y), {"conv": new_conv, "h": h}
+
+
+def mamba2_block(cfg, p, x, **kw):
+    raise NotImplementedError("Mamba-2 / SSD blocks (zamba2-7b): the "
+                              "zamba2 slice")

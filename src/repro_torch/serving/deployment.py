@@ -15,6 +15,11 @@ adapter slot bank (``adapter_slots=``) that an engine's
 Meshes, macro-steps, dense lanes, prefix sharing, chunked prefill and
 speculation are later slices.
 
+Without an LLM the deployment is SLM-only (``SoloEngine``); its SLM may
+be a dense model or a Mamba-1 SSM, whose recurrent state has no pages
+(only the batched engine pages, and it refuses a non-dense model, as
+in the reference).
+
 The reference's jitted functions return updated copies of a lane cache;
 the port's update the cache dict IN PLACE and return it.  Index
 arguments (rows, slots, page ids) arrive as host lists or numpy arrays,

@@ -1,6 +1,8 @@
 """Hybrid LLM-SLM serving engine — the sequential path of
-``repro/serving/engine.py`` (``HybridEngine.generate``) and its
-continuous-batching engine on paged lanes (``BatchedHybridEngine``).
+``repro/serving/engine.py`` (``HybridEngine.generate``), its
+continuous-batching engine on paged lanes (``BatchedHybridEngine``) and
+the single-model ``SoloEngine`` over an SLM-only deployment (dense or
+Mamba-1 SSM).
 
 Pipeline per request (paper Fig. 8):
   1. Privacy detector (Alg. 2): sensitive -> SLM-only, never leaves the
@@ -117,7 +119,8 @@ class HybridEngine:
                  router: Optional[Router] = None):
         if deployment.llm is None or deployment.mlp is None:
             raise ValueError("HybridEngine needs a hybrid deployment (llm + "
-                             "alignment mlp)")
+                             "alignment mlp); an SLM-only deployment "
+                             "serves SoloEngine")
         self.dep = deployment
         self.slm_params = deployment.slm_params
         self.llm_params = deployment.llm_params
@@ -597,6 +600,16 @@ class BatchedHybridEngine(HybridEngine):
                  chunk_width: Optional[int] = None, spec_k: int = 0,
                  router: Optional[Router] = None,
                  use_slot_kernel: bool = False):
+        if deployment.llm is None:
+            raise ValueError(
+                "BatchedHybridEngine needs a hybrid (SLM+LLM) deployment; "
+                "this one is SLM-only — serve it with SoloEngine")
+        super().__init__(deployment, router=router)
+        for lm in (self.dep.slm, self.dep.llm):
+            if lm.cfg.family != "dense":
+                raise NotImplementedError(
+                    "batched continuous decode supports dense-family "
+                    f"models (got {lm.cfg.family})")
         later = [(macro_k != 0, "the K-token macro step (macro_k != 0)"),
                  (not paged, "dense lanes (paged=False)"),
                  (spec_k != 0, "speculative decode (spec_k)"),
@@ -609,12 +622,6 @@ class BatchedHybridEngine(HybridEngine):
         for bad, what in later:
             if bad:
                 raise NotImplementedError(f"{what}: later slice")
-        super().__init__(deployment, router=router)
-        for lm in (self.dep.slm, self.dep.llm):
-            if lm.cfg.family != "dense":
-                raise NotImplementedError(
-                    "batched continuous decode supports dense-family "
-                    f"models (got {lm.cfg.family})")
         self.slm, self.llm = deployment.slm, deployment.llm
         self.lazy_pages = lazy_pages
         self.max_ctx = deployment.max_ctx
@@ -813,3 +820,79 @@ class BatchedHybridEngine(HybridEngine):
     def step(self) -> List[Tuple[int, str, GenStats]]:
         self.dispatch_step()
         return self.collect_step()
+
+
+# ===========================================================================
+# Single-model serving (the SLM-only baseline)
+# ===========================================================================
+
+
+class SoloEngine:
+    """Single-model greedy decoding over an SLM-only deployment (the
+    paper's SLM-only baseline, and the way an SSM such as falcon-mamba
+    is served: no Floe pair shares its vocabulary).  ``router`` gates
+    the deployment's expert bank; a deployment with ``adapter_slots``
+    gives the engine its own ``AdapterCache``.  LoRA is served for the
+    dense family only (an SSM model refuses a bank)."""
+
+    def __init__(self, deployment: ServingDeployment,
+                 router: Optional[Router] = None):
+        self.dep = deployment
+        self.lm, self.params = deployment.slm, deployment.slm_params
+        self.bank, self.router = deployment.bank, router
+        self.max_seq = deployment.max_seq
+        self.adapters = (deployment.make_adapter_cache()
+                         if deployment.adapter_slots else None)
+        if self.bank is not None and router is None:
+            raise ValueError(_BANK_NEEDS_GATING)
+        if self.bank is not None and self.adapters is not None:
+            raise ValueError(
+                "router-gated expert bank and per-user adapter slots "
+                "are mutually exclusive")
+        self._lora = (deployment.lora
+                      if router is not None and self.bank is not None
+                      else None)
+        # whether the LAST generate() call had to cut its prompt
+        self.last_truncated = False
+
+    lora = HybridEngine.lora
+    adapter_stats = HybridEngine.adapter_stats
+
+    @torch.inference_mode()
+    def generate(self, prompt: str, max_new_tokens: int = 16,
+                 adapter_id: Optional[Any] = None) -> str:
+        """Greedy text of up to ``max_new_tokens`` tokens.  The prompt is
+        cut to max_seq - max_new_tokens - 1 tokens (``last_truncated``
+        says whether it was).  ``adapter_id`` pins a registered per-user
+        adapter for the request; otherwise a router-gated engine gates
+        its bank with the prompt's ω."""
+        dep = self.dep
+        gates = lora = aslot = None
+        if adapter_id is not None:
+            if self.adapters is None:
+                raise ValueError("adapter_id= needs a deployment built with "
+                                 "adapter_slots=")
+            aslot = self.adapters.acquire(adapter_id)
+            if aslot is None:       # a B=1 engine releases every pin
+                raise RuntimeError("no adapter slot free")
+            gates = _admission_gates(self, [(prompt, aslot)])
+            lora = self.lora
+        elif self.router is not None and self.bank is not None:
+            gates = _admission_gates(self, [(prompt, None)])
+            lora = self.lora
+        raw = TOK.encode(prompt + " ")
+        cap = self.max_seq - max_new_tokens - 1
+        self.last_truncated = len(raw) > cap
+        logits, cache = dep.slm_prefill(self.params, dep.tokens(raw[:cap]),
+                                        lora, gates)
+        out: List[int] = []
+        for _ in range(max_new_tokens):
+            nxt = int(torch.argmax(logits[0, 0]))
+            out.append(nxt)
+            if nxt == TOK.EOS:
+                break
+            logits, cache = dep.slm_decode(self.params, cache,
+                                           dep.tokens([nxt]), lora, gates)
+        if aslot is not None:
+            self.adapters.release(aslot)
+        return TOK.decode(out)

@@ -21,7 +21,11 @@ are held to zeros instead, which the kernel writes for them (their
 output is never read).  K4 and K5 1e-5 per row, max|out - ref| /
 max|ref|: f32 sums of up to 16,384 products in another order; rows
 without an adapter are held to exact zeros, and K5 on one-hot gate rows
-to K4's output bit for bit."""
+to K4's output bit for bit.  K6: y per (batch, position) row,
+max|out - ref| / max|ref| over d_inner, 2**-7 in bf16 (the kernel and
+the plain version round their f32 y to bf16 separately, one ulp at
+most) and 1e-5 in f32; h_final 1e-5 of its max (f32 recurrences whose
+updates round once more in the plain version)."""
 import pytest
 import torch
 
@@ -29,6 +33,7 @@ from repro_torch.kernels.flash_attention import kernel as K3
 from repro_torch.kernels.logit_fusion import kernel as K1
 from repro_torch.kernels.moe_lora import kernel as KL
 from repro_torch.kernels.paged_attention import kernel as K2
+from repro_torch.kernels.ssm_scan import kernel as K6
 
 FREED_POS = 1 << 30
 NO_PAGE = 1 << 20
@@ -212,3 +217,57 @@ def test_moe_lora_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                          # r % 4 != 0
         KL.moe_lora_delta(x, a[:, :3], b[..., :3].contiguous(),
                           torch.ones(4, 2, device=cuda))
+
+
+def ssm_case(dev, g, b, s, di, n, dtype, dt_rank=256):
+    """Inputs of one Mamba-1 prefill scan as the model hands them over:
+    dt a softplus, B and C column slices of an x_proj-like output
+    (b, s, dt_rank + 2n), A = -exp(A_log)."""
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, di, device=dev, generator=g) - 1.0)
+    x = torch.randn(b, s, di, device=dev, generator=g).to(dtype)
+    xdbc = torch.randn(b, s, dt_rank + 2 * n, device=dev,
+                       generator=g).to(dtype)
+    bm, cm = xdbc[..., dt_rank:dt_rank + n], xdbc[..., dt_rank + n:]
+    a = -torch.exp(0.5 * torch.randn(di, n, device=dev, generator=g))
+    return dt, x, bm, cm, a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,di,n,dtype", [
+    (1, 1536, 8192, 16, torch.bfloat16),   # the serving prefill
+    (1, 37, 8192, 16, torch.bfloat16),     # a short, odd prompt
+    (1, 1, 8192, 16, torch.bfloat16),
+    (2, 203, 520, 8, torch.float32),       # ragged di, reduced N
+])
+def test_ssm_scan_matches_plain(cuda, b, s, di, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + n)
+    case = ssm_case(cuda, g, b, s, di, n, dtype)
+    assert s == 1 or not case[2].is_contiguous()   # strided B and C
+    before = K6.ssm_scan.launches
+    y, h = K6.ssm_scan(*case)
+    torch.cuda.synchronize()
+    assert K6.ssm_scan.launches == before + 1
+    ry, rh = K6.ssm_scan_plain(*case)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert row_rel_err(y, ry) <= tol
+    assert ((h - rh).abs().max() / rh.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_ssm_scan_raises_instead_of_falling_back(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dt, x, bm, cm, a = ssm_case(cuda, g, 1, 8, 64, 16, torch.bfloat16)
+    with pytest.raises(TypeError):                       # bf16 dt
+        K6.ssm_scan(dt.bfloat16(), x, bm, cm, a)
+    with pytest.raises(TypeError):                       # mixed types
+        K6.ssm_scan(dt, x.float(), bm, cm, a)
+    with pytest.raises(ValueError):                      # N = 5
+        K6.ssm_scan(dt, x, bm[..., :5], cm[..., :5], a[:, :5].contiguous())
+    with pytest.raises(ValueError):                      # strided x
+        K6.ssm_scan(dt[:, ::2].contiguous(), x[:, ::2], bm[:, ::2],
+                    cm[:, ::2], a)
+    gappy = torch.randn(1, 8, 32, device=cuda).bfloat16()[..., ::2]
+    with pytest.raises(ValueError):                      # B strided over N
+        K6.ssm_scan(dt, x, gappy, cm, a)
