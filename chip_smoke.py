@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero before the result lines:
               its plain PyTorch version on the card at the main paths'
               shapes, timed with CUDA events beside its bound and a
               library call where one exists; K5 on one-hot gate rows must
-              equal K4 bit for bit;
+              equal K4 bit for bit at T = 8; K3 also on (B, H, S, D)
+              views of (B, S, H, D) tensors, K5 also at the admission
+              burst under one-hot gate rows;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
@@ -307,15 +309,20 @@ def phase_kernels(torch, long_len: int):
         print(f"K1 fuse_logits B={b}: {k1_cases[-1]}")
 
     k3_cases = []
-    shapes = [(1, 8, 1, s, 0) for s in (31, long_len, 2048)] + \
-             [(1, 16, 16, s, 0) for s in (31, long_len, 2048)] + \
-             [(1, 16, 16, 2048, 512), (8, 8, 1, 1552, 0),
-              (8, 16, 16, 1552, 0)]
-    for bsz, h, kvh, s, window in shapes:
+    # the last case reads (B, H, S, D) views of (B, S, H, D) tensors, as
+    # the model's prefill hands them over
+    shapes = [(1, 8, 1, s, 0, False) for s in (31, long_len, 2048)] + \
+             [(1, 16, 16, s, 0, False) for s in (31, long_len, 2048)] + \
+             [(1, 16, 16, 2048, 512, False), (8, 8, 1, 1552, 0, False),
+              (8, 16, 16, 1552, 0, False), (8, 16, 16, 1552, 0, True)]
+    for bsz, h, kvh, s, window, strided in shapes:
         d = 256
-        q = torch.randn(bsz, h, s, d, device=dev, generator=g).bfloat16()
-        k = torch.randn(bsz, kvh, s, d, device=dev, generator=g).bfloat16()
-        v = torch.randn(bsz, kvh, s, d, device=dev, generator=g).bfloat16()
+        if strided:
+            q, k, v = (torch.randn(bsz, s, n, d, device=dev, generator=g)
+                       .bfloat16().transpose(1, 2) for n in (h, kvh, kvh))
+        else:
+            q, k, v = (torch.randn(bsz, n, s, d, device=dev, generator=g)
+                       .bfloat16() for n in (h, kvh, kvh))
         out = K3.flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
         ref = K3.flash_attention_plain(q, k, v, window=window)
@@ -334,7 +341,9 @@ def phase_kernels(torch, long_len: int):
         bms, by = bound(nbytes, 4 * d * h * visible, BF16_FLOP_PER_S)
         iters = 20 if s > 512 else 200
         k3_cases.append(dict(
-            shape=dict(B=bsz, H=h, KVH=kvh, S=s, D=d, window=window),
+            shape=dict(B=bsz, H=h, KVH=kvh, S=s, D=d, window=window,
+                       layout="(B, S, H, D) views" if strided
+                       else "contiguous"),
             dtype="bfloat16",
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             max_rel_err=row_rel_err(out, ref),
@@ -371,7 +380,8 @@ def lora_case(torch, which, fn, plain, lib, args, live, nbytes, flops,
     out = fn(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
-    dead = [i for i in range(out.shape[0]) if i not in set(live)]
+    kept = set(live)
+    dead = [i for i in range(out.shape[0]) if i not in kept]
     if dead and out[dead].any():
         raise SystemExit(f"{which}: a row without an adapter is not 0")
     bms, by = bound(nbytes, flops, F32_FLOP_PER_S)
@@ -462,6 +472,31 @@ def phase_lora(torch):
             t * k * 2 + LORA_E * LORA_R * (k + n) * 4 + 8 * LORA_E * 4
             + t * n * 4, 2 * t * LORA_E * LORA_R * (k + n), 5,
             dict(T=t, rows_per_gate=s, k=k, n=n, E=LORA_E, r=LORA_R))
+        k5_cases.append(c5)
+        del x, a, b
+        torch.cuda.empty_cache()
+    # serve_adapters' admission prefill: one-hot gate rows (an adapter
+    # slot each, two requests without one); the bound counts one expert
+    # per live row
+    hot_slots = [0, 3, -1, 1, 2, -1, 0, 3]
+    hot_gates = torch.zeros(8, LORA_E, device=dev)
+    for i, sl in enumerate(hot_slots):
+        if sl >= 0:
+            hot_gates[i, sl] = 1.0
+    live = [i for i in range(t) if hot_slots[i // s] >= 0]
+    used = len({sl for sl in hot_slots if sl >= 0})
+    for k, n in LORA_SHAPES:
+        x, a, b = lora_inputs(torch, g, t, k, n)
+        _, c5 = lora_case(
+            torch, f"K5 moe_lora_delta admission one-hot k={k} n={n}",
+            lambda *z: KL.moe_lora_delta(*z, rows_per_gate=s),
+            lambda *z: KL.moe_lora_delta_plain(*z, rows_per_gate=s),
+            lambda *z: lib5(*z, rows_per_gate=s), (x, a, b, hot_gates),
+            live,
+            t * k * 2 + used * LORA_R * (k + n) * 4 + 8 * LORA_E * 4
+            + t * n * 4, 2 * len(live) * LORA_R * (k + n), 5,
+            dict(T=t, rows_per_gate=s, k=k, n=n, E=LORA_E, r=LORA_R,
+                 gates=f"one-hot, slots {hot_slots}"))
         k5_cases.append(c5)
         del x, a, b
         torch.cuda.empty_cache()
@@ -1479,7 +1514,8 @@ def main() -> int:
     report = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(report)}")
     for k, r in report.items():
-        used = [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln]
+        used = [ln.strip() for ln in r["ptxas"].splitlines()
+                if "Used" in ln or "spill" in ln]
         print(f"  {k}: {r['seconds']:.2f} s; {used}")
 
     long_len = len(TOK.encode(LONG_PROMPT + " "))

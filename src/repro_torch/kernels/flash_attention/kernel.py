@@ -9,6 +9,13 @@ KV head h // (H // KVH), masked scores at NEG_INF = -2**30.  Unlike the
 Pallas kernel, S need not be a multiple of a block: a prefill is exactly
 as long as its prompt.  The CUDA kernel takes bfloat16 and head_dim 256
 (the 2b pair at full width) or 32 (its reduced configs).
+
+Layout: q, k and v may be strided views, as ``x.transpose(1, 2)`` of a
+model's (B, S, H, D) projection gives them: a unit stride over D, every
+other stride (of a dimension longer than 1) a multiple of 16 bytes, and
+16-byte aligned data.  The result is a (B, H, S, D) view whose
+``transpose(1, 2)`` is contiguous.  Any other layout raises a
+``ValueError`` on every device.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (32, 256)
-_CTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (
+_CTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
     ctypes.c_float, ctypes.c_void_p)
 
 
@@ -63,13 +70,31 @@ def _lib():
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, H, S, D); k/v (B, KVH, S, D) -> (B, H, S, D)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _layout(name: str, t: torch.Tensor) -> list:
+    """Element strides of a (B, N, S, D) tensor over (S, N, B) as the
+    kernel's tensor maps take them; a dimension of size 1 gets the stride
+    a contiguous tensor would give it.  Raises ``ValueError`` unless the
+    stride over D is 1, the others are multiples of 16 bytes and the data
+    is 16-byte aligned."""
+    nb, nh, ns, d = t.shape
+    sb, sh, ss, sd = t.stride()
+    if sd != 1 and d > 1:
+        raise ValueError(f"flash_attention: {name} needs a unit stride over "
+                         f"head_dim, got strides {t.stride()}")
+    unit = max(1, 16 // t.element_size())          # elements in 16 bytes
+    if (ns > 1 and ss % unit) or (nh > 1 and sh % unit) \
+            or (nb > 1 and sb % unit) or t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} strides {t.stride()} "
+                         "must be multiples of 16 bytes and its data "
+                         "16-byte aligned")
+    return [ss if ns > 1 else d, sh if nh > 1 else d * ns,
+            sb if nb > 1 else d * ns * nh]
+
+
+def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list:
+    """Raise ``ValueError`` unless q (B, H, S, D) and k, v (B, KVH, S, D)
+    have matching shapes and a layout the CUDA kernel reads in place;
+    returns the nine strides of q, k, v that ``_layout`` gives."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: q must be (B, H, S, D) and k, v "
                          "(B, KVH, S, D)")
@@ -79,6 +104,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: mismatched shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    return _layout("q", q) + _layout("k", k) + _layout("v", v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, H, S, D); k/v (B, KVH, S, D) -> (B, H, S, D)."""
+    strides = check_layout(q, k, v)
+    if q.device.type == "cpu":
+        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+        return out.transpose(1, 2).contiguous().transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -86,12 +125,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v must share a device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
-    out = torch.empty_like(q)
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     rc = _lib().flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kvh,
-        s, d, int(causal), int(window), 1.0 / math.sqrt(d),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        (ctypes.c_longlong * 12)(*strides, *_layout("out", out)),
+        b, h, kvh, s, d, int(causal), int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1

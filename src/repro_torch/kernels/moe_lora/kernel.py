@@ -18,8 +18,12 @@ rounds it to the activation dtype.
 On a CUDA tensor each wrapper launches the kernel of
 ``csrc/moe_lora.cu`` (x bf16, k % 8 == 0, r % 4 == 0, bank and gates
 f32) or raises; on a CPU tensor it runs the plain version beside
-it.  Both kernels share one accumulation order over k and r, so K5 on
-one-hot gate rows equals K4 bit for bit.
+it.  At decode (T < 64) both kernels share one accumulation order over
+k and r, so K5 on one-hot gate rows equals K4 bit for bit.  At an
+admission prefill (T >= 64) K5 runs two register-tiled f32 GEMMs and
+skips an expert whose gate is exactly 0 in a tile of rows that share
+one gate row, which leaves the result bit-identical to a bank without
+that expert.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch
 from repro_torch.kernels import build
 
 _CTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
-_MAX_SMEM_FLOATS = 48 * 1024 // 4        # 32 rows x E x r in the up pass
+_MAX_SMEM_FLOATS = 48 * 1024 // 4        # 32 rows x E x r, decode up pass
 _UP_ROWS = 32
 
 
@@ -60,6 +64,8 @@ def _lib():
     for fn in (lib.moe_lora_delta_f32, lib.moe_lora_delta_slots_f32):
         fn.argtypes = _CTYPES
         fn.restype = ctypes.c_int
+    lib.moe_lora_delta_scratch.argtypes = (ctypes.c_int,) * 4
+    lib.moe_lora_delta_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -116,9 +122,11 @@ def moe_lora_delta(x, a, b, gates, rows_per_gate: int = 1):
     if gates.dtype != torch.float32:
         raise TypeError("moe_lora_delta: the CUDA kernel takes f32 gates")
     _check_cuda("moe_lora_delta", x, a, b, gates, k, r, e)
-    u = torch.empty((t, e, r), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    u = torch.empty(lib.moe_lora_delta_scratch(t, k, r, e),
+                    dtype=torch.float32, device=x.device)
     out = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    rc = _lib().moe_lora_delta_f32(
+    rc = lib.moe_lora_delta_f32(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), gates.data_ptr(),
         u.data_ptr(), out.data_ptr(), t, k, n, r, e, rows_per_gate,
         torch.cuda.current_stream(x.device).cuda_stream)

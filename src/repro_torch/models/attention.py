@@ -204,9 +204,10 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
 
     if mode == "prefill":
         if x.device.type == "cuda":
-            out = flash_attention(q.transpose(1, 2).contiguous(),
-                                  k.transpose(1, 2).contiguous(),
-                                  v.transpose(1, 2).contiguous(),
+            # K3 reads the (B, H, S, D) views in place and returns one
+            # whose transpose is a contiguous (B, S, H, D)
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2),
                                   causal=True).transpose(1, 2)
         else:
             out = chunked_causal_attention(q, k, v, positions, positions)

@@ -73,3 +73,40 @@ def test_decode_attention(pos, window):
                                torch.from_numpy(cv), pos, window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
+
+
+@pytest.mark.parametrize("s,group,window", [(45, 2, 0), (31, 1, 8)])
+def test_flash_on_strided_views_matches_contiguous_and_pallas(s, group,
+                                                              window):
+    """K3 on (B, H, S, D) views of (B, S, H, D) tensors, as the model
+    hands them over, gives what it gives on contiguous copies, and
+    agrees with the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(s + window)
+    q, k, v = _qkv(rng, 2, 2 * group, 2, s, 32, layout="bshd")
+    views = [torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = K3.flash_attention(*views, window=window)
+    assert got.shape == views[0].shape
+    assert got.transpose(1, 2).is_contiguous()
+    dense = K3.flash_attention(*(a.contiguous() for a in views),
+                               window=window)
+    np.testing.assert_array_equal(got.numpy(), dense.numpy())
+    jq, jk, jv = (jnp.asarray(np.swapaxes(a, 1, 2)) for a in (q, k, v))
+    pallas = jflash(jq, jk, jv, causal=True, window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
+def test_flash_layout_checks_raise():
+    base = torch.randn(1, 2, 16, 64)
+    ok = base[..., :32]                       # strided S, unit D: accepted
+    K3.flash_attention(ok, ok, ok)
+    gappy = base[..., ::2]                    # head_dim stride 2
+    with pytest.raises(ValueError, match="unit stride"):
+        K3.flash_attention(gappy, ok, ok)
+    with pytest.raises(ValueError, match="unit stride"):
+        K3.flash_attention(ok, ok, gappy)
+    odd = torch.randn(1, 2, 16, 33)[..., :32]  # rows of 132 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        K3.flash_attention(ok, odd, odd)
+    with pytest.raises(ValueError, match="mismatched"):
+        K3.flash_attention(ok, ok[:, :, :8], ok[:, :, :8])

@@ -86,6 +86,84 @@ def test_flash_attention_matches_plain(cuda, h, kvh, s, window):
     assert row_rel_err(out, ref) <= 2 ** -6
 
 
+def k3_inputs(dev, g, b, h, kvh, s, d, layout="bhsd"):
+    """bf16 q, k, v as (B, H, S, D) tensors, or as the model hands them
+    over: (B, H, S, D) views of (B, S, H, D) projections."""
+    if layout == "bhsd":
+        return [torch.randn(b, n, s, d, device=dev, generator=g).bfloat16()
+                for n in (h, kvh, kvh)]
+    return [torch.randn(b, s, n, d, device=dev, generator=g).bfloat16()
+            .transpose(1, 2) for n in (h, kvh, kvh)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh", [(8, 1), (16, 16)])
+def test_flash_attention_admission_burst(cuda, h, kvh):
+    """The packed admission prefill of the batched engine: B = 8 rows of
+    1,552 positions, the SLM and the LLM geometry."""
+    g = torch.Generator(device=cuda).manual_seed(h)
+    q, k, v = k3_inputs(cuda, g, 8, h, kvh, 1552, 256)
+    out = K3.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert row_rel_err(out, K3.flash_attention_plain(q, k, v)) <= 2 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,window", [(31, 0), (200, 64), (1000, 0)])
+@pytest.mark.parametrize("h,kvh", [(4, 1), (4, 2)])
+def test_flash_attention_head_dim_32(cuda, s, window, h, kvh):
+    """head_dim 32, the reduced configs the check phases run."""
+    g = torch.Generator(device=cuda).manual_seed(s + h + kvh)
+    q, k, v = k3_inputs(cuda, g, 2, h, kvh, s, 32)
+    out = K3.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    ref = K3.flash_attention_plain(q, k, v, window=window)
+    assert row_rel_err(out, ref) <= 2 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,h,kvh,s", [(256, 16, 16, 1552), (256, 8, 1, 700),
+                                       (32, 4, 2, 129)])
+def test_flash_attention_reads_strided_views(cuda, d, h, kvh, s):
+    """(B, H, S, D) views of (B, S, H, D) tensors are read in place and
+    give the bits the contiguous copies give; the output's transpose is
+    contiguous."""
+    g = torch.Generator(device=cuda).manual_seed(d + s)
+    views = k3_inputs(cuda, g, 2, h, kvh, s, d, layout="bshd")
+    out = K3.flash_attention(*views)
+    dense = K3.flash_attention(*(t.contiguous() for t in views))
+    torch.cuda.synchronize()
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, dense)
+    assert row_rel_err(out, K3.flash_attention_plain(*views)) <= 2 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 777])
+@pytest.mark.parametrize("h,kvh,window", [(16, 16, 0), (8, 1, 0),
+                                          (16, 16, 100)])
+def test_flash_attention_ragged_lengths(cuda, s, h, kvh, window):
+    """S not a multiple of the 64-key or 128-query tile: rows past S are
+    zero-filled on load, masked, and never stored."""
+    g = torch.Generator(device=cuda).manual_seed(s + h + window)
+    q, k, v = k3_inputs(cuda, g, 2, h, kvh, s, 256)
+    out = K3.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    ref = K3.flash_attention_plain(q, k, v, window=window)
+    assert row_rel_err(out, ref) <= 2 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_non_causal(cuda, causal):
+    g = torch.Generator(device=cuda).manual_seed(int(causal))
+    q, k, v = k3_inputs(cuda, g, 1, 8, 2, 300, 256)
+    out = K3.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = K3.flash_attention_plain(q, k, v, causal=causal)
+    assert row_rel_err(out, ref) <= 2 ** -6
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.randn(2, 16, 8, 256, device=cuda)           # f32, not bf16
@@ -201,6 +279,76 @@ def test_moe_lora_admission_shape_matches_plain(cuda):
     torch.cuda.synchronize()
     ref = KL.moe_lora_delta_plain(x, a, b, gates, rows_per_gate=1552)
     assert row_rel_err(out, ref) <= 1e-5
+
+
+def hot_gates(dev, slots, e=4):
+    """One-hot gate rows of adapter slots; a negative slot is a zero row."""
+    s = torch.tensor(slots, device=dev)
+    return (torch.nn.functional.one_hot(s.clamp(min=0), e)
+            * (s >= 0)[:, None]).float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(2048, 32768), (16384, 2048)])
+def test_moe_lora_admission_one_hot_gates(cuda, k, n):
+    """serve_adapters' admission prefill: 8 requests x 1,552 positions,
+    each request's one-hot gate row (two without an adapter)."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x, a, b = lora_case(cuda, g, 8 * 1552, k, n)
+    slots = [0, 3, -1, 1, 2, -1, 0, 3]
+    gates = hot_gates(cuda, slots)
+    out = KL.moe_lora_delta(x, a, b, gates, rows_per_gate=1552)
+    torch.cuda.synchronize()
+    ref = KL.moe_lora_delta_plain(x, a, b, gates, rows_per_gate=1552)
+    live = torch.tensor(slots, device=cuda).repeat_interleave(1552) >= 0
+    assert row_rel_err(out[live], ref[live]) <= 1e-5
+    assert not out[~live].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,rows_per_gate", [(1200, 100), (1000, 1000),
+                                             (77, 77), (333, 1), (64, 8)])
+def test_moe_lora_gemm_path_tiles(cuda, t, rows_per_gate):
+    """T >= 64 with tiles that straddle gate rows (rows_per_gate 100,
+    1, 8), ragged T (1000, 77, 333), zero and one-hot gate rows among
+    soft ones, at both k of the LoRA targets."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    for k, n in ((2048, 256), (16384, 2048)):
+        x, a, b = lora_case(cuda, g, t, k, n)
+        gates = torch.rand(t // rows_per_gate, 4, device=cuda, generator=g)
+        gates[::3] = hot_gates(cuda, [1])
+        gates[1::5] = 0.0
+        out = KL.moe_lora_delta(x, a, b, gates, rows_per_gate=rows_per_gate)
+        torch.cuda.synchronize()
+        ref = KL.moe_lora_delta_plain(x, a, b, gates,
+                                      rows_per_gate=rows_per_gate)
+        zero = (gates == 0).all(1).repeat_interleave(rows_per_gate)
+        assert row_rel_err(out[~zero], ref[~zero]) <= 1e-5
+        assert not out[zero].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2048, 16384])
+def test_moe_lora_zero_gate_skip_is_bit_identical(cuda, k):
+    """An expert whose gate is 0 over a whole tile is skipped; the result
+    equals, bit for bit, that of a bank without the expert — on tiles
+    that skip it (uniform gate rows) and on tiles that straddle gate rows
+    and multiply it by 0."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    for rows_per_gate in (1552, 100):
+        t = 8 * rows_per_gate
+        x, a, b = lora_case(cuda, g, t, k, 2048)
+        gates = torch.rand(8, 4, device=cuda, generator=g) + 0.1
+        gates[:, 2] = 0.0
+        gates[3] = hot_gates(cuda, [1])
+        keep = [0, 1, 3]
+        out = KL.moe_lora_delta(x, a, b, gates, rows_per_gate=rows_per_gate)
+        without = KL.moe_lora_delta(x, a[keep].contiguous(),
+                                    b[keep].contiguous(),
+                                    gates[:, keep].contiguous(),
+                                    rows_per_gate=rows_per_gate)
+        torch.cuda.synchronize()
+        assert torch.equal(out, without)
 
 
 @pytest.mark.gpu

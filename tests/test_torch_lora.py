@@ -85,6 +85,33 @@ def test_k5_rows_per_gate_shares_one_gate_row(gate_rows):
         K.moe_lora_delta(*_t(x, a, b, g), rows_per_gate=s + 1)
 
 
+@pytest.mark.parametrize("rows_per_gate", [64, 100])
+def test_k5_plain_admission_one_hot_and_zero_gate_rows(rows_per_gate):
+    """T >= 64 rows under (G, E) gates, as an admission prefill hands
+    them over: a one-hot row (an adapter slot), an all-zero row (no
+    adapter) and a soft row with one zero gate.  Against the reference
+    and interpret-mode Pallas with each gate row repeated over its rows;
+    the all-zero row's outputs are exactly 0, and a zero gate gives the
+    result of the bank without that expert."""
+    rng = np.random.default_rng(rows_per_gate)
+    t = 3 * rows_per_gate
+    x, a, b = _bank(rng, t, 64, 4, 4, 40)
+    g = np.zeros((3, 4), np.float32)
+    g[0, 2] = 1.0
+    g[2] = rng.random(4) + 0.1
+    g[2, 1] = 0.0
+    got = K.moe_lora_delta(*_t(x, a, b, g), rows_per_gate=rows_per_gate)
+    full = np.repeat(g, rows_per_gate, axis=0)
+    _close(got, moe_lora_delta_ref(*map(jnp.asarray, (x, a, b, full))))
+    _close(got, pallas_k5(*map(jnp.asarray, (x, a, b, full)),
+                          block_t=rows_per_gate, interpret=True))
+    assert not got[rows_per_gate:2 * rows_per_gate].any()
+    keep = [0, 2, 3]
+    without = K.moe_lora_delta(*_t(x, a[keep], b[keep], g[:, keep]),
+                               rows_per_gate=rows_per_gate)
+    _close(got[2 * rows_per_gate:], without[2 * rows_per_gate:])
+
+
 def test_k4_plain_matches_reference_and_pallas():
     """Repeated slots and adapter-free rows; those rows exactly 0."""
     rng = np.random.default_rng(4)
