@@ -13,8 +13,11 @@ Phases, in order; any failure exits non-zero before the result lines:
               gated multi-LoRA delta, K6 Mamba-1 selective scan) against
               its plain PyTorch version on the card at the main paths'
               shapes, timed with CUDA events beside its bound and a
-              library call where one exists; K5 on one-hot gate rows must
-              equal K4 bit for bit at T = 8; K3 also on (B, H, S, D)
+              library call where one exists (K2, and K4/K5 at T = 8, also
+              replayed from a CUDA graph, without the host's dispatch);
+              K5 on one-hot gate rows must
+              equal K4 bit for bit at T = 8; two calls of K2, K4 and K5
+              on the same inputs must return the same bits; K3 also on (B, H, S, D)
               views of (B, S, H, D) tensors, K5 also at the admission
               burst under one-hot gate rows;
   4. check    the reduced 2b pair in bf16 on the card against the same
@@ -190,6 +193,34 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
+    """ms per call of fn replayed from a CUDA graph of ``calls`` calls:
+    the kernels' device time and the gaps between their launches,
+    without the host's per-call dispatch, which back-to-back calls of a
+    microsecond-scale kernel measure instead (``time_ms``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
 def rel_err(out, ref) -> float:
     """max over elements of |out - ref| / |ref|."""
     return ((out.float() - ref.float()).abs() / ref.float().abs()).max().item()
@@ -244,7 +275,10 @@ def phase_k2(torch):
     for model, h, kvh, window, positions in runs:
         args = paged_case(torch, g, h, kvh, window, positions)
         out = K2.paged_decode_attention(*args, window=window)
+        again = K2.paged_decode_attention(*args, window=window)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise SystemExit("K2: two calls on the same inputs differ")
         ref = K2.paged_decode_attention_plain(*args, window=window)
         live = [i for i, p in enumerate(positions) if p < FREED_POS]
         parked = [i for i, p in enumerate(positions) if p >= FREED_POS]
@@ -267,6 +301,8 @@ def phase_k2(torch):
             max_rel_err=row_rel_err(out[live], ref[live]),
             ms=time_ms(torch, lambda: K2.paged_decode_attention(
                 *args, window=window), 100),
+            graph_ms=graph_ms(torch, lambda: K2.paged_decode_attention(
+                *args, window=window)),
             plain_ms=time_ms(torch, lambda: K2.paged_decode_attention_plain(
                 *args, window=window), 10),
             library_ms=None, bound_ms=bms, bound_by=by,
@@ -374,11 +410,15 @@ def lora_inputs(torch, g, t, k, n):
 
 
 def lora_case(torch, which, fn, plain, lib, args, live, nbytes, flops,
-              iters, shape):
+              iters, shape, graph=False):
     """Run, hold against the plain version (per live row) and time one
-    K4/K5 case; rows outside ``live`` must be exact zeros."""
+    K4/K5 case (``graph``: also replayed from a CUDA graph); rows outside
+    ``live`` must be exact zeros."""
     out = fn(*args)
+    again = fn(*args)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise SystemExit(f"{which}: two calls on the same inputs differ")
     ref = plain(*args)
     kept = set(live)
     dead = [i for i in range(out.shape[0]) if i not in kept]
@@ -393,6 +433,8 @@ def lora_case(torch, which, fn, plain, lib, args, live, nbytes, flops,
         plain_ms=time_ms(torch, lambda: plain(*args), max(3, iters // 10)),
         library_ms=time_ms(torch, lambda: lib(*args), iters),
         bound_ms=bms, bound_by=by)
+    if graph:
+        case["graph_ms"] = graph_ms(torch, lambda: fn(*args))
     print(f"{which}: {case}")
     return out, case
 
@@ -441,7 +483,8 @@ def phase_lora(torch):
             (x, a, b, slots), live4,
             8 * k * 2 + used * LORA_R * (k + n) * 4 + 8 * 4 + 8 * n * 4,
             2 * len(live4) * LORA_R * (k + n), 200,
-            dict(T=8, k=k, n=n, E=LORA_E, r=LORA_R, slots=K4_SLOTS))
+            dict(T=8, k=k, n=n, E=LORA_E, r=LORA_R, slots=K4_SLOTS),
+            graph=True)
         k4_cases.append(c4)
         hot_out = KL.moe_lora_delta(x, a, b, hot)
         torch.cuda.synchronize()
@@ -455,7 +498,7 @@ def phase_lora(torch):
             KL.moe_lora_delta_plain, lib5, (x, a, b, soft), live5, nbytes5,
             2 * 8 * LORA_E * LORA_R * (k + n), 200,
             dict(T=8, k=k, n=n, E=LORA_E, r=LORA_R, gates="soft, one "
-                 "one-hot row, one zero row"))
+                 "one-hot row, one zero row"), graph=True)
         k5_cases.append(c5)
         del x, a, b
     # the admission burst of serve_adapters: 8 requests x 1,552 slots

@@ -17,23 +17,32 @@
 // rate applies without rounding them).
 //
 // Design: two launches per call, both in this file.
-// At decode (T < 64, and every K4 call):
-//  1. down: u[t, j, :] = x[t] A_j^T (times the gate for K5), into an f32
-//     scratch (T, E, r) (K4: (T, r)).  A CTA of 8 warps takes one row
-//     and 8 ranks of one expert; one warp per rank, its lanes stride over
-//     k 8 elements a lane at a time and accumulate with fmaf in order,
-//     then a butterfly over the warp.  The row's x is staged through
-//     shared memory 256 columns at a time (one 16-byte load a thread), so
-//     the 8 warps read it from L2 once; rows, experts and ranks spread
-//     over SMs.
-//  2. up: out[t, c] = sum_j sum_i u[t, j, i] B_j[c, i], one thread per
-//     output column c for 32 rows, u of the rows in shared memory: for
-//     each expert, four ranks of B_j[c, :] are loaded once (16 bytes) and
-//     applied to every row, j outer, i inner, fmaf in order.
-// Both kernels run the same routines (down_block, up4) in the same order
-// over k and over r, so a gate of exactly 1.0 multiplies nothing away and
-// a gate of 0.0 adds exact zeros: K5 on one-hot gate rows returns K4's
-// output bit for bit.
+// At decode (T < 64, and every K4 call), a latency-bound shape: T = 8
+// rows against a few MB of bank, so the design spreads the bank's bytes
+// over many CTAs.
+//  1. down: k is cut into up to 16 parts of 256-column steps
+//     (decode_parts); CTA (part z, expert j, 4 ranks) reads its ranks of
+//     A_j over part z once and applies them to every row that reads
+//     expert j (K5: all rows; K4: the rows whose slot is j, the
+//     segmented form: a slot shared by several rows is read once), 8
+//     rows at a time.  Lane l of a warp takes columns [8 l + 256 m, 8 l +
+//     256 m + 8) in order of m, fmaf in order, then a butterfly; the
+//     part's sums land in an f32 scratch (parts, T, E, r) (K4: (parts,
+//     T, r)).  128 CTAs at k = 2,048 and 256 at k = 16,384 for E = 4,
+//     r = 16.
+//  2. up: a CTA of 256 threads takes 64 output columns of up to 8 rows
+//     (up_rows picks the rows so the grid holds about two CTAs an SM:
+//     32 CTAs at n = 256, 256 at n = 2,048, 512 at n = 32,768, T = 8).
+//     It stages u = part_0 + part_1 + ... (times the gate for K5) in
+//     shared memory, then four threads share a column: each reads a
+//     quarter of B_j[c, :] as float4, so a warp reads 512 contiguous
+//     bytes, keeps a chain per row over experts ascending and ranks
+//     ascending, and a two-step butterfly adds the quarters.
+// K4 and K5 run these routines (lora_down, lora_up) in the same order
+// over k, parts, r and the quarters; a gate of exactly 1.0 multiplies
+// nothing away and a gate of 0.0 adds exact zeros, so K5 on one-hot gate
+// rows returns K4's output bit for bit.  No atomics: a run repeats bit
+// for bit.
 // At an admission prefill (K5 with T >= 64) both passes are
 // register-tiled SIMT f32 GEMMs (A and B stay f32: TF32 would fail the
 // 1e-5 limit, so no tensor cores):
@@ -57,9 +66,9 @@
 //     cp.async while the current one is computed, each B' float is read
 //     from L2 once per 128 rows, and outputs are stored 16 bytes a
 //     thread with the streaming hint (they are not read again).
-// Registers and shared memory (ptxas, sm_90a, nvcc 12.9): down 109
-// registers, 25,600 B; up 128 registers (the cap of two CTAs of 256 per
-// SM), 98,304 B dynamic + 400 B; no spills in either.
+// Registers and shared memory of the admission GEMMs (ptxas, sm_90a,
+// nvcc 12.9): down 109 registers, 25,600 B; up 128 registers (the cap of
+// two CTAs of 256 per SM), 98,304 B dynamic + 400 B; no spills in either.
 // Zero gates: where all rows of a tile share one gate row (rows_per_gate
 // >= the tile, as at admission), an expert whose gate is exactly 0 is
 // skipped in both passes: the down pass writes 0 for its columns and the
@@ -67,8 +76,8 @@
 // fmaf(0, b, acc) keeps the sum bit-identical for finite B, and the
 // order of every sum depends on k, r and the experts kept alone, so a
 // gate of 0 gives the output of a bank without that expert.  A tile that
-// straddles two gate rows computes every expert.  Grouping rows by slot
-// (a segmented GEMM) and 3xTF32 tensor cores are later work.
+// straddles two gate rows computes every expert.  3xTF32 tensor cores
+// are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,9 +88,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 256;    // x columns staged per step of the down pass
-constexpr int kUpRows = 32;    // rows per CTA of the up pass
-constexpr int kUpCols = kThreads;
+constexpr int kSMs = 132;
 
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -102,43 +109,46 @@ __device__ __forceinline__ void load8(const bf16* p, float v[8]) {
   }
 }
 
-// x . a over k for one row x, computed by one warp, x staged through sx
-// (shared, kChunk); every lane returns the full sum.  Lane l takes
-// elements [8 l + 256 m, 8 l + 256 m + 8) in order of m, so the order of
-// the sum depends on k alone.  Every thread of the CTA must call it (it
-// stages x with barriers); a warp with no rank passes a == nullptr and
-// only helps stage.
-__device__ __forceinline__ float down_block(const bf16* __restrict__ x,
-                                            int k,
-                                            const float* __restrict__ a,
-                                            bf16* sx) {
-  constexpr int kVec = 8;                       // bf16 per 16 bytes
-  const int lane = threadIdx.x & 31;
-  float acc = 0.f;
-  for (int k0 = 0; k0 < k; k0 += kChunk) {
-    for (int c = threadIdx.x * kVec; c < kChunk; c += kThreads * kVec)
-      if (k0 + c < k)
-        *reinterpret_cast<uint4*>(sx + c) =
-            *reinterpret_cast<const uint4*>(x + k0 + c);
-    __syncthreads();
-    const int kk = k0 + lane * 8;
-    if (a != nullptr && kk < k) {
-      float av[8], xv[8];
-      load8(a + kk, av);
-      load8(sx + lane * 8, xv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc = __fmaf_rn(xv[i], av[i], acc);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  return acc;
+// ---- Decode (T < 64, and every K4 call): k split over CTAs ----
+
+constexpr int kDecStep = 256;     // k columns a warp takes per step
+constexpr int kDecMaxParts = 16;  // parts k is split into, at most
+constexpr int kDecRows = 8;       // rows a warp (down) or CTA (up) holds
+constexpr int kDownWarps = 4;     // ranks per CTA of the down pass
+constexpr int kUpThreads = 256;   // 64 columns x 4 quarters of r
+constexpr int kUpCols = kUpThreads / 4;
+
+// Parts of k and their width (a multiple of kDecStep): ceil(k / 256)
+// parts of 256 up to 16 parts.
+void decode_parts(int k, int* parts, int* k_part) {
+  const int steps = (k + kDecStep - 1) / kDecStep;
+  const int want = min(kDecMaxParts, steps);
+  *k_part = (steps + want - 1) / want * kDecStep;
+  *parts = (k + *k_part - 1) / *k_part;
 }
 
-// acc = fmaf(u[i], b[i], acc) for i = 0 .. 3 in order: four ranks of one
-// expert's share of an output.
+// Rows per CTA of the up pass: enough row blocks that the grid holds
+// about two CTAs per SM, at most kDecRows rows a CTA.
+int up_rows(int T, int n) {
+  const int col_ctas = (n + kUpCols - 1) / kUpCols;
+  const int want = (2 * kSMs + col_ctas - 1) / col_ctas;
+  return max(1, min(kDecRows, (T + want - 1) / want));
+}
+
+// The expert row t reads: K5, every expert; K4, its slot (clamped onto
+// E - 1), or -1 for a row without an adapter.
+template <bool kSlots>
+__device__ __forceinline__ int slot_of(const int32_t* slots, int t,
+                                       int rows_per, int E) {
+  if constexpr (kSlots) {
+    const int s = slots[t / rows_per];
+    return s < 0 ? -1 : min(s, E - 1);
+  } else {
+    return 0;
+  }
+}
+
+// acc = fmaf(u[i], b[i], acc) for i = 0 .. 3 in order.
 __device__ __forceinline__ float up4(float4 u, float4 b, float acc) {
   acc = __fmaf_rn(u.x, b.x, acc);
   acc = __fmaf_rn(u.y, b.y, acc);
@@ -146,105 +156,142 @@ __device__ __forceinline__ float up4(float4 u, float4 b, float acc) {
   return __fmaf_rn(u.w, b.w, acc);
 }
 
-// K5 down at decode: grid (T, E * ceil(r / kWarps)); warp w of CTA
-// (t, j * rb + q) computes rank q * kWarps + w of expert j for row t.
-// u (T, E, r) = gate * x A_j^T.
-__global__ void __launch_bounds__(kThreads) k5_down(
+// Down pass, grid (parts, E * ceil(r / 4)), 4 warps.  Warp w of CTA (z,
+// j * rb + q) owns rank i = 4 q + w of expert j and part z of k, [z
+// k_part, (z + 1) k_part): for each row that reads expert j (K5: every
+// row; K4: the rows whose slot is j, so A_j is read once a call however
+// many rows share it) it writes
+//   part[z][t][j'][i] = sum over the part of x[t, c] A_j[i, c],
+// j' = j (K5) or 0 (K4, E' = 1).  Lane l takes columns [8 l + 256 m,
+// 8 l + 256 m + 8) of the part in order of m, fmaf in order, then a
+// butterfly over the warp: the order depends on k alone, the same in K4
+// and K5.  Rows go 8 at a time, so A's 8 floats a lane serve 8 rows.
+template <bool kSlots>
+__global__ void __launch_bounds__(kDownWarps * 32) lora_down(
     const bf16* __restrict__ x, const float* __restrict__ a,
-    const float* __restrict__ gates, float* __restrict__ u, int k, int r,
-    int E, int rows_per_gate) {
-  __shared__ __align__(16) bf16 sm[kChunk];
-  const int rb = (r + kWarps - 1) / kWarps;
+    const int32_t* __restrict__ slots, float* __restrict__ part, int T,
+    int k, int r, int E, int rows_per, int k_part) {
+  const int rb = (r + kDownWarps - 1) / kDownWarps;
   const int j = blockIdx.y / rb;
-  const int rr = (blockIdx.y % rb) * kWarps + (threadIdx.x >> 5);
-  const int t = blockIdx.x;
-  const float acc = down_block(
-      x + static_cast<size_t>(t) * k, k,
-      rr < r ? a + (static_cast<size_t>(j) * r + rr) * k : nullptr, sm);
-  if (rr >= r || (threadIdx.x & 31) != 0) return;
-  const float g = gates[static_cast<size_t>(t / rows_per_gate) * E + j];
-  u[(static_cast<size_t>(t) * E + j) * r + rr] = __fmul_rn(acc, g);
+  const int i = (blockIdx.y % rb) * kDownWarps + (threadIdx.x >> 5);
+  if (i >= r) return;
+  const int lane = threadIdx.x & 31, z = blockIdx.x;
+  const int k_lo = z * k_part, k_hi = min(k, k_lo + k_part);
+  const int el = kSlots ? 1 : E, jl = kSlots ? 0 : j;
+  const float* arow = a + (static_cast<size_t>(j) * r + i) * k;
+  for (int t0 = 0; t0 < T; t0 += kDecRows) {
+    bool use[kDecRows];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < kDecRows; ++q) {
+      const int t = t0 + q;
+      use[q] = t < T &&
+               (!kSlots || slot_of<kSlots>(slots, t, rows_per, E) == j);
+      any |= use[q];
+    }
+    if (!any) continue;
+    float acc[kDecRows];
+#pragma unroll
+    for (int q = 0; q < kDecRows; ++q) acc[q] = 0.f;
+    for (int kk = k_lo + lane * 8; kk < k_hi; kk += kDecStep) {
+      float av[8];
+      load8(arow + kk, av);
+#pragma unroll
+      for (int q = 0; q < kDecRows; ++q) {
+        if (!use[q]) continue;
+        float xv[8];
+        load8(x + static_cast<size_t>(t0 + q) * k + kk, xv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[q] = __fmaf_rn(xv[e], av[e], acc[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kDecRows; ++q) {
+      if (!use[q]) continue;                    // the same in every lane
+      float v = acc[q];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+      if (lane == 0)
+        part[((static_cast<size_t>(z) * T + t0 + q) * el + jl) * r + i] = v;
+    }
+  }
 }
 
-// K4 down: grid (T, ceil(r / kWarps)); u (T, r) = x[t] A_s^T, nothing
-// for a row whose slot is negative.
-__global__ void __launch_bounds__(kThreads) k4_down(
-    const bf16* __restrict__ x, const float* __restrict__ a,
-    const int32_t* __restrict__ slots, float* __restrict__ u, int k, int r,
-    int E, int rows_per_slot) {
-  __shared__ __align__(16) bf16 sm[kChunk];
-  const int t = blockIdx.x;
-  const int rr = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  int s = slots[t / rows_per_slot];
-  if (s < 0) return;                            // the whole CTA
-  s = min(s, E - 1);
-  const float acc = down_block(
-      x + static_cast<size_t>(t) * k, k,
-      rr < r ? a + (static_cast<size_t>(s) * r + rr) * k : nullptr, sm);
-  if (rr < r && (threadIdx.x & 31) == 0)
-    u[static_cast<size_t>(t) * r + rr] = acc;
-}
-
-// K5 up: grid (ceil(n / kUpCols), ceil(T / kUpRows)).
-__global__ void __launch_bounds__(kThreads) k5_up(
-    const float* __restrict__ u, const float* __restrict__ b,
-    float* __restrict__ out, int T, int n, int r, int E) {
-  extern __shared__ __align__(16) float su[];   // kUpRows x E x r
-  const int t0 = blockIdx.y * kUpRows;
-  const int nrows = min(kUpRows, T - t0);
-  const int er = E * r;
-  for (int i = threadIdx.x; i < nrows * er; i += kThreads)
-    su[i] = u[static_cast<size_t>(t0) * er + i];
+// Up pass, grid (ceil(n / 64), ceil(T / rows)), 256 threads, rows * E'
+// * r floats of dynamic shared memory.  The CTA first stages u for its
+// rows, u = part_0 + part_1 + ... in part order (times the gate for
+// K5).  Thread (column c, quarter qr) then reads B_j[c, 4 qr + 16 m ..
+// + 4] as float4 (four threads cover a column's r floats, so a warp
+// reads 8 whole columns, 512 contiguous bytes, per load) and keeps a
+// chain per row over experts j ascending (K5) or the row's slot (K4),
+// ranks ascending; the four quarters are added by a butterfly.  A K5
+// row whose gates are one-hot adds exact zeros for the other experts,
+// so it equals K4's row bit for bit; a K4 row without an adapter is 0.
+template <bool kSlots>
+__global__ void __launch_bounds__(kUpThreads) lora_up(
+    const float* __restrict__ part, const float* __restrict__ b,
+    const float* __restrict__ gates, const int32_t* __restrict__ slots,
+    float* __restrict__ out, int T, int n, int r, int E, int rows_per,
+    int parts, int rows) {
+  extern __shared__ __align__(16) float su[];   // rows x E' x r
+  const int el = kSlots ? 1 : E, er = el * r;
+  const int t0 = blockIdx.y * rows;
+  const int nrows = min(rows, T - t0);
+  for (int v = threadIdx.x; v < nrows * er; v += kUpThreads) {
+    const int t = t0 + v / er;
+    const size_t at = static_cast<size_t>(t) * er + v % er;
+    float u = 0.f;
+    if (!kSlots || slot_of<kSlots>(slots, t, rows_per, E) >= 0) {
+      u = part[at];
+      for (int z = 1; z < parts; ++z)
+        u = __fadd_rn(u, part[static_cast<size_t>(z) * T * er + at]);
+      if (!kSlots)
+        u = __fmul_rn(u, gates[static_cast<size_t>(t / rows_per) * E +
+                               (v % er) / r]);
+    }
+    su[v] = u;
+  }
   __syncthreads();
-  const int c = blockIdx.x * kUpCols + threadIdx.x;
-  if (c >= n) return;
-  float acc[kUpRows];
+  const int c = blockIdx.x * kUpCols + threadIdx.x / 4;
+  const int qr = threadIdx.x % 4;
+  float acc[kDecRows];
 #pragma unroll
-  for (int t = 0; t < kUpRows; ++t) acc[t] = 0.f;
-  for (int j = 0; j < E; ++j) {
-    const float* bj = b + (static_cast<size_t>(j) * n + c) * r;
-    for (int i = 0; i < r; i += 4) {
-      const float4 bv = *reinterpret_cast<const float4*>(bj + i);
+  for (int q = 0; q < kDecRows; ++q) acc[q] = 0.f;
+  if (c >= n) {
+    // past the last column: only joins the butterfly below
+  } else if constexpr (kSlots) {
 #pragma unroll
-      for (int t = 0; t < kUpRows; ++t)
-        if (t < nrows)
-          acc[t] = up4(*reinterpret_cast<const float4*>(su + t * er + j * r +
-                                                        i),
-                       bv, acc[t]);
+    for (int q = 0; q < kDecRows; ++q) {
+      if (q >= nrows) continue;
+      const int s = slot_of<kSlots>(slots, t0 + q, rows_per, E);
+      if (s < 0) continue;
+      const float* bs = b + (static_cast<size_t>(s) * n + c) * r;
+      for (int i = 4 * qr; i < r; i += 16)
+        acc[q] = up4(*reinterpret_cast<const float4*>(su + q * r + i),
+                     *reinterpret_cast<const float4*>(bs + i), acc[q]);
+    }
+  } else {
+    for (int j = 0; j < E; ++j) {
+      const float* bj = b + (static_cast<size_t>(j) * n + c) * r;
+      for (int i = 4 * qr; i < r; i += 16) {
+        const float4 bv = *reinterpret_cast<const float4*>(bj + i);
+#pragma unroll
+        for (int q = 0; q < kDecRows; ++q)
+          if (q < nrows)
+            acc[q] = up4(*reinterpret_cast<const float4*>(su + q * er +
+                                                          j * r + i),
+                         bv, acc[q]);
+      }
     }
   }
 #pragma unroll
-  for (int t = 0; t < kUpRows; ++t)
-    if (t < nrows) out[static_cast<size_t>(t0 + t) * n + c] = acc[t];
-}
-
-// K4 up: grid (ceil(n / kUpCols), ceil(T / kUpRows)).
-__global__ void __launch_bounds__(kThreads) k4_up(
-    const float* __restrict__ u, const float* __restrict__ b,
-    const int32_t* __restrict__ slots, float* __restrict__ out, int T, int n,
-    int r, int E, int rows_per_slot) {
-  extern __shared__ __align__(16) float su[];   // kUpRows x r
-  const int t0 = blockIdx.y * kUpRows;
-  const int nrows = min(kUpRows, T - t0);
-  for (int i = threadIdx.x; i < nrows * r; i += kThreads) {
-    const int t = t0 + i / r;
-    // a row without an adapter has no u; keep its garbage out of shared
-    su[i] = slots[t / rows_per_slot] < 0 ? 0.f
-                                         : u[static_cast<size_t>(t0) * r + i];
-  }
-  __syncthreads();
-  const int c = blockIdx.x * kUpCols + threadIdx.x;
-  if (c >= n) return;
-  for (int t = 0; t < nrows; ++t) {
-    const int s = slots[(t0 + t) / rows_per_slot];
-    float acc = 0.f;
-    if (s >= 0) {
-      const float* bs = b + (static_cast<size_t>(min(s, E - 1)) * n + c) * r;
-      for (int i = 0; i < r; i += 4)
-        acc = up4(*reinterpret_cast<const float4*>(su + t * r + i),
-                  *reinterpret_cast<const float4*>(bs + i), acc);
-    }
-    out[static_cast<size_t>(t0 + t) * n + c] = acc;
+  for (int q = 0; q < kDecRows; ++q) {
+    float v = acc[q];
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    if (q < nrows && qr == 0 && c < n)
+      out[static_cast<size_t>(t0 + q) * n + c] = v;
   }
 }
 
@@ -257,7 +304,6 @@ constexpr int kTileCols = 128;   // output columns of an up-pass tile
 constexpr int kUpK = 64;         // inner columns staged per up-pass step
 constexpr int kUpGroups = 8;     // column groups of the up pass's grid
 constexpr int kPad = 4;          // floats of padding per shared row
-constexpr int kSMs = 132;
 constexpr int kMaxExperts = 96;  // E r <= 384 (check_dims) and r >= 4
 
 // Parts the down pass splits k into: the fewest (at most 8, each at
@@ -572,12 +618,38 @@ __global__ void __launch_bounds__(kThreads, 2) k5_gemm_up(
   }
 }
 
+// E r <= 384: the admission up pass keeps the kept experts' list in
+// kMaxExperts entries.
 int check_dims(int T, int k, int n, int r, int E, int rows_per) {
   if (T <= 0 || k <= 0 || n <= 0 || r <= 0 || E <= 0 || rows_per <= 0 ||
-      k % 8 != 0 || r % 4 != 0 ||
-      static_cast<size_t>(kUpRows) * E * r * sizeof(float) > 48 * 1024)
+      k % 8 != 0 || r % 4 != 0 || E * r > 384)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+// The decode design's two launches (K4 with kSlots, K5 below 64 rows).
+template <bool kSlots>
+int launch_decode(const void* x, const void* a, const void* b,
+                  const void* sel, void* u, void* out, int T, int k, int n,
+                  int r, int E, int rows_per, cudaStream_t stream) {
+  int parts, k_part;
+  decode_parts(k, &parts, &k_part);
+  const float* gp = kSlots ? nullptr : static_cast<const float*>(sel);
+  const int32_t* sp = kSlots ? static_cast<const int32_t*>(sel) : nullptr;
+  float* up = static_cast<float*>(u);
+  dim3 grid(parts, E * ((r + kDownWarps - 1) / kDownWarps));
+  lora_down<kSlots><<<grid, kDownWarps * 32, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(a), sp, up, T,
+      k, r, E, rows_per, k_part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = up_rows(T, n);
+  dim3 grid_up((n + kUpCols - 1) / kUpCols, (T + rows - 1) / rows);
+  const size_t smem = sizeof(float) * rows * (kSlots ? 1 : E) * r;
+  lora_up<kSlots><<<grid_up, kUpThreads, smem, stream>>>(
+      up, static_cast<const float*>(b), gp, sp, static_cast<float*>(out), T,
+      n, r, E, rows_per, parts, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_k5(const void* x, const void* a, const void* b, const void* gates,
@@ -589,17 +661,9 @@ int launch_k5(const void* x, const void* a, const void* b, const void* gates,
   const float* gp = static_cast<const float*>(gates);
   float* up = static_cast<float*>(u);
   float* op = static_cast<float*>(out);
-  if (T < 64) {
-    dim3 grid(T, E * ((r + kWarps - 1) / kWarps));
-    k5_down<<<grid, kThreads, 0, stream>>>(xp, ap, gp, up, k, r, E,
-                                           rows_per_gate);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid_up((n + kUpCols - 1) / kUpCols, (T + kUpRows - 1) / kUpRows);
-    const size_t smem = sizeof(float) * kUpRows * E * r;
-    k5_up<<<grid_up, kThreads, smem, stream>>>(up, bp, op, T, n, r, E);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (T < 64)
+    return launch_decode<false>(x, a, b, gates, u, out, T, k, n, r, E,
+                                rows_per_gate, stream);
   const int er = E * r;
   const int splits = down_splits(T, k, er);
   const int k_split =
@@ -621,39 +685,29 @@ int launch_k5(const void* x, const void* a, const void* b, const void* gates,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_k4(const void* x, const void* a, const void* b, const void* slots,
-              void* u, void* out, int T, int k, int n, int r, int E,
-              int rows_per_slot, cudaStream_t stream) {
-  const int32_t* sp = static_cast<const int32_t*>(slots);
-  float* up = static_cast<float*>(u);
-  dim3 grid(T, (r + kWarps - 1) / kWarps);
-  k4_down<<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), sp, up, k, r,
-      E, rows_per_slot);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid_up((n + kUpCols - 1) / kUpCols, (T + kUpRows - 1) / kUpRows);
-  const size_t smem = sizeof(float) * kUpRows * r;
-  k4_up<<<grid_up, kThreads, smem, stream>>>(
-      up, static_cast<const float*>(b), sp, static_cast<float*>(out), T, n, r,
-      E, rows_per_slot);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Floats of f32 scratch K5 needs: u (T, E, r) at decode, the down pass's
-// parts (splits, T, E, r) at an admission prefill.
+// Floats of f32 scratch K5 needs: the down pass's parts (parts, T, E,
+// r), at decode (T < 64) of the k split of decode_parts, at an
+// admission prefill of down_splits.
 extern "C" long long moe_lora_delta_scratch(int T, int k, int r, int E) {
   const long long er = static_cast<long long>(E) * r;
-  return (T < 64 ? 1 : down_splits(T, k, static_cast<int>(er))) * T * er;
+  int parts, k_part;
+  decode_parts(k, &parts, &k_part);
+  return (T < 64 ? parts : down_splits(T, k, static_cast<int>(er))) * T * er;
+}
+
+// Floats of f32 scratch K4 needs: the down pass's parts (parts, T, r).
+extern "C" long long moe_lora_delta_slots_scratch(int T, int k, int r) {
+  int parts, k_part;
+  decode_parts(k, &parts, &k_part);
+  return static_cast<long long>(parts) * T * r;
 }
 
 // x (T, k) contiguous bf16, 16-byte aligned; a (E, r, k), b (E, n, r),
 // gates (T / rows_per_gate, E), out (T, n): contiguous f32; u: f32
 // scratch of moe_lora_delta_scratch(T, k, r, E) floats.  k % 8 == 0,
-// r % 4 == 0, 32 * E * r floats must fit 48 KB.  Returns 0 or a
-// cudaError_t.
+// r % 4 == 0, E * r <= 384.  Returns 0 or a cudaError_t.
 extern "C" int moe_lora_delta_f32(const void* x, const void* a,
                                   const void* b, const void* gates, void* u,
                                   void* out, int T, int k, int n, int r,
@@ -665,7 +719,8 @@ extern "C" int moe_lora_delta_f32(const void* x, const void* a,
 }
 
 // As moe_lora_delta_f32 with slots (T / rows_per_slot,) int32 in place
-// of the gates and a u scratch of T * r floats.
+// of the gates and a u scratch of moe_lora_delta_slots_scratch(T, k, r)
+// floats; every T takes the decode design.
 extern "C" int moe_lora_delta_slots_f32(const void* x, const void* a,
                                         const void* b, const void* slots,
                                         void* u, void* out, int T, int k,
@@ -673,6 +728,6 @@ extern "C" int moe_lora_delta_slots_f32(const void* x, const void* a,
                                         int rows_per_slot,
                                         cudaStream_t stream) {
   if (int bad = check_dims(T, k, n, r, E, rows_per_slot)) return bad;
-  return launch_k4(x, a, b, slots, u, out, T, k, n, r, E, rows_per_slot,
-                   stream);
+  return launch_decode<true>(x, a, b, slots, u, out, T, k, n, r, E,
+                             rows_per_slot, stream);
 }

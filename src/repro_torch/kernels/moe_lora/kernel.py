@@ -18,8 +18,10 @@ rounds it to the activation dtype.
 On a CUDA tensor each wrapper launches the kernel of
 ``csrc/moe_lora.cu`` (x bf16, k % 8 == 0, r % 4 == 0, bank and gates
 f32) or raises; on a CPU tensor it runs the plain version beside
-it.  At decode (T < 64) both kernels share one accumulation order over
-k and r, so K5 on one-hot gate rows equals K4 bit for bit.  At an
+it.  At decode (T < 64, and every K4 call) both kernels run one design
+(k split over CTAs, the parts added in a fixed order) with one
+accumulation order over k and r, so K5 on one-hot gate rows equals K4
+bit for bit, and a call repeats bit for bit.  At an
 admission prefill (T >= 64) K5 runs two register-tiled f32 GEMMs and
 skips an expert whose gate is exactly 0 in a tile of rows that share
 one gate row, which leaves the result bit-identical to a bank without
@@ -35,8 +37,7 @@ import torch
 from repro_torch.kernels import build
 
 _CTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
-_MAX_SMEM_FLOATS = 48 * 1024 // 4        # 32 rows x E x r, decode up pass
-_UP_ROWS = 32
+_MAX_BANK = 384                          # E * r, the CUDA kernel's limit
 
 
 def moe_lora_delta_plain(x, a, b, gates, rows_per_gate: int = 1):
@@ -66,100 +67,133 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.moe_lora_delta_scratch.argtypes = (ctypes.c_int,) * 4
     lib.moe_lora_delta_scratch.restype = ctypes.c_longlong
+    lib.moe_lora_delta_slots_scratch.argtypes = (ctypes.c_int,) * 3
+    lib.moe_lora_delta_slots_scratch.restype = ctypes.c_longlong
     return lib
 
 
-def _check(what, x, a, b, sel, sel_dtypes, rows_per):
-    """Validate the common contract; returns (T, k, n, r, E)."""
-    if x.dim() != 2 or a.dim() != 3 or b.dim() != 3:
+def _static(what, x_shape, a_shape, b_shape, sel_shape, sel_dtype,
+            sel_dtypes, rows_per):
+    """Validate the common contract from shapes; returns (T, k, n, r,
+    E)."""
+    if len(x_shape) != 2 or len(a_shape) != 3 or len(b_shape) != 3:
         raise ValueError(f"{what}: x must be (T, k), A (E, r, k) and B "
                          f"(E, n, r)")
-    t, k = x.shape
-    e, r, ka = a.shape
-    if ka != k or b.shape[0] != e or b.shape[2] != r:
-        raise ValueError(f"{what}: mismatched shapes x {tuple(x.shape)}, "
-                         f"A {tuple(a.shape)}, B {tuple(b.shape)}")
-    if rows_per < 1 or sel.shape[0] * rows_per != t:
-        raise ValueError(f"{what}: {sel.shape[0]} selector rows x "
+    t, k = x_shape
+    e, r, ka = a_shape
+    if ka != k or b_shape[0] != e or b_shape[2] != r:
+        raise ValueError(f"{what}: mismatched shapes x {tuple(x_shape)}, "
+                         f"A {tuple(a_shape)}, B {tuple(b_shape)}")
+    if rows_per < 1 or sel_shape[0] * rows_per != t:
+        raise ValueError(f"{what}: {sel_shape[0]} selector rows x "
                          f"{rows_per} rows each do not cover T={t}")
-    if sel.dtype not in sel_dtypes:
-        raise TypeError(f"{what}: selector dtype {sel.dtype}")
-    return t, k, b.shape[1], r, e
+    if sel_dtype not in sel_dtypes:
+        raise TypeError(f"{what}: selector dtype {sel_dtype}")
+    return t, k, b_shape[1], r, e
 
 
-def _check_cuda(what, x, a, b, sel, k, r, e):
-    if x.dtype != torch.bfloat16 or a.dtype != torch.float32 \
-            or b.dtype != torch.float32:
+_GATE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+_SLOT_DTYPES = (torch.int32, torch.int64)
+
+
+def _check_selector(slots_kernel, sel_shape, e):
+    if slots_kernel and len(sel_shape) != 1:
+        raise ValueError("moe_lora_delta_slots: slots must be 1-D")
+    if not slots_kernel and (len(sel_shape) != 2 or sel_shape[1] != e):
+        raise ValueError(f"moe_lora_delta: gates {tuple(sel_shape)} must "
+                         f"be (G, {e})")
+
+
+@functools.lru_cache(maxsize=256)
+def _cuda_layout(slots_kernel, x_shape, a_shape, b_shape, sel_shape,
+                 dtypes, rows_per):
+    """Everything the CUDA kernels check from shapes and dtypes alone
+    (cached: a serving loop repeats them).  Returns the C entry point,
+    the launch's integer arguments and the floats of its scratch."""
+    what = "moe_lora_delta_slots" if slots_kernel else "moe_lora_delta"
+    x_dt, a_dt, b_dt, sel_dt = dtypes
+    t, k, n, r, e = _static(what, x_shape, a_shape, b_shape, sel_shape,
+                            sel_dt,
+                            _SLOT_DTYPES if slots_kernel else _GATE_DTYPES,
+                            rows_per)
+    _check_selector(slots_kernel, sel_shape, e)
+    if slots_kernel and sel_dt != torch.int32:
+        raise TypeError("moe_lora_delta_slots: the CUDA kernel takes int32 "
+                        "slots")
+    if not slots_kernel and sel_dt != torch.float32:
+        raise TypeError("moe_lora_delta: the CUDA kernel takes f32 gates")
+    if x_dt != torch.bfloat16 or a_dt != torch.float32 \
+            or b_dt != torch.float32:
         raise TypeError(f"{what}: the CUDA kernel takes x bf16 and an f32 "
-                        f"bank, got {x.dtype}/{a.dtype}/{b.dtype}")
-    if k % 8 or r % 4 or _UP_ROWS * e * r > _MAX_SMEM_FLOATS:
+                        f"bank, got {x_dt}/{a_dt}/{b_dt}")
+    if k % 8 or r % 4 or e * r > _MAX_BANK:
         raise ValueError(f"{what}: the CUDA kernel takes k % 8 == 0, "
-                         f"r % 4 == 0 and E * r <= "
-                         f"{_MAX_SMEM_FLOATS // _UP_ROWS}; got k={k}, "
+                         f"r % 4 == 0 and E * r <= {_MAX_BANK}; got k={k}, "
                          f"r={r}, E={e}")
-    for t in (a, b, sel):
-        if t.device != x.device:
-            raise ValueError(f"{what}: all inputs must be on one device")
-    for t in (x, a, b, sel):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{what}: inputs must be contiguous and "
-                             "16-byte aligned")
+    lib = _lib()
+    n_scratch = (lib.moe_lora_delta_slots_scratch(t, k, r) if slots_kernel
+                 else lib.moe_lora_delta_scratch(t, k, r, e))
+    entry = (lib.moe_lora_delta_slots_f32 if slots_kernel
+             else lib.moe_lora_delta_f32)
+    return entry, (t, k, n, r, e, rows_per), n_scratch
+
+
+def _launch(fn, x, a, b, sel, rows_per):
+    """Check the per-call facts (device, contiguity, 16-byte alignment),
+    allocate the output and the scratch and launch fn.  The host's share
+    of a decode call is most of its time, so this path stays short."""
+    entry, dims, n_scratch = _cuda_layout(
+        fn is moe_lora_delta_slots, x.shape, a.shape, b.shape, sel.shape,
+        (x.dtype, a.dtype, b.dtype, sel.dtype), rows_per)
+    dev = x.get_device()
+    if not a.get_device() == b.get_device() == sel.get_device() == dev:
+        raise ValueError(f"{fn.__name__}: all inputs must be on one "
+                         f"device")
+    ptrs = (x.data_ptr(), a.data_ptr(), b.data_ptr(), sel.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 or not (
+            x.is_contiguous() and a.is_contiguous() and b.is_contiguous()
+            and sel.is_contiguous()):
+        raise ValueError(f"{fn.__name__}: inputs must be contiguous and "
+                         "16-byte aligned")
+    out = torch.empty(dims[0], dims[2], dtype=torch.float32,
+                      device=x.device)
+    u = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    rc = entry(*ptrs, u.data_ptr(), out.data_ptr(), *dims,
+               torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        build.check(rc, fn.__name__)
+    fn.launches += 1
+    return out
 
 
 def moe_lora_delta(x, a, b, gates, rows_per_gate: int = 1):
     """K5: x (T, k); A (E, r, k); B (E, n, r); gates (G, E) float with
     T = G · rows_per_gate -> (T, n) float32."""
-    t, k, n, r, e = _check("moe_lora_delta", x, a, b, gates,
-                           (torch.float32, torch.bfloat16, torch.float16,
-                            torch.float64), rows_per_gate)
-    if gates.dim() != 2 or gates.shape[1] != e:
-        raise ValueError(f"moe_lora_delta: gates {tuple(gates.shape)} must "
-                         f"be (G, {e})")
-    if x.device.type == "cpu":
-        return moe_lora_delta_plain(x, a, b, gates, rows_per_gate)
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        return _launch(moe_lora_delta, x, a, b, gates, rows_per_gate)
+    _, _, _, _, e = _static("moe_lora_delta", x.shape, a.shape, b.shape,
+                            gates.shape, gates.dtype, _GATE_DTYPES,
+                            rows_per_gate)
+    _check_selector(False, gates.shape, e)
+    if x.device.type != "cpu":
         raise ValueError(f"moe_lora_delta: unsupported device {x.device}")
-    if gates.dtype != torch.float32:
-        raise TypeError("moe_lora_delta: the CUDA kernel takes f32 gates")
-    _check_cuda("moe_lora_delta", x, a, b, gates, k, r, e)
-    lib = _lib()
-    u = torch.empty(lib.moe_lora_delta_scratch(t, k, r, e),
-                    dtype=torch.float32, device=x.device)
-    out = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    rc = lib.moe_lora_delta_f32(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), gates.data_ptr(),
-        u.data_ptr(), out.data_ptr(), t, k, n, r, e, rows_per_gate,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "moe_lora_delta")
-    moe_lora_delta.launches += 1
-    return out
+    return moe_lora_delta_plain(x, a, b, gates, rows_per_gate)
 
 
 def moe_lora_delta_slots(x, a, b, slots, rows_per_slot: int = 1):
     """K4: x (T, k); A (E, r, k); B (E, n, r); slots (T // rows_per_slot,)
     int32 (negative = no adapter) -> (T, n) float32."""
-    t, k, n, r, e = _check("moe_lora_delta_slots", x, a, b, slots,
-                           (torch.int32, torch.int64), rows_per_slot)
-    if slots.dim() != 1:
-        raise ValueError("moe_lora_delta_slots: slots must be 1-D")
-    if x.device.type == "cpu":
-        return moe_lora_delta_slots_plain(x, a, b, slots, rows_per_slot)
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        return _launch(moe_lora_delta_slots, x, a, b, slots,
+                       rows_per_slot)
+    _, _, _, _, e = _static("moe_lora_delta_slots", x.shape, a.shape,
+                            b.shape, slots.shape, slots.dtype, _SLOT_DTYPES,
+                            rows_per_slot)
+    _check_selector(True, slots.shape, e)
+    if x.device.type != "cpu":
         raise ValueError(f"moe_lora_delta_slots: unsupported device "
                          f"{x.device}")
-    if slots.dtype != torch.int32:
-        raise TypeError("moe_lora_delta_slots: the CUDA kernel takes int32 "
-                        "slots")
-    _check_cuda("moe_lora_delta_slots", x, a, b, slots, k, r, e)
-    u = torch.empty((t, r), dtype=torch.float32, device=x.device)
-    out = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    rc = _lib().moe_lora_delta_slots_f32(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), slots.data_ptr(),
-        u.data_ptr(), out.data_ptr(), t, k, n, r, e, rows_per_slot,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "moe_lora_delta_slots")
-    moe_lora_delta_slots.launches += 1
-    return out
+    return moe_lora_delta_slots_plain(x, a, b, slots, rows_per_slot)
 
 
 moe_lora_delta.launches = 0

@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""Time the port's redesigned kernels of one checkout at the serving
+shapes, so that two checkouts can be compared on one card in turns.
+
+    python3 src/repro_torch/kernels/time_kernels.py [--src DIR]
+        [--label NAME] [--kernels k2,k3,k4,k5,k5adm] [--profile]
+
+``--src`` is the ``src`` directory of the checkout to time (this
+script's own checkout by default); its ``repro_torch`` is imported and
+builds its kernels into that checkout's ``build/``.  ``--kernels``
+picks the groups (all by default):
+
+  k2     K2 paged decode attention at both full-width geometries (SLM
+         H=8 KV=1, LLM H=KV=16; B=8, hd 256, 16-slot pages, nb 128, a
+         1,024-page pool): rows at K2_POSITIONS plain and with a 512-slot
+         window on ring tables, and the batched run's tail (4 short rows,
+         4 parked);
+  k3     K3 prefill flash attention at the burst and single-request
+         shapes;
+  k4     K4 slot-gather LoRA delta at T = 8 over the four (k, n) LoRA
+         targets of the 2b SLM, E = 4, r = 16, slots with repeats and
+         adapter-free rows;
+  k5     K5 gated LoRA delta at T = 8, soft gates (one one-hot and one
+         zero row), the same shapes;
+  k5adm  K5 at the admission burst (8 x 1,552 rows, soft and one-hot
+         gate rows).
+
+Every input is made on the card from fixed seeds, so two checkouts time
+the same tensors.  Prints one JSON line: the card's name and power
+limit, the ptxas report of the kernels built, and per case the kernel's
+ms (CUDA events, the mean over a run of back-to-back calls after a
+warm-up, which for a microsecond-scale kernel is the host's dispatch),
+for K2, K4 and K5 also ``graph_ms`` (the calls replayed from a CUDA
+graph: device time and launch gaps), its error against the plain
+version and whether a second call returns the same bits.  ``--profile`` adds, per case, the device time of
+each CUDA kernel the call launches (``torch.profiler``), which splits
+K2's split and combine passes and K4/K5's down and up passes.  Compare
+two checkouts as A, B, B, A in one call.  Needs a CUDA card; exits 2
+without one.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+K3_SHAPES = [(8, 16, 16, 1552), (8, 8, 1, 1552), (1, 16, 16, 2048),
+             (1, 16, 16, 31)]
+# (k, n) of the SLM's LoRA targets: q and o, k and v, mlp_in, mlp_out
+LORA_SHAPES = [(2048, 2048), (2048, 256), (2048, 32768), (16384, 2048)]
+ADMIT_ROWS, ADMIT_REQUESTS = 1552, 8
+HOT_SLOTS = [0, 3, -1, 1, 2, -1, 0, 3]
+K4_SLOTS = [0, 1, 2, 3, -1, 0, 2, -1]
+FREED_POS = 1 << 30
+NO_PAGE = 1 << 20
+K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
+K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
+GROUPS = ("k2", "k3", "k4", "k5", "k5adm")
+
+
+def time_ms(torch, fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def row_rel_err(out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+
+def kernel_split(torch, fn):
+    """Device ms per call of each CUDA kernel fn launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0:
+            split[ev.key[:60]] = us / 3e3
+    return split
+
+
+def paged_case(torch, g, h, kvh, window, positions, n_pool=1024, hd=256):
+    """Random bf16 pages and block tables as the allocator builds them
+    (the same construction as chip_smoke.py's)."""
+    dev, ps, b = torch.device("cuda"), 16, len(positions)
+    nb = window // ps if window else 2048 // ps
+    q = torch.randn(b, h, hd, device=dev, generator=g).bfloat16()
+    pk = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
+    pv = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
+    free = torch.randperm(n_pool, device=dev, generator=g).tolist()
+    table = torch.full((b, nb), NO_PAGE, dtype=torch.int32)
+    for i, p in enumerate(positions):
+        if p < FREED_POS:
+            n = window // ps if window else p // ps + 1
+            table[i, :n] = torch.tensor([free.pop() for _ in range(n)])
+    pos = torch.tensor(positions, dtype=torch.int32)
+    return q, pk, pv, table.to(dev), pos.to(dev)
+
+
+def graph_ms(torch, fn, calls=20, replays=10):
+    """ms per call of fn replayed from a CUDA graph of ``calls`` calls:
+    device time and launch gaps without the host's per-call dispatch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def case(torch, fn, iters, profile, graph=False, **info):
+    """Time fn (which returns the output) back to back and, with
+    ``graph``, replayed from a CUDA graph; a second call must give the
+    same bits."""
+    first = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    info.update(repeat_equal=bool(torch.equal(first, again)),
+                ms=time_ms(torch, fn, iters))
+    if graph:
+        info["graph_ms"] = graph_ms(torch, fn)
+    if profile:
+        info["kernels_ms"] = kernel_split(torch, fn)
+    return first, info
+
+
+def time_k2(torch, profile):
+    from repro_torch.kernels.paged_attention import kernel as K2
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(2)
+    runs = [(m, h, kvh, w, K2_POSITIONS)
+            for m, h, kvh in (("slm", 8, 1), ("llm", 16, 16))
+            for w in (0, 512)]
+    runs += [(m, h, kvh, 0, K2_TAIL_POSITIONS)
+             for m, h, kvh in (("slm", 8, 1), ("llm", 16, 16))]
+    for model, h, kvh, window, positions in runs:
+        args = paged_case(torch, g, h, kvh, window, positions)
+        res, info = case(
+            torch, lambda: K2.paged_decode_attention(*args, window=window),
+            200, profile, graph=True, model=model, window=window,
+            pos="tail" if positions is K2_TAIL_POSITIONS else "K2_POSITIONS")
+        ref = K2.paged_decode_attention_plain(*args, window=window)
+        live = [i for i, p in enumerate(positions) if p < FREED_POS]
+        parked = [i for i, p in enumerate(positions) if p >= FREED_POS]
+        info.update(row_rel_err=row_rel_err(res[live], ref[live]),
+                    parked_zero=not res[parked].any().item())
+        out.append(info)
+        print(f"K2 {info}", file=sys.stderr)
+        del args
+    return out
+
+
+def time_k3(torch, profile):
+    from repro_torch.kernels.flash_attention import kernel as K3
+    out = []
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for b, h, kvh, s in K3_SHAPES:
+        q, k, v = (torch.randn(b, n, s, 256, device=dev, generator=g)
+                   .bfloat16() for n in (h, kvh, kvh))
+        res, info = case(torch, lambda: K3.flash_attention(q, k, v),
+                         20 if s > 512 else 200, profile, B=b, H=h, KVH=kvh,
+                         S=s)
+        info["row_rel_err"] = row_rel_err(res,
+                                          K3.flash_attention_plain(q, k, v))
+        out.append(info)
+        print(f"K3 {info}", file=sys.stderr)
+        del q, k, v, res
+    return out
+
+
+def lora_bank(torch, t, k, n, seed):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(t, k, device=dev, generator=g).bfloat16()
+    a = torch.randn(4, 16, k, device=dev, generator=g) / k ** 0.5
+    b = torch.randn(4, n, 16, device=dev, generator=g)
+    return g, x, a, b
+
+
+def time_k4(torch, profile):
+    from repro_torch.kernels.moe_lora import kernel as KL
+    out = []
+    slots = torch.tensor(K4_SLOTS, dtype=torch.int32, device="cuda")
+    live = slots >= 0
+    for k, n in LORA_SHAPES:
+        _, x, a, b = lora_bank(torch, 8, k, n, k + n)
+        res, info = case(
+            torch, lambda: KL.moe_lora_delta_slots(x, a, b, slots), 200,
+            profile, graph=True, T=8, k=k, n=n)
+        ref = KL.moe_lora_delta_slots_plain(x, a, b, slots)
+        info.update(row_rel_err=row_rel_err(res[live], ref[live]),
+                    dead_rows_zero=not res[~live].any().item())
+        out.append(info)
+        print(f"K4 {info}", file=sys.stderr)
+    return out
+
+
+def time_k5(torch, profile):
+    from repro_torch.kernels.moe_lora import kernel as KL
+    out = []
+    for k, n in LORA_SHAPES:
+        g, x, a, b = lora_bank(torch, 8, k, n, k + n)
+        gates = torch.rand(8, 4, device="cuda", generator=g)
+        gates[1] = torch.eye(4, device="cuda")[2]
+        gates[5] = 0.0
+        res, info = case(torch, lambda: KL.moe_lora_delta(x, a, b, gates),
+                         200, profile, graph=True, T=8, k=k, n=n,
+                         gates="soft")
+        ref = KL.moe_lora_delta_plain(x, a, b, gates)
+        rows = [i for i in range(8) if i != 5]
+        info.update(row_rel_err=row_rel_err(res[rows], ref[rows]),
+                    zero_row_zero=not res[5].any().item())
+        out.append(info)
+        print(f"K5 {info}", file=sys.stderr)
+    return out
+
+
+def time_k5adm(torch, profile):
+    from repro_torch.kernels.moe_lora import kernel as KL
+    out = []
+    dev = torch.device("cuda")
+    t = ADMIT_ROWS * ADMIT_REQUESTS
+    for gates_kind in ("soft", "one-hot"):
+        for k, n in LORA_SHAPES:
+            g, x, a, b = lora_bank(torch, t, k, n, k + n)
+            if gates_kind == "soft":
+                gates = torch.rand(ADMIT_REQUESTS, 4, device=dev,
+                                   generator=g)
+            else:
+                gates = torch.zeros(ADMIT_REQUESTS, 4, device=dev)
+                for i, sl in enumerate(HOT_SLOTS):
+                    if sl >= 0:
+                        gates[i, sl] = 1.0
+            res, info = case(
+                torch, lambda: KL.moe_lora_delta(
+                    x, a, b, gates, rows_per_gate=ADMIT_ROWS),
+                10, profile, k=k, n=n, gates=gates_kind)
+            ref = KL.moe_lora_delta_plain(x, a, b, gates,
+                                          rows_per_gate=ADMIT_ROWS)
+            live = gates.ne(0).any(1).repeat_interleave(ADMIT_ROWS)
+            info.update(row_rel_err=row_rel_err(res[live], ref[live]),
+                        dead_rows_zero=not res[~live].any().item())
+            out.append(info)
+            print(f"K5 admission {info}", file=sys.stderr)
+            del x, a, b, res, ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--kernels", default=",".join(GROUPS))
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+    groups = args.kernels.split(",")
+    if set(groups) - set(GROUPS):
+        ap.error(f"--kernels takes {','.join(GROUPS)}")
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    sources = {"k2": "paged_attention", "k3": "flash_attention",
+               "k4": "moe_lora", "k5": "moe_lora", "k5adm": "moe_lora"}
+    report = build.build_all(sorted({sources[g] for g in groups}))
+    ptxas = {name: [ln.strip() for ln in r["ptxas"].splitlines()
+                    if "Used" in ln or "spill" in ln or "Compiling" in ln]
+             for name, r in report.items()}
+    res = dict(label=args.label, src=args.src, card=card, ptxas=ptxas)
+    timers = {"k2": time_k2, "k3": time_k3, "k4": time_k4, "k5": time_k5,
+              "k5adm": time_k5adm}
+    for name in groups:
+        res[name] = timers[name](torch, args.profile)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

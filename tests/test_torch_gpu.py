@@ -232,6 +232,51 @@ def test_paged_attention_raises_instead_of_falling_back(cuda):
                                   pv.reshape(32, 8, 1, 256), table, pos)
 
 
+def split_edge_positions(kvh, nb=128):
+    """Positions just before, at and after the first two split edges of
+    the kernel's split layout for B = 8 rows (the layout depends on the
+    static shapes alone)."""
+    splits = K2._lib().paged_decode_splits(8, kvh, nb, 0)
+    span = -(-nb // splits) * 16                      # slots per split
+    return [span - 1, span, span + 15, 2 * span - 1, 2 * span,
+            2 * span + 16, FREED_POS, span - 16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,hd", [(8, 1, 256), (16, 16, 256),
+                                      (4, 1, 32), (4, 2, 32)])
+@pytest.mark.parametrize("kind", ["split_edges", "all_short", "all_full",
+                                  "window"])
+def test_paged_attention_split_k(cuda, h, kvh, hd, kind):
+    """The split-K design against its plain version: rows whose live
+    pages end just before, at and after split edges, every row short (a
+    single split each), every row at 2,047, and window mode on ring
+    tables with young rows; parked rows are zeros and a second call on
+    the same inputs returns the same bits."""
+    window = 512 if kind == "window" else 0
+    positions = {
+        "split_edges": split_edge_positions(kvh),
+        "all_short": [0, 1, 3, 5, 9, 15, 16, 17],
+        "all_full": [2047] * 8,
+        "window": [0, 100, 511, 512, 513, 2047, FREED_POS, 600],
+    }[kind]
+    nb = window // 16 if window else 128
+    g = torch.Generator(device=cuda).manual_seed(len(kind) + h + hd)
+    case = paged_case(cuda, g, 8, h, kvh, hd, 1024, nb, window, positions)
+    before = K2.paged_decode_attention.launches
+    out = K2.paged_decode_attention(*case, window=window)
+    again = K2.paged_decode_attention(*case, window=window)
+    torch.cuda.synchronize()
+    assert K2.paged_decode_attention.launches == before + 2
+    assert torch.equal(out, again)                      # bit for bit
+    ref = K2.paged_decode_attention_plain(*case, window=window)
+    live = [i for i, p in enumerate(positions) if p < FREED_POS]
+    parked = [i for i, p in enumerate(positions) if p >= FREED_POS]
+    assert row_rel_err(out[live], ref[live]) <= 2 ** -6
+    assert torch.isfinite(out.float()).all()
+    assert not out[parked].any()
+
+
 def lora_case(dev, g, t, k, n, e=4, r=16):
     x = torch.randn(t, k, device=dev, generator=g).bfloat16()
     a = torch.randn(e, r, k, device=dev, generator=g) / k ** 0.5
@@ -266,6 +311,43 @@ def test_moe_lora_kernels_match_plain(cuda, k, n):
     ref = KL.moe_lora_delta_plain(x, a, b, soft)
     rows = [i for i in range(8) if i != 3]
     assert row_rel_err(k5[rows], ref[rows]) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,rows_per", [(1, 1), (3, 1), (8, 1), (8, 2),
+                                        (31, 31), (31, 1), (63, 3),
+                                        (63, 1)])
+@pytest.mark.parametrize("k,n", [(2048, 256), (16384, 2048)])
+def test_moe_lora_decode_rows(cuda, t, rows_per, k, n):
+    """The decode design (K4, and K5 below 64 rows) at T in {1, 3, 8,
+    31, 63}: slots with repeats, adapter-free rows and slots past the
+    bank (clamped onto E - 1), rows_per_slot / rows_per_gate > 1; K4 and
+    K5 against their plain versions, K5 on the slots' one-hot gate rows
+    equal to K4 bit for bit, and repeat calls bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(t + rows_per + k)
+    x, a, b = lora_case(cuda, g, t, k, n)
+    sel = ([0, 1, 2, 3, -1, 0, 5, -1, 2, 9, 2] * 8)[:t // rows_per]
+    slots = torch.tensor(sel, dtype=torch.int32, device=cuda)
+    k4 = KL.moe_lora_delta_slots(x, a, b, slots, rows_per)
+    k4_again = KL.moe_lora_delta_slots(x, a, b, slots, rows_per)
+    hot = hot_gates(cuda, [min(s, 3) for s in sel])
+    k5_hot = KL.moe_lora_delta(x, a, b, hot, rows_per)
+    soft = torch.rand(len(sel), 4, device=cuda, generator=g)
+    if len(sel) > 1:
+        soft[-1] = 0.0
+    k5 = KL.moe_lora_delta(x, a, b, soft, rows_per)
+    k5_again = KL.moe_lora_delta(x, a, b, soft, rows_per)
+    torch.cuda.synchronize()
+    assert torch.equal(k4, k4_again) and torch.equal(k5, k5_again)
+    assert torch.equal(k5_hot, k4)                      # bit for bit
+    live = slots.repeat_interleave(rows_per) >= 0
+    ref4 = KL.moe_lora_delta_slots_plain(x, a, b, slots, rows_per)
+    assert row_rel_err(k4[live], ref4[live]) <= 1e-5
+    assert not k4[~live].any()
+    zero = (soft == 0).all(1).repeat_interleave(rows_per)
+    ref5 = KL.moe_lora_delta_plain(x, a, b, soft, rows_per)
+    assert row_rel_err(k5[~zero], ref5[~zero]) <= 1e-5
+    assert not k5[zero].any()
 
 
 @pytest.mark.gpu

@@ -164,3 +164,77 @@ def test_live_row_past_the_cache_raises():
     ATT.check_row_positions(np.array([0, 95, ATT.FREED_POS]), 96)
     with pytest.raises(ValueError, match="outside"):
         ATT.check_row_positions(np.array([0, 96]), 96)
+
+
+def _splitk(q, pk, pv, table, pos, window=0, **kw):
+    return K2.paged_decode_splitk_model(
+        *(torch.from_numpy(a) for a in (q, pk, pv, table, pos)),
+        window=window, **kw).numpy()
+
+
+def _hold_live_rows(got, q, pk, pv, table, pos, window=0):
+    """Live rows against interpret-mode Pallas and ``paged_decode_ref``;
+    parked rows must be zeros (the kernel reads no page for them)."""
+    _, pallas, ref = _both(q, pk, pv, table, pos, window=window)
+    live = pos < ATT.FREED_POS
+    np.testing.assert_allclose(got[live], pallas[live], **TOL)
+    np.testing.assert_allclose(got[live], ref[live], **TOL)
+    assert not got[~live].any()
+
+
+# ps 4, nb 6: live pages 1, 1, 2, 3, 3, 6, 0 (parked), 2.  With 2 splits
+# (3 pages each) the 3-page rows end at the split edge; with 3 splits (2
+# pages each) the 2-page rows end at an edge and the 3-page rows inside
+# a split; with nb splits every page is one and short rows leave most
+# splits empty.
+SPLIT_POSITIONS = [0, 3, 7, 8, 11, 23, 1 << 30, 5]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])
+@pytest.mark.parametrize("skip_dead", [True, False])
+def test_splitk_model_matches_pallas_and_ref(splits, skip_dead):
+    """The two-stage split-K algorithm of the CUDA kernel (per-split
+    partials (m, l, O) over fixed page ranges, fixed-order combine) vs
+    the reference, with a parked row and NO_PAGE sentinels past each
+    row's live pages and one inside a live range (clamped onto page
+    P - 1 by all three).  ``skip_dead=False`` also walks the pages past
+    pos, whose splits are all masked and must weigh exactly 0."""
+    b, h, kvh, hd, n_pool, ps, nb = 8, 8, 2, 16, 40, 4, 6
+    rng = np.random.default_rng(21 + splits)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    pk = rng.standard_normal((n_pool, ps, kvh, hd)).astype(np.float32)
+    pv = rng.standard_normal((n_pool, ps, kvh, hd)).astype(np.float32)
+    pos = np.asarray(SPLIT_POSITIONS, np.int32)
+    free = list(rng.permutation(n_pool - 1))
+    table = np.full((b, nb), NO_PAGE, np.int32)
+    for i, p in enumerate(SPLIT_POSITIONS):
+        if p < ATT.FREED_POS:
+            table[i, :p // ps + 1] = [free.pop() for _ in range(p // ps + 1)]
+    table[7, 1] = NO_PAGE                 # a live page clamped onto P - 1
+    got = _splitk(q, pk, pv, table, pos, splits=splits, skip_dead=skip_dead)
+    _hold_live_rows(got, q, pk, pv, table, pos)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("skip_dead", [True, False])
+@pytest.mark.parametrize("window", [12, 10])
+def test_splitk_model_ring_matches_pallas_and_ref(splits, skip_dead,
+                                                  window):
+    """Window mode on ring-local tables (3 pages of 4): young rows (pos <
+    window) whose later ring slots are all masked — with
+    ``skip_dead=False`` whole splits of them — a row whose slot count is
+    past the ring, and a parked row."""
+    b, h, kvh, hd, n_pool, ps, nb = 6, 4, 1, 16, 30, 4, 3
+    rng = np.random.default_rng(window + splits)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    pk = rng.standard_normal((n_pool, ps, kvh, hd)).astype(np.float32)
+    pv = rng.standard_normal((n_pool, ps, kvh, hd)).astype(np.float32)
+    pos = np.asarray([0, 2, 5, window - 1, 3 * window + 1, 1 << 30],
+                     np.int32)
+    free = list(rng.permutation(n_pool))
+    table = np.asarray([[free.pop() for _ in range(nb)] for _ in range(b)],
+                       np.int32)
+    table[5] = NO_PAGE
+    got = _splitk(q, pk, pv, table, pos, window=window, splits=splits,
+                  skip_dead=skip_dead)
+    _hold_live_rows(got, q, pk, pv, table, pos, window=window)
