@@ -13,11 +13,13 @@ Phases, in order; any failure exits non-zero before the result lines:
               gated multi-LoRA delta, K6 Mamba-1 selective scan) against
               its plain PyTorch version on the card at the main paths'
               shapes, timed with CUDA events beside its bound and a
-              library call where one exists (K2, and K4/K5 at T = 8, also
-              replayed from a CUDA graph, without the host's dispatch);
+              library call where one exists (K1, K2, K6, and K4/K5 at
+              T = 8, also replayed from a CUDA graph, without the host's
+              dispatch; K6 also beside its exponentials' floor);
               K5 on one-hot gate rows must
-              equal K4 bit for bit at T = 8; two calls of K2, K4 and K5
-              on the same inputs must return the same bits; K3 also on (B, H, S, D)
+              equal K4 bit for bit at T = 8; two calls of K1, K2, K4, K5
+              and K6 on the same inputs must return the same bits; K3
+              also on (B, H, S, D)
               views of (B, S, H, D) tensors, K5 also at the admission
               burst under one-hot gate rows;
   4. check    the reduced 2b pair in bf16 on the card against the same
@@ -318,19 +320,19 @@ def phase_k2(torch):
 def phase_kernels(torch, long_len: int):
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.logit_fusion import kernel as K1
+    from repro_torch.kernels.time_kernels import k1_inputs
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     k1_cases = []
     for b in (1, 4, 8):
-        sl = 3 * torch.randn(b, 256_000, device=dev, generator=g)
-        ll = 3 * torch.randn(b, 256_000, device=dev, generator=g)
-        w = torch.rand(b, device=dev, generator=g)
-        arrived = torch.tensor([True, False, True, False] * 2,
-                               device=dev)[:b]
+        sl, ll, w, arrived = k1_inputs(torch, g, b)
         out = K1.fuse_logits(sl, ll, w, arrived)
+        again = K1.fuse_logits(sl, ll, w, arrived)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise SystemExit("K1: two calls on the same inputs differ")
         ref = K1.fuse_logits_plain(sl, ll, w, arrived)
         nbytes = 3 * b * 256_000 * 4 + b * 8
         bms, by = bound(nbytes, 12 * b * 256_000, F32_FLOP_PER_S)
@@ -339,6 +341,8 @@ def phase_kernels(torch, long_len: int):
             max_abs_err=(out - ref).abs().max().item(),
             max_rel_err=rel_err(out, ref),
             ms=time_ms(torch, lambda: K1.fuse_logits(sl, ll, w, arrived), 50),
+            graph_ms=graph_ms(torch, lambda: K1.fuse_logits(
+                sl, ll, w, arrived)),
             plain_ms=time_ms(torch, lambda: K1.fuse_logits_plain(
                 sl, ll, w, arrived), 20),
             library_ms=None, bound_ms=bms, bound_by=by))
@@ -550,38 +554,31 @@ def phase_lora(torch):
     return k4_cases, k5_cases
 
 
-def ssm_inputs(torch, g, s):
-    """One falcon-mamba prefill scan's inputs on the card: dt a softplus
-    (f32), x bf16, B and C bf16 column slices of an x_proj-like output
-    (1, S, dt_rank + 2 N) as the model hands them over, A = -exp(A_log)
-    (f32)."""
-    dev = torch.device("cuda")
-    dt = torch.nn.functional.softplus(
-        torch.randn(1, s, SSM_DI, device=dev, generator=g) - 1.0)
-    x = torch.randn(1, s, SSM_DI, device=dev, generator=g).bfloat16()
-    xdbc = torch.randn(1, s, SSM_DT_RANK + 2 * SSM_N, device=dev,
-                       generator=g).bfloat16()
-    bm = xdbc[..., SSM_DT_RANK:SSM_DT_RANK + SSM_N]
-    cm = xdbc[..., SSM_DT_RANK + SSM_N:]
-    a = -torch.exp(0.5 * torch.randn(SSM_DI, SSM_N, device=dev,
-                                     generator=g))
-    return dt, x, bm, cm, a
-
-
 def phase_k6(torch, short_len: int):
     """K6 against its plain version at serve_ssm's shapes: the 1,536-token
     prefill and a short demo prompt's, d_inner 8,192, N 16, B and C
-    strided.  Bound: bytes (dt f32, x and y bf16, A, h_final, B and C
-    once) against ~7 f32 operations per (t, d, n), the exponential
-    counted as one."""
+    strided; two calls must return the same bits.  Bound: bytes (dt f32,
+    x and y bf16, A, h_final, B and C once) against ~7 f32 operations
+    per (t, d, n), the exponential counted as one.  Beside it, the
+    exponentials' own floor: S * di * N of them on the special-function
+    units, 16 a clock per SM at the card's top SM clock."""
     from repro_torch.kernels.ssm_scan import kernel as K6
+    from repro_torch.kernels.time_kernels import ssm_inputs
 
     g = torch.Generator(device="cuda").manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
     cases = []
     for s in (SSM_LONG_TOKENS, short_len):
         args = ssm_inputs(torch, g, s)
         y, h = K6.ssm_scan(*args)
+        y2, h2 = K6.ssm_scan(*args)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise SystemExit("K6: two calls on the same inputs differ")
         ry, rh = K6.ssm_scan_plain(*args)
         if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()):
             raise SystemExit("K6 wrote a non-finite value")
@@ -597,11 +594,14 @@ def phase_k6(torch, short_len: int):
             h_max_abs_err=(h - rh).abs().max().item(),
             h_rel_err=((h - rh).abs().max() / rh.abs().max()).item(),
             ms=time_ms(torch, lambda: K6.ssm_scan(*args), 50),
+            graph_ms=graph_ms(torch, lambda: K6.ssm_scan(*args)),
             plain_ms=time_ms(torch, lambda: K6.ssm_scan_plain(*args),
                              2 if s > 512 else 5),
             library_ms=None, bound_ms=bms, bound_by=by))
-        print(f"K6 ssm_scan: {cases[-1]}")
-        del args, y, h, ry, rh
+        print(f"K6 ssm_scan: {cases[-1]}; exponentials' floor "
+              f"{s * SSM_DI * SSM_N / (16 * sms * mhz * 1e6) * 1e3} ms "
+              f"({sms} SMs at {mhz} MHz)")
+        del args, y, h, y2, h2, ry, rh
     bad = [c for c in cases if not (c["max_rel_err"] <= K6_ROW_RTOL
                                     and c["h_rel_err"] <= K6_H_RTOL)]
     if bad:
@@ -1018,10 +1018,11 @@ def phase_serve_ssm(torch):
             or not h_rel <= LOGITS_TOL:
         raise SystemExit("serve_ssm: the prefill disagrees with the plain "
                          "scan")
-    trace_solo(torch, eng, SSM_LONG_PROMPT)
+    traced = trace_solo(torch, eng, SSM_LONG_PROMPT)
     return launches, dict(wall_s=wall, tokens=tokens, peak_gib=peak,
                           prefill_long_ms=prefill_ms[-1],
-                          decode_steps_per_s=calls["slm_decode"] / decode_s)
+                          decode_steps_per_s=calls["slm_decode"] / decode_s,
+                          **traced)
 
 
 def _leaves(tree):
@@ -1059,6 +1060,8 @@ def trace_solo(torch, eng, prompt):
           f"launches; {sum(r[1] for r in rows)} kernel launches")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
+    return dict(trace_k6_ms=sum(r[0] for r in k6),
+                trace_k6_launches=sum(r[1] for r in k6), trace_busy_ms=busy)
 
 
 def full_pair(torch):
@@ -1500,11 +1503,14 @@ def profile_step(torch, eng, what: str):
     rows = profile_rows(torch, prof)
     busy = sum(r[0] for r in rows)
     k2 = [r for r in rows if "paged_decode" in r[2]]
+    k1 = [r for r in rows if "fuse_" in r[2]]
     print(f"trace_batched: {what}: {wall_ms:.2f} ms untraced, "
           f"{traced_ms:.2f} ms traced; device busy {busy:.2f} ms = "
           f"{100 * busy / wall_ms:.1f}% of the untraced wall; K2 "
           f"{sum(r[0] for r in k2):.3f} ms over {sum(r[1] for r in k2)} "
-          f"launches; {sum(r[1] for r in rows)} kernel launches")
+          f"launches; K1 {sum(r[0] for r in k1):.4f} ms over "
+          f"{sum(r[1] for r in k1)} launches; {sum(r[1] for r in rows)} "
+          f"kernel launches")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
 
@@ -1599,6 +1605,7 @@ def main() -> int:
              max_abs_err=max(c["max_abs_err"] for c in k1_cases),
              max_rel_err=max(c["max_rel_err"] for c in k1_cases),
              rel_tol=K1_RTOL, shape=k1["shape"], ms=k1["ms"],
+             graph_ms=k1["graph_ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None, cases=k1_cases),
         dict(name="paged_decode_attention", route="cuda",
@@ -1654,6 +1661,7 @@ def main() -> int:
         rel_tol=K6_ROW_RTOL,
         h_rel_err=max(c["h_rel_err"] for c in k6_cases),
         h_rel_tol=K6_H_RTOL, shape=k6["shape"], ms=k6["ms"],
+        graph_ms=k6["graph_ms"],
         plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
         bound_by=k6["bound_by"], library_ms=None, cases=k6_cases,
         serve_ssm=ssm_run))

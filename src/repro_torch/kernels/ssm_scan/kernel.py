@@ -13,7 +13,10 @@ f32, N in {8, 16}, and any S and di: the Pallas kernel's chunk
 and block sizes are a TPU tiling detail.  dt and x must be contiguous.
 bm and cm are passed in place with their batch and sequence strides
 (unit stride over N), since the model hands over column slices of
-``x_proj``'s output; no copy is made.
+``x_proj``'s output; no copy is made.  The kernel forms the decay as
+exp2(dt · A log2 e) and sums y over lanes of four states each;
+``ssm_scan_lanes_model`` is that arithmetic in plain PyTorch, for the
+tests.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import torch
 from repro_torch.kernels import build
 
 STATES = (8, 16)           # falcon-mamba-7b and its reduced config
+STATES_PER_LANE = 4
+LOG2E = 1.4426950408889634
 _CTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (
     ctypes.c_longlong,) * 4 + (ctypes.c_void_p,)
 
@@ -42,6 +47,34 @@ def ssm_scan_plain(dt, x, bm, cm, a):
         da = torch.exp(dt_t[..., None] * a[None])
         h = da * h + (dt_t * x_t)[..., None] * bm[:, t, None, :].float()
         ys.append((h * cm[:, t, None, :].float()).sum(-1))
+    return torch.stack(ys, 1).to(x.dtype), h
+
+
+def ssm_scan_lanes_model(dt, x, bm, cm, a):
+    """The CUDA kernel's order of operations in plain float32 PyTorch
+    (for the tests; no serving path calls it), up to the rounding its
+    fused multiply-adds save: the decay exp2(dt · a2) with a2 = A log2 e
+    rounded once, h = decay · h + (dt · x) · B, then a partial P_q of
+    h · C over each lane's STATES_PER_LANE consecutive states in state
+    order, and y = (P0 + P2) + (P1 + P3) at N = 16, P0 + P1 at N = 8."""
+    b, s, di = x.shape
+    n = bm.shape[-1]
+    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    a2 = a.float() * LOG2E
+    ys = []
+    for t in range(s):
+        dt_t = dt[:, t].float()
+        dx = dt_t * x[:, t].float()
+        h = torch.exp2(dt_t[..., None] * a2) * h \
+            + dx[..., None] * bm[:, t, None, :].float()
+        hc = (h * cm[:, t, None, :].float()).unflatten(
+            -1, (n // STATES_PER_LANE, STATES_PER_LANE))
+        p = hc[..., 0]
+        for j in range(1, STATES_PER_LANE):
+            p = p + hc[..., j]
+        y = p[..., 0] + p[..., 1] if n == 8 \
+            else (p[..., 0] + p[..., 2]) + (p[..., 1] + p[..., 3])
+        ys.append(y)
     return torch.stack(ys, 1).to(x.dtype), h
 
 

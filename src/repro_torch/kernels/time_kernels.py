@@ -3,13 +3,16 @@
 shapes, so that two checkouts can be compared on one card in turns.
 
     python3 src/repro_torch/kernels/time_kernels.py [--src DIR]
-        [--label NAME] [--kernels k2,k3,k4,k5,k5adm] [--profile]
+        [--label NAME] [--kernels k1,k2,k3,k4,k5,k5adm,k6] [--profile]
 
 ``--src`` is the ``src`` directory of the checkout to time (this
 script's own checkout by default); its ``repro_torch`` is imported and
 builds its kernels into that checkout's ``build/``.  ``--kernels``
 picks the groups (all by default):
 
+  k1     K1 logit fusion at B = 1, 4 and 8, V = 256,000 f32, rows
+         arrived / missed alternately (``k1_inputs``, which
+         chip_smoke.py uses too);
   k2     K2 paged decode attention at both full-width geometries (SLM
          H=8 KV=1, LLM H=KV=16; B=8, hd 256, 16-slot pages, nb 128, a
          1,024-page pool): rows at K2_POSITIONS plain and with a 512-slot
@@ -23,18 +26,23 @@ picks the groups (all by default):
   k5     K5 gated LoRA delta at T = 8, soft gates (one one-hot and one
          zero row), the same shapes;
   k5adm  K5 at the admission burst (8 x 1,552 rows, soft and one-hot
-         gate rows).
+         gate rows);
+  k6     K6 Mamba-1 selective scan at S = 1,536 and 27, falcon-mamba-7b's
+         d_inner 8,192 and N 16, bf16 x, B and C strided slices of an
+         x_proj-like (1, S, 288) output (``ssm_inputs``, which
+         chip_smoke.py uses too).
 
 Every input is made on the card from fixed seeds, so two checkouts time
 the same tensors.  Prints one JSON line: the card's name and power
 limit, the ptxas report of the kernels built, and per case the kernel's
 ms (CUDA events, the mean over a run of back-to-back calls after a
 warm-up, which for a microsecond-scale kernel is the host's dispatch),
-for K2, K4 and K5 also ``graph_ms`` (the calls replayed from a CUDA
-graph: device time and launch gaps), its error against the plain
-version and whether a second call returns the same bits.  ``--profile`` adds, per case, the device time of
-each CUDA kernel the call launches (``torch.profiler``), which splits
-K2's split and combine passes and K4/K5's down and up passes.  Compare
+for K1, K2, K4, K5 and K6 also ``graph_ms`` (the calls replayed from a
+CUDA graph: device time and launch gaps), its error against the plain
+version and whether a second call returns the same bits.  ``--profile``
+adds, per case, the device time of each CUDA kernel the call launches
+(``torch.profiler``), which splits K1's stats and write passes, K2's
+split and combine passes and K4/K5's down and up passes.  Compare
 two checkouts as A, B, B, A in one call.  Needs a CUDA card; exits 2
 without one.
 """
@@ -55,7 +63,9 @@ FREED_POS = 1 << 30
 NO_PAGE = 1 << 20
 K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
-GROUPS = ("k2", "k3", "k4", "k5", "k5adm")
+GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6")
+K1_ARRIVED = [True, False, True, False] * 2
+SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
 
 
 def time_ms(torch, fn, iters):
@@ -138,19 +148,85 @@ def graph_ms(torch, fn, calls=20, replays=10):
 
 
 def case(torch, fn, iters, profile, graph=False, **info):
-    """Time fn (which returns the output) back to back and, with
-    ``graph``, replayed from a CUDA graph; a second call must give the
-    same bits."""
+    """Time fn (which returns the output, a tensor or a tuple of them)
+    back to back and, with ``graph``, replayed from a CUDA graph; a
+    second call must give the same bits."""
     first = fn()
     again = fn()
     torch.cuda.synchronize()
-    info.update(repeat_equal=bool(torch.equal(first, again)),
+    pairs = zip(first, again) if isinstance(first, tuple) \
+        else [(first, again)]
+    info.update(repeat_equal=all(bool(torch.equal(a, b)) for a, b in pairs),
                 ms=time_ms(torch, fn, iters))
     if graph:
         info["graph_ms"] = graph_ms(torch, fn)
     if profile:
         info["kernels_ms"] = kernel_split(torch, fn)
     return first, info
+
+
+def k1_inputs(torch, g, b):
+    """K1's inputs at the serving paths' shape, as chip_smoke.py checks
+    them too: (b, 256,000) f32 logits of spread 3, w uniform, rows
+    arrived and missed alternately."""
+    dev = torch.device("cuda")
+    sl = 3 * torch.randn(b, 256_000, device=dev, generator=g)
+    ll = 3 * torch.randn(b, 256_000, device=dev, generator=g)
+    w = torch.rand(b, device=dev, generator=g)
+    arrived = torch.tensor(K1_ARRIVED[:b], device=dev)
+    return sl, ll, w, arrived
+
+
+def time_k1(torch, profile):
+    from repro_torch.kernels.logit_fusion import kernel as K1
+    out = []
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for b in (1, 4, 8):
+        sl, ll, w, arrived = k1_inputs(torch, g, b)
+        res, info = case(torch, lambda: K1.fuse_logits(sl, ll, w, arrived),
+                         200, profile, graph=True, B=b, V=256_000)
+        ref = K1.fuse_logits_plain(sl, ll, w, arrived)
+        info["rel_err"] = ((res - ref).abs() / ref.abs()).max().item()
+        out.append(info)
+        print(f"K1 {info}", file=sys.stderr)
+    return out
+
+
+def ssm_inputs(torch, g, s):
+    """One falcon-mamba prefill scan's inputs on the card, as
+    chip_smoke.py checks them too: dt a softplus (f32), x bf16, B and C
+    bf16 column slices of an x_proj-like output (1, S, dt_rank + 2 N) as
+    the model hands them over, A = -exp(A_log) (f32)."""
+    dev = torch.device("cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, s, SSM_DI, device=dev, generator=g) - 1.0)
+    x = torch.randn(1, s, SSM_DI, device=dev, generator=g).bfloat16()
+    xdbc = torch.randn(1, s, SSM_DT_RANK + 2 * SSM_N, device=dev,
+                       generator=g).bfloat16()
+    bm = xdbc[..., SSM_DT_RANK:SSM_DT_RANK + SSM_N]
+    cm = xdbc[..., SSM_DT_RANK + SSM_N:]
+    a = -torch.exp(0.5 * torch.randn(SSM_DI, SSM_N, device=dev,
+                                     generator=g))
+    return dt, x, bm, cm, a
+
+
+def time_k6(torch, profile):
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for s in (1536, 27):
+        args = ssm_inputs(torch, g, s)
+        (y, h), info = case(torch, lambda: K6.ssm_scan(*args),
+                            50 if s > 512 else 200, profile, graph=True,
+                            S=s)
+        ry, rh = K6.ssm_scan_plain(*args)
+        info.update(row_rel_err=row_rel_err(y, ry),
+                    h_rel_err=((h - rh).abs().max() / rh.abs().max()).item())
+        out.append(info)
+        print(f"K6 {info}", file=sys.stderr)
+        del args
+    return out
 
 
 def time_k2(torch, profile):
@@ -299,15 +375,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    sources = {"k2": "paged_attention", "k3": "flash_attention",
-               "k4": "moe_lora", "k5": "moe_lora", "k5adm": "moe_lora"}
+    sources = {"k1": "fuse_logits", "k2": "paged_attention",
+               "k3": "flash_attention", "k4": "moe_lora", "k5": "moe_lora",
+               "k5adm": "moe_lora", "k6": "ssm_scan"}
     report = build.build_all(sorted({sources[g] for g in groups}))
     ptxas = {name: [ln.strip() for ln in r["ptxas"].splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]
              for name, r in report.items()}
     res = dict(label=args.label, src=args.src, card=card, ptxas=ptxas)
-    timers = {"k2": time_k2, "k3": time_k3, "k4": time_k4, "k5": time_k5,
-              "k5adm": time_k5adm}
+    timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4,
+              "k5": time_k5, "k5adm": time_k5adm, "k6": time_k6}
     for name in groups:
         res[name] = timers[name](torch, args.profile)
     print(json.dumps(res))

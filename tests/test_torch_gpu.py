@@ -70,6 +70,46 @@ def test_fuse_logits_matches_plain(cuda, b, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("v", [256_000, 1_001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [False, True])
+def test_fuse_logits_split_v(cuda, b, v, dtype, mask):
+    """Split-V over (chunks, B): the ragged V = 1,001 takes the
+    element-wise path; two calls give the same bits, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(b * v)
+    sl = (3 * torch.randn(b, v, device=cuda, generator=g)).to(dtype)
+    ll = (3 * torch.randn(b, v, device=cuda, generator=g)).to(dtype)
+    w = torch.rand(b, device=cuda, generator=g)
+    arrived = torch.tensor([True, False, True, False, False, True, True,
+                            False][:b], device=cuda) if mask else None
+    before = K1.fuse_logits.launches
+    out = K1.fuse_logits(sl, ll, w, arrived)
+    again = K1.fuse_logits(sl, ll, w, arrived)
+    torch.cuda.synchronize()
+    assert K1.fuse_logits.launches == before + 2
+    assert torch.equal(out, again)
+    ref = K1.fuse_logits_plain(sl, ll, w, arrived)
+    assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_fuse_logits_takes_any_w_and_arrived_dtype(cuda):
+    """One contract on both devices: a bf16 w and an int32 arrived give
+    what the plain version gives, as the f32 w and bool arrived do."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    sl = 3 * torch.randn(2, 1_000, device=cuda, generator=g)
+    ll = 3 * torch.randn(2, 1_000, device=cuda, generator=g)
+    w = torch.rand(2, device=cuda, generator=g).bfloat16()
+    arrived = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    out = K1.fuse_logits(sl, ll, w, arrived)
+    same = K1.fuse_logits(sl, ll, w.float(), arrived.bool())
+    ref = K1.fuse_logits_plain(sl, ll, w, arrived)
+    assert torch.equal(out, same)
+    assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("h,kvh", [(8, 1), (16, 16)])
 @pytest.mark.parametrize("s,window", [(31, 0), (200, 64), (2048, 0),
                                       (2048, 512)])
@@ -449,13 +489,14 @@ def test_moe_lora_raises_instead_of_falling_back(cuda):
                           torch.ones(4, 2, device=cuda))
 
 
-def ssm_case(dev, g, b, s, di, n, dtype, dt_rank=256):
+def ssm_case(dev, g, b, s, di, n, dtype, dt_rank=256, x_offset=0):
     """Inputs of one Mamba-1 prefill scan as the model hands them over:
     dt a softplus, B and C column slices of an x_proj-like output
     (b, s, dt_rank + 2n), A = -exp(A_log)."""
     dt = torch.nn.functional.softplus(
         torch.randn(b, s, di, device=dev, generator=g) - 1.0)
-    x = torch.randn(b, s, di, device=dev, generator=g).to(dtype)
+    x = torch.randn(b * s * di + x_offset, device=dev,
+                    generator=g).to(dtype)[x_offset:].view(b, s, di)
     xdbc = torch.randn(b, s, dt_rank + 2 * n, device=dev,
                        generator=g).to(dtype)
     bm, cm = xdbc[..., dt_rank:dt_rank + n], xdbc[..., dt_rank + n:]
@@ -480,6 +521,41 @@ def test_ssm_scan_matches_plain(cuda, b, s, di, n, dtype):
     assert K6.ssm_scan.launches == before + 1
     ry, rh = K6.ssm_scan_plain(*case)
     assert y.dtype == dtype and h.dtype == torch.float32
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert row_rel_err(y, ry) <= tol
+    assert ((h - rh).abs().max() / rh.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(1, 27), (2, 27), (2, 2048)])
+def test_ssm_scan_full_width_repeats(cuda, b, s):
+    """falcon-mamba-7b's width at a short prompt's S and at Bt = 2, S =
+    2,048: within the limits, and two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(s + b)
+    case = ssm_case(cuda, g, b, s, 8192, 16, torch.bfloat16)
+    y, h = K6.ssm_scan(*case)
+    y2, h2 = K6.ssm_scan(*case)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    ry, rh = K6.ssm_scan_plain(*case)
+    assert row_rel_err(y, ry) <= 2 ** -7
+    assert ((h - rh).abs().max() / rh.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("di,dt_rank,x_offset,dtype", [
+    (37, 5, 0, torch.bfloat16),        # di % 8 != 0, B/C unaligned
+    (8192, 256, 1, torch.bfloat16),    # x 2 bytes off 16-byte alignment
+    (100, 3, 0, torch.float32),
+])
+def test_ssm_scan_element_paths(cuda, di, dt_rank, x_offset, dtype):
+    """Shapes and pointers the 16-byte copies cannot take move element by
+    element, with the same results."""
+    g = torch.Generator(device=cuda).manual_seed(di)
+    case = ssm_case(cuda, g, 2, 77, di, 16, dtype, dt_rank, x_offset)
+    y, h = K6.ssm_scan(*case)
+    torch.cuda.synchronize()
+    ry, rh = K6.ssm_scan_plain(*case)
     tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert row_rel_err(y, ry) <= tol
     assert ((h - rh).abs().max() / rh.abs().max()).item() <= 1e-5

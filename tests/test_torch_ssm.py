@@ -8,7 +8,10 @@ float32 on the CPU, from the same inputs (numpy seeds) and the same
   that is no multiple of 64 and B/C passed as strided column slices of
   one x_proj-like output; and against the model's chunked associative
   scan ``_mamba1_inner``.  Tolerance 1e-5 (rtol and atol): the same f32
-  recurrence, exponentials and sums of another implementation.
+  recurrence, exponentials and sums of another implementation.  The
+  CUDA kernel's arithmetic (``ssm_scan_lanes_model``: exp2 on A log2 e,
+  y summed over lanes of four states) against both at the same shapes
+  and tolerance.
 * ``causal_conv`` (prompts shorter than k - 1 included) and
   ``mamba1_block`` in prefill and decode, 1e-5.
 * The LM: prefill plus 16 greedy decode steps, logits within 1e-4 of
@@ -76,6 +79,34 @@ def test_scan_plain_matches_ref_and_pallas(b, s, di, n, chunk, bd, strided):
         assert not tbm.is_contiguous()
     y, h = K6.ssm_scan(torch.from_numpy(dt), torch.from_numpy(x), tbm, tcm,
                        torch.from_numpy(a))
+    assert y.dtype == torch.float32 and h.shape == (b, di, n)
+    for ry, rh in ((jy, jh), (py, ph)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(ry), **TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(rh), **TOL)
+
+
+@pytest.mark.parametrize("b,s,di,n,chunk,bd", [
+    (1, 32, 32, 8, 8, 16),
+    (2, 64, 64, 16, 16, 32),
+    (1, 128, 256, 16, 64, 128),
+    (2, 37, 48, 8, 37, 16),            # S no multiple of 64
+])
+@pytest.mark.parametrize("strided", [False, True])
+def test_scan_lanes_model_matches_ref_and_pallas(b, s, di, n, chunk, bd,
+                                                 strided):
+    """The CUDA kernel's arithmetic (exp2 on the prescaled A, y summed
+    over lanes of four states) against the reference scan and the
+    Pallas kernel."""
+    (dt, x, bm, cm, a), xdbc = scan_inputs(s + n, b, s, di, n, strided)
+    jy, jh = ssm_scan_ref(*map(jnp.asarray, (dt, x, bm, cm, a)))
+    py, ph = jssm_scan(*map(jnp.asarray, (dt, x, bm, cm, a)), chunk=chunk,
+                       block_d=bd, interpret=True)
+    tbm, tcm = map(torch.from_numpy, (bm, cm))
+    if strided:
+        t = torch.from_numpy(xdbc)
+        tbm, tcm = t[..., 5:5 + n], t[..., 5 + n:]
+    y, h = K6.ssm_scan_lanes_model(torch.from_numpy(dt), torch.from_numpy(x),
+                                   tbm, tcm, torch.from_numpy(a))
     assert y.dtype == torch.float32 and h.shape == (b, di, n)
     for ry, rh in ((jy, jh), (py, ph)):
         np.testing.assert_allclose(y.numpy(), np.asarray(ry), **TOL)
