@@ -33,7 +33,8 @@ Phases, in order; any failure exits non-zero before the result lines:
               decode steps);
   5. cli      ``python -m repro_torch.launch.serve --local`` as a user
               runs it on the card (the reduced pair, bf16), sequential,
-              ``--batch 4 --macro-k 0`` and with ``--adapters 3
+              ``--batch 4 --macro-k 0``, ``--batch 4`` (the default
+              macro step, K = 8) and with ``--adapters 3
               --adapter-slots 2``;
   5b. serve_ssm  the full-width falcon-mamba-7b (Mamba-1, 64 layers,
               bf16, random weights from a seed) through
@@ -61,11 +62,25 @@ Phases, in order; any failure exits non-zero before the result lines:
               to the decode layer-steps; then a torch.profiler breakdown
               of one full boundary step and one tail step (a few short
               rows among parked ones);
+  7b. serve_macro  the same 20 requests at macro_k 1 and 8 (the
+              default), each engine run once untimed (it captures one
+              CUDA graph per lane) and then timed: tokens/s, capture
+              seconds, peak memory, replay-aware launch counts (K2 held
+              to K x decode layers x replays per lane, K1 to K x cloud
+              replays); K = 1 must equal the macro_k=0 run bit for bit
+              (ids, cloud/fallback counts, latencies, fusion weights)
+              and K = 8 on every request admitted in the same group (the
+              groups are printed); then the two profiled boundaries of
+              phase 7 on the K = 8 engine: one graph launch per busy
+              lane, K2 at K x 46 (cloud) and K x 18 (edge) launches, the
+              device's busy share of the untraced wall;
   8. serve_adapters  the same traffic with six per-user adapters (random
               B, rank 16) and adapter-free rows mixed over a 4-slot bank
               (evictions, soft refusals), run with use_slot_kernel False
               and True: equal tokens, K4/K5 launches held to 6 x the SLM
               layer passes, adapter stats, tokens changed by adapters;
+              then use_slot_kernel=True at macro_k=8 (K4 in the graphs):
+              the same tokens as its per-token run;
   9. serve_router  the same traffic with a 4-expert bank gated by the
               Router (Eq. 8-11), then one request through
               HybridEngine.generate; K5 launches held to 6 x the SLM
@@ -898,6 +913,7 @@ def phase_cli():
     sequential and batched."""
     from repro_torch.launch import serve
     for argv in (["--local"], ["--local", "--batch", "4", "--macro-k", "0"],
+                 ["--local", "--batch", "4"],
                  ["--local", "--batch", "4", "--macro-k", "0", "--adapters",
                   "3", "--adapter-slots", "2"]):
         res = serve.main(argv)
@@ -1172,7 +1188,7 @@ def phase_serve_batched(torch, dep):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with TokenIds():
+    with TokenIds(), AdmissionGroups() as groups:
         res = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1219,7 +1235,7 @@ def phase_serve_batched(torch, dep):
     if eng.resident_kv_bytes() != 0:
         raise SystemExit("pages leaked after the run")
     trace_batched(torch, eng)
-    return launches, [r.text for r in res]
+    return launches, res, groups.of_rid
 
 
 class TokenIds:
@@ -1235,6 +1251,179 @@ class TokenIds:
 
     def __exit__(self, *exc):
         self.tok.decode = self.decode
+
+
+class AdmissionGroups:
+    """Within the block, records each lane admission burst (the rids
+    prefilled together); ``of_rid`` maps a rid to its burst.  Two runs
+    of the same requests that admit a request in the same burst prefill
+    it at the same padded shape."""
+
+    def __enter__(self):
+        from repro_torch.serving import engine as E
+        self.lane_cls, self.admit = E._Lane, E._Lane.admit_many
+        self.of_rid = {}
+
+        def admit_many(lane, jobs):
+            for j in jobs:
+                self.of_rid[j.rid] = tuple(x.rid for x in jobs)
+            return self.admit(lane, jobs)
+        E._Lane.admit_many = admit_many
+        return self
+
+    def __exit__(self, *exc):
+        self.lane_cls.admit_many = self.admit
+
+
+def lane_layers(lane) -> int:
+    """Decode layers one token of ``lane`` runs: the SLM's, and the
+    LLM's on the cloud lane."""
+    dep = lane.eng.dep
+    return dep.slm.cfg.num_layers + (dep.llm.cfg.num_layers
+                                     if lane.use_cloud else 0)
+
+
+def macro_replays(eng):
+    """Graph replays so far, per lane (cloud, edge)."""
+    return [lane._macro.replays if lane._macro is not None else 0
+            for lane in (eng.cloud_lane, eng.edge_lane)]
+
+
+def same_response(a, b) -> bool:
+    """Token ids, counts, latencies and fusion weights bit for bit."""
+    return (a.text, a.stats.private, a.stats.tokens, a.stats.cloud_tokens,
+            a.stats.fallback_tokens, a.stats.cloud_calls,
+            a.stats.latency_ms, a.stats.fusion_w) == (
+        b.text, b.stats.private, b.stats.tokens, b.stats.cloud_tokens,
+        b.stats.fallback_tokens, b.stats.cloud_calls, b.stats.latency_ms,
+        b.stats.fusion_w)
+
+
+class NoSyncAdmission:
+    """Within the block, ``eng.add_requests`` runs under CUDA's sync
+    debug mode "error" whenever a macro step is in flight, so an
+    admission that would wait for the device raises; ``overlapped``
+    counts those admissions."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.overlapped = torch, eng, 0
+
+    def __enter__(self):
+        torch, eng, add = self.torch, self.eng, self.eng.add_requests
+
+        def guarded(reqs):
+            if all(lane._inflight is None
+                   for lane in (eng.cloud_lane, eng.edge_lane)):
+                return add(reqs)
+            self.overlapped += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return add(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        eng.add_requests = guarded
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng.add_requests
+
+
+def serve_macro_run(torch, eng, requests, dep, names=(), aids=None):
+    """The requests through ContinuousBatchScheduler on ``eng`` twice:
+    once untimed, which captures each lane's CUDA graph, then timed with
+    every count set to 0 just before (``run_counted``), admissions that
+    overlap a macro step held to no host sync (``NoSyncAdmission``).
+    Returns (responses, wall s, launches, calls, peak GiB, graph
+    replays per lane, first run s, admission groups)."""
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    def sched():
+        sc = ContinuousBatchScheduler(eng)
+        for (p, n), aid in zip(requests, aids or [None] * len(requests)):
+            sc.submit(p, max_new_tokens=n, adapter_id=aid)
+        return sc
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TokenIds():
+        sched().run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    before = macro_replays(eng)
+    sc = sched()
+    with AdmissionGroups() as groups, NoSyncAdmission(torch, eng) as ns:
+        res, wall, launches, calls, peak = run_counted(torch, sc, dep, names)
+    replays = [b - a for a, b in zip(before, macro_replays(eng))]
+    print(f"macro_k={eng.macro_k}: {ns.overlapped} admission calls "
+          "overlapped a macro step in flight without a host sync")
+    return res, wall, launches, calls, peak, replays, first_s, groups.of_rid
+
+
+def phase_serve_macro(torch, dep, base, base_groups):
+    """serve_batched's 20 requests at macro_k 1 and 8 on the same
+    deployment, each on its own engine: the untimed first run captures
+    the graphs, the timed one is read.  K = 1 admits in the per-token
+    run's groups, so it must equal that run bit for bit; K = 8 must
+    equal it on every request admitted in the same group (budgets of 16
+    and 40 are multiples of 8, so all of them unless a row ends on EOS).
+    K2 launches are held to K x decode layers x replays per lane, K1 to
+    K x cloud replays.  Returns ({K: launches}, the K = 8 engine)."""
+    out, eng = {}, None
+    for k in (1, 8):
+        # one engine at a time: the last one's lane pools are freed
+        # before the next is read
+        eng = None
+        out[k], eng = serve_macro_k(torch, dep, k, base, base_groups)
+    return out, eng
+
+
+def serve_macro_k(torch, dep, k, base, base_groups):
+    from repro_torch.kernels.paged_attention import kernel as K2
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    eng = BatchedHybridEngine(dep, batch_size=8, macro_k=k, lazy_pages=True)
+    res, wall, launches, _, peak, replays, first_s, groups = \
+        serve_macro_run(torch, eng, BATCHED_REQUESTS, dep)
+    st = eng.macro_stats()
+    tag = f"serve_batched (macro_k={k})"
+    print_batched(tag, res, wall, launches, {}, peak, macro_k=k)
+    print(f"{tag}: first run (graph captures included) {first_s:.3f} s; "
+          f"capture {st['capture_s']:.3f} s over {st['macros']} graphs; "
+          f"graph replays (cloud, edge) {replays}; parked row-iterations "
+          f"{st['parked_rows']}, idle lane iterations {st['idle_iters']} "
+          f"over both runs; growth {eng.growth_stats()}")
+    check_batched_responses(tag, eng, res, BATCHED_REQUESTS)
+    lanes = (eng.cloud_lane, eng.edge_lane)
+    graphs = [lane._macro.captured.get(K2.paged_decode_attention, 0)
+              for lane in lanes]
+    if graphs != [k * lane_layers(lane) for lane in lanes]:
+        raise SystemExit(f"{tag}: the lane graphs hold {graphs} K2 "
+                         f"launches, expected K x decode layers")
+    want_k2 = sum(k * n * lane_layers(lane)
+                  for n, lane in zip(replays, lanes))
+    if launches["paged_decode_attention"] != want_k2 \
+            or launches["fuse_logits"] != k * replays[0] \
+            or min(launches[n] for n in ("fuse_logits",
+                                         "paged_decode_attention",
+                                         "flash_attention")) <= 0:
+        raise SystemExit(f"{tag}: launches {launches}, expected K2 "
+                         f"{want_k2} and K1 {k * replays[0]}")
+    if eng.resident_kv_bytes() != 0:
+        raise SystemExit(f"{tag}: pages leaked")
+    match = [base_groups[r.rid] == groups[r.rid] for r in res]
+    equal = [same_response(a, b) for a, b in zip(base, res)]
+    print(f"{tag}: admission groups per-token "
+          f"{sorted(set(base_groups.values()))}; macro "
+          f"{sorted(set(groups.values()))}; {sum(match)} of {len(res)} "
+          f"requests in the same group, {sum(equal)} equal to the "
+          f"per-token run bit for bit")
+    if k == 1 and not all(match):
+        raise SystemExit(f"{tag}: admission groups differ from the "
+                         "per-token run's")
+    bad = [r.rid for r, m, e in zip(res, match, equal) if m and not e]
+    if bad:
+        raise SystemExit(f"{tag}: requests {bad} admitted in the same "
+                         "group differ from the per-token run")
+    return launches, eng
 
 
 def counted(dep, names):
@@ -1308,7 +1497,8 @@ def check_batched_responses(tag, eng, res, requests):
             raise SystemExit(f"{tag}: bad output on rid {r.rid}: {r.stats}")
 
 
-def print_batched(tag, res, wall, launches, calls, peak, extra=""):
+def print_batched(tag, res, wall, launches, calls, peak, extra="",
+                  macro_k=0):
     from repro_torch.serving.scheduler import summarize
     for r in res:
         print(f"[{r.rid}] {r.status.value} private={r.stats.private} "
@@ -1317,8 +1507,9 @@ def print_batched(tag, res, wall, launches, calls, peak, extra=""):
     print(summarize(res))
     tokens = sum(r.stats.tokens for r in res)
     print(f"{tag}: {tokens} tokens in {wall:.3f} s = {tokens / wall:.2f} "
-          f"tokens/s ({len(res)} requests, batch 8, macro_k=0, prefill "
-          f"included); peak memory {peak:.2f} GiB; launches {launches}; "
+          f"tokens/s ({len(res)} requests, batch 8, macro_k={macro_k}, "
+          f"prefill included); peak memory {peak:.2f} GiB; launches "
+          f"{launches}; "
           f"SLM calls {calls}{extra}")
 
 
@@ -1348,8 +1539,9 @@ def phase_serve_adapters(torch, dep, plain_ids):
             eng.adapters.register(f"user{j}", ad)
         for (p, n), aid in zip(BATCHED_REQUESTS, ADAPTER_OF):
             sched.submit(p, max_new_tokens=n, adapter_id=aid)
-        res, wall, launches, calls, peak = run_counted(
-            torch, sched, ad_dep, ("slm_prefill_packed", "slm_decode"))
+        with AdmissionGroups() as groups:
+            res, wall, launches, calls, peak = run_counted(
+                torch, sched, ad_dep, ("slm_prefill_packed", "slm_decode"))
         st = eng.adapter_stats()
         tag = f"serve_adapters (use_slot_kernel={flag})"
         print_batched(tag, res, wall, launches, calls, peak,
@@ -1372,11 +1564,13 @@ def phase_serve_adapters(torch, dep, plain_ids):
         if eng.resident_kv_bytes() != 0:
             raise SystemExit(f"{tag}: pages leaked")
         runs[flag] = dict(ids=[r.text for r in res], launches=launches,
-                          calls=calls, stats=st, wall=wall, peak=peak)
+                          calls=calls, stats=st, wall=wall, peak=peak,
+                          groups=groups.of_rid)
         del sched, eng
     if runs[False]["ids"] != runs[True]["ids"]:
         raise SystemExit("serve_adapters: K4 and K5 decode runs gave "
                          "different tokens")
+    runs["macro"] = serve_adapters_macro(torch, ad_dep, users, runs[True])
     moved = [a != b for a, b in zip(runs[True]["ids"], plain_ids)]
     with_ad = sum(m for m, aid in zip(moved, ADAPTER_OF) if aid)
     print(f"serve_adapters: tokens equal across the two runs; tokens "
@@ -1386,6 +1580,96 @@ def phase_serve_adapters(torch, dep, plain_ids):
     if with_ad == 0:
         raise SystemExit("serve_adapters: the adapters changed no token")
     return runs
+
+
+def serve_adapters_macro(torch, ad_dep, users, per_token, k=8):
+    """serve_adapters' traffic at macro_k=8 with use_slot_kernel=True:
+    K4 decodes in the graphs, K5 prefills at admission.  Its token ids
+    must equal the per-token K4 run's on every request admitted in the
+    same group (soft refusals on pinned slots can regroup admissions;
+    the groups are printed); K4 launches are held to 6 x K x SLM layers
+    x graph replays, K5 to 6 x SLM layers x prefills."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    eng = BatchedHybridEngine(ad_dep, batch_size=8, macro_k=k,
+                              lazy_pages=True, use_slot_kernel=True)
+    for j, ad in enumerate(users):
+        eng.adapters.register(f"user{j}", ad)
+    res, wall, launches, calls, peak, replays, first_s, groups = \
+        serve_macro_run(torch, eng, BATCHED_REQUESTS, ad_dep,
+                        ("slm_prefill_packed",), ADAPTER_OF)
+    tag = f"serve_adapters (use_slot_kernel=True, macro_k={k})"
+    st = eng.adapter_stats()
+    print_batched(tag, res, wall, launches, calls, peak,
+                  f"; adapter_stats {st}; graph replays (cloud, edge) "
+                  f"{replays}; first run {first_s:.3f} s", macro_k=k)
+    check_batched_responses(tag, eng, res, BATCHED_REQUESTS)
+    n_layers = ad_dep.slm.cfg.num_layers
+    want = {"moe_lora_delta_slots": 6 * n_layers * k * sum(replays),
+            "moe_lora_delta": 6 * n_layers * calls["slm_prefill_packed"]}
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise SystemExit(f"{tag}: LoRA launches {got}, expected {want}")
+    if st["pinned"] != 0 or eng.resident_kv_bytes() != 0:
+        raise SystemExit(f"{tag}: adapter pins or pages leaked")
+    ids = [r.text for r in res]
+    match = [per_token["groups"][r.rid] == groups[r.rid] for r in res]
+    equal = [a == b for a, b in zip(ids, per_token["ids"])]
+    print(f"{tag}: admission groups per-token "
+          f"{sorted(set(per_token['groups'].values()))}; macro "
+          f"{sorted(set(groups.values()))}; {sum(match)} of {len(res)} "
+          f"requests in the same group; tokens equal to the per-token K4 "
+          f"run on {sum(equal)} of {len(res)}")
+    bad = [r.rid for r, m, e in zip(res, match, equal) if m and not e]
+    if bad:
+        raise SystemExit(f"{tag}: requests {bad} admitted in the same "
+                         "group differ from the per-token K4 run")
+    profile_lora_boundary(torch, eng, tag)
+    return dict(ids=ids, launches=launches, calls=calls, wall=wall,
+                peak=peak)
+
+
+def profile_lora_boundary(torch, eng, tag):
+    """One macro boundary of the K4 adapter engine under torch.profiler,
+    after a warm-up step: the profiled K4 passes (``lora_down`` and
+    ``lora_up``, which K5 shares below 64 rows) must equal the
+    replay-aware K4 count, 6 x K x SLM layers x graph replays, and K5
+    must not run in decode."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.moe_lora.kernel import (moe_lora_delta,
+                                                     moe_lora_delta_slots)
+
+    reqs = [(p, 40, True, 700 + i, None, None, aid) for i, ((p, _), aid)
+            in enumerate(zip(BATCHED_REQUESTS, ADAPTER_OF))]
+    if not any(eng.add_requests(reqs)):
+        raise SystemExit(f"{tag}: no profiled request was admitted")
+    eng.step()
+    torch.cuda.synchronize()
+    r0 = macro_replays(eng)
+    n0 = (moe_lora_delta_slots.launches, moe_lora_delta.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    replays = [b - a for a, b in zip(r0, macro_replays(eng))]
+    counted = (moe_lora_delta_slots.launches - n0[0],
+               moe_lora_delta.launches - n0[1])
+    rows = profile_rows(torch, prof)
+    passes = [sum(r[1] for r in rows if p in r[2])
+              for p in ("lora_down", "lora_up")]
+    want = 6 * eng.dep.slm.cfg.num_layers * eng.macro_k * sum(replays)
+    print(f"{tag}: profiled boundary: graph replays (cloud, edge) "
+          f"{replays}; K4 counted {counted[0]}, profiled (down, up) "
+          f"{passes}; K5 counted {counted[1]}")
+    if sum(replays) == 0 or counted != (want, 0) \
+            or passes != [want, want]:
+        raise SystemExit(f"{tag}: profiled boundary: K4 counted "
+                         f"{counted[0]} and profiled {passes}, K5 "
+                         f"{counted[1]}; expected K4 {want} and no K5")
+    while eng.active_count():
+        eng.step()
+    if eng.adapter_stats()["pinned"] != 0 or eng.resident_kv_bytes() != 0:
+        raise SystemExit(f"{tag}: adapter pins or pages leaked")
 
 
 def phase_serve_router(torch, dep, plain_ids):
@@ -1460,8 +1744,9 @@ def profile_rows(torch, prof):
 def trace_batched(torch, eng):
     """Device time by kernel and the device's busy share over two batched
     boundary steps: 8 cloud rows (the long prompt among them) and 4
-    private rows decoding one token each, then the tail of a run — 3
-    short cloud rows among the parked rows of the drained lane."""
+    private rows decoding one token each (K tokens each on a macro-step
+    engine), then the tail of a run — 3 short cloud rows among the parked
+    rows of the drained lane."""
     reqs = [(p, 40) for p, _ in BATCHED_REQUESTS]
     cloud = [r for r in reqs if not eng.detector.detect(r[0])][:8]
     private = [r for r in reqs if eng.detector.detect(r[0])]
@@ -1475,19 +1760,30 @@ def trace_batched(torch, eng):
     tail = [(p, 40, True, 600 + i) for i, (p, _) in enumerate(cloud[1:4])]
     if not all(eng.add_requests(tail)):
         raise SystemExit("trace: a tail request was not admitted")
-    profile_step(torch, eng, "one tail step (3 short cloud rows, 5 parked)")
+    profile_step(torch, eng, "one tail step (3 short cloud rows, 5 "
+                 "parked)")
     while eng.active_count():
         eng.step()
 
 
 def profile_step(torch, eng, what: str):
-    """Three warm-up steps, then one boundary step timed untraced and one
-    under torch.profiler: wall, device busy share, K2's device time and
-    the top kernels."""
+    """Warm-up steps (three, or one macro step), then one boundary step
+    timed untraced and one under torch.profiler: wall, device busy
+    share, K2's and K1's device time and launches, the graph launches
+    and the top kernels.  On a macro-step engine every non-idle lane
+    must replay its graph once a step, K2 launch K x its decode layers
+    a step (in the graph, by the replay-aware count and in the profile)
+    and K1 K times a cloud-lane replay (by the replay-aware count, and
+    in the profile as K fuse_stats and K fuse_write kernels)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.logit_fusion.kernel import fuse_logits
+    from repro_torch.kernels.paged_attention import kernel as K2
 
-    for _ in range(3):
+    k = eng.macro_k
+    for _ in range(1 if k else 3):
         eng.step()
+    busy_lanes = [lane for lane in (eng.cloud_lane, eng.edge_lane)
+                  if lane.active]
 
     def one():
         torch.cuda.synchronize()
@@ -1496,23 +1792,60 @@ def profile_step(torch, eng, what: str):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
+    r0, n0 = macro_replays(eng), (K2.paged_decode_attention.launches,
+                                  fuse_logits.launches)
     wall_ms = one()
+    r1 = macro_replays(eng)
+    replays = [b - a for a, b in zip(r0, r1)]
+    counted_k2 = K2.paged_decode_attention.launches - n0[0]
+    counted_k1 = fuse_logits.launches - n0[1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced_ms = one()
+    traced_replays = [b - a for a, b in zip(r1, macro_replays(eng))]
     rows = profile_rows(torch, prof)
+    graphs = sum(e.count for e in prof.key_averages()
+                 if "GraphLaunch" in e.key)
     busy = sum(r[0] for r in rows)
     k2 = [r for r in rows if "paged_decode" in r[2]]
     k1 = [r for r in rows if "fuse_" in r[2]]
-    print(f"trace_batched: {what}: {wall_ms:.2f} ms untraced, "
-          f"{traced_ms:.2f} ms traced; device busy {busy:.2f} ms = "
-          f"{100 * busy / wall_ms:.1f}% of the untraced wall; K2 "
-          f"{sum(r[0] for r in k2):.3f} ms over {sum(r[1] for r in k2)} "
-          f"launches; K1 {sum(r[0] for r in k1):.4f} ms over "
-          f"{sum(r[1] for r in k1)} launches; {sum(r[1] for r in rows)} "
-          f"kernel launches")
+    # a K2 call is two kernels, its split pass and its combine pass
+    k2_launches = sum(r[1] for r in k2 if "paged_decode_split" in r[2])
+    # and a K1 call two, its per-chunk stats and its write
+    k1_passes = [sum(r[1] for r in k1 if p in r[2])
+                 for p in ("fuse_stats", "fuse_write")]
+    print(f"trace_batched{f' (macro_k={k})' if k else ''}: {what}: "
+          f"{wall_ms:.2f} ms untraced, {traced_ms:.2f} ms traced; device "
+          f"busy {busy:.2f} ms = {100 * busy / wall_ms:.1f}% of the "
+          f"untraced wall; K2 {sum(r[0] for r in k2):.3f} ms over "
+          f"{k2_launches} calls ({sum(r[1] for r in k2)} kernels); K1 "
+          f"{sum(r[0] for r in k1):.4f} ms over {sum(r[1] for r in k1)} "
+          f"kernels; "
+          f"{sum(r[1] for r in rows)} kernel launches; {graphs} graph "
+          f"launches")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
+    if not k:
+        return
+    want = sum(k * lane_layers(lane) for lane in busy_lanes)
+    want_k1 = k * int(eng.cloud_lane in busy_lanes)
+    per_lane = [lane._macro.captured.get(K2.paged_decode_attention, 0)
+                for lane in busy_lanes]
+    one_each = [int(lane in busy_lanes)
+                for lane in (eng.cloud_lane, eng.edge_lane)]
+    if per_lane != [k * lane_layers(lane) for lane in busy_lanes] \
+            or replays != one_each or traced_replays != one_each \
+            or graphs != len(busy_lanes) or counted_k2 != want \
+            or k2_launches != want or counted_k1 != want_k1 \
+            or k1_passes != [want_k1, want_k1]:
+        raise SystemExit(f"trace_batched (macro_k={k}): {what}: K2 per "
+                         f"lane graph {per_lane}, replays {replays} and "
+                         f"{traced_replays} traced, graph launches "
+                         f"{graphs}, K2 counted {counted_k2} and profiled "
+                         f"{k2_launches}, K1 counted {counted_k1} and "
+                         f"profiled (stats, write) {k1_passes}; expected "
+                         f"K2 {want}, K1 {want_k1} and one replay per "
+                         f"busy lane ({len(busy_lanes)})")
 
 
 def trace(torch, engine):
@@ -1580,19 +1913,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     dep = full_pair(torch)
     seq_launches = phase_serve(torch, dep)
-    launches, plain_ids = phase_serve_batched(torch, dep)
+    k0_launches, k0_res, k0_groups = phase_serve_batched(torch, dep)
+    plain_ids = [r.text for r in k0_res]
+    macro_launches, eng8 = phase_serve_macro(torch, dep, k0_res, k0_groups)
+    # the main path is the engine's default, the K = 8 macro step
+    launches = macro_launches[8]
+    trace_batched(torch, eng8)
+    del eng8
     ad_runs = phase_serve_adapters(torch, dep, plain_ids)
     router_run = phase_serve_router(torch, dep, plain_ids)
     paths = {"serve": seq_launches, "serve_batched": launches,
+             "serve_batched_k0": k0_launches,
+             "serve_batched_k1": macro_launches[1],
              "serve_adapters_k5": ad_runs[False]["launches"],
              "serve_adapters_k4": ad_runs[True]["launches"],
+             "serve_adapters_k4_macro": ad_runs["macro"]["launches"],
              "serve_router": router_run["launches"],
              "serve_router_sequential": router_run["seq_launches"],
              "serve_ssm": ssm_launches}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}
-    lora_paths = ("serve_adapters_k5", "serve_adapters_k4", "serve_router")
+    lora_paths = ("serve_adapters_k5", "serve_adapters_k4",
+                  "serve_adapters_k4_macro", "serve_router")
 
     # (8, V) f32; H=16, S=2048, B=1; LLM B=8, plain table
     k1, k3, k2 = k1_cases[-1], k3_cases[5], k2_cases[2]

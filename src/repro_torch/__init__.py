@@ -11,6 +11,7 @@ tensors that lie on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,14 @@ def resolve_device(device=None) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def to_device(array, device) -> torch.Tensor:
+    """A host array (or list) as a tensor on ``device``.  On CUDA it is
+    staged in pinned memory and copied without blocking, so the host
+    does not wait for the work queued on the stream: a pageable copy
+    would synchronise with it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

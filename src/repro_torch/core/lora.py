@@ -119,7 +119,7 @@ def write_slot(bank: Dict[str, Any], adapter: Dict[str, Any],
         dst.copy_(leaf)
 
     _map(wr, bank_for_model(bank), _body(adapter))
-    bank["_ranks"][int(slot)] = int(adapter["_rank"])
+    bank["_ranks"][int(slot)].fill_(int(adapter["_rank"]))
     return bank
 
 

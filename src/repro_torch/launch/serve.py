@@ -2,9 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --local [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
-        --macro-k 0 [--page-size 16] [--no-lazy-pages] [--device cpu]
+        [--macro-k 8] [--page-size 16] [--no-lazy-pages] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
-        --macro-k 0 --adapters 3 --adapter-slots 2 [--adapter-rank 4]
+        --adapters 3 --adapter-slots 2 [--adapter-rank 4]
 
 serves the four demo prompts on the reduced ``2b`` pair, printing one
 line per request and the summary, as the reference does.  ``--batch``
@@ -14,14 +14,15 @@ continuous-batching scheduler on paged lanes and prints the
 --adapter-slots E`` registers N per-user adapters (``user{j}``, rank
 ``--adapter-rank``) over an E-slot bank, spreads the demo requests over
 them with one adapter-free row, and prints the cache's stats; fewer
-slots than adapters exercises eviction.  The reference's macro step
-(its ``--macro-k`` default, 8) is a later slice, so a batched run must
-say ``--macro-k 0``, and on CUDA ``--page-size`` must be 16, the page
-size of the paged decode kernel.  It runs on CUDA unless ``--device
-cpu`` is given; on CUDA the pair is served in bfloat16 (the attention
-kernels take bfloat16), on the CPU in the configs' float32.  The
-reference's other
-flags belong to later slices and are refused.
+slots than adapters exercises eviction.  A batched run decodes
+``--macro-k`` tokens a lane per dispatch (default 8, as in the
+reference; a CUDA graph per lane on the card), and ``--macro-k 0``
+takes the per-token step; both print the same per-request lines.  On
+CUDA ``--page-size`` must be 16, the page size of the paged decode
+kernel.  It runs on CUDA unless ``--device cpu`` is given; on CUDA the
+pair is served in bfloat16 (the attention kernels take bfloat16), on
+the CPU in the configs' float32.  The reference's other flags belong
+to later slices and are refused.
 """
 import argparse
 import dataclasses
@@ -51,7 +52,8 @@ def main(argv=None):
                     help="decode-batch width; >1 uses the continuous-"
                          "batching engine on paged lanes")
     ap.add_argument("--macro-k", type=int, default=8,
-                    help="only 0 (the per-token step) is ported")
+                    help="tokens a lane decodes per dispatch with one "
+                         "host sync (0 = the per-token step)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--no-lazy-pages", action="store_true")
     ap.add_argument("--pair", default="2b",
@@ -73,9 +75,6 @@ def main(argv=None):
         if flag in LATER_SLICE_FLAGS:
             ap.error(f"{flag}: later slice")
         ap.error(f"unrecognized argument {arg}")
-    if args.batch > 1 and args.macro_k != 0:
-        ap.error(f"--macro-k {args.macro_k} (macro-step): later slice; "
-                 "pass --macro-k 0")
     if args.pair != "2b":
         ap.error(f"--pair {args.pair}: later slice")
     if not args.local:
@@ -114,7 +113,7 @@ def main(argv=None):
         device=device)
     if args.batch > 1:
         sched = ContinuousBatchScheduler.from_deployment(
-            dep, batch_size=args.batch, macro_k=0,
+            dep, batch_size=args.batch, macro_k=args.macro_k,
             lazy_pages=not args.no_lazy_pages)
         print(f"lane KV: paged, pool capacity "
               f"{sched.engine.kv_pool_bytes()}B")

@@ -85,8 +85,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     hd = x.shape[-1]
     half = hd // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)
+    # torch.full, not torch.tensor: a fill on the device, where a copy
+    # from pageable host memory could not be captured in a CUDA graph
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=x.device), exps)
     ang = positions[..., None].float() * freq              # (..., S, half)
     sin = torch.sin(ang)[..., None, :]                     # (..., S, 1, half)
     cos = torch.cos(ang)[..., None, :]
@@ -114,8 +116,8 @@ def embed(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype first, as in the
         # reference: in bf16, sqrt(3072) = 55.43 becomes 55.5
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     return x
 
 

@@ -38,7 +38,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, to_device
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -291,7 +291,7 @@ class LM:
                                     gates=gates)
             write_kv(i, k, v)
         # per-row last VALID position (x[:, -1:] would read padding)
-        idx = torch.as_tensor(lengths - 1, device=tokens.device)
+        idx = to_device(np.asarray(lengths) - 1, tokens.device)
         last = x[torch.arange(b, device=tokens.device), idx][:, None]
         last = L.norm(cfg, params["ln_f"], last)
         return L.unembed(cfg, params["embed"], last)

@@ -12,8 +12,10 @@ SLM's entry points take a merged-LoRA bank and its gates: a router-gated
 expert bank (``expert_bank=``, placed once as ``lora``) or the per-user
 adapter slot bank (``adapter_slots=``) that an engine's
 ``AdapterCache`` owns and writes through ``write_adapter_slot``.
-Meshes, macro-steps, dense lanes, prefix sharing, chunked prefill and
-speculation are later slices.
+The K-token macro step's per-lane state and body live in
+``serving/macro.py``; the deployment gives it ``fuse_mask`` (the fusion
+on a device arrived mask) and ``fetch_traces``.  Meshes, dense lanes,
+prefix sharing, chunked prefill and speculation are later slices.
 
 Without an LLM the deployment is SLM-only (``SoloEngine``); its SLM may
 be a dense model or a Mamba-1 SSM, whose recurrent state has no pages
@@ -24,7 +26,9 @@ The reference's jitted functions return updated copies of a lane cache;
 the port's update the cache dict IN PLACE and return it.  Index
 arguments (rows, slots, page ids) arrive as host lists or numpy arrays,
 and every lane cache keeps a host mirror of its per-row positions
-("pos_host"), so no entry point reads the device back.
+("pos_host"), so no entry point reads the device back.  Host indices and
+values reach a CUDA device through pinned memory without blocking
+(``to_device``), so admission never waits for a macro step in flight.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, to_device
 from repro_torch.core import fusion as FUS
 from repro_torch.core import lora as LORA
 from repro_torch.models.attention import FREED_POS
@@ -197,8 +201,8 @@ class ServingDeployment:
     def set_row_pos(self, cache, idx, val):
         """pos[idx] = val on the device and in the host mirror."""
         idx, val = np.asarray(idx, np.int64), np.asarray(val, np.int64)
-        cache["pos"][_index(idx, self.device)] = torch.as_tensor(
-            val, dtype=torch.int32, device=self.device)
+        cache["pos"][_index(idx, self.device)] = to_device(
+            val.astype(np.int32), self.device)
         cache["pos_host"][idx] = val
         return cache
 
@@ -208,14 +212,14 @@ class ServingDeployment:
         page ids can be handed to a new admission."""
         idx = np.asarray(idx, np.int64)
         self.set_row_pos(cache, idx, np.full(idx.shape, FREED_POS))
-        cache["block"][_index(idx, self.device)] = PAG.NO_PAGE
+        cache["block"].index_fill_(0, _index(idx, self.device), PAG.NO_PAGE)
         return cache
 
     def grow_block_pages(self, cache, rows, cols, pids):
         """Map freshly grown pages: block[rows[i], cols[i]] = pids[i]."""
         cache["block"][_index(rows, self.device),
-                       _index(cols, self.device)] = torch.as_tensor(
-            np.asarray(pids), dtype=torch.int32, device=self.device)
+                       _index(cols, self.device)] = to_device(
+            np.asarray(pids, np.int32), self.device)
         return cache
 
     def page_writer(self, full, src, dpf):
@@ -244,8 +248,8 @@ class ServingDeployment:
         """Row positions (the prompt lengths) and table rows at ``dst``
         of a paged admission whose K/V are in the pool."""
         self.set_row_pos(full, dst, lengths)
-        full["block"][_index(dst, self.device)] = torch.as_tensor(
-            np.asarray(block_rows), dtype=torch.int32, device=self.device)
+        full["block"][_index(dst, self.device)] = to_device(
+            np.asarray(block_rows, np.int32), self.device)
         return full
 
     def fuse(self, sl: torch.Tensor, ll: torch.Tensor, arrived: bool):
@@ -256,8 +260,15 @@ class ServingDeployment:
     def fuse_batched(self, sl: torch.Tensor, ll: torch.Tensor, arrived):
         """Eq. 14-15 on a lane batch (B, V) with a per-row arrived mask
         (host bools), Eq. 15 through K1.  Returns (P_out (B, V), w (B,))."""
-        mask = torch.as_tensor(np.asarray(arrived, bool), device=sl.device)
-        return FUS.fused_distribution_kernel(self.mlp, sl, ll, mask,
+        return self.fuse_mask(sl, ll, to_device(np.asarray(arrived, bool),
+                                                sl.device))
+
+    def fuse_mask(self, sl: torch.Tensor, ll: torch.Tensor,
+                  arrived: torch.Tensor):
+        """``fuse_batched`` on an arrived mask that already lies on the
+        device, (B,) bool: the macro step's form, which copies nothing
+        from the host and so can be captured in a CUDA graph."""
+        return FUS.fused_distribution_kernel(self.mlp, sl, ll, arrived,
                                              block_b=self.block_b)
 
     @staticmethod
@@ -273,6 +284,12 @@ class ServingDeployment:
         float32, cloud_used (B,) bool) numpy arrays."""
         return self.latency.token_latency_device(self.timeout_ms, rids,
                                                  steps)
+
+    @staticmethod
+    def fetch_traces(traces: torch.Tensor) -> np.ndarray:
+        """The one host sync of a macro step: its stacked traces, copied
+        to the host in one transfer."""
+        return traces.cpu().numpy()
 
     def lat_request(self, rid: int, steps):
         """A whole request's network weather in one vectorised draw:
@@ -302,9 +319,11 @@ def _write_pages(pool, pages, plan):
         pool[_index(pid[have], dev)] = pages[_index(srow[have], dev),
                                              _index(cc[have], dev)]
     if (~have).any():
-        pool[_index(pid[~have], dev)] = 0
+        # index_fill_: ``pool[idx] = 0`` would copy the 0 from the host
+        # and wait for the device
+        pool.index_fill_(0, _index(pid[~have], dev), 0)
 
 
 def _index(idx, device) -> torch.Tensor:
     """A host index list or array as an int64 tensor on ``device``."""
-    return torch.as_tensor(np.asarray(idx, np.int64), device=device)
+    return to_device(np.asarray(idx, np.int64), device)

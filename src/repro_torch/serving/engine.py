@@ -16,11 +16,13 @@ Pipeline per request (paper Fig. 8):
      is forced to w = 1 (Sec. IV-D fallback).
 
 The port serves greedy decoding without fault injection.  The batched
-engine serves paged lanes through the per-token step (``macro_k=0``)
-with lazy or eager page reservation; its LoRA decode goes through K5 on
-the lane's (B, E) gate rows, or through K4 on per-row slot ids with
-``use_slot_kernel=True``.  The K-token macro step, dense lanes, COW
-prefix sharing, chunked prefill, park/evict under pool pressure, keyed
+engine serves paged lanes with lazy or eager page reservation, through
+the K-token macro step (``macro_k=K``, the default 8: one dispatch and
+one host sync per lane per K tokens, a CUDA graph replayed on the card,
+``serving/macro.py``) or the per-token step (``macro_k=0``); its LoRA
+decode goes through K5 on the lane's (B, E) gate rows, or through K4 on
+per-row slot ids with ``use_slot_kernel=True``.  Dense lanes, COW prefix
+sharing, chunked prefill, park/evict under pool pressure, keyed
 sampling, faults, deadlines and speculation are later slices and raise
 ``NotImplementedError``.
 """
@@ -32,13 +34,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import to_device
 from repro_torch.core import lora as LORA
 from repro_torch.core.privacy import PrivacyDetector
 from repro_torch.core.router import Router
 from repro_torch.data import tokenizer as TOK
 from repro_torch.kernels.logit_fusion import ops as OPS
+from repro_torch.models.attention import FREED_POS, check_row_positions
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.deployment import ServingDeployment
+from repro_torch.serving.macro import LaneMacro
 
 # admission prompts are right-padded to a multiple of this many tokens,
 # as the reference pads them, so K3 sees the reference's prefill shapes
@@ -70,7 +75,7 @@ def _admission_gates(eng, items: List[Tuple[str, Optional[int]]],
         g = np.zeros((bp, rows.shape[1]), rows.dtype)
         g[:rows.shape[0]] = rows
         rows = g
-    return torch.as_tensor(rows, device=eng.dep.device)
+    return to_device(rows, eng.dep.device)
 
 
 @dataclass
@@ -307,6 +312,9 @@ class _Lane:
         self.pager_s = engine._make_pager(engine.dep.slm, batch)
         self.pager_l = (engine._make_pager(engine.dep.llm, batch)
                         if use_cloud else None)
+        self._macro: Optional[LaneMacro] = None  # built at first dispatch
+        # (macro, lat, ok, live rows) of the macro step in flight
+        self._inflight = None
 
     # ----------------------------------------------------------- helpers
     def free_slots(self) -> List[int]:
@@ -316,21 +324,30 @@ class _Lane:
     def active(self) -> int:
         return sum(s is not None for s in self.slots)
 
-    def _decode_gates(self):
-        """The gates of a decode dispatch: the (B, E) gate rows, or, with
-        ``use_slot_kernel`` on an adapter-serving engine, the (B,) int32
-        per-row adapter slots (-1 = adapter-free), which
-        ``layers.lora_delta`` sends through K4.  Prefill keeps the gate
-        rows (K5), and so do router-gated engines (soft weights)."""
+    def _slot_kernel(self) -> bool:
+        """Whether decode LoRA takes per-row slot ids (K4), not the gate
+        rows (K5)."""
         eng = self.eng
-        if not eng.use_slot_kernel or eng.adapters is None \
-                or self.gates is None:
-            return self.gates
+        return bool(eng.use_slot_kernel and eng.adapters is not None
+                    and self.gates is not None)
+
+    def _slot_ids(self) -> np.ndarray:
+        """The (B,) int32 per-row adapter slots (-1 = adapter-free)."""
         slots = np.full((self.batch,), -1, np.int32)
         for i, s in enumerate(self.slots):
             if s is not None and s.aslot is not None:
                 slots[i] = s.aslot
-        return torch.as_tensor(slots, device=eng.dep.device)
+        return slots
+
+    def _decode_gates(self):
+        """The gates of a decode dispatch: the (B, E) gate rows, or, with
+        ``use_slot_kernel`` on an adapter-serving engine, the (B,) int32
+        per-row adapter slots, which ``layers.lora_delta`` sends through
+        K4.  Prefill keeps the gate rows (K5), and so do router-gated
+        engines (soft weights)."""
+        if not self._slot_kernel():
+            return self.gates
+        return to_device(self._slot_ids(), self.eng.dep.device)
 
     def _alloc(self, n_experts: Optional[int]):
         dep = self.eng.dep
@@ -376,7 +393,7 @@ class _Lane:
             toks[j, :len(seq)] = seq
         lens_p = np.ones((bp,), np.int32)
         lens_p[:n] = lens
-        return torch.as_tensor(toks, device=self.eng.dep.device), lens_p
+        return to_device(toks, self.eng.dep.device), lens_p
 
     @torch.inference_mode()
     def admit_many(self, jobs: List[_PagedJob]):
@@ -477,7 +494,7 @@ class _Lane:
         if self.active:
             # freed rows ride along in the fixed-width batch, parked at
             # FREED_POS with NO_PAGE tables: their writes drop
-            toks = torch.as_tensor(next_tok, device=dep.device)
+            toks = to_device(next_tok, dep.device)
             s_logits, self.s_cache = dep.slm_decode(
                 eng.slm_params, self.s_cache, toks, eng.lora,
                 self._decode_gates())
@@ -487,6 +504,128 @@ class _Lane:
                     eng.llm_params, self.l_cache, toks)
                 self.ll = l_logits[:, 0]
         return done
+
+    # -------------------------------------------------------- macro decode
+    @torch.inference_mode()
+    def macro(self, k: int) -> LaneMacro:
+        """The lane's K-token macro step, built (and on CUDA captured)
+        at its first use.  Its key, K and the gate form (slot ids or
+        gate rows), changes what the graph reads, and is fixed for the
+        lane's life: the engine's ``macro_k``, and gates set by the
+        first admission, which precedes every dispatch."""
+        key = (k, self._slot_kernel())
+        if self._macro is None:
+            self._macro = LaneMacro(self, k, slot_ids=key[1])
+        m = self._macro
+        if (m.k, m.slot_ids is not None) != key:
+            raise ValueError(f"the lane's macro step was built for (K, "
+                             f"slot ids) {(m.k, m.slot_ids is not None)}, "
+                             f"not {key}")
+        return m
+
+    @torch.inference_mode()
+    def macro_dispatch(self, k: int):
+        """Decode the next k tokens of every occupied row in one macro
+        step, without waiting for it: ``macro_collect`` syncs once and
+        replays the traces into the slots.  Between the two the host may
+        admit into free rows (the scheduler's admission pipelining);
+        rows freed in the macro give their pages back only at collect,
+        so no admission takes a page the step still writes.  No-op when
+        the lane is idle or a macro step is already in flight."""
+        if self._inflight is not None:
+            return
+        self._provision(k)
+        if self.active == 0:
+            return
+        dep, b = self.eng.dep, self.batch
+        rids = np.zeros((b,), np.int32)
+        steps = np.zeros((b,), np.int32)
+        maxn = np.zeros((b,), np.int32)
+        done = np.ones((b,), bool)
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                rids[i], steps[i], maxn[i] = s.rid, len(s.out_ids), s.max_new
+                done[i] = False
+        # the last slot each live row can write in the next k tokens
+        # (the last selected token is never fed), checked here once as
+        # the per-token decode checks its positions at every layer
+        fed = np.clip(np.minimum(k, maxn - steps - 1), 1, None)
+        for c in (self.s_cache, self.l_cache):
+            if c is not None:
+                check_row_positions(
+                    np.where(done, FREED_POS, c["pos_host"] + fed - 1),
+                    c["block"].shape[1] * dep.page_size)
+        lat = ok = None
+        if self.use_cloud:
+            # a row's step advances once per active iteration, so the
+            # (k, B) grid is the in-scan draw of every emitted token
+            grid = steps[None, :] + np.arange(k, dtype=np.int32)[:, None]
+            lat, ok = dep.lat_batched(np.broadcast_to(rids, grid.shape),
+                                      grid)
+        m = self.macro(k)
+        m.load(ok, steps, maxn, done, self._slot_ids())
+        m.run()
+        self._inflight = (m, lat, ok, ~done)
+
+    @torch.inference_mode()
+    def macro_collect(self) -> List[Tuple[int, str, GenStats]]:
+        """The one host sync of the macro step in flight: fetch its
+        traces and replay them into the slots' stats, as ``step`` would
+        have recorded them token by token.  Returns the requests that
+        finished.  Rows admitted while it was in flight were done for
+        the whole step (their traces are all inactive) and keep their
+        host positions."""
+        if self._inflight is None:
+            return []
+        m, lat, ok, live = self._inflight
+        self._inflight = None
+        toks, w, emit = self.eng.dep.fetch_traces(m.traces)
+        emit = emit.astype(bool)
+        # the tail work of rows that finished early, which the step
+        # still runs parked: no early exit, which would be a host sync
+        m.parked_rows += int((live[None, :] & ~emit).sum())
+        m.idle_iters += int((~emit.any(1)).sum())
+        eng = self.eng
+        out: List[Tuple[int, str, GenStats]] = []
+        freed: List[int] = []
+        for t in range(m.k):
+            for i, s in enumerate(self.slots):
+                if s is None or not emit[t, i]:
+                    continue
+                st = s.stats
+                if self.use_cloud:
+                    st.cloud_tokens += int(ok[t, i])
+                    st.fallback_tokens += int(not ok[t, i])
+                    st.cloud_calls += 1
+                    st.push_latency(float(lat[t, i]))
+                    st.fusion_w.append(float(w[t, i]))
+                else:
+                    st.push_latency(float(eng.latency.edge_compute_ms))
+                    st.fusion_w.append(1.0)
+                tok = int(toks[t, i])
+                s.out_ids.append(tok)
+                st.tokens += 1
+                if tok == TOK.EOS or len(s.out_ids) >= s.max_new:
+                    out.append((s.rid, TOK.decode(s.out_ids), st))
+                    eng._release_adapter(s)
+                    self.slots[i] = None
+                    freed.append(i)
+        # the host mirror of the rows that decode on: one slot a token
+        on = live.copy()
+        on[freed] = False
+        for c in (self.s_cache, self.l_cache):
+            if c is not None:
+                c["pos_host"][on] += emit[:, on].sum(0)
+        if freed:
+            # parked in the step; now unmap them and return their pages
+            self._release_rows(freed)
+        return out
+
+    def macro_step(self, k: int) -> List[Tuple[int, str, GenStats]]:
+        """Dispatch and collect: k tokens of every occupied row with one
+        host sync, equal to k calls of ``step``."""
+        self.macro_dispatch(k)
+        return self.macro_collect()
 
     def _release_rows(self, freed: List[int]):
         """Parking releases memory for real: pos to FREED_POS AND table
@@ -587,8 +726,10 @@ class BatchedHybridEngine(HybridEngine):
     the lane's gate rows, or through K4 on per-row slot ids with
     ``use_slot_kernel=True``; admission prefill always takes K5.
 
-    The port serves ``paged=True`` with ``macro_k=0`` (the per-token
-    reference path); the other options raise ``NotImplementedError``."""
+    ``macro_k=K`` (default 8, the reference's) decodes K tokens a lane
+    per dispatch with one host sync (a CUDA graph per lane on the card);
+    ``macro_k=0`` is the per-token path.  The port serves ``paged=True``;
+    the other options raise ``NotImplementedError``."""
 
     def __init__(self, deployment: ServingDeployment, batch_size: int = 8,
                  edge_batch_size: Optional[int] = None,
@@ -610,8 +751,9 @@ class BatchedHybridEngine(HybridEngine):
                 raise NotImplementedError(
                     "batched continuous decode supports dense-family "
                     f"models (got {lm.cfg.family})")
-        later = [(macro_k != 0, "the K-token macro step (macro_k != 0)"),
-                 (not paged, "dense lanes (paged=False)"),
+        if macro_k < 0:
+            raise ValueError(f"macro_k={macro_k} must be >= 0")
+        later = [(not paged, "dense lanes (paged=False)"),
                  (spec_k != 0, "speculative decode (spec_k)"),
                  (pool_pages is not None or local_pool_pages is not None
                   or llm_pool_pages is not None,
@@ -623,6 +765,7 @@ class BatchedHybridEngine(HybridEngine):
             if bad:
                 raise NotImplementedError(f"{what}: later slice")
         self.slm, self.llm = deployment.slm, deployment.llm
+        self.macro_k = macro_k
         self.lazy_pages = lazy_pages
         self.max_ctx = deployment.max_ctx
         # decode LoRA through K4 on per-row adapter slots instead of K5
@@ -806,18 +949,41 @@ class BatchedHybridEngine(HybridEngine):
     def active_count(self) -> int:
         return self.cloud_lane.active + self.edge_lane.active
 
+    def macro_stats(self) -> Dict[str, float]:
+        """Over both lanes: macro steps built (graphs captured on CUDA),
+        the seconds their captures took, graph replays, (iteration, row)
+        pairs that rows live at dispatch spent parked after finishing,
+        and iterations in which no row of the lane decoded."""
+        ms = [lane._macro for lane in (self.cloud_lane, self.edge_lane)
+              if lane._macro is not None]
+        return dict(macros=len(ms), capture_s=sum(m.capture_s for m in ms),
+                    replays=sum(m.replays for m in ms),
+                    parked_rows=sum(m.parked_rows for m in ms),
+                    idle_iters=sum(m.idle_iters for m in ms))
+
     def dispatch_step(self):
-        """No-op on the per-token path (``macro_k=0``), which is
-        host-synchronous; kept for the scheduler's dispatch/collect
-        protocol."""
+        """Dispatch both lanes' macro steps without syncing (a no-op on
+        the per-token path, ``macro_k=0``, which is host-synchronous).
+        Follow with admission work to overlap it with the decode in
+        flight, then ``collect_step()``."""
+        if self.macro_k:
+            self.edge_lane.macro_dispatch(self.macro_k)
+            self.cloud_lane.macro_dispatch(self.macro_k)
 
     def collect_step(self) -> List[Tuple[int, str, GenStats]]:
-        """Run one per-token step of both lanes; returns the requests
-        that finished."""
+        """Sync and replay the macro steps in flight (with ``macro_k=0``,
+        run one per-token step of both lanes); returns the requests that
+        finished."""
+        if self.macro_k:
+            return (self.edge_lane.macro_collect()
+                    + self.cloud_lane.macro_collect())
         out = self.edge_lane.step()
         return out + self.cloud_lane.step()
 
     def step(self) -> List[Tuple[int, str, GenStats]]:
+        """Advance both lanes by one macro step (``macro_k`` tokens a
+        row, one dispatch and one host sync a lane) or, with
+        ``macro_k=0``, by one per-token step."""
         self.dispatch_step()
         return self.collect_step()
 

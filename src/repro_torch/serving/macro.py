@@ -1,0 +1,172 @@
+"""The K-token macro step of a batched lane — the port of the body of
+``ServingDeployment._make_macro`` in ``repro/serving/deployment.py``.
+
+One macro step decodes K tokens for every row of a lane with one host
+sync.  Each iteration runs the per-token step on the device: the
+Sec. IV-D arrived mask (``cloud_arrival_mask``), the Eq. 14-15 fusion
+through K1 (the SLM softmax on the edge lane), the greedy argmax, the
+EOS and ``max_new`` done masks, the parking of rows that just finished
+(pos = FREED_POS before the decode, so their caches never see the dummy
+token), the SLM decode (K2, and K4/K5 on the lane's gates) and the LLM
+decode (K2), the keep mask that holds a finished row's pending logits,
+and the (token, w, active) traces of row t of (K, B) buffers.  Rows
+that finish mid-macro ride along parked, so a macro step equals K
+per-token steps.
+
+The reference runs the K iterations as a ``lax.scan`` and donates the
+lane's caches to it.  Here every update is in place on the lane's own
+tensors (caches, positions, pending logits) and on static buffers
+(``steps``, ``done``, the traces), so the addresses never change: on a
+CUDA device the K iterations are captured once into a CUDA graph and
+replayed at every dispatch; on the CPU they run eagerly.  Nothing inside
+the step copies from the host: the weather, the budgets and the slot ids
+are uploaded from pinned memory before the replay, and the decode gets a
+view of each lane cache without its host mirror ``pos_host``, which the
+lane rebuilds from the traces at collect.
+
+A kernel wrapper counts a launch when its Python runs, which in a graph
+is once, at capture: the counts made while capturing are taken back and
+added again at every replay, so ``launches`` stays the number of kernels
+the device ran.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import to_device
+from repro_torch.data import tokenizer as TOK
+from repro_torch.kernels.logit_fusion import ops as OPS
+from repro_torch.kernels.logit_fusion.kernel import fuse_logits
+from repro_torch.kernels.moe_lora.kernel import (moe_lora_delta,
+                                                 moe_lora_delta_slots)
+from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
+from repro_torch.models.attention import FREED_POS
+
+# every wrapper a macro step can launch, whose counts replays add to
+COUNTED = (fuse_logits, paged_decode_attention, moe_lora_delta,
+           moe_lora_delta_slots)
+
+
+class LaneMacro:
+    """The K-step body of one lane and its static buffers.
+
+    ``load`` fills the step's inputs (the (K, B) arrived-in-time weather,
+    each row's steps so far, budget and done flag, and the K4 slot ids
+    when the lane decodes through per-row slots); ``run`` decodes K
+    tokens; ``traces`` then holds (3, K, B) float64 rows of the selected
+    token, the fusion weight (cloud lane) and the active mask.  On CUDA
+    the body is captured here, at construction: one iteration runs first
+    on a side stream with every row parked (the warm-up that
+    ``torch.cuda.graphs`` asks for, which changes no lane state: parked
+    rows write to the sink page and keep their logits), then the K
+    iterations are captured."""
+
+    def __init__(self, lane, k: int, slot_ids: bool):
+        dep = lane.eng.dep
+        b, dev = lane.batch, dep.device
+        self.lane, self.k = lane, k
+        self.ok = torch.zeros((k, b), dtype=torch.bool, device=dev)
+        self.steps = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.max_new = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.done = torch.ones((b,), dtype=torch.bool, device=dev)
+        self.traces = torch.zeros((3, k, b), dtype=torch.float64,
+                                  device=dev)
+        self.slot_ids = (torch.full((b,), -1, dtype=torch.int32, device=dev)
+                         if slot_ids else None)
+        self.gates = self.slot_ids if slot_ids else lane.gates
+        self.caches = [{n: t for n, t in c.items() if n != "pos_host"}
+                       for c in (lane.s_cache, lane.l_cache) if c is not None]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captured: Dict = {}     # wrapper -> launches per replay
+        self.replays = 0
+        self.capture_s = 0.0
+        # parked (iteration, row) pairs and idle iterations, from traces
+        self.parked_rows = 0
+        self.idle_iters = 0
+        if dev.type == "cuda":
+            self._capture()
+
+    def load(self, ok, steps, max_new, done, slots) -> None:
+        """The step's inputs from host arrays, uploaded without blocking
+        the host (``to_device``); the edge lane (``ok`` None) reads no
+        weather and a lane without slot ids no ``slots``."""
+        pairs = [(self.steps, steps), (self.max_new, max_new),
+                 (self.done, done)]
+        if ok is not None:
+            pairs.append((self.ok, ok))
+        if self.slot_ids is not None:
+            pairs.append((self.slot_ids, slots))
+        for dst, a in pairs:
+            dst.copy_(to_device(a, dst.device))
+
+    def body(self, t: int) -> None:
+        """Iteration t: one token for every active row, in place."""
+        lane = self.lane
+        eng, dep = lane.eng, lane.eng.dep
+        active = ~self.done
+        if lane.use_cloud:
+            arrived = OPS.cloud_arrival_mask(self.ok[t], active)
+            probs, w = dep.fuse_mask(lane.sl, lane.ll, arrived)
+            self.traces[1, t] = w
+        else:
+            probs = dep.softmax_batched(lane.sl)
+        nxt = dep.argmax_batched(probs)
+        done_now = active & ((nxt == TOK.EOS)
+                             | (self.steps + 1 >= self.max_new))
+        feed = torch.where(active & ~done_now, nxt, 0)[:, None]
+        # rows that just finished are parked before this very decode
+        for c in self.caches:
+            c["pos"].masked_fill_(done_now, FREED_POS)
+        # done and just-finished rows keep their pending logits
+        keep = (self.done | done_now)[:, None]
+        s_logits, _ = dep.slm_decode(eng.slm_params, self.caches[0], feed,
+                                     eng.lora, self.gates)
+        lane.sl.copy_(torch.where(keep, lane.sl, s_logits[:, 0]))
+        if lane.use_cloud:
+            l_logits, _ = dep.llm_decode(eng.llm_params, self.caches[1],
+                                         feed)
+            lane.ll.copy_(torch.where(keep, lane.ll, l_logits[:, 0]))
+        self.traces[0, t] = nxt
+        self.traces[2, t] = active
+        self.steps += active
+        self.done |= done_now
+
+    def run(self) -> None:
+        """Decode K tokens: replay the graph on CUDA, the body K times
+        on the CPU."""
+        if self.graph is None:
+            for t in range(self.k):
+                self.body(t)
+            return
+        self.graph.replay()
+        self.replays += 1
+        for fn, n in self.captured.items():
+            fn.launches += n
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        saved = [c["pos"].clone() for c in self.caches]
+        for c in self.caches:
+            c["pos"].fill_(FREED_POS)
+        self.done.fill_(True)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.body(0)
+        torch.cuda.current_stream().wait_stream(side)
+        before = {fn: fn.launches for fn in COUNTED}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for t in range(self.k):
+                self.body(t)
+        self.captured = {fn: fn.launches - n for fn, n in before.items()
+                         if fn.launches != n}
+        for fn, n in before.items():
+            fn.launches = n
+        for c, pos in zip(self.caches, saved):
+            c["pos"].copy_(pos)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0

@@ -132,9 +132,12 @@ class Scheduler:
 class ContinuousBatchScheduler:
     """Continuous batching: cloud-eligible requests share a hybrid decode
     batch, private requests an SLM-only batch; freed batch rows are
-    refilled from the queue as sequences finish.  On the per-token path
-    (``macro_k=0``) each boundary admits one burst (one packed prefill
-    per lane) and then decodes one token per occupied row."""
+    refilled from the queue as sequences finish.  Each boundary
+    dispatches the lanes' macro steps (K tokens per occupied row, one
+    host sync per lane at collect), admits one burst into the free rows
+    while they run (one packed prefill per lane, queued behind them on
+    the device stream) and then collects; with ``macro_k=0`` the
+    dispatch is a no-op and the collect decodes one token per row."""
 
     def __init__(self, engine: BatchedHybridEngine,
                  watchdog_iters: int = 5000):

@@ -297,7 +297,15 @@ def test_hard_reject_names_offending_model(pair):
 
 def test_unported_options_raise(pair):
     dep = _dep(pair, dict(rtt_ms=10, jitter_ms=0))
-    for kw in (dict(), dict(macro_k=4), dict(macro_k=0, paged=False),
+    # the macro step is ported: the default (macro_k=8) and macro_k=4
+    # construct and serve
+    for kw in (dict(), dict(macro_k=4)):
+        sched = ContinuousBatchScheduler.from_deployment(dep, batch_size=2,
+                                                         **kw)
+        res = _run(sched, PROMPTS[:3], BUDGETS[:3])
+        assert [r.stats.tokens for r in res] == BUDGETS[:3]
+        assert sched.engine.resident_kv_bytes() == 0
+    for kw in (dict(macro_k=0, paged=False),
                dict(macro_k=0, spec_k=2), dict(macro_k=0, pool_pages=4),
                dict(macro_k=0, llm_pool_pages=4),
                dict(macro_k=0, local_pool_pages=4),

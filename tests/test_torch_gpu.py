@@ -577,3 +577,91 @@ def test_ssm_scan_raises_instead_of_falling_back(cuda):
     gappy = torch.randn(1, 8, 32, device=cuda).bfloat16()[..., ::2]
     with pytest.raises(ValueError):                      # B strided over N
         K6.ssm_scan(dt, x, gappy, cm, a)
+
+
+MACRO_PROMPTS = [
+    "math: compute 12 plus 7 =",
+    "my ssn is 123-45-6789, fill the benefits form",       # private
+    "translate to french: water ->",
+    "my doctor said my blood pressure is 140 over 90",     # private
+    "sort ascending: 40 12 77 31 ->",
+    "explain how rainbows form",
+]
+MACRO_BUDGETS = [9, 7, 4, 10, 11, 6]
+
+
+@pytest.mark.gpu
+def test_macro_graph_replay_equals_eager_body(cuda):
+    """The K-token macro step on the reduced pair in bf16: two engines
+    serve the same requests, one replaying each lane's CUDA graph, the
+    other running the same body K times eagerly on the card.  Finished
+    requests, pending logits and traces are bit-equal after every macro;
+    both count the same kernel launches (the graph's replay-aware), K2
+    once per decode layer of every iteration of a non-idle lane; the
+    static buffers keep their addresses across replays."""
+    import dataclasses
+
+    from repro_torch.configs.floe_pair import pair_configs
+    from repro_torch.core import fusion as FUS
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import BatchedHybridEngine
+    from repro_torch.serving.latency import LatencyModel
+
+    scfg, lcfg = (dataclasses.replace(c, dtype="bfloat16")
+                  for c in pair_configs("2b"))
+    slm, llm = LM(scfg, device=cuda), LM(lcfg, device=cuda)
+    dep = ServingDeployment(
+        slm, slm.init(0), llm, llm.init(1),
+        FUS.init_alignment(2, scfg.vocab_size, device=cuda),
+        latency=LatencyModel(rtt_ms=160, jitter_ms=40.0,
+                             cloud_compute_ms=20, seed=7),
+        max_seq=96, device=cuda)
+    k = 4
+    graph, eager = (BatchedHybridEngine(dep, batch_size=4,
+                                        edge_batch_size=2, macro_k=k)
+                    for _ in range(2))
+    reqs = [(p, n, True, i)
+            for i, (p, n) in enumerate(zip(MACRO_PROMPTS, MACRO_BUDGETS))]
+    for eng in (graph, eager):
+        assert eng.add_requests(reqs) == [True] * len(reqs)
+    lanes = [(g, e) for g, e in ((graph.cloud_lane, eager.cloud_lane),
+                                 (graph.edge_lane, eager.edge_lane))]
+    for g, e in lanes:
+        # build (and capture) both sides before counting: the warm-up
+        # iteration of a capture launches kernels of its own
+        g.macro(k)
+        m = e.macro(k)
+        m.run = lambda m=m: [m.body(t) for t in range(m.k)]
+    layers = {True: scfg.num_layers + lcfg.num_layers,
+              False: scfg.num_layers}
+
+    def buffers():
+        return [t.data_ptr() for lane, _ in lanes
+                for m in (lane._macro,)
+                for t in (m.ok, m.steps, m.max_new, m.done, m.traces,
+                          lane.sl, lane.s_cache["pos"])]
+
+    ptrs = None
+    while graph.active_count() or eager.active_count():
+        busy = [lane.active > 0 for lane, _ in lanes]
+        want = sum(k * layers[lane.use_cloud]
+                   for (lane, _), b in zip(lanes, busy) if b)
+        got = []
+        for eng in (graph, eager):
+            K2.paged_decode_attention.launches = 0
+            out = eng.step()
+            torch.cuda.synchronize()
+            got.append((out, K2.paged_decode_attention.launches))
+        assert got[0] == got[1] and got[0][1] == want
+        ptrs = ptrs or buffers()
+        assert buffers() == ptrs
+        for g, e in lanes:
+            gm, em = g.macro(k), e.macro(k)
+            assert torch.equal(gm.traces, em.traces)
+            assert torch.equal(g.sl, e.sl)
+            if g.use_cloud:
+                assert torch.equal(g.ll, e.ll)
+    st = graph.macro_stats()
+    assert st["macros"] == 2 and st["replays"] >= 3
+    assert eager.macro_stats()["replays"] == 0

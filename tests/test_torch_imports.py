@@ -70,9 +70,8 @@ def test_entry_points_raise_without_a_card():
 
 
 def test_serve_refuses_later_slice_flags(capsys):
-    for argv in (["--local", "--spec-k", "4"], ["--local", "--batch", "4"],
+    for argv in (["--local", "--spec-k", "4"],
                  ["--local", "--sample"], ["--local", "--pair", "gemma3"],
-                 ["--local", "--batch", "4", "--macro-k", "4"],
                  ["--local", "--batch", "4", "--macro-k", "0", "--dense"],
                  ["--local", "--batch", "4", "--macro-k", "0",
                   "--pool-pages", "8"],
@@ -80,6 +79,21 @@ def test_serve_refuses_later_slice_flags(capsys):
         with pytest.raises(SystemExit):
             serve.main(argv)
         assert "later slice" in capsys.readouterr().err
+
+
+def test_serve_batched_default_is_the_macro_step(capsys):
+    """``--batch 4`` without ``--macro-k`` serves at the reference's
+    default, K = 8, and prints the same per-request lines (queue waits
+    aside) as the per-token step, ``--macro-k 0``."""
+    import re
+
+    def lines(argv):
+        serve.main(argv + ["--local", "--batch", "4", "--device", "cpu"])
+        out = capsys.readouterr().out
+        return [re.sub(r" wait=\d+ms", "", ln) for ln in out.splitlines()
+                if ln.startswith(("[", "lane KV"))]
+    got, per_token = lines([]), lines(["--macro-k", "0"])
+    assert len(got) == 5 and got == per_token
 
 
 def test_serve_refuses_other_page_sizes_on_cuda(monkeypatch, capsys):
