@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero before the result lines:
               prefill flash attention, K4 slot-gather LoRA delta, K5
               gated multi-LoRA delta, K6 Mamba-1 selective scan) against
               its plain PyTorch version on the card at the main paths'
-              shapes, timed with CUDA events beside its bound and a
+              shapes (K2's ring mode and K3's windowed mode also at the
+              gemma3 SLM's H 4, KV 1: window 512 on (8, 32) ring-local
+              tables, and (8, 4, 1552, 256) bursts windowed and
+              causal), timed with CUDA events beside its bound and a
               library call where one exists (K1, K2, K6, and K4/K5 at
               T = 8, also replayed from a CUDA graph, without the host's
               dispatch; K6 also beside its exponentials' floor);
@@ -28,14 +31,19 @@ Phases, in order; any failure exits non-zero before the result lines:
               ragged batch of three, the batched engine, and LoRA: SLM
               logits under adapter slots and router gates, the batched
               engine with mixed adapters (use_slot_kernel False and
-              True) and a router-gated sequential request; then the
-              reduced falcon-mamba the same way (prefill through K6, four
-              decode steps);
+              True) and a router-gated sequential request; the reduced
+              gemma3 pair the same way at max_seq 96 with prompts past
+              its window of 16 (SLM prefill and decode, the sequential
+              engine, paged decode of a ragged batch, the batched engine
+              at macro_k 0 and 8, SLM logits under adapter slots); then
+              the reduced falcon-mamba the same way (prefill through K6,
+              four decode steps);
   5. cli      ``python -m repro_torch.launch.serve --local`` as a user
               runs it on the card (the reduced pair, bf16), sequential,
               ``--batch 4 --macro-k 0``, ``--batch 4`` (the default
               macro step, K = 8) and with ``--adapters 3
-              --adapter-slots 2``;
+              --adapter-slots 2``; then ``--pair gemma3``, sequential
+              and ``--batch 4``;
   5b. serve_ssm  the full-width falcon-mamba-7b (Mamba-1, 64 layers,
               bf16, random weights from a seed) through
               ServingDeployment and SoloEngine: the four demo prompts
@@ -84,7 +92,19 @@ Phases, in order; any failure exits non-zero before the result lines:
   9. serve_router  the same traffic with a 4-expert bank gated by the
               Router (Eq. 8-11), then one request through
               HybridEngine.generate; K5 launches held to 6 x the SLM
-              layer passes.
+              layer passes;
+  10. serve_gemma3  the full-width gemma3 pair: floe-slm-gemma3 (26
+              layers, 22 of them sliding-window rings of 512 slots, bf16,
+              random weights from a seed) beside the 2b deployment's
+              floe-llm-7b, shared, not copied: serve's traffic through
+              the sequential engine (K3 once per prefill layer, windowed
+              on the local layers); one full-width admission held
+              against the plain path (last-token logits through K3 vs
+              its plain version, every ring page against a plain
+              gather); serve_batched's 20 requests at macro_k 0 and 8
+              (K2 once per decode layer-step, in ring mode on the local
+              layers; K = 8 equal to K = 0 where the admission groups
+              match); one profiled K = 8 boundary.
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
@@ -121,6 +141,8 @@ K2_ROW_RTOL = 2 ** -6
 FREED_POS = 1 << 30
 NO_PAGE = 1 << 20
 K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
+# the gemma3 SLM's ring rows: ragged depths before and past its window
+GEMMA3_RING_POSITIONS = [0, 100, 511, 512, 513, 1541, FREED_POS, 2047]
 # the tail of a batched run: a few short live rows among parked ones
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
 # K4/K5: per row, max|out - ref| / max|ref|: f32 sums of up to 16,384
@@ -155,6 +177,15 @@ ROUTER_DOMAINS = [
                  "why is the sky blue"]),
     ("general", ["what is the capital of spain", "write a short poem",
                  "name a large animal"]),
+]
+# check_gemma3's batched traffic: two private prompts, the others past
+# the reduced window of 16 tokens
+DEMO_PROMPTS_GEMMA3 = [
+    "math: compute 12 plus 7 = and then 30 minus 4 =",
+    "my ssn is 123-45-6789, fill the benefits form",
+    "translate to french: the water is cold ->",
+    "my doctor said my blood pressure is 140 over 90",
+    "explain how rainbows form when sunlight passes through rain",
 ]
 LONG_PROMPT = ("explain how rainbows form when sunlight passes through "
                "falling raindrops and why the colors always appear in the "
@@ -276,10 +307,12 @@ def paged_case(torch, g, h, kvh, window, positions, n_pool=1024, hd=256):
 
 
 def phase_k2(torch):
-    """K2 at both full-width geometries (B=8, hd 256, 16-slot pages,
-    nb 128, a 1,024-page pool): rows at K2_POSITIONS (one parked), plain
-    and window=512 on a ring-local table, then the batched run's tail
-    (K2_TAIL_POSITIONS, half the rows parked), plain."""
+    """K2 at both full-width geometries of the 2b pair (B=8, hd 256,
+    16-slot pages, nb 128, a 1,024-page pool): rows at K2_POSITIONS (one
+    parked), plain and window=512 on a ring-local table, then the batched
+    run's tail (K2_TAIL_POSITIONS, half the rows parked), plain; then the
+    gemma3 SLM's ring mode (H 4, KV 1, window 512 on (8, 32) ring-local
+    tables, GEMMA3_RING_POSITIONS)."""
     from repro_torch.kernels.paged_attention import kernel as K2
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -289,6 +322,8 @@ def phase_k2(torch):
             for w in (0, 512)]
     runs += [(m, h, kvh, 0, K2_TAIL_POSITIONS)
              for m, h, kvh in (("slm", 8, 1), ("llm", 16, 16))]
+    # the gemma3 SLM's local layers: H 4, KV 1, (8, 32) ring-local tables
+    runs += [("slm_gemma3", 4, 1, 512, GEMMA3_RING_POSITIONS)]
     for model, h, kvh, window, positions in runs:
         args = paged_case(torch, g, h, kvh, window, positions)
         out = K2.paged_decode_attention(*args, window=window)
@@ -369,7 +404,8 @@ def phase_kernels(torch, long_len: int):
     shapes = [(1, 8, 1, s, 0, False) for s in (31, long_len, 2048)] + \
              [(1, 16, 16, s, 0, False) for s in (31, long_len, 2048)] + \
              [(1, 16, 16, 2048, 512, False), (8, 8, 1, 1552, 0, False),
-              (8, 16, 16, 1552, 0, False), (8, 16, 16, 1552, 0, True)]
+              (8, 16, 16, 1552, 0, False), (8, 16, 16, 1552, 0, True)] + \
+             [(8, 4, 1, 1552, w, True) for w in (512, 0)]        # gemma3
     for bsz, h, kvh, s, window, strided in shapes:
         d = 256
         if strided:
@@ -385,8 +421,8 @@ def phase_kernels(torch, long_len: int):
             mask = K3.attention_mask(s, True, window, dev)
 
             def lib():
-                return F.scaled_dot_product_attention(q, k, v,
-                                                      attn_mask=mask)
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=kvh != h)
         else:
             def lib():
                 return F.scaled_dot_product_attention(
@@ -723,7 +759,135 @@ def phase_check(torch):
         raise SystemExit("reduced-pair check failed")
     check_paged(torch, deps)
     check_lora(torch, deps)
+    check_gemma3(torch)
     check_ssm(torch)
+
+
+def check_gemma3(torch):
+    """Reduced gemma3 pair (window 16, one group of a local and a global
+    layer) in bf16 on the card (K3 windowed and causal, K2 in ring mode
+    and plain, K1, K4) against the same parameters in f32 on the CPU, at
+    max_seq 96 with prompts longer than the window: sequential prefill
+    and 8 decode steps of the SLM, the sequential engine, paged decode
+    of a ragged batch of three (rings wrapped at admission), the batched
+    engine at macro_k 0 and 8, and SLM logits under adapter slots."""
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.configs.floe_pair import needs_ring_cache, pair_configs
+    from repro_torch.core import fusion as FUS
+    from repro_torch.core import lora as LORA
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_attention import kernel as K2
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import HybridEngine
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    cfgs = pair_configs("gemma3")                  # reduced, float32
+    base = [bridge.to_numpy(LM(c, device="cpu").init(10 + i))
+            for i, c in enumerate(cfgs)]
+    mlp = FUS.init_alignment(12, cfgs[0].vocab_size, device="cpu")
+    deps = {}
+    for dev, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
+        slm, llm = (LM(dataclasses.replace(c, dtype=dtype), device=dev,
+                       ring_cache=needs_ring_cache(c)) for c in cfgs)
+        sp, lp = (bridge.from_numpy(p, device=dev,
+                                    dtype=getattr(torch, dtype))
+                  for p in base)
+        deps[dev] = ServingDeployment(slm, sp, llm, lp, mlp, max_seq=96,
+                                      device=dev)
+    prompts = ["explain how rainbows form when sunlight passes through rain",
+               "translate to french: water ->", "sort ascending: 40 12 77"]
+    assert all(len(TOK.encode(p + " ")) > 16 for p in prompts)
+    fails = []
+
+    def rel(logits):
+        ref = logits["cpu"]
+        return ((logits["cuda"] - ref).abs().max() / ref.abs().max()).item()
+
+    k3 = (K3.flash_attention.launches, K3.flash_attention.windowed_launches)
+    logits = {}
+    for dev, dep in deps.items():
+        toks = dep.tokens(TOK.encode(prompts[0] + " "))
+        lg, cache = dep.slm.prefill(dep.slm_params, toks, dep.max_seq)
+        steps = [lg]
+        for t in range(40, 48):
+            lg, cache = dep.slm.decode_step(dep.slm_params, cache,
+                                            dep.tokens([t]))
+            steps.append(lg)
+        logits[dev] = torch.cat(steps, 1).float().cpu()
+    k3 = (K3.flash_attention.launches - k3[0],
+          K3.flash_attention.windowed_launches - k3[1])
+    worst = rel(logits)
+    print(f"check gemma3 slm: prefill + 8 decode steps (ring wraps), bf16 "
+          f"card vs f32 cpu, max|diff|/max|ref| = {worst:.3e}; K3 "
+          f"(launches, windowed) {k3}")
+    if k3 != (2, 1):
+        fails.append(f"K3 launches {k3}, expected (2, 1)")
+    runs = {dev: HybridEngine(dep).generate(prompts[0], 20, rid=0)[1]
+            for dev, dep in deps.items()}
+    lat_eq = runs["cuda"].latency_ms == runs["cpu"].latency_ms
+    dw = max(abs(a - b) for a, b in zip(runs["cuda"].fusion_w,
+                                        runs["cpu"].fusion_w))
+    k2 = (K2.paged_decode_attention.launches,
+          K2.paged_decode_attention.ring_launches)
+    for name in ("slm", "llm"):
+        got = {dev: paged_logits(torch, dep, getattr(dep, name),
+                                 getattr(dep, f"{name}_params"), prompts,
+                                 range(40, 60))
+               for dev, dep in deps.items()}
+        print(f"check gemma3 paged {name}: packed prefill (B=3, ragged) + "
+              f"20 paged decode steps, bf16 card vs f32 cpu, "
+              f"max|diff|/max|ref| = {rel(got):.3e}")
+        worst = max(worst, rel(got))
+    k2 = (K2.paged_decode_attention.launches - k2[0],
+          K2.paged_decode_attention.ring_launches - k2[1])
+    # 20 steps: SLM 1 ring + 1 plain layer, LLM 2 plain layers
+    if k2 != (20 * 4, 20):
+        fails.append(f"K2 (launches, ring) {k2}, expected (80, 20)")
+    for k in (0, 8):
+        res = {}
+        for dev, dep in deps.items():
+            sched = ContinuousBatchScheduler.from_deployment(
+                dep, batch_size=4, macro_k=k)
+            for p in DEMO_PROMPTS_GEMMA3:
+                sched.submit(p, 20)
+            res[dev] = sched.run()
+        lat_eq &= all(a.stats.latency_ms == b.stats.latency_ms
+                      for a, b in zip(res["cuda"], res["cpu"]))
+        dw = max([dw] + [abs(x - y) for a, b in zip(res["cuda"], res["cpu"])
+                         for x, y in zip(a.stats.fusion_w, b.stats.fusion_w)])
+    print(f"check gemma3 engines (sequential, batched macro_k 0 and 8): "
+          f"latency_ms equal={lat_eq}, max |fusion_w diff| = {dw:.3e}")
+    ads = [bridge.to_numpy(a) for a in random_adapters(
+        torch, deps["cpu"].slm, 3, 0.1, 80, "cpu")]
+    bank = bridge.to_numpy(LORA.stack_adapters(
+        [bridge.from_numpy(a) for a in ads]))
+    ids = [TOK.encode(p + " ")[:24] for p in prompts]
+    toks = [[t[i % len(t)] for i in range(24)] for t in ids]
+    g_pre = LORA.slot_gates([2, None, 0], 3)
+    logits = {}
+    for dev, dep in deps.items():
+        at = dep.device
+        lora = bridge.from_numpy(LORA.bank_for_model(bank), device=at)
+        lg, cache = dep.slm.prefill(
+            dep.slm_params, torch.as_tensor(toks, device=at), dep.max_seq,
+            lora, torch.as_tensor(g_pre, device=at))
+        steps = [lg]
+        for t in (40, 41, 42, 43):
+            lg, cache = dep.slm.decode_step(
+                dep.slm_params, cache, torch.full((3, 1), t, device=at),
+                lora, torch.as_tensor([2, -1, 0], dtype=torch.int32,
+                                      device=at))
+            steps.append(lg)
+        logits[dev] = torch.cat(steps, 1).float().cpu()
+    print(f"check gemma3 lora: SLM prefill (B=3, 24 tokens) + 4 decode "
+          f"steps under adapter slots (K5 one-hot rows, K4 slot ids), bf16 "
+          f"card vs f32 cpu, max|diff|/max|ref| = {rel(logits):.3e}")
+    worst = max(worst, rel(logits))
+    if not (worst <= LOGITS_TOL and lat_eq and dw <= FUSION_W_TOL) or fails:
+        raise SystemExit(f"reduced gemma3 check failed: {fails}")
 
 
 def random_adapters(torch, lm, n, scale, seed, device):
@@ -737,8 +901,9 @@ def random_adapters(torch, lm, n, scale, seed, device):
     for j in range(n):
         ad = LORA.init_adapter(lm, seed + j, rank=lm.cfg.lora_rank_max,
                                device=device)
-        for leaf in ad["layers"].values():
-            leaf["B"].normal_(0.0, scale, generator=gen)
+        for stack in (v for k, v in ad.items() if not k.startswith("_")):
+            for leaf in stack.values():
+                leaf["B"].normal_(0.0, scale, generator=gen)
         out.append(ad)
     return out
 
@@ -845,15 +1010,17 @@ def check_lora(torch, deps):
 
 def paged_logits(torch, dep, lm, params, prompts, forced):
     """Packed prefill of ``prompts`` straight into pool pages (every row
-    mapped eagerly), then one paged decode step per forced token:
-    (B, 1 + len(forced), V) float32 logits on the host."""
+    mapped eagerly, rings included), then one paged decode step per
+    forced token: (B, 1 + len(forced), V) float32 logits on the host."""
     import numpy as np
     from repro_torch.data import tokenizer as TOK
 
     ids = [TOK.encode(p + " ") for p in prompts]
-    b, nb = len(ids), dep.paged_geometry(lm)["nb"]
-    cache = dep.init_paged_lane_cache(lm, b, b * nb)
+    geo = dep.paged_geometry(lm)
+    b, nb, nl = len(ids), geo["nb"], geo["nl"]
+    cache = dep.init_paged_lane_cache(lm, b, b * nb, b * nl)
     tables = np.arange(b * nb, dtype=np.int32).reshape(b, nb)
+    local = np.arange(b * nl, dtype=np.int32).reshape(b, nl) if nl else None
     lens = np.array([len(x) for x in ids], np.int32)
     toks = np.zeros((b, -(-int(lens.max()) // 16) * 16), np.int64)
     for i, x in enumerate(ids):
@@ -861,8 +1028,8 @@ def paged_logits(torch, dep, lm, params, prompts, forced):
     rows = list(range(b))
     logits = lm.prefill_packed(
         params, torch.as_tensor(toks, device=dep.device), lens, dep.max_seq,
-        dep.page_writer(cache, rows, tables))
-    dep.finish_paged_insert(cache, rows, lens, tables)
+        dep.page_writer(cache, rows, tables, lens, local, geo["local_len"]))
+    dep.finish_paged_insert(cache, rows, lens, tables, local)
     steps = [logits]
     for t in forced:
         logits, cache = lm.decode_step(params, cache, torch.full(
@@ -910,12 +1077,14 @@ def check_paged(torch, deps):
 
 def phase_cli():
     """The serving launcher's ``--local`` run, on its default device,
-    sequential and batched."""
+    sequential and batched, on the 2b and the gemma3 pair."""
     from repro_torch.launch import serve
     for argv in (["--local"], ["--local", "--batch", "4", "--macro-k", "0"],
                  ["--local", "--batch", "4"],
                  ["--local", "--batch", "4", "--macro-k", "0", "--adapters",
-                  "3", "--adapter-slots", "2"]):
+                  "3", "--adapter-slots", "2"],
+                 ["--local", "--pair", "gemma3"],
+                 ["--local", "--pair", "gemma3", "--batch", "4"]):
         res = serve.main(argv)
         for r in res:
             if r.stats.tokens == 0 or (r.stats.private
@@ -1114,8 +1283,7 @@ def phase_serve(torch, dep):
     for p in prompts:
         sched.submit(p, max_new_tokens=16)
     kernels = (K1.fuse_logits, K3.flash_attention)
-    for fn in kernels:
-        fn.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1123,6 +1291,7 @@ def phase_serve(torch, dep):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
+    launches.update(mode_counts())
 
     for r in res:
         print(f"[{r.rid}] {r.status.value} private={r.stats.private} "
@@ -1146,7 +1315,7 @@ def phase_serve(torch, dep):
         if r.stats.tokens == 0 or not all(0.0 <= x <= 1.0 for x in w) \
                 or not all(math.isfinite(x) for x in r.stats.latency_ms):
             raise SystemExit(f"bad output on rid {r.rid}: {r.stats}")
-    if min(launches.values()) <= 0:
+    if min(launches[fn.__name__] for fn in kernels) <= 0:
         raise SystemExit(f"a kernel of the path never launched: {launches}")
     toks = dep.tokens(TOK.encode(DEMO_PROMPTS[0] + " "))
     for lm, params in ((slm, dep.slm_params), (llm, dep.llm_params)):
@@ -1183,8 +1352,7 @@ def phase_serve_batched(torch, dep):
     dep.slm_decode = counted("slm", dep.slm_decode)
     dep.llm_decode = counted("llm", dep.llm_decode)
     kernels = (K1.fuse_logits, K2.paged_decode_attention, K3.flash_attention)
-    for fn in kernels:
-        fn.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1193,6 +1361,7 @@ def phase_serve_batched(torch, dep):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
+    launches.update(mode_counts())
     del dep.slm_decode, dep.llm_decode          # back to the methods
 
     for r in res:
@@ -1227,7 +1396,7 @@ def phase_serve_batched(torch, dep):
             raise SystemExit(f"bad output on rid {r.rid}: {r.stats}")
     if eng.growth_stats()["grown_pages"] <= 0:
         raise SystemExit("lazy growth never fired")
-    if min(launches.values()) <= 0:
+    if min(launches[fn.__name__] for fn in kernels) <= 0:
         raise SystemExit(f"a kernel of the path never launched: {launches}")
     if launches["paged_decode_attention"] != layer_steps:
         raise SystemExit(f"K2 launched {launches['paged_decode_attention']} "
@@ -1393,7 +1562,7 @@ def serve_macro_k(torch, dep, k, base, base_groups):
           f"over both runs; growth {eng.growth_stats()}")
     check_batched_responses(tag, eng, res, BATCHED_REQUESTS)
     lanes = (eng.cloud_lane, eng.edge_lane)
-    graphs = [lane._macro.captured.get(K2.paged_decode_attention, 0)
+    graphs = [lane._macro.per_replay(K2.paged_decode_attention)
               for lane in lanes]
     if graphs != [k * lane_layers(lane) for lane in lanes]:
         raise SystemExit(f"{tag}: the lane graphs hold {graphs} K2 "
@@ -1455,14 +1624,30 @@ def lora_kernels():
             KL.moe_lora_delta_slots, KL.moe_lora_delta)
 
 
+def reset_counts():
+    """Every kernel count of the serving paths to 0, the per-mode ones
+    (K2 in ring mode, K3 windowed) included."""
+    for fn in all_kernels():
+        fn.launches = 0
+    k2, k3 = lora_kernels()[1:3]
+    k2.ring_launches = k3.windowed_launches = 0
+
+
+def mode_counts():
+    """K2's ring-mode and K3's windowed launches since ``reset_counts``."""
+    k2, k3 = lora_kernels()[1:3]
+    return {"paged_decode_attention_ring": k2.ring_launches,
+            "flash_attention_windowed": k3.windowed_launches}
+
+
 def run_counted(torch, sched, dep, names):
     """One scheduler run with every kernel's count set to 0 just before
     and read just after, and the deployment's ``names`` entry points
-    counted: (responses, wall s, launches, calls, peak GiB)."""
+    counted: (responses, wall s, launches, calls, peak GiB).  The
+    launches hold K2's ring-mode and K3's windowed counts too."""
     kernels = lora_kernels()
     calls = counted(dep, names)
-    for fn in kernels:
-        fn.launches = 0
+    reset_counts()
     # an engine and its lanes refer to each other: free the last phase's
     # lane caches before the peak is read
     gc.collect()
@@ -1474,6 +1659,7 @@ def run_counted(torch, sched, dep, names):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
+    launches.update(mode_counts())
     uncounted(dep, calls)
     return res, wall, launches, calls, \
         torch.cuda.max_memory_allocated() / 2**30
@@ -1710,14 +1896,14 @@ def phase_serve_router(torch, dep, plain_ids):
     del sched
     eng = HybridEngine(r_dep, router=router)
     seq_calls = counted(r_dep, ("slm_prefill", "slm_decode"))
-    for fn in lora_kernels():
-        fn.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     text, st = eng.generate(DEMO_PROMPTS[2], 16, rid=99)
     torch.cuda.synchronize()
     seq_wall = time.perf_counter() - t0
     seq_launches = {fn.__name__: fn.launches for fn in lora_kernels()}
+    seq_launches.update(mode_counts())
     uncounted(r_dep, seq_calls)
     print(f"serve_router sequential: {st.tokens} tokens in {seq_wall:.3f} "
           f"s, cloud={st.cloud_tokens}/{st.tokens}; launches "
@@ -1729,6 +1915,253 @@ def phase_serve_router(torch, dep, plain_ids):
                          f"{seq_launches['moe_lora_delta']}, expected {want}")
     return dict(launches=launches, calls=calls, wall=wall, peak=peak,
                 seq_launches=seq_launches)
+
+
+def gemma3_deployment(torch, dep):
+    """The full-width gemma3 pair on the card: floe-slm-gemma3 (bf16, ring
+    caches on its 22 sliding-window layers, random weights from seed 3)
+    beside the 2b deployment's floe-llm-7b and alignment MLP, whose
+    tensors it shares (no second 7B is held), max_seq 2048, 16-slot
+    pages."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.floe_pair import FLOE_PAIRS, needs_ring_cache
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+
+    sname, lname = FLOE_PAIRS["gemma3"]
+    scfg = get_config(sname)
+    if get_config(lname) != dep.llm.cfg:
+        raise SystemExit(f"the gemma3 pair's LLM is {lname}")
+    t0, before = time.perf_counter(), torch.cuda.memory_allocated()
+    slm = LM(scfg, ring_cache=needs_ring_cache(scfg))
+    g_dep = ServingDeployment(slm, slm.init(3), dep.llm, dep.llm_params,
+                              dep.mlp, max_seq=2048, page_size=16)
+    torch.cuda.synchronize()
+    shared = g_dep.llm_params["embed"]["tok"]["w"].data_ptr() \
+        == dep.llm_params["embed"]["tok"]["w"].data_ptr()
+    sites = slm.layer_sites()
+    print(f"serve_gemma3: {scfg.name} ({len(sites)} layers, "
+          f"{sum(not st.is_global for st in sites)} of them sliding-window "
+          f"rings of {slm._ring_local_len(2048)} slots) initialised on the "
+          f"card in {time.perf_counter() - t0:.1f} s, "
+          f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB; "
+          f"LLM shared with the 2b deployment: {shared}")
+    if not shared:
+        raise SystemExit("serve_gemma3 holds a second copy of the LLM")
+    return g_dep
+
+
+def gemma3_layers(lm):
+    """(local, global) attention layers of the SLM's grouped layout."""
+    sites = lm.layer_sites()
+    n_local = sum(not st.is_global for st in sites)
+    return n_local, len(sites) - n_local
+
+
+def phase_serve_gemma3(torch, dep):
+    """The full-width gemma3 pair: serve's traffic through the sequential
+    engine, one full-width admission against the plain path, then
+    serve_batched's 20 requests through ContinuousBatchScheduler at
+    macro_k 0 and 8 (lazy pages, batch 8), and one profiled K = 8
+    boundary.  Returns {path: launches} and the K = 8 run's numbers."""
+    g_dep = gemma3_deployment(torch, dep)
+    seq = serve_gemma3_sequential(torch, g_dep)
+    check_gemma3_admission(torch, g_dep)
+    k0, res0, groups0 = serve_gemma3_batched(torch, g_dep, 0)
+    k8, res8, groups8, eng8 = serve_gemma3_batched(torch, g_dep, 8)
+    match = [groups0[r.rid] == groups8[r.rid] for r in res8]
+    equal = [same_response(a, b) for a, b in zip(res0, res8)]
+    print(f"serve_gemma3_batched: {sum(match)} of {len(res8)} requests "
+          f"admitted in the same group at K = 8 as at K = 0, "
+          f"{sum(equal)} equal to the K = 0 run bit for bit")
+    bad = [r.rid for r, m, e in zip(res8, match, equal) if m and not e]
+    if bad:
+        raise SystemExit(f"serve_gemma3_batched: requests {bad} admitted in "
+                         "the same group differ from the K = 0 run")
+    trace_batched(torch, eng8)
+    del eng8
+    return {"serve_gemma3": seq, "serve_gemma3_batched": k8,
+            "serve_gemma3_batched_k0": k0}
+
+
+def serve_gemma3_sequential(torch, g_dep):
+    """The four demo prompts and the 1,542-token one, 16 greedy tokens
+    each, through Scheduler.from_deployment: K3 once per prefill layer
+    (windowed on the SLM's local layers), K1 on every fused token, no
+    K2 (the sequential engine decodes against dense caches, rings on
+    the local layers)."""
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.serving.scheduler import Scheduler, summarize
+
+    sched = Scheduler.from_deployment(g_dep)
+    for p in list(DEMO_PROMPTS) + [LONG_PROMPT]:
+        sched.submit(p, max_new_tokens=16)
+    calls = counted(g_dep, ("slm_prefill", "llm_prefill"))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TokenIds():
+        res = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    launches.update(mode_counts())
+    uncounted(g_dep, calls)
+    for r in res:
+        print(f"[{r.rid}] {r.status.value} private={r.stats.private} "
+              f"cloud={r.stats.cloud_tokens}/{r.stats.tokens} "
+              f"lat={r.stats.mean_latency_ms:.0f}ms ids={r.text[:48]}")
+    print(summarize(res))
+    tokens = sum(r.stats.tokens for r in res)
+    print(f"serve_gemma3: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.2f} tokens/s (5 requests, sequential, prefill "
+          f"included); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}; prefills {calls}")
+    n_local, n_global = gemma3_layers(g_dep.slm)
+    want = {"flash_attention": (n_local + n_global) * calls["slm_prefill"]
+            + g_dep.llm.cfg.num_layers * calls["llm_prefill"],
+            "flash_attention_windowed": n_local * calls["slm_prefill"],
+            "paged_decode_attention": 0}
+    got = {k: launches[k] for k in want}
+    if got != want or launches["fuse_logits"] <= 0:
+        raise SystemExit(f"serve_gemma3: launches {got}, expected {want}")
+    for r in res:
+        if (r.rid in {1, 3}) != r.stats.private or r.stats.tokens == 0 \
+                or (r.stats.private and r.stats.cloud_tokens) \
+                or not all(0.0 <= x <= 1.0 for x in r.stats.fusion_w):
+            raise SystemExit(f"serve_gemma3: bad request {r.rid}: "
+                             f"{r.stats}")
+    return launches
+
+
+def serve_gemma3_batched(torch, g_dep, k):
+    """serve_batched's 20 requests on the gemma3 pair at macro_k ``k``
+    (run untimed, then timed with every count set to 0 just before):
+    K2 once per decode layer-step, in ring mode on the SLM's local
+    layers; K3 once per prefill layer, windowed on them."""
+    from repro_torch.kernels.paged_attention import kernel as K2
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    eng = BatchedHybridEngine(g_dep, batch_size=8, macro_k=k,
+                              lazy_pages=True)
+    names = ("slm_prefill_packed", "llm_prefill_packed", "slm_decode",
+             "llm_decode")
+    res, wall, launches, calls, peak, replays, first_s, groups = \
+        serve_macro_run(torch, eng, BATCHED_REQUESTS, g_dep, names)
+    tag = f"serve_gemma3_batched (macro_k={k})"
+    print_batched(tag, res, wall, launches, calls, peak, macro_k=k)
+    print(f"{tag}: first run {first_s:.3f} s; graph replays (cloud, edge) "
+          f"{replays}; KV pool {eng.kv_pool_bytes()} B; growth "
+          f"{eng.growth_stats()}; macro {eng.macro_stats()}")
+    check_batched_responses(tag, eng, res, BATCHED_REQUESTS)
+    n_local, n_global = gemma3_layers(g_dep.slm)
+    n_llm = g_dep.llm.cfg.num_layers
+    lanes = (eng.cloud_lane, eng.edge_lane)
+    if k:
+        k2 = sum(k * n * lane_layers(lane) for n, lane in zip(replays, lanes))
+        ring = sum(k * n * n_local for n in replays)
+        graphs = [(lane._macro.per_replay(K2.paged_decode_attention),
+                   lane._macro.per_replay(K2.paged_decode_attention,
+                                          "ring_launches"))
+                  for lane in lanes]
+        if graphs != [(k * lane_layers(lane), k * n_local)
+                      for lane in lanes]:
+            raise SystemExit(f"{tag}: lane graphs hold (K2, ring) "
+                             f"{graphs}")
+    else:
+        k2 = (calls["slm_decode"] * (n_local + n_global)
+              + calls["llm_decode"] * n_llm)
+        ring = calls["slm_decode"] * n_local
+    want = {"paged_decode_attention": k2, "paged_decode_attention_ring": ring,
+            "flash_attention": (n_local + n_global)
+            * calls["slm_prefill_packed"]
+            + n_llm * calls["llm_prefill_packed"],
+            "flash_attention_windowed": n_local * calls["slm_prefill_packed"]}
+    got = {name: launches[name] for name in want}
+    print(f"{tag}: K2 {k2} launches, {ring} of them in ring mode (the "
+          f"SLM's {n_local} local layers); K3 {want['flash_attention']}, "
+          f"{want['flash_attention_windowed']} windowed")
+    if got != want or launches["fuse_logits"] <= 0 or ring <= 0:
+        raise SystemExit(f"{tag}: launches {got}, expected {want}")
+    if eng.growth_stats()["grown_pages"] <= 0 \
+            or eng.resident_kv_bytes() != 0:
+        raise SystemExit(f"{tag}: no lazy growth, or pages leaked")
+    if k:
+        return launches, res, groups, eng
+    return launches, res, groups
+
+
+def check_gemma3_admission(torch, g_dep):
+    """One full-width admission of a ragged burst (the 1,542-token prompt
+    among three short ones, padded to 1,552) into a fresh lane cache,
+    held against the plain path: the last-token logits through K3
+    against the same packed prefill with K3's plain version in its place
+    (relative to max|ref|, LOGITS_TOL), and every ring page that
+    ``page_writer`` wrote (22 local layers, K and V) against a plain
+    gather of the streamed K/V at ``ring_kv_positions(len - 1, 512)``,
+    bit for bit."""
+    import numpy as np
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import attention as ATT
+    from repro_torch.models.model import LOCAL_KINDS, cache_kv
+
+    lm = g_dep.slm
+    prompts = [LONG_PROMPT, DEMO_PROMPTS[0], BATCHED_REQUESTS[3][0],
+               DEMO_PROMPTS[2]]
+    ids = [TOK.encode(p + " ") for p in prompts]
+    lens = np.array([len(x) for x in ids], np.int32)
+    b, lpad = len(ids), -(-int(lens.max()) // 16) * 16
+    toks = np.zeros((b, lpad), np.int64)
+    for i, x in enumerate(ids):
+        toks[i, :len(x)] = x
+    toks = torch.as_tensor(toks, device=g_dep.device)
+    geo = g_dep.paged_geometry(lm)
+    w, nb, nl = geo["local_len"], geo["nb"], geo["nl"]
+    cache = g_dep.init_paged_lane_cache(lm, b, b * nb, b * nl)
+    tables = np.arange(b * nb, dtype=np.int32).reshape(b, nb)
+    local = np.arange(b * nl, dtype=np.int32).reshape(b, nl)
+    writer = g_dep.page_writer(cache, list(range(b)), tables, lens, local, w)
+    streamed = {}
+
+    def write(addr, k, v):
+        if addr[0] in LOCAL_KINDS:
+            streamed[addr] = (k, v)
+        writer(addr, k, v)
+    logits = lm.prefill_packed(g_dep.slm_params, toks, lens, g_dep.max_seq,
+                               write)
+    real = ATT.flash_attention
+    ATT.flash_attention = K3.flash_attention_plain
+    try:
+        plain = lm.prefill_packed(g_dep.slm_params, toks, lens,
+                                  g_dep.max_seq, lambda *a: None)
+    finally:
+        ATT.flash_attention = real
+    rel = ((logits - plain).abs().max() / plain.abs().max()).item()
+    pos = ATT.ring_kv_positions(
+        torch.as_tensor(lens - 1, device=g_dep.device), w)
+    idx = pos.clamp(0, lpad - 1)
+    rows = torch.arange(b, device=g_dep.device)[:, None]
+    pids = torch.as_tensor(local, device=g_dep.device).long()
+    same = 0
+    for addr, kv in streamed.items():
+        for name, t in zip("kv", kv):
+            got = cache_kv(cache, addr, name)[pids.reshape(-1)].reshape(
+                b, nl * 16, *t.shape[2:])[:, :w]
+            same += torch.equal(got, t[rows, idx])
+    print(f"serve_gemma3 admission: B={b} packed prefill at Lpad {lpad} "
+          f"(lengths {lens.tolist()}, window {w}): last-token logits "
+          f"through K3 vs its plain version, max|diff|/max|ref| = "
+          f"{rel:.3e}; ring pages equal to a plain gather bit for bit: "
+          f"{same} of {2 * len(streamed)}")
+    if not rel <= LOGITS_TOL or same != 2 * len(streamed) \
+            or len(streamed) != gemma3_layers(lm)[0] \
+            or not torch.isfinite(logits).all():
+        raise SystemExit("serve_gemma3: the full-width admission disagrees "
+                         "with the plain path")
 
 
 def profile_rows(torch, prof):
@@ -1829,7 +2262,7 @@ def profile_step(torch, eng, what: str):
         return
     want = sum(k * lane_layers(lane) for lane in busy_lanes)
     want_k1 = k * int(eng.cloud_lane in busy_lanes)
-    per_lane = [lane._macro.captured.get(K2.paged_decode_attention, 0)
+    per_lane = [lane._macro.per_replay(K2.paged_decode_attention)
                 for lane in busy_lanes]
     one_each = [int(lane in busy_lanes)
                 for lane in (eng.cloud_lane, eng.edge_lane)]
@@ -1873,6 +2306,12 @@ def trace(torch, engine):
           f"{sum(r[1] for r in rows)} kernel launches")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
+
+
+def mode_by_path(paths, key):
+    """{path: count} of a per-mode count on the paths that read it:
+    every serving path but serve_ssm, which runs no attention."""
+    return {path: got[key] for path, got in paths.items() if key in got}
 
 
 def main() -> int:
@@ -1922,6 +2361,7 @@ def main() -> int:
     del eng8
     ad_runs = phase_serve_adapters(torch, dep, plain_ids)
     router_run = phase_serve_router(torch, dep, plain_ids)
+    gemma3_paths = phase_serve_gemma3(torch, dep)
     paths = {"serve": seq_launches, "serve_batched": launches,
              "serve_batched_k0": k0_launches,
              "serve_batched_k1": macro_launches[1],
@@ -1930,7 +2370,7 @@ def main() -> int:
              "serve_adapters_k4_macro": ad_runs["macro"]["launches"],
              "serve_router": router_run["launches"],
              "serve_router_sequential": router_run["seq_launches"],
-             "serve_ssm": ssm_launches}
+             "serve_ssm": ssm_launches, **gemma3_paths}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}
@@ -1956,6 +2396,8 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attention/kernel.py:132",
              launches=launches["paged_decode_attention"],
              launches_by_path=by_path["paged_decode_attention"],
+             ring_launches_by_path=mode_by_path(
+                 paths, "paged_decode_attention_ring"),
              max_abs_err=max(c["max_abs_err"] for c in k2_cases),
              max_rel_err=max(c["max_rel_err"] for c in k2_cases),
              rel_tol=K2_ROW_RTOL, shape=k2["shape"], ms=k2["ms"],
@@ -1966,6 +2408,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/kernel.py:80",
              launches=launches["flash_attention"],
              launches_by_path=by_path["flash_attention"],
+             windowed_launches_by_path=mode_by_path(
+                 paths, "flash_attention_windowed"),
              max_abs_err=max(c["max_abs_err"] for c in k3_cases),
              max_rel_err=max(c["max_rel_err"] for c in k3_cases),
              rel_tol=K3_ROW_RTOL, shape=k3["shape"], ms=k3["ms"],

@@ -4,9 +4,10 @@ in the Gemma-7B / Gemma-2B proportion — the port's copy of
 
 ``FLOE_PAIRS`` names the servable (SLM, LLM) pairings; both members
 share a vocab so the Eq. 14 alignment MLP concatenates their
-distributions.  The port serves the plain dense layout only, so the
-reference's ``gemma3`` pair (grouped mixed-attention layout with ring
-caches) is not listed here yet.
+distributions.  The ``gemma3`` pair puts the mixed-attention SLM
+(``configs/gemma3_1b.py``: grouped 5:1 sliding/global layout, ring
+caches at serve time) beside the same cloud LLM (Sec. 4
+heterogeneity-aware edge models).
 """
 from typing import Tuple
 
@@ -14,12 +15,20 @@ from repro_torch.configs.base import ModelConfig, register
 
 FLOE_PAIRS = {
     "2b": ("floe-slm-2b", "floe-llm-7b"),
+    "gemma3": ("floe-slm-gemma3", "floe-llm-7b"),
 }
+
+
+def needs_ring_cache(cfg: ModelConfig) -> bool:
+    """Whether an edge SLM should be built with LM(ring_cache=True):
+    windowed layers then keep window-sized ring caches at serve time."""
+    return cfg.attn_type in ("sliding", "mixed")
 
 
 def pair_configs(pair: str, reduced: bool = True
                  ) -> Tuple[ModelConfig, ModelConfig]:
-    """Resolve a FLOE_PAIRS name to (slm_cfg, llm_cfg)."""
+    """Resolve a FLOE_PAIRS name to (slm_cfg, llm_cfg); build the SLM
+    with LM(cfg, ring_cache=needs_ring_cache(cfg))."""
     from repro_torch.configs.base import get_config
     sname, lname = FLOE_PAIRS[pair]
     scfg, lcfg = get_config(sname), get_config(lname)

@@ -134,7 +134,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.windowed_launches += bool(window)
     return out
 
 
+# launches of the kernel, and of those the windowed ones (window > 0)
 flash_attention.launches = 0
+flash_attention.windowed_launches = 0

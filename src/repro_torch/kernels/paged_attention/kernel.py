@@ -214,7 +214,10 @@ def paged_decode_attention(q, pool_k, pool_v, table, pos, *,
     if rc:
         build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    paged_decode_attention.ring_launches += bool(window)
     return out
 
 
+# launches of the kernel, and of those the ring-mode ones (window > 0)
 paged_decode_attention.launches = 0
+paged_decode_attention.ring_launches = 0

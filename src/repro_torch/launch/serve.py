@@ -6,8 +6,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
         --adapters 3 --adapter-slots 2 [--adapter-rank 4]
 
-serves the four demo prompts on the reduced ``2b`` pair, printing one
-line per request and the summary, as the reference does.  ``--batch``
+serves the four demo prompts on a reduced pair (``--pair 2b``, the
+default, or ``--pair gemma3``, whose SLM keeps ring caches on its
+sliding-window layers), printing one line per request and the summary,
+as the reference does.  ``--batch``
 0 or 1 is the sequential engine; ``--batch N>1`` builds the
 continuous-batching scheduler on paged lanes and prints the
 ``lane KV: paged, pool capacity ...`` line.  ``--adapters N
@@ -56,8 +58,8 @@ def main(argv=None):
                          "host sync (0 = the per-token step)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--no-lazy-pages", action="store_true")
-    ap.add_argument("--pair", default="2b",
-                    help="2b (the gemma3 pair is a later slice)")
+    ap.add_argument("--pair", default="2b", choices=("2b", "gemma3"),
+                    help="the FLOE_PAIRS model pair to serve")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--adapters", type=int, default=0,
@@ -75,8 +77,6 @@ def main(argv=None):
         if flag in LATER_SLICE_FLAGS:
             ap.error(f"{flag}: later slice")
         ap.error(f"unrecognized argument {arg}")
-    if args.pair != "2b":
-        ap.error(f"--pair {args.pair}: later slice")
     if not args.local:
         ap.error("only --local serving is ported; the dry-run lowering is "
                  "a later slice")
@@ -85,7 +85,7 @@ def main(argv=None):
                  "device-bank capacity)")
 
     from repro_torch import resolve_device
-    from repro_torch.configs.floe_pair import pair_configs
+    from repro_torch.configs.floe_pair import needs_ring_cache, pair_configs
     from repro_torch.core import fusion as FUS
     from repro_torch.core import lora as LORA
     from repro_torch.kernels.paged_attention.kernel import PAGE_SIZE
@@ -103,7 +103,8 @@ def main(argv=None):
     if device.type == "cuda":
         slm_cfg, llm_cfg = (dataclasses.replace(c, dtype="bfloat16")
                             for c in (slm_cfg, llm_cfg))
-    slm, llm = LM(slm_cfg, device=device), LM(llm_cfg, device=device)
+    slm = LM(slm_cfg, device=device, ring_cache=needs_ring_cache(slm_cfg))
+    llm = LM(llm_cfg, device=device)
     dep = ServingDeployment(
         slm, slm.init(0), llm, llm.init(1),
         FUS.init_alignment(2, slm_cfg.vocab_size, device=device),

@@ -1,19 +1,25 @@
-"""Attention: GQA prefill and decode — the port of
-``repro/models/attention.py`` for the plain dense layout.
+"""Attention: GQA prefill and decode with full-causal and
+sliding-window layers — the port of ``repro/models/attention.py``.
 
 ``attention_block`` covers ``prefill`` (no history; the reference's
-branch at ``attention.py:343-345``) and two decode forms:
-scalar-position decode against a dense cache (``attention.py:396-415``,
-non-ring) and **paged** decode with per-row positions against a page
-pool and block table (``:346-371``).  Per-row decode against a dense
-cache (``:372-395``) comes with the dense-lanes slice.  On CUDA,
-prefill attention is the hand-written kernel K3
-(``kernels/flash_attention``) and paged decode
-attention is K2 (``kernels/paged_attention``); each launches or raises.
-On the CPU, prefill is ``chunked_causal_attention`` and paged decode
-``gather_pages`` plus ``rowwise_decode_attention``, the reference's own
-math.  Dense decode attention is plain PyTorch on both, as the
-reference computes it outside any Pallas kernel.
+branch at ``attention.py:343-345``) and three decode forms:
+scalar-position decode against a dense cache (``attention.py:396-415``),
+full-length or window-sized ring, and **paged** decode with per-row
+positions against a page pool through a block table, or through a
+row's ring-local table on a windowed layer (``:346-371``).  Per-row
+decode against a dense cache (``:372-395``) comes with the dense-lanes
+slice.  ``is_global`` picks a layer's rope theta and window as the
+reference does (``:312-321``): a local layer of a mixed layout (gemma3)
+attends over the last ``sliding_window`` positions.  On CUDA, prefill
+attention is the hand-written kernel K3 (``kernels/flash_attention``,
+windowed on a local layer) and paged decode attention is K2
+(``kernels/paged_attention``, in its ring mode on a ring-local table);
+each launches or raises.  On the CPU, prefill is
+``chunked_causal_attention`` and paged decode ``gather_pages`` plus
+``rowwise_decode_attention`` or ``rowwise_ring_decode_attention``, the
+reference's own math.  Dense decode attention (``decode_attention``,
+``ring_decode_attention``) is plain PyTorch on both, as the reference
+computes it outside any Pallas kernel.
 
 Decode writes the new token's K/V into the cache IN PLACE (the
 reference returns an updated copy).  torch has neither
@@ -105,19 +111,62 @@ def decode_attention(q, cache_k, cache_v, pos: int, window: int = 0):
     return _sdpa(_group(q, kvh), k, v, mask, scale).reshape(b, 1, h, hd)
 
 
-def rowwise_decode_attention(q, cache_k, cache_v, pos_b):
-    """One-token decode with PER-ROW positions (every layer of the plain
-    layout is global, so no window) — the CPU path of paged decode, over
-    ``gather_pages`` views.  q (B,1,H,hd), cache (B,S,KV,hd), pos_b (B,)
-    integer tensor."""
+def rowwise_decode_attention(q, cache_k, cache_v, pos_b, window: int = 0):
+    """One-token decode with PER-ROW positions — the CPU path of paged
+    decode, over ``gather_pages`` views.  q (B,1,H,hd), cache
+    (B,S,KV,hd), pos_b (B,) integer tensor.  A window layer keeps the
+    full cache and masks the neighbourhood instead of slicing (per-row
+    starts preclude one slice)."""
     b, _, h, hd = q.shape
     s_max = cache_k.shape[1]
     kvh = cache_k.shape[2]
     scale = 1.0 / math.sqrt(hd)
     kv_pos = torch.arange(s_max, device=q.device)
     mask = kv_pos[None, None, :] <= pos_b[:, None, None]       # (B,1,S)
+    if window and window < s_max:
+        mask &= kv_pos[None, None, :] > pos_b[:, None, None] - window
     return _sdpa(_group(q, kvh), cache_k, cache_v, mask,
                  scale).reshape(b, 1, h, hd)
+
+
+def ring_kv_positions(pos, window: int, device=None) -> torch.Tensor:
+    """Absolute position held by each slot of a ring cache at depth
+    ``pos``: slot i holds p = pos - ((pos - i) mod window), the most
+    recent position <= pos that maps to slot i (= p % window); p < 0
+    marks a slot not yet written.  pos an int -> (window,) on
+    ``device``; pos a (B,) tensor -> (B, window) on its device.  Decode
+    writes, decode masks and the prefill placement of ring leaves all
+    follow it."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.long()[..., None]
+        device = pos.device
+    slots = torch.arange(window, device=device)
+    return pos - torch.remainder(pos - slots, window)
+
+
+def ring_decode_attention(q, cache_k, cache_v, pos: int, window: int):
+    """Decode against a window-sized ring cache (B, window, KV, hd) at
+    one depth ``pos``: the mask keeps slot positions in
+    [max(0, pos - window + 1), pos]."""
+    b, _, h, hd = q.shape
+    kvh = cache_k.shape[2]
+    kv_pos = ring_kv_positions(pos, window, q.device)
+    mask = ((kv_pos >= 0) & (kv_pos <= pos))[None, None, :]
+    return _sdpa(_group(q, kvh), cache_k, cache_v, mask,
+                 1.0 / math.sqrt(hd)).reshape(b, 1, h, hd)
+
+
+def rowwise_ring_decode_attention(q, cache_k, cache_v, pos_b, window: int):
+    """Ring decode with PER-ROW positions (each row at its own depth and
+    ring write index) — the CPU path of paged decode through a ring-local
+    table.  q (B,1,H,hd), cache (B,window,KV,hd), pos_b (B,) integer
+    tensor; rows that have not wrapped yet mask their empty slots."""
+    b, _, h, hd = q.shape
+    kvh = cache_k.shape[2]
+    kv_pos = ring_kv_positions(pos_b, window)                   # (B, W)
+    mask = ((kv_pos >= 0) & (kv_pos <= pos_b[:, None]))[:, None, :]
+    return _sdpa(_group(q, kvh), cache_k, cache_v, mask,
+                 1.0 / math.sqrt(hd)).reshape(b, 1, h, hd)
 
 
 def gather_pages(pool_flat, table, n_slots: int, page_size: int):
@@ -163,21 +212,44 @@ def check_row_positions(host_pos, n_slots: int) -> None:
                          f"the {n_slots}-slot cache")
 
 
+def _qk_norm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm over head_dim in float32, scaled by ``x * scale`` (not
+    ``1 + scale``), as the reference's ``_qk_norm``."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
+
+
+def layer_window(cfg, is_global: bool) -> int:
+    """Attention window of a layer (0 = full causal)."""
+    if cfg.attn_type == "sliding" or (cfg.attn_type == "mixed"
+                                      and not is_global):
+        return cfg.sliding_window
+    return 0
+
+
 def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
-                    pages=None, host_pos=None, lora=None, gates=None):
+                    pages=None, host_pos=None, lora=None, gates=None,
+                    is_global: bool = True):
     """Attention sub-layer of one layer.
 
+    ``is_global``: False on a local layer of a mixed layout, which
+    takes the local rope theta and attends over a window.
     prefill: ``positions`` (S,) tensor; returns (y, (k, v)) with the
     fresh (B, S, KV, hd) keys and values.
     decode: ``cache`` is this layer's {"k", "v"}; the new token's K/V
     are written into it IN PLACE (the reference returns an updated
     copy; the port saves the copy).  ``positions`` is an int (dense
-    (B, max_seq, KV, hd) cache, every row at one depth) or, with
-    ``pages`` = {"block": (B, nb) int32 table}, a (B,) int32 tensor of
-    per-row depths against page pools (P + 1, ps, KV, hd) with the sink
-    page last.  ``host_pos``, the host's mirror of per-row
-    ``positions``, is validated before any dispatch.  Returns
-    (y, None).
+    (B, S, KV, hd) cache, every row at one depth; a window layer's cache
+    of exactly ``window`` slots is a ring written at pos % window) or,
+    with ``pages`` = {"block": (B, nb) int32 table[, "local": (B, nl)
+    ring-local table]}, a (B,) int32 tensor of per-row depths against
+    page pools (P + 1, ps, KV, hd) with the sink page last; a window
+    layer with a "local" table writes slot pos % window of its ring.
+    ``host_pos``, the host's mirror of per-row ``positions``, is
+    validated against the full-length table before any dispatch (a
+    ring never overflows).  Returns (y, None).
 
     ``lora`` is this layer's {"q", "k", "v", "o": {"A", "B"}} bank slice
     (any target may be missing) and ``gates`` its gates, as
@@ -188,6 +260,9 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
     q = L.linear(p["q"], x, get("q"), gates).reshape(b, s, h, hd)
     k = L.linear(p["k"], x, get("k"), gates).reshape(b, s, kvh, hd)
     v = L.linear(p["v"], x, get("v"), gates).reshape(b, s, kvh, hd)
+    if cfg.use_qk_norm:
+        q = _qk_norm(p["q_norm"], q, cfg.norm_eps)
+        k = _qk_norm(p["k_norm"], k, cfg.norm_eps)
 
     row_pos = positions if mode == "decode" and isinstance(
         positions, torch.Tensor) and positions.dim() == 1 else None
@@ -197,51 +272,77 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
         rope_pos = row_pos[:, None]
     else:
         rope_pos = torch.tensor(positions, device=x.device)
-    # every layer of the plain layout is global
-    theta = cfg.rope_theta_global or cfg.rope_theta
+    theta = cfg.rope_theta_global if (is_global and cfg.rope_theta_global) \
+        else cfg.rope_theta
     q = L.rope(q, rope_pos, theta)
     k = L.rope(k, rope_pos, theta)
+    window = layer_window(cfg, is_global)
 
     if mode == "prefill":
         if x.device.type == "cuda":
             # K3 reads the (B, H, S, D) views in place and returns one
             # whose transpose is a contiguous (B, S, H, D)
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2),
-                                  causal=True).transpose(1, 2)
+                                  v.transpose(1, 2), causal=True,
+                                  window=window).transpose(1, 2)
         else:
-            out = chunked_causal_attention(q, k, v, positions, positions)
+            out = chunked_causal_attention(q, k, v, positions, positions,
+                                           window)
         new_kv = (k, v)
     elif mode == "decode" and pages is not None:
         pool_k, pool_v = cache["k"], cache["v"]
         ps = pool_k.shape[1]
-        table = pages["block"]
-        n_slots = table.shape[1] * ps
-        if host_pos is not None:
-            check_row_positions(host_pos, n_slots)
-        scatter_page_token(pool_k, table, row_pos, row_pos, k[:, 0], n_slots)
-        scatter_page_token(pool_v, table, row_pos, row_pos, v[:, 0], n_slots)
+        ring = bool(window) and "local" in pages
+        if ring:
+            table, n_slots = pages["local"], window
+            slot = torch.remainder(row_pos, window)
+        else:
+            table, slot = pages["block"], row_pos
+            n_slots = table.shape[1] * ps
+            if host_pos is not None:
+                check_row_positions(host_pos, n_slots)
+        scatter_page_token(pool_k, table, row_pos, slot, k[:, 0], n_slots)
+        scatter_page_token(pool_v, table, row_pos, slot, v[:, 0], n_slots)
         n_pool = pool_k.shape[0] - 1
+        # a window no shorter than the table masks nothing
+        masked = bool(window) and not ring and window < n_slots
         if x.device.type == "cuda":
+            if masked:
+                raise NotImplementedError(
+                    "paged decode of a full-length window layer (an LM "
+                    "built without ring_cache): K2 takes windows through a "
+                    "ring-local table only")
             out = paged_decode_attention(
                 q[:, 0].contiguous(), pool_k[:n_pool], pool_v[:n_pool],
-                table, row_pos).reshape(b, 1, h, hd)
+                table, row_pos, window=window if ring else 0
+            ).reshape(b, 1, h, hd)
         else:
             flat = lambda a: a[:n_pool].reshape(n_pool * ps, *a.shape[2:])
-            out = rowwise_decode_attention(
-                q, gather_pages(flat(pool_k), table, n_slots, ps),
-                gather_pages(flat(pool_v), table, n_slots, ps), row_pos)
+            gk = gather_pages(flat(pool_k), table, n_slots, ps)
+            gv = gather_pages(flat(pool_v), table, n_slots, ps)
+            out = rowwise_ring_decode_attention(q, gk, gv, row_pos, window) \
+                if ring else rowwise_decode_attention(q, gk, gv, row_pos,
+                                                      window)
         new_kv = None
     elif mode == "decode":
         if row_pos is not None:
             raise NotImplementedError("per-row decode against a dense cache "
                                       "(dense lanes): later slice")
         pos = positions
-        if not 0 <= pos < cache["k"].shape[1]:
+        if pos < 0:
             raise ValueError(f"decode position {pos} outside the cache")
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
-        out = decode_attention(q, cache["k"], cache["v"], pos)
+        if window and cache["k"].shape[1] == window:
+            # ring: a window layer keeps only ``window`` slots
+            cache["k"][:, pos % window] = k[:, 0]
+            cache["v"][:, pos % window] = v[:, 0]
+            out = ring_decode_attention(q, cache["k"], cache["v"], pos,
+                                        window)
+        else:
+            if pos >= cache["k"].shape[1]:
+                raise ValueError(f"decode position {pos} outside the cache")
+            cache["k"][:, pos] = k[:, 0]
+            cache["v"][:, pos] = v[:, 0]
+            out = decode_attention(q, cache["k"], cache["v"], pos, window)
         new_kv = None
     else:
         raise ValueError(mode)

@@ -1,39 +1,53 @@
 """The language model — the port of ``repro/models/model.py`` for the
-plain dense layout ([attn, mlp] x L, every layer global) and the
+dense family (the plain layout, [attn, mlp] x L with every layer
+global, and the grouped 5:1 sliding/global layout of gemma3) and the
 Mamba-1 SSM family ([mamba1] x L, falcon-mamba).
 
 Parameters are the reference's tree (``LM.param_specs``) as nested dicts
-of tensors: per-layer leaves stacked on a leading layer axis under
-``"layers"``, so ``bridge.py`` maps a JAX tree onto it leaf for leaf.
+of tensors, so ``bridge.py`` maps a JAX tree onto it leaf for leaf:
+per-layer leaves stacked on a leading layer axis under ``"layers"``, or,
+in the grouped layout, ``"inner"`` (n_groups, g - 1, ...) local layers,
+``"global_layers"`` (n_groups, ...) and a ``"tail"`` (tail, ...) of local
+layers.  A layer runs in the reference's order (``group_step``): in
+each group its g - 1 local layers, then its global layer; after the
+groups, the tail.  ``layer_sites`` lists the layers in that order
+with the address of their cache leaves (``cache_kv``).
+
 Two cache forms, both written in place by decode (the reference
 returns an updated copy, which the port saves):
 
 * dense: {"k", "v": (L, B, max_seq, KV, hd), "pos": int} — every row
-  at one depth, the sequential engine;
-* paged (a lane of the batched engine, built by the deployment):
-  {"k", "v": page pools (L, P + 1, ps, KV, hd) whose last page is the
-  write sink, "block": (B, nb) int32 block table, "pos": (B,) int32 on
-  the device, "pos_host": its host mirror}.  The host mirror is
-  validated before each dispatch, so no layer syncs with the device.
+  at one depth, the sequential engine.  The grouped layout keeps
+  {"inner", "tail", "global": {"k", "v"}} instead, each with its stack
+  dims in front; with ``LM(ring_cache=True)`` the local leaves hold
+  min(max_seq, window) slots, a ring written at position % window;
+* paged (a lane of the batched engine, built by the deployment): the
+  same tree with each leaf's (B, S) replaced by a page pool (P + 1, ps)
+  whose last page is the write sink, "block": (B, nb) int32 block
+  table, "local": (B, nl) ring-local table when the local leaves are
+  rings, "pos": (B,) int32 on the device, "pos_host": its host mirror.
+  The host mirror is validated before each dispatch, so no layer syncs
+  with the device.
 
 The SSM family keeps one cache form: {"conv": (L, B, k-1, d_inner) in
 the model dtype, "h": (L, B, d_inner, N) float32, "pos": int}; its
 prefill scan runs K6 (``models/ssm.py``).
 
 Every entry point takes an optional merged-LoRA bank (``lora``, the
-``core/lora.py`` tree without metadata: {"layers": {target: {"A"
-(L, E, r, d_in), "B" (L, E, d_out, r)}}}) and its ``gates``; layer i
-reads slice [i] of every leaf, as the reference's layer scan does.
-LoRA on the SSM projections is a later slice.
+``core/lora.py`` tree without metadata: {stack: {target: {"A"
+(*dims, E, r, d_in), "B" (*dims, E, d_out, r)}}} over the stacks of
+``lora_layout``) and its ``gates``; a layer reads its slice of every
+leaf, as the reference's layer scans do.  LoRA on the SSM projections
+is a later slice.
 
-The grouped (gemma3), MoE, MLA, hybrid (zamba2), audio and vision
-layouts, qk-norm, qkv biases, untied embeddings of a dense model, ring
-caches and the prefix/speculative helpers are later slices.
+The MoE, MLA, hybrid (zamba2), audio and vision layouts, the
+all-sliding layout, qkv biases, untied embeddings of a dense model and
+the prefix/speculative helpers are later slices.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,18 +60,47 @@ from repro_torch.models import ssm as SSM
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+# cache kinds of the grouped layout that hold local (window) layers
+LOCAL_KINDS = ("inner", "tail")
+
+
 def _leaf(shape, init: str = "fan_in", scale: float = 1.0):
     return (tuple(shape), init, scale)
 
 
+class LayerSite(NamedTuple):
+    """One layer, in the order the stack runs it: ``addr`` addresses its
+    cache leaves (``cache_kv``; an SSM's conv and scan state at the same
+    index), ``stack``/``lora`` name its parameter and LoRA stacks,
+    ``idx`` its index in both, and ``is_global`` whether it attends
+    globally."""
+    addr: Union[int, Tuple[str, Tuple[int, ...]]]
+    stack: str
+    lora: str
+    idx: Tuple[int, ...]
+    is_global: bool
+
+
+def cache_kv(cache, addr, name: str) -> torch.Tensor:
+    """Layer ``addr``'s ``name`` ("k" or "v") leaf of a dense cache or a
+    paged lane cache, a view: cache[name][i] for the plain layout's
+    integer address, cache[kind][name][idx] for a grouped layout's
+    (kind, idx)."""
+    if isinstance(addr, tuple):
+        kind, idx = addr
+        return cache[kind][name][idx]
+    return cache[name][addr]
+
+
 def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
-                host_pos=None, lora=None, gates=None):
+                host_pos=None, lora=None, gates=None, is_global=True):
     """Pre-norm attention + MLP.  ``lora`` is this layer's slice of the
     bank ({target: {"A", "B"}}).  Returns (x, fresh (k, v) or None)."""
     h = L.norm(cfg, p["ln1"], x)
     a, kv = ATT.attention_block(cfg, p["attn"], h, positions=positions,
                                 cache=cache, mode=mode, pages=pages,
-                                host_pos=host_pos, lora=lora, gates=gates)
+                                host_pos=host_pos, lora=lora, gates=gates,
+                                is_global=is_global)
     x = x + a
     h = L.norm(cfg, p["ln2"], x)
     get = (lora or {}).get
@@ -75,29 +118,74 @@ def ssm_layer(cfg, p, x, *, mode, cache, lora=None):
 
 
 class LM:
-    """Model bundle for one ModelConfig on one device: the plain dense
-    layout or the Mamba-1 SSM family."""
+    """Model bundle for one ModelConfig on one device: the dense family's
+    plain or grouped (gemma3) layout, or the Mamba-1 SSM family.
+    ``ring_cache``: the grouped layout's local layers keep window-sized
+    ring caches (the reference's ``LM(ring_cache=True)``)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, ring_cache: bool = False):
         if cfg.family == "ssm":
             if cfg.ssm_version != 1 or cfg.norm_type != "rmsnorm":
                 raise NotImplementedError(
                     f"{cfg.name}: only Mamba-1 with RMSNorm is ported "
                     "(Mamba-2 is the zamba2 slice)")
-        elif cfg.family != "dense" or cfg.attn_type != "full" \
-                or cfg.use_qk_norm or cfg.qkv_bias \
-                or not cfg.tie_embeddings or cfg.norm_type != "rmsnorm":
+        elif cfg.family != "dense" \
+                or not (cfg.attn_type == "full" or (
+                    cfg.attn_type == "mixed" and cfg.global_every)) \
+                or cfg.qkv_bias or not cfg.tie_embeddings \
+                or cfg.norm_type != "rmsnorm":
             raise NotImplementedError(
-                f"{cfg.name}: only the plain dense layout of the 2b pair "
-                "(full attention, tied embeddings, RMSNorm) and the Mamba-1 "
-                "SSM family are ported")
+                f"{cfg.name}: only the dense layouts of the Floe pairs "
+                "(full attention, or gemma3's grouped sliding/global "
+                "layout; tied embeddings, RMSNorm) and the Mamba-1 SSM "
+                "family are ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
+        self.ring_cache = ring_cache
+
+    # -------------------------------------------------------------- layout
+    def _layout(self) -> Tuple[str, int, int, int]:
+        """Stack layout: (kind, n_groups, group_size, tail), as the
+        reference's ``_layout`` for the dense and SSM families."""
+        cfg = self.cfg
+        if cfg.attn_type == "mixed" and cfg.global_every:
+            g = cfg.global_every
+            n_groups = cfg.num_layers // g
+            return ("grouped", n_groups, g, cfg.num_layers - n_groups * g)
+        return ("plain", cfg.num_layers, 1, 0)
+
+    def layer_sites(self) -> List[LayerSite]:
+        """The layers in the order the stack runs them: the plain
+        layout's (and an SSM's) 0..L-1, or in each group its g - 1 local
+        layers then its global layer, and after the groups the tail."""
+        kind, n_groups, g, tail = self._layout()
+        if kind == "plain":
+            return [LayerSite(i, "layers", "layers", (i,), True)
+                    for i in range(self.cfg.num_layers)]
+        out = []
+        for gi in range(n_groups):
+            out += [LayerSite(("inner", (gi, j)), "inner", "inner",
+                              (gi, j), False) for j in range(g - 1)]
+            out.append(LayerSite(("global", (gi,)), "global_layers",
+                                 "special", (gi,), True))
+        out += [LayerSite(("tail", (t,)), "tail", "tail", (t,), False)
+                for t in range(tail)]
+        return out
+
+    def _ring_local_len(self, max_seq: int) -> int:
+        """Window extent of ring/local cache leaves (0 when every leaf
+        is full-length)."""
+        kind, *_ = self._layout()
+        if kind == "grouped" and self.ring_cache:
+            w = min(max_seq, self.cfg.sliding_window)
+            if w < max_seq:
+                return w
+        return 0
 
     # -------------------------------------------------------------- params
     def param_shapes(self) -> Dict[str, Any]:
-        """The reference's spec tree for the plain dense layout or the
+        """The reference's spec tree for the dense layouts or the
         Mamba-1 stack: leaves are (shape, init, scale) with init in
         {embed, fan_in, ones, zeros}."""
         cfg = self.cfg
@@ -131,20 +219,30 @@ class LM:
             }
 
         gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
-        return {
-            "embed": embed,
-            "ln_f": {"scale": _leaf((d,), "ones")},
-            "layers": {
-                "ln1": {"scale": _leaf((n, d), "ones")},
-                "attn": {"q": {"w": _leaf((n, d, h * hd))},
-                         "k": {"w": _leaf((n, d, kv * hd))},
-                         "v": {"w": _leaf((n, d, kv * hd))},
-                         "o": {"w": _leaf((n, h * hd, d))}},
-                "ln2": {"scale": _leaf((n, d), "ones")},
-                "mlp": {"in": {"w": _leaf((n, d, gate * f))},
-                        "out": {"w": _leaf((n, f, d))}},
-            },
-        }
+
+        def layers(lead):
+            attn = {"q": {"w": _leaf(lead + (d, h * hd))},
+                    "k": {"w": _leaf(lead + (d, kv * hd))},
+                    "v": {"w": _leaf(lead + (d, kv * hd))},
+                    "o": {"w": _leaf(lead + (h * hd, d))}}
+            if cfg.use_qk_norm:
+                attn["q_norm"] = {"scale": _leaf(lead + (hd,), "ones")}
+                attn["k_norm"] = {"scale": _leaf(lead + (hd,), "ones")}
+            return {"ln1": {"scale": _leaf(lead + (d,), "ones")},
+                    "attn": attn,
+                    "ln2": {"scale": _leaf(lead + (d,), "ones")},
+                    "mlp": {"in": {"w": _leaf(lead + (d, gate * f))},
+                            "out": {"w": _leaf(lead + (f, d))}}}
+
+        out = {"embed": embed, "ln_f": {"scale": _leaf((d,), "ones")}}
+        kind, n_groups, g, tail = self._layout()
+        if kind == "grouped":
+            out["inner"] = layers((n_groups, g - 1))
+            out["tail"] = layers((tail,))
+            out["global_layers"] = layers((n_groups,))
+        else:
+            out["layers"] = layers((n,))
+        return out
 
     def init(self, seed: int) -> Dict[str, Any]:
         """Random parameters made on the device from a seeded
@@ -153,8 +251,9 @@ class LM:
         it for stacked leaves).  The values differ from the JAX
         package's, whose generator is threefry; tests that compare the
         two bring the JAX parameters over with ``bridge.py``.  Stacked
-        leaves are drawn one layer at a time, which bounds the float32
-        scratch at full width."""
+        leaves (3-D, or 4-D in a grouped layout's inner stack) are drawn
+        one layer at a time, which bounds the float32 scratch at full
+        width."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
         def make(spec):
@@ -165,7 +264,8 @@ class LM:
             std = scale if init == "embed" else \
                 scale / math.sqrt(max(1, math.prod(shape[:-1])))
             out = torch.empty(shape, dtype=self.dtype, device=self.device)
-            slices = out if len(shape) == 3 else [out]
+            slices = out.view(-1, *shape[-2:]) if len(shape) >= 3 \
+                else [out]
             for sl in slices:
                 sl.copy_(torch.randn(sl.shape, generator=gen,
                                      device=self.device) * std)
@@ -177,7 +277,8 @@ class LM:
         """{stack: (stack dims, {target: (d_in, d_out)})} — the contract
         between ``core/lora.py`` adapter trees and the per-layer LoRA
         slices the entry points take (the reference's ``lora_layout``
-        for the plain dense layout)."""
+        for the dense layouts: the grouped one's global layers are its
+        "special" stack)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             raise NotImplementedError(
@@ -186,11 +287,36 @@ class LM:
         d, f = cfg.d_model, cfg.d_ff
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
-        return {"layers": ((cfg.num_layers,), {
-            "q": (d, h * hd), "k": (d, kv * hd), "v": (d, kv * hd),
-            "o": (h * hd, d), "mlp_in": (d, gate * f), "mlp_out": (f, d)})}
+        t = {"q": (d, h * hd), "k": (d, kv * hd), "v": (d, kv * hd),
+             "o": (h * hd, d), "mlp_in": (d, gate * f), "mlp_out": (f, d)}
+        kind, n_groups, g, tail = self._layout()
+        if kind == "grouped":
+            return {"inner": ((n_groups, g - 1), t), "tail": ((tail,), t),
+                    "special": ((n_groups,), t)}
+        return {"layers": ((cfg.num_layers,), t)}
 
     # --------------------------------------------------------------- cache
+    def kv_shapes(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        """Shapes of a dense family's dense KV cache leaves: {"k", "v":
+        (L, B, max_seq, KV, hd)} for the plain layout; {"inner", "tail",
+        "global": {"k", "v"}} with stack dims (n_groups, g - 1), (tail,)
+        and (n_groups,) in front for the grouped one, whose local leaves
+        hold ``_ring_local_len`` slots when it is not 0."""
+        cfg = self.cfg
+        kind, n_groups, g, tail = self._layout()
+        kv_hd = (cfg.num_kv_heads, cfg.head_dim)
+        if kind == "plain":
+            shape = (cfg.num_layers, batch, max_seq) + kv_hd
+            return {"k": shape, "v": shape}
+        local = self._ring_local_len(max_seq) or max_seq
+
+        def kv(lead, seq):
+            shape = lead + (batch, seq) + kv_hd
+            return {"k": shape, "v": shape}
+        return {"inner": kv((n_groups, g - 1), local),
+                "tail": kv((tail,), local),
+                "global": kv((n_groups,), max_seq)}
+
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
         cfg = self.cfg
         if cfg.family == "ssm":
@@ -203,22 +329,23 @@ class LM:
                         (nl, batch, cfg.d_inner, cfg.ssm_state),
                         dtype=torch.float32, device=self.device),
                     "pos": 0}
-        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-                 cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "pos": 0}
+        cache = _map_tree(self.kv_shapes(batch, max_seq),
+                          lambda shape: torch.zeros(shape, dtype=self.dtype,
+                                                    device=self.device))
+        cache["pos"] = 0
+        return cache
 
     # ---------------------------------------------------------- entry points
-    def _layer(self, params, i):
-        return _map_tree(params["layers"], lambda t: t[i])
+    @staticmethod
+    def _layer(params, site: LayerSite):
+        return _map_tree(params[site.stack], lambda t: t[site.idx])
 
     @staticmethod
-    def _lora_layer(lora, i):
-        """Layer i's slice of a LoRA bank tree ({"layers": {target:
-        {"A", "B"}}}), as the reference's layer scan slices it."""
-        return None if lora is None else _map_tree(lora["layers"],
-                                                   lambda t: t[i])
+    def _lora_layer(lora, site: LayerSite):
+        """The layer's slice of a LoRA bank tree ({stack: {target: {"A",
+        "B"}}}), as the reference's layer scans slice it."""
+        return None if lora is None else _map_tree(lora[site.lora],
+                                                   lambda t: t[site.idx])
 
     @torch.inference_mode()
     def prefill(self, params, tokens: torch.Tensor, max_seq: int,
@@ -227,9 +354,12 @@ class LM:
         ``lora``/``gates``: a LoRA bank tree and its gates (a (B, E) gate
         row covers every position of its row), as ``layers.lora_delta``
         takes them.  Returns (last-position logits (B, 1, V) float32,
-        cache).  An SSM's cache holds every layer's last k-1 conv inputs
-        and final scan state; its prefill scan runs K6 and keeps the
-        reference's 128-token chunk rule (``models/ssm.py``)."""
+        cache).  A ring leaf shorter than the prompt keeps its last
+        ``window`` positions, position p in slot p % window (the
+        reference's ``_pad_cache`` roll).  An SSM's cache holds every
+        layer's last k-1 conv inputs and final scan state; its prefill
+        scan runs K6 and keeps the reference's 128-token chunk rule
+        (``models/ssm.py``)."""
         cfg = self.cfg
         b, s = tokens.shape
         if s > max_seq:
@@ -237,19 +367,20 @@ class LM:
         cache = self.init_cache(b, max_seq)
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(s, device=tokens.device)
-        for i in range(cfg.num_layers):
-            p_i, l_i = self._layer(params, i), self._lora_layer(lora, i)
+        for site in self.layer_sites():
+            p_i, l_i = self._layer(params, site), self._lora_layer(lora,
+                                                                   site)
             if cfg.family == "ssm":
                 x, state = ssm_layer(cfg, p_i, x, mode="prefill",
                                      cache=None, lora=l_i)
-                cache["conv"][i] = state["conv"]
-                cache["h"][i] = state["h"]
+                cache["conv"][site.addr] = state["conv"]
+                cache["h"][site.addr] = state["h"]
                 continue
             x, (k, v) = dense_layer(cfg, p_i, x, positions=positions,
                                     mode="prefill", cache=None, lora=l_i,
-                                    gates=gates)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+                                    gates=gates, is_global=site.is_global)
+            _place(cache_kv(cache, site.addr, "k"), k)
+            _place(cache_kv(cache, site.addr, "v"), v)
         cache["pos"] = s
         x = L.norm(cfg, params["ln_f"], x[:, -1:])
         return L.unembed(cfg, params["embed"], x), cache
@@ -265,8 +396,11 @@ class LM:
         the unpadded prompt.
 
         Each layer's fresh (B, Lpad, KV, hd) K and V go to
-        ``write_kv(layer, k, v)`` (the deployment streams them into pool
-        pages), so no dense (L, B, max_seq) cache is built.  ``lora``/
+        ``write_kv(addr, k, v)`` with the layer's cache address
+        (``LayerSite.addr``: the layer index of the plain layout, (kind,
+        idx) of the grouped one), in the order the stack runs the
+        layers; the deployment streams them into pool pages, so no dense
+        (L, B, max_seq) cache is built.  ``lora``/
         ``gates`` as in ``prefill``.  Returns the per-row last-valid-token
         logits (B, 1, V) float32."""
         cfg = self.cfg
@@ -283,13 +417,13 @@ class LM:
                              f"(B={b}, Lpad={s})")
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(s, device=tokens.device)
-        for i in range(cfg.num_layers):
-            x, (k, v) = dense_layer(cfg, self._layer(params, i), x,
+        for site in self.layer_sites():
+            x, (k, v) = dense_layer(cfg, self._layer(params, site), x,
                                     positions=positions, mode="prefill",
                                     cache=None,
-                                    lora=self._lora_layer(lora, i),
-                                    gates=gates)
-            write_kv(i, k, v)
+                                    lora=self._lora_layer(lora, site),
+                                    gates=gates, is_global=site.is_global)
+            write_kv(site.addr, k, v)
         # per-row last VALID position (x[:, -1:] would read padding)
         idx = to_device(np.asarray(lengths) - 1, tokens.device)
         last = x[torch.arange(b, device=tokens.device), idx][:, None]
@@ -305,29 +439,36 @@ class LM:
 
         With an int "pos" every row sits at that depth (dense cache).
         With a (B,) "pos" tensor and a "block" table (paged lane) each
-        row decodes at its own depth against the page pools.  Parked
+        row decodes at its own depth against the page pools, a ring
+        layer through the lane's "local" table.  Parked
         rows (pos >= FREED_POS) write nothing and keep their position.
         ``lora``/``gates`` as in ``prefill``; integer (B,) gates are
         per-row adapter slots (K4).  An SSM advances its conv and scan
         state in place by the O(1) recurrence."""
         cfg = self.cfg
         pos = cache["pos"]
-        pages = {"block": cache["block"]} if "block" in cache else None
+        pages = None
+        if "block" in cache:
+            pages = {n: cache[n] for n in ("block", "local") if n in cache}
         host_pos = cache.get("pos_host")
         x = L.embed(cfg, params["embed"], tokens)
-        for i in range(cfg.num_layers):
-            p_i, l_i = self._layer(params, i), self._lora_layer(lora, i)
+        for site in self.layer_sites():
+            p_i, l_i = self._layer(params, site), self._lora_layer(lora,
+                                                                   site)
             if cfg.family == "ssm":
+                i = site.addr
                 x, state = ssm_layer(
                     cfg, p_i, x, mode="decode", lora=l_i,
                     cache={"conv": cache["conv"][i], "h": cache["h"][i]})
                 cache["conv"][i] = state["conv"]
                 cache["h"][i] = state["h"]
                 continue
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+            layer_cache = {n: cache_kv(cache, site.addr, n)
+                           for n in ("k", "v")}
             x, _ = dense_layer(cfg, p_i, x, positions=pos, mode="decode",
                                cache=layer_cache, pages=pages,
-                               host_pos=host_pos, lora=l_i, gates=gates)
+                               host_pos=host_pos, lora=l_i, gates=gates,
+                               is_global=site.is_global)
         # parked rows hold position, so "freed" stays an exact marker
         if isinstance(pos, torch.Tensor):
             pos.add_((pos < ATT.FREED_POS).to(pos.dtype))
@@ -337,6 +478,19 @@ class LM:
             cache["pos"] = pos if pos >= ATT.FREED_POS else pos + 1
         x = L.norm(cfg, params["ln_f"], x)
         return L.unembed(cfg, params["embed"], x), cache
+
+
+def _place(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write a prefill's (B, S, KV, hd) K or V into a dense cache leaf
+    (B, S_leaf, KV, hd), in place: at slots [0, S) when it fits; into a
+    ring shorter than the prompt, its last S_leaf positions rolled so
+    position p lands in slot p % S_leaf (the reference's ``_pad_cache``
+    placement for one depth)."""
+    w, s = dst.shape[1], src.shape[1]
+    if w >= s:
+        dst[:, :s] = src
+    else:
+        dst.copy_(torch.roll(src[:, s - w:], (s - w) % w, dims=1))
 
 
 def _map_tree(tree, fn):

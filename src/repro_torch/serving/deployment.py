@@ -6,8 +6,10 @@ entry points the engines call: B=1 and packed B>1 prefill and one-token
 decode of each model, the Eq. 14-15 fusion step (through K1, one row or
 a batch with a per-row arrived mask), the counter-based network weather
 of one request or of a batch of rows, and the paged lane caches of the
-batched engine — page pools, block tables, per-row positions and the
-admission scatter that streams prefilled K/V into pool pages.  The
+batched engine — page pools (a ring/local pool beside the full-length
+one for the ring leaves of a grouped SLM), block and ring-local tables,
+per-row positions and the admission scatter that streams prefilled K/V
+into pool pages.  The
 SLM's entry points take a merged-LoRA bank and its gates: a router-gated
 expert bank (``expert_bank=``, placed once as ``lora``) or the per-user
 adapter slot bank (``adapter_slots=``) that an engine's
@@ -40,16 +42,25 @@ import torch
 from repro_torch import resolve_device, to_device
 from repro_torch.core import fusion as FUS
 from repro_torch.core import lora as LORA
-from repro_torch.models.attention import FREED_POS
+from repro_torch.models.attention import FREED_POS, ring_kv_positions
+from repro_torch.models.model import LOCAL_KINDS, cache_kv
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.adapters import AdapterCache
 from repro_torch.serving.latency import LatencyModel
 
 
-def _to_device(tree, device):
+def _map_tree(tree, fn):
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 class ServingDeployment:
@@ -92,14 +103,14 @@ class ServingDeployment:
                 raise ValueError(f"{lm.cfg.name} lives on {lm.device}, the "
                                  f"deployment on {self.device}")
         self.slm, self.llm = slm, llm
-        self.slm_params = _to_device(slm_params, self.device)
-        self.llm_params = (_to_device(llm_params, self.device)
+        place = lambda t: t.to(self.device)
+        self.slm_params = _map_tree(slm_params, place)
+        self.llm_params = (_map_tree(llm_params, place)
                            if llm_params is not None else None)
-        self.mlp = (_to_device(alignment_mlp, self.device)
+        self.mlp = (_map_tree(alignment_mlp, place)
                     if alignment_mlp is not None else None)
         self.bank = expert_bank
-        self.lora = (_to_device(LORA.bank_for_model(expert_bank),
-                                self.device)
+        self.lora = (_map_tree(LORA.bank_for_model(expert_bank), place)
                      if expert_bank is not None else None)
         self.adapter_slots = adapter_slots
         self.adapter_rank = ((adapter_rank or slm.cfg.lora_rank_max)
@@ -166,37 +177,63 @@ class ServingDeployment:
         return full
 
     # ------------------------------------------------------ paged lanes
-    def paged_geometry(self, lm) -> Dict[str, int]:
-        """Static page geometry of ``lm``'s plain-layout cache: table
-        width and the bytes one page id costs across every layer (ring/
-        local pools are a later slice)."""
-        cfg = lm.cfg
-        return dict(nb=PAG.pages_for(self.max_ctx, self.page_size),
-                    page_bytes_full=PAG.page_bytes(
-                        cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-                        self.page_size, lm.dtype.itemsize))
+    def _is_local(self, shape) -> bool:
+        """Whether a dense KV leaf shape (..., B, S, KV, hd) is a ring/
+        local leaf (shorter than max_seq), paged from the local pool."""
+        return shape[-3] != self.max_seq
 
-    def init_paged_lane_cache(self, lm, batch: int, pages: int
-                              ) -> Dict[str, Any]:
-        """A fresh paged lane cache: zeroed pools (L, pages + 1, ps, KV,
-        hd) — the last page is the sink that dropped writes land in —
-        block tables full of NO_PAGE and every row parked (pos =
-        FREED_POS) until an admission sets its position.  The reference
-        starts rows at 0; a row that is never admitted then advances one
-        slot per lane step, which the port's guard on live positions
-        would refuse once it passed the table.  Parked, it writes to the
-        sink, holds its position and K2 skips it."""
-        cfg, dev = lm.cfg, self.device
-        shape = (cfg.num_layers, pages + 1, self.page_size,
-                 cfg.num_kv_heads, cfg.head_dim)
-        nb = self.paged_geometry(lm)["nb"]
-        return {"k": torch.zeros(shape, dtype=lm.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=lm.dtype, device=dev),
-                "pos": torch.full((batch,), FREED_POS, dtype=torch.int32,
-                                  device=dev),
-                "pos_host": np.full((batch,), FREED_POS, np.int64),
-                "block": torch.full((batch, nb), PAG.NO_PAGE,
-                                    dtype=torch.int32, device=dev)}
+    def paged_geometry(self, lm) -> Dict[str, int]:
+        """Static page geometry of ``lm``'s cache: the block and local
+        table widths, the ring extent of the local leaves (0 when every
+        leaf is full-length) and the bytes one page id costs across the
+        leaves of each pool (pages span every layer, vLLM-style shared
+        tables; reference ``deployment.py:877-892``)."""
+        cfg, ps = lm.cfg, self.page_size
+        # K and V leaves of every layer, per pool
+        leaves = {False: 0, True: 0}
+        for leaf in _leaves(lm.kv_shapes(1, self.max_seq)):
+            leaves[self._is_local(leaf)] += int(np.prod(leaf[:-4]))
+        local_len = lm._ring_local_len(self.max_seq)
+
+        def nbytes(n_leaves):
+            return PAG.page_bytes(n_leaves // 2, cfg.num_kv_heads,
+                                  cfg.head_dim, ps, lm.dtype.itemsize)
+        return dict(nb=PAG.pages_for(self.max_ctx, ps), local_len=local_len,
+                    nl=PAG.pages_for(local_len, ps),
+                    page_bytes_full=nbytes(leaves[False]),
+                    page_bytes_local=nbytes(leaves[True]))
+
+    def init_paged_lane_cache(self, lm, batch: int, pages: int,
+                              local_pages: int = 0) -> Dict[str, Any]:
+        """A fresh paged lane cache: each KV leaf (..., B, S, KV, hd) of
+        ``lm.kv_shapes`` becomes a zeroed pool (..., n + 1, ps, KV, hd)
+        of n = ``pages``, or ``local_pages`` for a ring/local leaf — the
+        last page is the sink that dropped writes land in — with block
+        (and, for ring leaves, local) tables full of NO_PAGE and every
+        row parked (pos = FREED_POS) until an admission sets its
+        position.  The reference starts rows at 0; a row that is never
+        admitted then advances one slot per lane step, which the port's
+        guard on live positions would refuse once it passed the table.
+        Parked, it writes to the sink, holds its position and K2 skips
+        it."""
+        dev, ps = self.device, self.page_size
+        geo = self.paged_geometry(lm)
+
+        def pool(shape):
+            n = local_pages if self._is_local(shape) else pages
+            return torch.zeros(shape[:-4] + (n + 1, ps) + shape[-2:],
+                               dtype=lm.dtype, device=dev)
+        cache = _map_tree(lm.kv_shapes(1, self.max_seq), pool)
+        cache.update(
+            pos=torch.full((batch,), FREED_POS, dtype=torch.int32,
+                           device=dev),
+            pos_host=np.full((batch,), FREED_POS, np.int64),
+            block=torch.full((batch, geo["nb"]), PAG.NO_PAGE,
+                             dtype=torch.int32, device=dev))
+        if geo["nl"]:
+            cache["local"] = torch.full((batch, geo["nl"]), PAG.NO_PAGE,
+                                        dtype=torch.int32, device=dev)
+        return cache
 
     def set_row_pos(self, cache, idx, val):
         """pos[idx] = val on the device and in the host mirror."""
@@ -208,11 +245,14 @@ class ServingDeployment:
 
     def free_paged_rows(self, cache, idx):
         """Park drained rows and unmap their pages: pos to FREED_POS and
-        table rows to NO_PAGE, so later decode writes drop and the freed
-        page ids can be handed to a new admission."""
+        block and local table rows to NO_PAGE, so later decode writes
+        drop and the freed page ids can be handed to a new admission."""
         idx = np.asarray(idx, np.int64)
         self.set_row_pos(cache, idx, np.full(idx.shape, FREED_POS))
-        cache["block"].index_fill_(0, _index(idx, self.device), PAG.NO_PAGE)
+        for table in ("block", "local"):
+            if table in cache:
+                cache[table].index_fill_(0, _index(idx, self.device),
+                                         PAG.NO_PAGE)
         return cache
 
     def grow_block_pages(self, cache, rows, cols, pids):
@@ -222,34 +262,71 @@ class ServingDeployment:
             np.asarray(pids, np.int32), self.device)
         return cache
 
-    def page_writer(self, full, src, dpf):
+    def page_writer(self, full, src, dpf, lengths=None, dpl=None,
+                    local_len: int = 0):
         """``write_kv`` callback for ``LM.prefill_packed`` that streams
         each layer's fresh (B, Lpad, KV, hd) K/V straight into the pool
         pages of ``full`` — the paged admission scatter.  Row src[i] of
         the prefill goes to the (n, cols) destination page ids dpf[i]
-        (NO_PAGE columns drop).  The pool gets what the reference's
-        dense packed prefill and page-row scatter give it, without a
-        dense (L, B, max_seq) transient."""
-        plan = _page_plan(dpf, src, full["k"].shape[1] - 1)
-        ps = self.page_size
+        (NO_PAGE columns drop).  A ring leaf (``full`` has a "local"
+        table) takes instead each row's ring of ``local_len`` slots at
+        its own depth, from the (bp,) prompt ``lengths`` of the prefill's
+        rows, into its local pages dpl[i]: slot j holds position
+        ``ring_kv_positions(len - 1, local_len)[j]``, clipped into the
+        prompt, or, when the padded prompt fits the ring, slot j holds
+        position j (zeros past it) — the reference's ``_pad_cache(
+        lengths=)`` placement (``model.py:730-780``).  The pool gets what
+        the reference's dense packed prefill and page-row scatter give
+        it, without a dense (L, B, max_seq) transient."""
+        ps, dev = self.page_size, self.device
+        ring = "local" in full
+        plans, gather = {}, {}
 
-        def write(i, k, v):
+        def plan(local, n_pool):
+            if local not in plans:
+                plans[local] = _page_plan(dpl if local else dpf, src,
+                                          n_pool)
+            return plans[local]
+
+        def ring_rows(t):
+            """(B, local_len, KV, hd) ring content of the rows of t."""
+            b, s_len = t.shape[:2]
+            if local_len >= s_len:
+                return torch.nn.functional.pad(
+                    t, (0, 0, 0, 0, 0, local_len - s_len))
+            if not gather:                  # once for every ring leaf
+                last = to_device(np.asarray(lengths, np.int64) - 1, dev)
+                gather["rows"] = _index(np.arange(b), dev)[:, None]
+                gather["slots"] = ring_kv_positions(last, local_len).clamp(
+                    0, s_len - 1)
+            return t[gather["rows"], gather["slots"]]
+
+        def write(addr, k, v):
+            local = ring and isinstance(addr, tuple) \
+                and addr[0] in LOCAL_KINDS
             for name, t in (("k", k), ("v", v)):
+                pool = cache_kv(full, addr, name)
+                if local:
+                    t = ring_rows(t)
                 b, s_len = t.shape[:2]
                 n_pages = PAG.pages_for(s_len, ps)
                 if n_pages * ps != s_len:
                     t = torch.nn.functional.pad(
                         t, (0, 0, 0, 0, 0, n_pages * ps - s_len))
-                _write_pages(full[name][i],
-                             t.reshape(b, n_pages, ps, *t.shape[2:]), plan)
+                _write_pages(pool, t.reshape(b, n_pages, ps, *t.shape[2:]),
+                             plan(local, pool.shape[0] - 1))
         return write
 
-    def finish_paged_insert(self, full, dst, lengths, block_rows):
-        """Row positions (the prompt lengths) and table rows at ``dst``
-        of a paged admission whose K/V are in the pool."""
+    def finish_paged_insert(self, full, dst, lengths, block_rows,
+                            local_rows=None):
+        """Row positions (the prompt lengths) and block (and local)
+        table rows at ``dst`` of a paged admission whose K/V are in the
+        pool."""
         self.set_row_pos(full, dst, lengths)
-        full["block"][_index(dst, self.device)] = to_device(
-            np.asarray(block_rows, np.int32), self.device)
+        for table, rows in (("block", block_rows), ("local", local_rows)):
+            if rows is not None:
+                full[table][_index(dst, self.device)] = to_device(
+                    np.asarray(rows, np.int32), self.device)
         return full
 
     def fuse(self, sl: torch.Tensor, ll: torch.Tensor, arrived: bool):

@@ -293,6 +293,16 @@ class _PagedJob:
     aslot: Optional[int] = None      # pinned adapter slot, or None
 
 
+def _paged_tables(pager: PAG.LanePager, rows: List[PAG.RowPages]):
+    """(block, local) host table rows of an admission group: (n, nb) and,
+    when the model has ring leaves, (n, nl); else local is None (the
+    reference's ``_paged_tables``, ``engine.py:807-818``)."""
+    block = np.stack([pager.table_row(r) for r in rows])
+    local = (np.stack([pager.local_row(r) for r in rows]) if pager.nl
+             else None)
+    return block, local
+
+
 class _Lane:
     """One decode batch on paged lanes: SLM (+ LLM) page pools with block
     tables, and a free-slot list.  The cloud lane fuses SLM+LLM logits
@@ -358,10 +368,10 @@ class _Lane:
             n_experts = self.eng.adapters.num_slots
         vocab = dep.slm.cfg.vocab_size
         self.s_cache = dep.init_paged_lane_cache(
-            dep.slm, b, self.pager_s.alloc.num_pages)
+            dep.slm, b, *self.pager_s.pool_pages())
         if self.use_cloud:
             self.l_cache = dep.init_paged_lane_cache(
-                dep.llm, b, self.pager_l.alloc.num_pages)
+                dep.llm, b, *self.pager_l.pool_pages())
             self.ll = torch.zeros((b, vocab), dtype=torch.float32,
                                   device=dep.device)
         self.sl = torch.zeros((b, vocab), dtype=torch.float32,
@@ -401,7 +411,8 @@ class _Lane:
         packed B>1 prefill per model whose per-layer K/V stream straight
         into the rows' reserved pool pages — the pool contents the
         reference's dense prefill + page-row scatter gives.  The rows'
-        block-table rows double as their destination pages."""
+        block-table rows double as their destination pages, and their
+        local-table rows as those of their rings."""
         if not jobs:
             return
         eng = self.eng
@@ -414,19 +425,22 @@ class _Lane:
             self._alloc(None if g is None else g.shape[-1])
         src = list(range(n))
         dst = [j.slot for j in jobs]
-        block = np.stack([self.pager_s.table_row(j.rows_s) for j in jobs])
+        block, local = _paged_tables(self.pager_s, [j.rows_s for j in jobs])
         s_logits = dep.slm_prefill_packed(
             eng.slm_params, toks, lens,
-            dep.page_writer(self.s_cache, src, block), eng.lora, g)
-        dep.finish_paged_insert(self.s_cache, dst, lens[:n], block)
+            dep.page_writer(self.s_cache, src, block, lens, local,
+                            self.pager_s.local_len), eng.lora, g)
+        dep.finish_paged_insert(self.s_cache, dst, lens[:n], block, local)
         dep.insert_row(self.sl, s_logits[:, 0], src, dst)
         if self.use_cloud:
-            blk_l = np.stack([self.pager_l.table_row(j.rows_l)
-                              for j in jobs])
+            blk_l, loc_l = _paged_tables(self.pager_l,
+                                         [j.rows_l for j in jobs])
             l_logits = dep.llm_prefill_packed(
                 eng.llm_params, toks, lens,
-                dep.page_writer(self.l_cache, src, blk_l))
-            dep.finish_paged_insert(self.l_cache, dst, lens[:n], blk_l)
+                dep.page_writer(self.l_cache, src, blk_l, lens, loc_l,
+                                self.pager_l.local_len))
+            dep.finish_paged_insert(self.l_cache, dst, lens[:n], blk_l,
+                                    loc_l)
             dep.insert_row(self.ll, l_logits[:, 0], src, dst)
         if g is not None:
             dep.insert_row(self.gates, g, src, dst)
@@ -789,11 +803,13 @@ class BatchedHybridEngine(HybridEngine):
         return dict(self._stat)
 
     def _make_pager(self, lm, batch: int) -> PAG.LanePager:
-        """Host page bookkeeping for one (lane, model): the default pool
-        is the dense equivalent, batch x full table width."""
+        """Host page bookkeeping for one (lane, model): the default pools
+        are the dense equivalent, batch x full table width and batch x
+        ring-local table width."""
         geo = self.dep.paged_geometry(lm)
         pager = PAG.LanePager(batch, self.max_seq, self.dep.page_size,
-                              batch * geo["nb"], max_ctx=self.max_ctx)
+                              batch * geo["nb"], geo["local_len"],
+                              batch * geo["nl"], max_ctx=self.max_ctx)
         pager.geo = geo
         return pager
 
@@ -931,7 +947,8 @@ class BatchedHybridEngine(HybridEngine):
         for lane in (self.cloud_lane, self.edge_lane):
             for pager in (lane.pager_s, lane.pager_l):
                 if pager is not None:
-                    total += pager.live_bytes(pager.geo["page_bytes_full"], 0)
+                    total += pager.live_bytes(pager.geo["page_bytes_full"],
+                                              pager.geo["page_bytes_local"])
         return total
 
     def kv_pool_bytes(self) -> int:
@@ -942,8 +959,9 @@ class BatchedHybridEngine(HybridEngine):
         for lane in (self.cloud_lane, self.edge_lane):
             for pager in (lane.pager_s, lane.pager_l):
                 if pager is not None:
-                    total += (pager.alloc.num_pages
-                              * pager.geo["page_bytes_full"])
+                    full, local = pager.pool_pages()
+                    total += (full * pager.geo["page_bytes_full"]
+                              + local * pager.geo["page_bytes_local"])
         return total
 
     def active_count(self) -> int:

@@ -25,9 +25,15 @@ view of each lane cache without its host mirror ``pos_host``, which the
 lane rebuilds from the traces at collect.
 
 A kernel wrapper counts a launch when its Python runs, which in a graph
-is once, at capture: the counts made while capturing are taken back and
-added again at every replay, so ``launches`` stays the number of kernels
-the device ran.
+is once, at capture: the counts made while capturing (``launches``,
+and K2's ``ring_launches``) are taken back and added again at every
+replay, so they stay the number of kernels the device ran.
+
+A lane cache is a tree: the plain layout's {"k", "v"} pools, or the
+grouped (gemma3) layout's {"inner", "tail", "global": {"k", "v"}} pools
+with a "local" ring table beside "block".  The step decodes through a
+shallow copy of the top level without "pos_host", so every pool and
+table it reads is the lane's own tensor, updated in place.
 """
 from __future__ import annotations
 
@@ -45,9 +51,10 @@ from repro_torch.kernels.moe_lora.kernel import (moe_lora_delta,
 from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
 from repro_torch.models.attention import FREED_POS
 
-# every wrapper a macro step can launch, whose counts replays add to
-COUNTED = (fuse_logits, paged_decode_attention, moe_lora_delta,
-           moe_lora_delta_slots)
+# every (wrapper, counter) a macro step can advance, which replays add to
+COUNTED = ((fuse_logits, "launches"), (paged_decode_attention, "launches"),
+           (paged_decode_attention, "ring_launches"),
+           (moe_lora_delta, "launches"), (moe_lora_delta_slots, "launches"))
 
 
 class LaneMacro:
@@ -80,7 +87,8 @@ class LaneMacro:
         self.caches = [{n: t for n, t in c.items() if n != "pos_host"}
                        for c in (lane.s_cache, lane.l_cache) if c is not None]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.captured: Dict = {}     # wrapper -> launches per replay
+        # (wrapper, counter) -> its advance per replay
+        self.captured: Dict = {}
         self.replays = 0
         self.capture_s = 0.0
         # parked (iteration, row) pairs and idle iterations, from traces
@@ -143,8 +151,12 @@ class LaneMacro:
             return
         self.graph.replay()
         self.replays += 1
-        for fn, n in self.captured.items():
-            fn.launches += n
+        for (fn, counter), n in self.captured.items():
+            setattr(fn, counter, getattr(fn, counter) + n)
+
+    def per_replay(self, fn, counter: str = "launches") -> int:
+        """How far one replay advances ``fn``'s ``counter``."""
+        return self.captured.get((fn, counter), 0)
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
@@ -157,15 +169,15 @@ class LaneMacro:
         with torch.cuda.stream(side):
             self.body(0)
         torch.cuda.current_stream().wait_stream(side)
-        before = {fn: fn.launches for fn in COUNTED}
+        before = {key: getattr(*key) for key in COUNTED}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for t in range(self.k):
                 self.body(t)
-        self.captured = {fn: fn.launches - n for fn, n in before.items()
-                         if fn.launches != n}
-        for fn, n in before.items():
-            fn.launches = n
+        self.captured = {key: getattr(*key) - n for key, n in before.items()
+                         if getattr(*key) != n}
+        for (fn, counter), n in before.items():
+            setattr(fn, counter, n)
         for c, pos in zip(self.caches, saved):
             c["pos"].copy_(pos)
         self.graph = graph

@@ -8,13 +8,16 @@ A paged lane cache keeps each layer's K and V as a page pool
 pages out in ascending order, so the same admission sequence always
 gives the same block tables as the reference's.  A row reserves its
 lazy demand at admission (prompt pages plus one decode page, capped at
-the worst case) and ``grow``s page by page at decode boundaries.
+the worst case) and ``grow``s page by page at decode boundaries.  The
+ring leaves of a grouped model (gemma3's local layers) page from a
+second, local pool through a second table: a row takes its whole ring
+(``nl`` pages of ``local_len`` slots) at admission and never grows it.
 
 COW prefix sharing (the reference's ``fork``, refcounts above one and
 a row's shared prefix pages) is a later slice, so every live page has
-one reader.  Of the reference's layout helpers only what the plain
-layout needs is here: ``page_bytes`` for a dense (L, B, max_seq, KV,
-hd) leaf.
+one reader.  Of the reference's layout helpers only ``page_bytes`` is
+here, counted over layers (the deployment sums the layers of each
+pool's leaves).
 """
 from __future__ import annotations
 
@@ -109,6 +112,11 @@ class LanePager:
         self.rows: List[Optional[RowPages]] = [None] * batch
 
     # ------------------------------------------------------- accounting
+    def pool_pages(self) -> Tuple[int, int]:
+        """(full, local) pool sizes in pages (0 local without rings)."""
+        return (self.alloc.num_pages,
+                self.local_alloc.num_pages if self.local_alloc else 0)
+
     def demand(self, alloc_len: int) -> Tuple[int, int]:
         """(full pages, local pages) a row of worst-case depth
         ``alloc_len`` needs."""
@@ -206,7 +214,7 @@ class LanePager:
 
 def page_bytes(num_layers: int, num_kv_heads: int, head_dim: int,
                page_size: int, itemsize: int) -> int:
-    """Bytes ONE page id costs across the plain layout's K and V leaves
-    (pages span every layer, vLLM-style shared tables) — the reference's
-    ``page_bytes`` for (L, B, max_seq, KV, hd) leaves."""
+    """Bytes ONE page id costs across ``num_layers`` layers' K and V
+    leaves (pages span every layer, vLLM-style shared tables) — the
+    reference's ``page_bytes`` for (..., B, S, KV, hd) leaves."""
     return 2 * num_layers * page_size * num_kv_heads * head_dim * itemsize

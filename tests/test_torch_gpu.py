@@ -317,6 +317,41 @@ def test_paged_attention_split_k(cuda, h, kvh, hd, kind):
     assert not out[parked].any()
 
 
+@pytest.mark.gpu
+def test_paged_attention_ring_at_gemma3_shape(cuda):
+    """K2's ring mode at the gemma3 SLM's decode shape: B = 8, H 4, KV 1,
+    hd 256, ring-local tables (8, 32) over 512-slot rings, rows at
+    ragged depths before and past the window (one parked); two calls
+    give the same bits."""
+    positions = [0, 100, 511, 512, 513, 1541, FREED_POS, 2047]
+    g = torch.Generator(device=cuda).manual_seed(41)
+    case = paged_case(cuda, g, 8, 4, 1, 256, 1024, 32, 512, positions)
+    before = K2.paged_decode_attention.launches
+    out = K2.paged_decode_attention(*case, window=512)
+    again = K2.paged_decode_attention(*case, window=512)
+    torch.cuda.synchronize()
+    assert K2.paged_decode_attention.launches == before + 2
+    assert torch.equal(out, again)
+    ref = K2.paged_decode_attention_plain(*case, window=512)
+    live = [i for i, p in enumerate(positions) if p < FREED_POS]
+    assert row_rel_err(out[live], ref[live]) <= 2 ** -6
+    assert not out[positions.index(FREED_POS)].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [512, 0])
+def test_flash_attention_at_gemma3_burst(cuda, window):
+    """K3 at the gemma3 SLM's admission burst, (8, 4, 1552, 256) with one
+    KV head, on (B, H, S, D) views of (B, S, H, D) projections: windowed
+    (its 22 local layers) and causal (its 4 global ones)."""
+    g = torch.Generator(device=cuda).manual_seed(43 + window)
+    q, k, v = k3_inputs(cuda, g, 8, 4, 1, 1552, 256, layout="bshd")
+    out = K3.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    ref = K3.flash_attention_plain(q, k, v, window=window)
+    assert row_rel_err(out, ref) <= 2 ** -6
+
+
 def lora_case(dev, g, t, k, n, e=4, r=16):
     x = torch.randn(t, k, device=dev, generator=g).bfloat16()
     a = torch.randn(e, r, k, device=dev, generator=g) / k ** 0.5
@@ -599,9 +634,21 @@ def test_macro_graph_replay_equals_eager_body(cuda):
     both count the same kernel launches (the graph's replay-aware), K2
     once per decode layer of every iteration of a non-idle lane; the
     static buffers keep their addresses across replays."""
+    macro_graph_vs_eager(cuda, "2b")
+
+
+@pytest.mark.gpu
+def test_macro_graph_replay_equals_eager_body_gemma3(cuda):
+    """The same on the reduced gemma3 pair: the graph writes the ring
+    leaves through the lanes' local tables (K2 in ring mode) and keeps
+    the local pools and tables at their addresses."""
+    macro_graph_vs_eager(cuda, "gemma3")
+
+
+def macro_graph_vs_eager(cuda, pair):
     import dataclasses
 
-    from repro_torch.configs.floe_pair import pair_configs
+    from repro_torch.configs.floe_pair import needs_ring_cache, pair_configs
     from repro_torch.core import fusion as FUS
     from repro_torch.models.model import LM
     from repro_torch.serving.deployment import ServingDeployment
@@ -609,8 +656,9 @@ def test_macro_graph_replay_equals_eager_body(cuda):
     from repro_torch.serving.latency import LatencyModel
 
     scfg, lcfg = (dataclasses.replace(c, dtype="bfloat16")
-                  for c in pair_configs("2b"))
-    slm, llm = LM(scfg, device=cuda), LM(lcfg, device=cuda)
+                  for c in pair_configs(pair))
+    slm = LM(scfg, device=cuda, ring_cache=needs_ring_cache(scfg))
+    llm = LM(lcfg, device=cuda)
     dep = ServingDeployment(
         slm, slm.init(0), llm, llm.init(1),
         FUS.init_alignment(2, scfg.vocab_size, device=cuda),
@@ -640,7 +688,9 @@ def test_macro_graph_replay_equals_eager_body(cuda):
         return [t.data_ptr() for lane, _ in lanes
                 for m in (lane._macro,)
                 for t in (m.ok, m.steps, m.max_new, m.done, m.traces,
-                          lane.sl, lane.s_cache["pos"])]
+                          lane.sl, lane.s_cache["pos"],
+                          lane.s_cache["block"],
+                          lane.s_cache.get("local", lane.sl))]
 
     ptrs = None
     while graph.active_count() or eager.active_count():

@@ -71,7 +71,7 @@ def test_entry_points_raise_without_a_card():
 
 def test_serve_refuses_later_slice_flags(capsys):
     for argv in (["--local", "--spec-k", "4"],
-                 ["--local", "--sample"], ["--local", "--pair", "gemma3"],
+                 ["--local", "--sample"],
                  ["--local", "--batch", "4", "--macro-k", "0", "--dense"],
                  ["--local", "--batch", "4", "--macro-k", "0",
                   "--pool-pages", "8"],
@@ -94,6 +94,34 @@ def test_serve_batched_default_is_the_macro_step(capsys):
                 if ln.startswith(("[", "lane KV"))]
     got, per_token = lines([]), lines(["--macro-k", "0"])
     assert len(got) == 5 and got == per_token
+
+
+def test_serve_gemma3_pair_on_cpu(capsys):
+    """``--pair gemma3 --device cpu`` serves the four demo prompts on the
+    reduced gemma3 pair, sequentially and batched on paged lanes with
+    ring-local pools (the pool capacity counts them), the private
+    prompts on the edge; the macro step prints the per-token step's
+    lines."""
+    import re
+
+    def lines(argv):
+        res = serve.main(argv + ["--local", "--pair", "gemma3", "--device",
+                                 "cpu"])
+        assert [r.stats.private for r in res] == [False, True, False, True]
+        assert all(r.stats.tokens == 8 for r in res)
+        out = capsys.readouterr().out
+        return [re.sub(r" wait=\d+ms", "", ln) for ln in out.splitlines()
+                if ln.startswith(("[", "lane KV"))]
+    assert len(lines([])) == 4
+    got = lines(["--batch", "4"])
+    assert got == lines(["--batch", "4", "--macro-k", "0"])
+    # f32 K and V pages of 16 slots over 1 KV head (SLM) or 2 (LLM) of
+    # 32: per lane row 6 block pages of the SLM's global layer and the
+    # LLM's 2 layers (cloud lane), and 1 ring page of its local layer
+    slm_page, llm_page = 2 * 16 * 32 * 4, 2 * 2 * 16 * 2 * 32 * 4
+    want = 4 * (6 * (slm_page + llm_page) + slm_page) \
+        + 4 * (6 * slm_page + slm_page)
+    assert got[0] == f"lane KV: paged, pool capacity {want}B"
 
 
 def test_serve_refuses_other_page_sizes_on_cuda(monkeypatch, capsys):
