@@ -24,7 +24,11 @@ Phases, in order; any failure exits non-zero before the result lines:
               and K6 on the same inputs must return the same bits; K3
               also on (B, H, S, D)
               views of (B, S, H, D) tensors, K5 also at the admission
-              burst under one-hot gate rows;
+              burst under one-hot gate rows; K7 (keyed sampling, no
+              Pallas original) at B = 1 and 8, V = 256,000, near-flat
+              and peaked rows under a mixed greedy mask: ids and
+              perturbed scores equal to its numpy plain version's bit
+              for bit;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
@@ -43,7 +47,9 @@ Phases, in order; any failure exits non-zero before the result lines:
               ``--batch 4 --macro-k 0``, ``--batch 4`` (the default
               macro step, K = 8) and with ``--adapters 3
               --adapter-slots 2``; then ``--pair gemma3``, sequential
-              and ``--batch 4``;
+              and ``--batch 4``; then ``--sample --sample-seed 3``,
+              sequential and ``--batch 4`` at ``--macro-k`` 8 and 0
+              (equal lines);
   5b. serve_ssm  the full-width falcon-mamba-7b (Mamba-1, 64 layers,
               bf16, random weights from a seed) through
               ServingDeployment and SoloEngine: the four demo prompts
@@ -82,6 +88,19 @@ Phases, in order; any failure exits non-zero before the result lines:
               phase 7 on the K = 8 engine: one graph launch per busy
               lane, K2 at K x 46 (cloud) and K x 18 (edge) launches, the
               device's busy share of the untraced wall;
+  7c. serve_sampled  the same 20 requests with the odd ones sampled
+              (seed 2000 + i) at macro_k 0 and 8, each run once untimed
+              first (both graphs of each lane captured there): tokens/s,
+              the sampled graphs' capture seconds, peak memory, K7
+              launches (K x sampled replays at K = 8), draws that left
+              the argmax; K = 8 equal to K = 0 where the groups match;
+              greedy paths are held to no K7 launch;
+  7d. flat_keys  eight of them at 8 tokens with the fusion stubbed flat
+              (a test double), through the sequential engine and the
+              batched one at K = 0 and 8: every sampled cloud id must be
+              the plain sampler's on the host for its (seed, key id,
+              step); the same for four requests on the gemma3 pair at
+              the end of phase 10;
   8. serve_adapters  the same traffic with six per-user adapters (random
               B, rank 16) and adapter-free rows mixed over a 4-slot bank
               (evictions, soft refusals), run with use_slot_kernel False
@@ -108,6 +127,7 @@ Phases, in order; any failure exits non-zero before the result lines:
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -197,6 +217,11 @@ SSM_LONG_TOKENS = 1536
 # max_seq of serve_ssm: page-aligned, with room for the long prompt and
 # 16 new tokens (cap = max_seq - 16 - 1)
 SSM_MAX_SEQ = 1568
+# quiet time on each side of a profiled block (see ``profiled``)
+PROFILE_MARGIN_S = 0.02
+# serve_sampled: odd requests of serve_batched's traffic draw with seed
+# SAMPLED_SEED + i
+SAMPLED_SEED = 2000
 # serve_batched traffic: (prompt, max_new_tokens); 16 cloud-eligible, the
 # long prompt twice, and 4 private (rids 2, 7, 12, 17)
 BATCHED_REQUESTS = [
@@ -618,10 +643,7 @@ def phase_k6(torch, short_len: int):
 
     g = torch.Generator(device="cuda").manual_seed(6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
+    mhz = max_sm_mhz()
     cases = []
     for s in (SSM_LONG_TOKENS, short_len):
         args = ssm_inputs(torch, g, s)
@@ -692,8 +714,9 @@ def check_ssm(torch):
             steps.append(lg)
         logits[dev, dtype] = torch.cat(steps, 1).float().cpu()
         with TokenIds():
-            print(f"check ssm {dev} {dtype}: SoloEngine ids "
-                  f"{SoloEngine(dep).generate('math: compute 12 plus 7 =', 8)}")
+            ids = SoloEngine(deployment=dep).generate(
+                "math: compute 12 plus 7 =", 8)
+            print(f"check ssm {dev} {dtype}: SoloEngine ids {ids}")
     ref = logits["cpu", "float32"]
     rel, rel_cpu = (((logits[k] - ref).abs().max() / ref.abs().max()).item()
                     for k in (("cuda", "bfloat16"), ("cpu", "bfloat16")))
@@ -747,7 +770,7 @@ def phase_check(torch):
         print(f"check {name}: prefill+4 decode logits, bf16 card vs f32 "
               f"cpu, max|diff|/max|ref| = {rel:.3e}")
         worst = max(worst, rel)
-    runs = {dev: HybridEngine(dep).generate(prompt, 6, rid=0)[1]
+    runs = {dev: HybridEngine(deployment=dep).generate(prompt, 6, rid=0)[1]
             for dev, dep in deps.items()}
     dw = max(abs(a - b) for a, b in zip(runs["cuda"].fusion_w,
                                         runs["cpu"].fusion_w))
@@ -825,8 +848,8 @@ def check_gemma3(torch):
           f"(launches, windowed) {k3}")
     if k3 != (2, 1):
         fails.append(f"K3 launches {k3}, expected (2, 1)")
-    runs = {dev: HybridEngine(dep).generate(prompts[0], 20, rid=0)[1]
-            for dev, dep in deps.items()}
+    runs = {dev: HybridEngine(deployment=dep).generate(
+        prompts[0], 20, rid=0)[1] for dev, dep in deps.items()}
     lat_eq = runs["cuda"].latency_ms == runs["cpu"].latency_ms
     dw = max(abs(a - b) for a, b in zip(runs["cuda"].fusion_w,
                                         runs["cpu"].fusion_w))
@@ -997,7 +1020,7 @@ def check_lora(torch, deps):
             dep.slm, dep.slm_params, dep.llm, dep.llm_params, dep.mlp,
             expert_bank=bridge.from_numpy(bank, device=dep.device),
             max_seq=dep.max_seq, device=dep.device)
-        runs[dev] = HybridEngine(r_dep, router=router).generate(
+        runs[dev] = HybridEngine(deployment=r_dep, router=router).generate(
             prompts[0], 6, rid=3)[1]
     lat_eq &= runs["cuda"].latency_ms == runs["cpu"].latency_ms
     dw = max([dw] + [abs(a - b) for a, b in zip(runs["cuda"].fusion_w,
@@ -1077,15 +1100,25 @@ def check_paged(torch, deps):
 
 def phase_cli():
     """The serving launcher's ``--local`` run, on its default device,
-    sequential and batched, on the 2b and the gemma3 pair."""
+    sequential and batched, on the 2b and the gemma3 pair, and sampled
+    (``--sample --sample-seed 3``) sequentially and batched at
+    ``--macro-k`` 8 and 0, whose lines must be equal."""
     from repro_torch.launch import serve
+    sampled = {}
     for argv in (["--local"], ["--local", "--batch", "4", "--macro-k", "0"],
                  ["--local", "--batch", "4"],
                  ["--local", "--batch", "4", "--macro-k", "0", "--adapters",
                   "3", "--adapter-slots", "2"],
                  ["--local", "--pair", "gemma3"],
-                 ["--local", "--pair", "gemma3", "--batch", "4"]):
+                 ["--local", "--pair", "gemma3", "--batch", "4"],
+                 ["--local", "--sample", "--sample-seed", "3"],
+                 ["--local", "--sample", "--sample-seed", "3", "--batch",
+                  "4"],
+                 ["--local", "--sample", "--sample-seed", "3", "--batch",
+                  "4", "--macro-k", "0"]):
         res = serve.main(argv)
+        if "--sample" in argv and "--batch" in argv:
+            sampled[argv[-1]] = res
         for r in res:
             if r.stats.tokens == 0 or (r.stats.private
                                        and r.stats.cloud_tokens):
@@ -1094,12 +1127,17 @@ def phase_cli():
         if sum(r.stats.private for r in res) != 2:
             raise SystemExit(f"serve {argv}: the detector missed a private "
                              "prompt")
+    if not all(same_response(a, b) for a, b in zip(sampled["4"],
+                                                   sampled["0"])):
+        raise SystemExit("serve --sample --batch 4: K = 8 differs from "
+                         "--macro-k 0")
 
 
 def all_kernels():
-    """Every kernel wrapper of the port, K1-K6."""
+    """Every kernel wrapper of the port, K1-K7."""
+    from repro_torch.kernels.logit_fusion import sample as K7
     from repro_torch.kernels.ssm_scan import kernel as K6
-    return lora_kernels() + (K6.ssm_scan,)
+    return lora_kernels() + (K6.ssm_scan, K7.sample_fused)
 
 
 def phase_serve_ssm(torch):
@@ -1131,7 +1169,7 @@ def phase_serve_ssm(torch):
           f"{cfg.vocab_size}, {n_params} parameters) initialised on the card "
           f"in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    eng = SoloEngine(dep)
+    eng = SoloEngine(deployment=dep)
     prefill_ms = []
     calls = counted(dep, ("slm_prefill", "slm_decode"))
     timed = dep.slm_prefill
@@ -1221,8 +1259,6 @@ def _leaves(tree):
 def trace_solo(torch, eng, prompt):
     """Device time by kernel and the device's busy share over one
     SoloEngine request (16 tokens), from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     def one():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1231,8 +1267,7 @@ def trace_solo(torch, eng, prompt):
         return (time.perf_counter() - t0) * 1e3
 
     wall_ms = one()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         traced_ms = one()
     rows = profile_rows(torch, prof)
     busy = sum(r[0] for r in rows)
@@ -1360,7 +1395,7 @@ def phase_serve_batched(torch, dep):
         res = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = {fn.__name__: fn.launches for fn in all_kernels()}
     launches.update(mode_counts())
     del dep.slm_decode, dep.llm_decode          # back to the methods
 
@@ -1398,6 +1433,8 @@ def phase_serve_batched(torch, dep):
         raise SystemExit("lazy growth never fired")
     if min(launches[fn.__name__] for fn in kernels) <= 0:
         raise SystemExit(f"a kernel of the path never launched: {launches}")
+    if launches["sample_fused"] != 0:
+        raise SystemExit("greedy traffic launched the sampler (K7)")
     if launches["paged_decode_attention"] != layer_steps:
         raise SystemExit(f"K2 launched {launches['paged_decode_attention']} "
                          f"times for {layer_steps} decode layer-steps")
@@ -1497,23 +1534,30 @@ class NoSyncAdmission:
         del self.eng.add_requests
 
 
-def serve_macro_run(torch, eng, requests, dep, names=(), aids=None):
-    """The requests through ContinuousBatchScheduler on ``eng`` twice:
-    once untimed, which captures each lane's CUDA graph, then timed with
-    every count set to 0 just before (``run_counted``), admissions that
-    overlap a macro step held to no host sync (``NoSyncAdmission``).
-    Returns (responses, wall s, launches, calls, peak GiB, graph
-    replays per lane, first run s, admission groups)."""
+def serve_macro_run(torch, eng, requests, dep, names=(), aids=None,
+                    first=None):
+    """The requests ((prompt, budget) or (prompt, budget, greedy, seed))
+    through ContinuousBatchScheduler on ``eng`` twice: once untimed,
+    which captures each lane's CUDA graphs (inside the context manager
+    ``first``, when given), then timed with every count set to 0 just
+    before (``run_counted``), admissions that overlap a macro step held
+    to no host sync (``NoSyncAdmission``).  Returns (responses, wall s,
+    launches, calls, peak GiB, graph replays per lane, first run s,
+    admission groups)."""
+    import contextlib
+
     from repro_torch.serving.scheduler import ContinuousBatchScheduler
 
     def sched():
         sc = ContinuousBatchScheduler(eng)
-        for (p, n), aid in zip(requests, aids or [None] * len(requests)):
-            sc.submit(p, max_new_tokens=n, adapter_id=aid)
+        for req, aid in zip(requests, aids or [None] * len(requests)):
+            p, n, greedy, seed = tuple(req) + (True, None)[len(req) - 2:]
+            sc.submit(p, max_new_tokens=n, greedy=greedy, seed=seed,
+                      adapter_id=aid)
         return sc
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with TokenIds():
+    with TokenIds(), first or contextlib.nullcontext():
         sched().run()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1549,7 +1593,8 @@ def serve_macro_k(torch, dep, k, base, base_groups):
     from repro_torch.kernels.paged_attention import kernel as K2
     from repro_torch.serving.engine import BatchedHybridEngine
 
-    eng = BatchedHybridEngine(dep, batch_size=8, macro_k=k, lazy_pages=True)
+    eng = BatchedHybridEngine(deployment=dep, batch_size=8, macro_k=k,
+                              lazy_pages=True)
     res, wall, launches, _, peak, replays, first_s, groups = \
         serve_macro_run(torch, eng, BATCHED_REQUESTS, dep)
     st = eng.macro_stats()
@@ -1578,6 +1623,8 @@ def serve_macro_k(torch, dep, k, base, base_groups):
                          f"{want_k2} and K1 {k * replays[0]}")
     if eng.resident_kv_bytes() != 0:
         raise SystemExit(f"{tag}: pages leaked")
+    if launches["sample_fused"] != 0 or st["sample_replays"] != 0:
+        raise SystemExit(f"{tag}: greedy traffic reached the sampled graph")
     match = [base_groups[r.rid] == groups[r.rid] for r in res]
     equal = [same_response(a, b) for a, b in zip(base, res)]
     print(f"{tag}: admission groups per-token "
@@ -1645,7 +1692,7 @@ def run_counted(torch, sched, dep, names):
     and read just after, and the deployment's ``names`` entry points
     counted: (responses, wall s, launches, calls, peak GiB).  The
     launches hold K2's ring-mode and K3's windowed counts too."""
-    kernels = lora_kernels()
+    kernels = all_kernels()
     calls = counted(dep, names)
     reset_counts()
     # an engine and its lanes refer to each other: free the last phase's
@@ -1668,12 +1715,12 @@ def run_counted(torch, sched, dep, names):
 def check_batched_responses(tag, eng, res, requests):
     """Every request served within budget, the privacy split right, no
     cloud token on a private request, sane fusion weights/latencies."""
-    private = {i for i, (p, _) in enumerate(requests)
-               if eng.detector.detect(p)}
+    private = {i for i, req in enumerate(requests)
+               if eng.detector.detect(req[0])}
     if len(private) != 4 or {r.rid for r in res if r.stats.private} \
             != private:
         raise SystemExit(f"{tag}: privacy split is wrong: {private}")
-    for r, (_, n) in zip(res, requests):
+    for r, (_, n, *_) in zip(res, requests):
         if r.stats.private and (r.stats.cloud_tokens or r.stats.cloud_calls):
             raise SystemExit(f"{tag}: private rid {r.rid} used the cloud")
         w = r.stats.fusion_w
@@ -1777,7 +1824,7 @@ def serve_adapters_macro(torch, ad_dep, users, per_token, k=8):
     x graph replays, K5 to 6 x SLM layers x prefills."""
     from repro_torch.serving.engine import BatchedHybridEngine
 
-    eng = BatchedHybridEngine(ad_dep, batch_size=8, macro_k=k,
+    eng = BatchedHybridEngine(deployment=ad_dep, batch_size=8, macro_k=k,
                               lazy_pages=True, use_slot_kernel=True)
     for j, ad in enumerate(users):
         eng.adapters.register(f"user{j}", ad)
@@ -1821,7 +1868,6 @@ def profile_lora_boundary(torch, eng, tag):
     ``lora_up``, which K5 shares below 64 rows) must equal the
     replay-aware K4 count, 6 x K x SLM layers x graph replays, and K5
     must not run in decode."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.moe_lora.kernel import (moe_lora_delta,
                                                      moe_lora_delta_slots)
 
@@ -1833,8 +1879,7 @@ def profile_lora_boundary(torch, eng, tag):
     torch.cuda.synchronize()
     r0 = macro_replays(eng)
     n0 = (moe_lora_delta_slots.launches, moe_lora_delta.launches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         eng.step()
         torch.cuda.synchronize()
     replays = [b - a for a, b in zip(r0, macro_replays(eng))]
@@ -1894,7 +1939,7 @@ def phase_serve_router(torch, dep, plain_ids):
     print(f"serve_router: {moved} of {len(res)} requests' tokens differ "
           "from the adapter-free serve_batched run")
     del sched
-    eng = HybridEngine(r_dep, router=router)
+    eng = HybridEngine(deployment=r_dep, router=router)
     seq_calls = counted(r_dep, ("slm_prefill", "slm_decode"))
     reset_counts()
     torch.cuda.synchronize()
@@ -1980,8 +2025,9 @@ def phase_serve_gemma3(torch, dep):
                          "the same group differ from the K = 0 run")
     trace_batched(torch, eng8)
     del eng8
+    flat = phase_flat_keys(torch, g_dep, "flat_keys_gemma3", 4, 8)
     return {"serve_gemma3": seq, "serve_gemma3_batched": k8,
-            "serve_gemma3_batched_k0": k0}
+            "serve_gemma3_batched_k0": k0, **flat}
 
 
 def serve_gemma3_sequential(torch, g_dep):
@@ -2044,7 +2090,7 @@ def serve_gemma3_batched(torch, g_dep, k):
     from repro_torch.kernels.paged_attention import kernel as K2
     from repro_torch.serving.engine import BatchedHybridEngine
 
-    eng = BatchedHybridEngine(g_dep, batch_size=8, macro_k=k,
+    eng = BatchedHybridEngine(deployment=g_dep, batch_size=8, macro_k=k,
                               lazy_pages=True)
     names = ("slm_prefill_packed", "llm_prefill_packed", "slm_decode",
              "llm_decode")
@@ -2083,8 +2129,10 @@ def serve_gemma3_batched(torch, g_dep, k):
     print(f"{tag}: K2 {k2} launches, {ring} of them in ring mode (the "
           f"SLM's {n_local} local layers); K3 {want['flash_attention']}, "
           f"{want['flash_attention_windowed']} windowed")
-    if got != want or launches["fuse_logits"] <= 0 or ring <= 0:
-        raise SystemExit(f"{tag}: launches {got}, expected {want}")
+    if got != want or launches["fuse_logits"] <= 0 or ring <= 0 \
+            or launches["sample_fused"] != 0:
+        raise SystemExit(f"{tag}: launches {got}, expected {want}, and "
+                         f"no K7")
     if eng.growth_stats()["grown_pages"] <= 0 \
             or eng.resident_kv_bytes() != 0:
         raise SystemExit(f"{tag}: no lazy growth, or pages leaked")
@@ -2164,32 +2212,379 @@ def check_gemma3_admission(torch, g_dep):
                          "with the plain path")
 
 
+def max_sm_mhz() -> float:
+    """The card's top SM clock (``clocks.max.sm``), MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+
+
+def k7_inputs(torch, g, b, v=256_000):
+    """serve_sampled's draw: rows alternately near-flat (softmax of 0.1
+    randn) and peaked (softmax of 8 randn), serve_sampled's key ids
+    (2001, 2003, ...), steps within its budgets, a greedy mask mixing
+    both kinds of row."""
+    dev = torch.device("cuda")
+    scale = torch.tensor([0.1, 8.0] * b, device=dev)[:b, None]
+    probs = torch.softmax(scale * torch.randn(b, v, device=dev,
+                                              generator=g), -1)
+    keys = torch.arange(SAMPLED_SEED + 1, SAMPLED_SEED + 1 + 2 * b, 2,
+                        dtype=torch.int32, device=dev)
+    steps = torch.randint(0, 40, (b,), device=dev, generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    greedy = torch.tensor([False, False, True] * b, device=dev)[:b]
+    return probs, greedy, keys, steps
+
+
+def phase_k7(torch):
+    """K7 against its plain version at serve_sampled's shapes, B = 1 and
+    8, V = 256,000, two seeds (one past 2**32): ids and perturbed scores
+    must be equal bit for bit, and two calls on the same inputs too.
+    Timed back to back and replayed from a CUDA graph; the plain version
+    (numpy on the host, the card's probabilities copied over) by the
+    host clock.  Bound: the larger of the bytes (probs once, the (B,)
+    inputs and ids) over 3.35 TB/s, the integer operations (threefry's
+    20 rounds and key injections, the uniform's bit operations: 75 an
+    element) over 64 INT32 lanes an SM at the card's top SM clock, and
+    the f32 operations (three logs, the add: 66 an element) over 67
+    TFLOP/s."""
+    from repro_torch.kernels.logit_fusion import sample as K7
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_mhz()
+    cases = []
+    for b in (1, 8):
+        v = 256_000
+        probs, greedy, keys, steps = k7_inputs(torch, g, b, v)
+        err, drawn_off = 0.0, 0
+        for seed in (0, 2 ** 32 + 3):
+            ids, sc = K7.sample_fused(probs, greedy, keys, steps, seed,
+                                      scores=True)
+            again = K7.sample_fused(probs, greedy, keys, steps, seed)
+            torch.cuda.synchronize()
+            ref_ids, ref_sc = K7.sample_fused_plain(probs, greedy, keys,
+                                                    steps, seed, scores=True)
+            if not (torch.equal(ids, again) and torch.equal(ids, ref_ids)
+                    and torch.equal(sc.view(torch.int32),
+                                    ref_sc.view(torch.int32))):
+                raise SystemExit(f"K7 B={b} seed={seed}: ids {ids.tolist()} "
+                                 f"vs plain {ref_ids.tolist()}, scores "
+                                 f"differ by {(sc - ref_sc).abs().max()}")
+            err = max(err, (sc - ref_sc).abs().max().item())
+            drawn_off += int((ids != probs.argmax(-1)).sum())
+        t0 = time.perf_counter()
+        for _ in range(3):
+            K7.sample_fused_plain(probs, greedy, keys, steps, 0)
+        plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+        t_bytes = (b * v * 4 + b * (4 + 4 + 1 + 8)) / HBM_BYTES_PER_S
+        t_int = 75 * b * v / (sms * 64 * mhz * 1e6)
+        t_f32 = 66 * b * v / F32_FLOP_PER_S
+        bms = max(t_bytes, t_int, t_f32) * 1e3
+        cases.append(dict(
+            shape=[b, v], dtype="float32", max_abs_err=err,
+            ids_equal=True, scores_bit_equal=True,
+            ids_off_the_argmax=drawn_off,
+            ms=time_ms(torch, lambda: K7.sample_fused(
+                probs, greedy, keys, steps, 0), 200),
+            graph_ms=graph_ms(torch, lambda: K7.sample_fused(
+                probs, greedy, keys, steps, 0)),
+            plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+            bound_by="bytes" if t_bytes >= max(t_int, t_f32)
+            else "operations",
+            bound_parts_ms=dict(bytes=t_bytes * 1e3, int32=t_int * 1e3,
+                                f32=t_f32 * 1e3)))
+        print(f"K7 sample_fused: {cases[-1]} ({sms} SMs at {mhz} MHz)")
+    return cases
+
+
+def sampled_requests(requests):
+    """serve_sampled's traffic: (prompt, budget, greedy, seed), odd
+    requests sampled with seed SAMPLED_SEED + i, even ones greedy."""
+    return [(p, n, i % 2 == 0, None if i % 2 == 0 else SAMPLED_SEED + i)
+            for i, (p, n) in enumerate(requests)]
+
+
+class SampledFirstRun:
+    """Context of serve_sampled's untimed first run: it records the lanes'
+    sampled-graph replays at its end and, on the per-token path, tallies
+    through ``dep.sample_batched`` the draws of sampled rows (key id >=
+    SAMPLED_SEED) and how many left the argmax of their distribution."""
+
+    def __init__(self, dep, eng):
+        self.dep, self.eng = dep, eng
+        self.drawn = self.off = 0
+        self.sample_replays = 0
+
+    def __enter__(self):
+        import numpy as np
+        dep, draw = self.dep, self.dep.sample_batched
+
+        def tally(probs, keys, steps):
+            ids = draw(probs, keys, steps)
+            mine = np.asarray(keys) >= SAMPLED_SEED
+            off = ids.cpu().numpy() != probs.argmax(-1).cpu().numpy()
+            self.drawn += int(mine.sum())
+            self.off += int((mine & off).sum())
+            return ids
+        dep.sample_batched = tally
+        return self
+
+    def __exit__(self, *exc):
+        del self.dep.sample_batched
+        self.sample_replays = self.eng.macro_stats()["sample_replays"]
+
+
+def phase_serve_sampled(torch, dep, greedy_res):
+    """serve_batched's 20 requests with the odd ones sampled (seed 2000 +
+    i), at macro_k 0 and 8, each engine run untimed first (which
+    captures both graphs of each lane at K = 8).  K = 8 must equal K = 0
+    on every request admitted in the same group; K7 launches once per
+    per-token step with a sampled live row at K = 0 and K times per
+    sampled-graph replay at K = 8.  Returns {K: launches}."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    reqs = sampled_requests(BATCHED_REQUESTS)
+    out, runs = {}, {}
+    for k in (0, 8):
+        eng = None
+        gc.collect()
+        eng = BatchedHybridEngine(deployment=dep, batch_size=8, macro_k=k,
+                                  lazy_pages=True)
+        first = SampledFirstRun(dep, eng)
+        res, wall, launches, _, peak, _, first_s, groups = \
+            serve_macro_run(torch, eng, reqs, dep, first=first)
+        st = eng.macro_stats()
+        tag = f"serve_sampled (macro_k={k})"
+        print_batched(tag, res, wall, launches, {}, peak, macro_k=k)
+        check_batched_responses(tag, eng, res, reqs)
+        sampled = [r for r, (_, _, greedy, _) in zip(res, reqs)
+                   if not greedy]
+        moved = sum(a.text != b.text for a, b in zip(
+            sampled, [greedy_res[r.rid] for r in sampled]))
+        print(f"{tag}: {sum(r.stats.tokens for r in res)} tokens in "
+              f"{wall:.3f} s = {sum(r.stats.tokens for r in res) / wall:.2f}"
+              f" tokens/s; first run {first_s:.3f} s; sampled graphs' "
+              f"capture {st['sample_capture_s']:.3f} s (all graphs "
+              f"{st['capture_s']:.3f} s); sampled-graph replays "
+              f"{st['sample_replays']} of {st['replays']}; peak {peak:.2f} "
+              f"GiB; K7 launches {launches['sample_fused']}; "
+              + (f"first run: {first.off} of {first.drawn} draws of sampled "
+                 f"rows left the argmax; " if k == 0 else "")
+              + f"{moved} of {len(sampled)} sampled requests differ from "
+              f"their greedy tokens in serve_batched")
+        if k:
+            timed = st["sample_replays"] - first.sample_replays
+            if launches["sample_fused"] != k * timed or timed <= 0:
+                raise SystemExit(f"{tag}: K7 launched "
+                                 f"{launches['sample_fused']} times over "
+                                 f"{timed} sampled replays")
+        elif launches["sample_fused"] <= 0:
+            raise SystemExit(f"{tag}: the sampler never launched")
+        if eng.resident_kv_bytes() != 0:
+            raise SystemExit(f"{tag}: pages leaked")
+        if k:
+            trace_batched(torch, eng, sampled=True)
+        out[k], runs[k] = launches, (res, groups)
+    (res0, g0), (res8, g8) = runs[0], runs[8]
+    match = [g0[r.rid] == g8[r.rid] for r in res8]
+    equal = [same_response(a, b) for a, b in zip(res0, res8)]
+    print(f"serve_sampled: {sum(match)} of {len(res8)} requests admitted in "
+          f"the same group at K = 8 as at K = 0, {sum(equal)} equal to the "
+          f"K = 0 run bit for bit")
+    bad = [r.rid for r, m, e in zip(res8, match, equal) if m and not e]
+    if bad:
+        raise SystemExit(f"serve_sampled: requests {bad} admitted in the "
+                         "same group differ from the K = 0 run")
+    return out
+
+
+class FlatFusion:
+    """Within the block the deployment's fusion returns the uniform
+    distribution over the vocabulary on every path (sequential,
+    per-token, macro step): a test double, as the reference's sampling
+    tests stub theirs, so that the keyed draws spread and can be held
+    against the plain sampler on the host."""
+
+    def __init__(self, torch, dep):
+        self.torch, self.dep = torch, dep
+
+    def __enter__(self):
+        torch, v = self.torch, self.dep.slm.cfg.vocab_size
+
+        def flat(sl, ll, arrived):
+            b = sl.shape[0]
+            return (torch.full((b, v), 1.0 / v, device=sl.device),
+                    torch.ones((b,), device=sl.device))
+        self.dep.fuse_mask = flat
+        return self
+
+    def __exit__(self, *exc):
+        del self.dep.fuse_mask
+
+
+def plain_flat_ids(torch, v, keyed_lengths):
+    """{key id: the plain sampler's ids at steps 0..n-1} on the uniform
+    distribution over v ids, on the host, for {key id: n}."""
+    from repro_torch.kernels.logit_fusion import sample as K7
+    rows = [(key, t) for key, n in keyed_lengths.items() for t in range(n)]
+    ids = []
+    for lo in range(0, len(rows), 16):
+        part = rows[lo:lo + 16]
+        flat = torch.full((len(part), v), 1.0 / v)
+        ids += K7.sample_fused_plain(flat, None, [r[0] for r in part],
+                                     [r[1] for r in part], 0).tolist()
+    out = {}
+    for (key, _), tok in zip(rows, ids):
+        out.setdefault(key, []).append(tok)
+    return out
+
+
+def phase_flat_keys(torch, dep, tag, n_req, budget):
+    """The first ``n_req`` serve_sampled requests at ``budget`` tokens
+    under FlatFusion through the sequential engine (Scheduler) and the
+    batched engine at K = 0 and K = 8: every token of a sampled cloud
+    request must be the plain sampler's id for its (seed, key id,
+    step), every greedy cloud token id 0 (the argmax of a flat row); a
+    private request (its own SLM distribution) must agree between K = 0
+    and K = 8 where admitted in the same group.  Returns {path:
+    launches}."""
+    from repro_torch.core.privacy import PrivacyDetector
+    from repro_torch.serving.engine import BatchedHybridEngine
+    from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
+                                               Scheduler)
+
+    reqs = [(p, budget, greedy, seed) for p, _, greedy, seed
+            in sampled_requests(BATCHED_REQUESTS[:n_req])]
+    det = PrivacyDetector()
+    runs, out = {}, {}
+    with FlatFusion(torch, dep):
+        for path in ("sequential", 0, 8):
+            if path == "sequential":
+                sched = Scheduler.from_deployment(dep)
+            else:
+                sched = ContinuousBatchScheduler(BatchedHybridEngine(
+                    deployment=dep, batch_size=8, macro_k=path,
+                    lazy_pages=True))
+            for p, n, greedy, seed in reqs:
+                sched.submit(p, max_new_tokens=n, greedy=greedy, seed=seed)
+            reset_counts()
+            with TokenIds(), AdmissionGroups() as groups:
+                res = sched.run()
+            torch.cuda.synchronize()
+            out[path] = {fn.__name__: fn.launches for fn in all_kernels()}
+            runs[path] = (res, groups.of_rid)
+    lengths = {seed: budget for p, _, greedy, seed in reqs
+               if not greedy and not det.detect(p)}
+    want = plain_flat_ids(torch, dep.slm.cfg.vocab_size, lengths)
+    checked = dict.fromkeys(runs, 0)
+    for path, (res, _) in runs.items():
+        for r, (p, _, greedy, seed) in zip(res, reqs):
+            ids = [int(x) for x in r.text.split(",") if x]
+            if det.detect(p):
+                continue
+            ok = (ids == [0] * len(ids) if greedy
+                  else ids == want[seed][:len(ids)])
+            if not ok or not ids or (len(ids) < budget
+                                     and ids[-1] != 2):
+                raise SystemExit(f"{tag} {path}: rid {r.rid} ids {ids}, "
+                                 f"plain {want.get(seed)}")
+            checked[path] += 0 if greedy else len(ids)
+        if out[path]["sample_fused"] <= 0:
+            raise SystemExit(f"{tag} {path}: the sampler never launched")
+    (res0, g0), (res8, g8) = runs[0], runs[8]
+    bad = [a.rid for a, b in zip(res0, res8)
+           if det.detect(reqs[a.rid][0]) and g0[a.rid] == g8[a.rid]
+           and a.text != b.text]
+    if bad:
+        raise SystemExit(f"{tag}: private requests {bad} differ between "
+                         "K = 0 and K = 8")
+    k7 = {p: o["sample_fused"] for p, o in out.items()}
+    print(f"{tag}: sampled cloud tokens equal to the plain sampler's ids "
+          f"on the host (sequential engine, batched K = 0, K = 8): "
+          f"{checked}; K7 launches {k7}")
+    return {f"{tag}_{p if p == 'sequential' else f'k{p}'}": o
+            for p, o in out.items()}
+
+
+@contextlib.contextmanager
+def profiled(torch):
+    """torch.profiler over the block, CPU and CUDA, with a margin on each
+    side: the profiler keeps a device record only if its span, on the
+    host's clock, lies inside the window, so a kernel at the very edge
+    of the block could be lost to the skew between the card's timestamps
+    and the host's, and an exact kernel count read from the profile
+    would then be one short.  The block starts after a few spin kernels
+    (``torch.cuda._sleep``, left out of ``profile_rows``) and
+    PROFILE_MARGIN_S of quiet, and the window closes PROFILE_MARGIN_S
+    after the block's last kernel has ended."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+
+
+def profile_edges(torch, prof, n: int = 8) -> str:
+    """The first and last ``n`` device kernels of a profile, in time
+    order, with their start in microseconds from the first one: what a
+    count that misses should be read against."""
+    from torch.autograd import DeviceType
+
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if not ev:
+        return "no device records"
+    t0 = ev[0].time_range.start
+    return f"{len(ev)} device records; " + "; ".join(
+        f"{e.time_range.start - t0:.1f} us {e.name[:48]}"
+        for e in ev[:n] + [None] + ev[-n:] if e is not None)
+
+
 def profile_rows(torch, prof):
     """Device-kernel rows (ms, count, name) of a profile, largest first:
-    an operator's row repeats its kernels' time, so only kernels."""
+    an operator's row repeats its kernels' time, so only kernels, and
+    not the margin's spin kernels (``profiled``)."""
     from torch.autograd import DeviceType
     return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and "spin_kernel" not in e.key), reverse=True)
 
 
-def trace_batched(torch, eng):
+def trace_batched(torch, eng, sampled=False):
     """Device time by kernel and the device's busy share over two batched
     boundary steps: 8 cloud rows (the long prompt among them) and 4
     private rows decoding one token each (K tokens each on a macro-step
     engine), then the tail of a run — 3 short cloud rows among the parked
-    rows of the drained lane."""
+    rows of the drained lane.  ``sampled``: the first step only, with
+    every other row sampled (seed SAMPLED_SEED + i), so both lanes
+    replay their sampled graphs."""
     reqs = [(p, 40) for p, _ in BATCHED_REQUESTS]
     cloud = [r for r in reqs if not eng.detector.detect(r[0])][:8]
     private = [r for r in reqs if eng.detector.detect(r[0])]
-    flags = eng.add_requests([(p, n, True, 500 + i)
-                              for i, (p, n) in enumerate(cloud + private)])
+    flags = eng.add_requests([
+        (p, n, not (sampled and i % 2), 500 + i, SAMPLED_SEED + i)
+        for i, (p, n) in enumerate(cloud + private)])
     if not all(flags):
         raise SystemExit("trace: a request was not admitted")
-    profile_step(torch, eng, "one boundary step (8 cloud + 4 private rows)")
+    profile_step(torch, eng, "one boundary step (8 cloud + 4 private rows"
+                 + (", every other one sampled)" if sampled else ")"),
+                 sampled)
     while eng.active_count():
         eng.step()
+    if sampled:
+        return
     tail = [(p, 40, True, 600 + i) for i, (p, _) in enumerate(cloud[1:4])]
     if not all(eng.add_requests(tail)):
         raise SystemExit("trace: a tail request was not admitted")
@@ -2199,7 +2594,7 @@ def trace_batched(torch, eng):
         eng.step()
 
 
-def profile_step(torch, eng, what: str):
+def profile_step(torch, eng, what: str, sampled: bool = False):
     """Warm-up steps (three, or one macro step), then one boundary step
     timed untraced and one under torch.profiler: wall, device busy
     share, K2's and K1's device time and launches, the graph launches
@@ -2207,8 +2602,9 @@ def profile_step(torch, eng, what: str):
     must replay its graph once a step, K2 launch K x its decode layers
     a step (in the graph, by the replay-aware count and in the profile)
     and K1 K times a cloud-lane replay (by the replay-aware count, and
-    in the profile as K fuse_stats and K fuse_write kernels)."""
-    from torch.profiler import ProfilerActivity, profile
+    in the profile as K fuse_stats and K fuse_write kernels); K7 (two
+    kernels a call) K times a busy lane's replay when ``sampled``, else
+    never."""
     from repro_torch.kernels.logit_fusion.kernel import fuse_logits
     from repro_torch.kernels.paged_attention import kernel as K2
 
@@ -2232,8 +2628,7 @@ def profile_step(torch, eng, what: str):
     replays = [b - a for a, b in zip(r0, r1)]
     counted_k2 = K2.paged_decode_attention.launches - n0[0]
     counted_k1 = fuse_logits.launches - n0[1]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         traced_ms = one()
     traced_replays = [b - a for a, b in zip(r1, macro_replays(eng))]
     rows = profile_rows(torch, prof)
@@ -2242,6 +2637,8 @@ def profile_step(torch, eng, what: str):
     busy = sum(r[0] for r in rows)
     k2 = [r for r in rows if "paged_decode" in r[2]]
     k1 = [r for r in rows if "fuse_" in r[2]]
+    k7 = [r for r in rows if "sample_partial" in r[2]
+          or "sample_select" in r[2]]
     # a K2 call is two kernels, its split pass and its combine pass
     k2_launches = sum(r[1] for r in k2 if "paged_decode_split" in r[2])
     # and a K1 call two, its per-chunk stats and its write
@@ -2253,7 +2650,8 @@ def profile_step(torch, eng, what: str):
           f"untraced wall; K2 {sum(r[0] for r in k2):.3f} ms over "
           f"{k2_launches} calls ({sum(r[1] for r in k2)} kernels); K1 "
           f"{sum(r[0] for r in k1):.4f} ms over {sum(r[1] for r in k1)} "
-          f"kernels; "
+          f"kernels; K7 {sum(r[0] for r in k7):.4f} ms over "
+          f"{sum(r[1] for r in k7)} kernels; "
           f"{sum(r[1] for r in rows)} kernel launches; {graphs} graph "
           f"launches")
     for ms, n, key in rows[:12]:
@@ -2262,6 +2660,11 @@ def profile_step(torch, eng, what: str):
         return
     want = sum(k * lane_layers(lane) for lane in busy_lanes)
     want_k1 = k * int(eng.cloud_lane in busy_lanes)
+    want_k7 = 2 * k * len(busy_lanes) if sampled else 0
+    if sum(r[1] for r in k7) != want_k7:
+        raise SystemExit(f"trace_batched (macro_k={k}): {what}: K7 "
+                         f"kernels {sum(r[1] for r in k7)}, expected "
+                         f"{want_k7}; {profile_edges(torch, prof)}")
     per_lane = [lane._macro.per_replay(K2.paged_decode_attention)
                 for lane in busy_lanes]
     one_each = [int(lane in busy_lanes)
@@ -2278,13 +2681,13 @@ def profile_step(torch, eng, what: str):
                          f"{k2_launches}, K1 counted {counted_k1} and "
                          f"profiled (stats, write) {k1_passes}; expected "
                          f"K2 {want}, K1 {want_k1} and one replay per "
-                         f"busy lane ({len(busy_lanes)})")
+                         f"busy lane ({len(busy_lanes)}); "
+                         f"{profile_edges(torch, prof)}")
 
 
 def trace(torch, engine):
     """Device time by kernel and the device's busy share over one
     cloud-eligible request (16 tokens), from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import DEMO_PROMPTS
 
     def one():
@@ -2295,8 +2698,7 @@ def trace(torch, engine):
         return (time.perf_counter() - t0) * 1e3
 
     wall_ms = one()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         traced_ms = one()
     rows = profile_rows(torch, prof)
     busy = sum(r[0] for r in rows)
@@ -2344,6 +2746,7 @@ def main() -> int:
     k2_cases = phase_k2(torch)
     k4_cases, k5_cases = phase_lora(torch)
     k6_cases = phase_k6(torch, len(TOK.encode(DEMO_PROMPTS[0] + " ")))
+    k7_cases = phase_k7(torch)
     phase_check(torch)
     phase_cli()
     ssm_launches, ssm_run = phase_serve_ssm(torch)
@@ -2359,6 +2762,8 @@ def main() -> int:
     launches = macro_launches[8]
     trace_batched(torch, eng8)
     del eng8
+    sampled = phase_serve_sampled(torch, dep, k0_res)
+    flat = phase_flat_keys(torch, dep, "flat_keys", 8, 8)
     ad_runs = phase_serve_adapters(torch, dep, plain_ids)
     router_run = phase_serve_router(torch, dep, plain_ids)
     gemma3_paths = phase_serve_gemma3(torch, dep)
@@ -2370,7 +2775,8 @@ def main() -> int:
              "serve_adapters_k4_macro": ad_runs["macro"]["launches"],
              "serve_router": router_run["launches"],
              "serve_router_sequential": router_run["seq_launches"],
-             "serve_ssm": ssm_launches, **gemma3_paths}
+             "serve_ssm": ssm_launches, "serve_sampled": sampled[8],
+             "serve_sampled_k0": sampled[0], **flat, **gemma3_paths}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}
@@ -2452,6 +2858,22 @@ def main() -> int:
         plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
         bound_by=k6["bound_by"], library_ms=None, cases=k6_cases,
         serve_ssm=ssm_run))
+    # K7 at B = 8 (the lane); launches on serve_sampled at K = 8
+    k7 = k7_cases[-1]
+    kernels.append(dict(
+        name="sample_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/sample_fused.cu",
+        replaces="src/repro/kernels/logit_fusion/ops.py:117",
+        note="no pl.pallas_call: the reference samples in jnp "
+             "(_categorical_rows)",
+        launches=sampled[8]["sample_fused"],
+        launches_by_path=by_path["sample_fused"],
+        max_abs_err=max(c["max_abs_err"] for c in k7_cases),
+        ids_equal=all(c["ids_equal"] for c in k7_cases),
+        scores_bit_equal=all(c["scores_bit_equal"] for c in k7_cases),
+        shape=k7["shape"], ms=k7["ms"], graph_ms=k7["graph_ms"],
+        plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
+        bound_by=k7["bound_by"], library_ms=None, cases=k7_cases))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,12 @@
 The reference keys its network weather by
 ``fold_in(fold_in(key(seed), rid), step)`` and draws one scalar
 ``jax.random.normal`` per (request, token)
-(``repro/serving/latency.py:72-98``).  This module rebuilds those bits
-without JAX, vectorised over arrays of (rid, step), following jax
-0.9.0 with ``jax_threefry_partitionable`` on (its default):
+(``repro/serving/latency.py:72-98``); it keys its sampling the same
+way and draws one Gumbel vector over the vocabulary per (request,
+token) (``repro/kernels/logit_fusion/ops.py:117-125``).  This module
+rebuilds those bits without JAX, vectorised over arrays of (rid,
+step), following jax 0.9.0 with ``jax_threefry_partitionable`` on (its
+default):
 
 * ``key(seed)``: the raw key is (seed >> 32, seed & 0xFFFFFFFF) — for a
   32-bit seed, (0, seed).
@@ -13,8 +16,15 @@ without JAX, vectorised over arrays of (rid, step), following jax
   words forming the new key.
 * scalar random bits: ``threefry2x32(key, (0, 0))``, the two output
   words xor-ed (the partitionable iota of shape () is zero).
+* random bits over a shape (``jax.random.bits``, the threefry PRNG's
+  ``threefry_random_bits`` with partitionable counters): element j of
+  the flattened shape is ``threefry2x32(key, (0, j))`` with the two
+  output words xor-ed (``iota_2x32_shape`` gives the high and low words
+  of j, and j < 2**32 here).
 * ``uniform``: the top 23 bits as the mantissa of a float in [1, 2),
   minus 1, scaled into [lo, hi) and clamped at lo.
+* ``gumbel`` (``jax.random._gumbel``, mode "low", the default):
+  ``-log(-log(u))`` with u uniform on [tiny, 1), both logs XLA's.
 * ``normal``: ``sqrt(2) * erf_inv(u)`` with u uniform on
   (nextafter(-1, 0), 1), ``erf_inv`` being XLA's single-precision
   polynomial (M. Giles, "Approximating the erfinv function").
@@ -82,13 +92,44 @@ def bits32(k: Key) -> np.ndarray:
     return b1 ^ b2
 
 
-def uniform(k: Key, lo, hi) -> np.ndarray:
-    """Scalar ``jax.random.uniform(k, (), float32, lo, hi)`` per key."""
+def random_bits(k: Key, shape) -> np.ndarray:
+    """``jax.random.bits(k, shape, uint32)`` for each key of a batch of
+    keys: the result has the keys' shape followed by ``shape``."""
+    shape = tuple(int(n) for n in np.atleast_1d(shape))
+    n = int(np.prod(shape))
+    if n >= 2 ** 32:
+        raise ValueError("random_bits: at most 2**32 - 1 values a key")
+    k1 = np.asarray(k[0], np.uint32)[..., None]
+    k2 = np.asarray(k[1], np.uint32)[..., None]
+    j = np.arange(n, dtype=np.uint32)
+    b1, b2 = threefry2x32(k1, k2, np.zeros_like(j), j)
+    return (b1 ^ b2).reshape(k1.shape[:-1] + shape)
+
+
+def _bits_to_uniform(bits, lo, hi) -> np.ndarray:
     lo, hi = _F32(lo), _F32(hi)
-    fb = (bits32(k) >> np.uint32(32 - 23)) | np.array(1.0, _F32).view(
+    fb = (bits >> np.uint32(32 - 23)) | np.array(1.0, _F32).view(
         np.uint32)
     floats = fb.view(_F32) - _F32(1.0)
     return np.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(k: Key, lo, hi) -> np.ndarray:
+    """Scalar ``jax.random.uniform(k, (), float32, lo, hi)`` per key."""
+    return _bits_to_uniform(bits32(k), lo, hi)
+
+
+def uniform_array(k: Key, shape, lo, hi) -> np.ndarray:
+    """``jax.random.uniform(k, shape, float32, lo, hi)`` for each key of
+    a batch of keys (shaped as ``random_bits``)."""
+    return _bits_to_uniform(random_bits(k, shape), lo, hi)
+
+
+def gumbel(k: Key, shape) -> np.ndarray:
+    """``jax.random.gumbel(k, shape)`` (float32, mode "low") for each key
+    of a batch of keys: ``-log(-log(u))``, u uniform on [tiny, 1)."""
+    u = uniform_array(k, shape, np.finfo(_F32).tiny, 1.0)
+    return -log(-log(u))
 
 
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,

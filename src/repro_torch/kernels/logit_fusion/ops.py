@@ -6,6 +6,8 @@ carry arrived=False and are sliced away) and threads the per-row
 Sec. IV-D ``arrived`` mask into the kernel, so the kernel sees the same
 (B, V) shapes as the Pallas one does.  ``cloud_arrival_mask`` builds
 that mask (the port of the reference's function of the same name).
+``sample_fused`` and ``select_sample_fused`` are the reference's keyed
+sampling ops of the same names, through K7 (``sample.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.logit_fusion.kernel import fuse_logits
+from repro_torch.kernels.logit_fusion.sample import sample_fused as _k7
 
 
 def fused_probs_masked(slm_logits: torch.Tensor, llm_logits: torch.Tensor,
@@ -39,3 +42,25 @@ def cloud_arrival_mask(ok, active):
     alike.  The reference's fault terms (lost reply, outage, breaker)
     come with the fault slice."""
     return ok & active
+
+
+def sample_fused(probs: torch.Tensor, rids, steps,
+                 seed: int = 0) -> torch.Tensor:
+    """Batched sampling from the fused distribution: row i draws with key
+    fold_in(fold_in(key(seed), rids[i]), steps[i]), the sequential
+    engine's per-(request, token) key, so batched and sequential serving
+    see the same samples.  probs (B, V) f32; rids, steps (B,) int tensors
+    on probs' device.  Returns (B,) int64 ids."""
+    return _k7(probs, None, rids, steps, seed)
+
+
+def select_sample_fused(probs: torch.Tensor, greedy, rids, steps,
+                        seed: int = 0, sample: bool = True) -> torch.Tensor:
+    """The macro step's next-token epilogue: per row the greedy argmax or
+    ``sample_fused``'s draw, selected by the (B,) bool ``greedy`` mask,
+    in one launch.  ``sample=False`` takes the argmax alone and draws
+    nothing, so all-greedy lanes never pay for the (B, V) draw.  Returns
+    (B,) int64 ids."""
+    if not sample:
+        return torch.argmax(probs, dim=-1)
+    return _k7(probs, greedy, rids, steps, seed)

@@ -5,6 +5,8 @@
         [--macro-k 8] [--page-size 16] [--no-lazy-pages] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
         --adapters 3 --adapter-slots 2 [--adapter-rank 4]
+    PYTHONPATH=src python -m repro_torch.launch.serve --local \
+        [--batch 4] --sample [--sample-seed 3]
 
 serves the four demo prompts on a reduced pair (``--pair 2b``, the
 default, or ``--pair gemma3``, whose SLM keeps ring caches on its
@@ -16,8 +18,10 @@ continuous-batching scheduler on paged lanes and prints the
 --adapter-slots E`` registers N per-user adapters (``user{j}``, rank
 ``--adapter-rank``) over an E-slot bank, spreads the demo requests over
 them with one adapter-free row, and prints the cache's stats; fewer
-slots than adapters exercises eviction.  A batched run decodes
-``--macro-k`` tokens a lane per dispatch (default 8, as in the
+slots than adapters exercises eviction.  ``--sample`` decodes every
+request by keyed sampling from the fused distribution (K7), keyed from
+``--sample-seed`` (default 0) and the request's rid.  A batched run
+decodes ``--macro-k`` tokens a lane per dispatch (default 8, as in the
 reference; a CUDA graph per lane on the card), and ``--macro-k 0``
 takes the per-token step; both print the same per-request lines.  On
 CUDA ``--page-size`` must be 16, the page size of the paged decode
@@ -34,8 +38,7 @@ LATER_SLICE_FLAGS = (
     "--arch", "--shape", "--multi-pod", "--mesh-devices", "--rules",
     "--model-parallel", "--spec-k", "--dense",
     "--pool-pages", "--max-ctx", "--chunk-width",
-    "--fault-rate", "--outage", "--fault-seed", "--deadline-ms", "--sample",
-    "--sample-seed")
+    "--fault-rate", "--outage", "--fault-seed", "--deadline-ms")
 
 DEMO_PROMPTS = (
     "math: compute 12 plus 7 =",
@@ -71,6 +74,10 @@ def main(argv=None):
                          "adapter serving; E < --adapters evicts)")
     ap.add_argument("--adapter-rank", type=int, default=4,
                     help="LoRA rank of the demo adapters and their bank")
+    ap.add_argument("--sample", action="store_true",
+                    help="non-greedy decoding (per-request PRNG keys)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="root seed of the per-request sampling keys")
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
@@ -109,9 +116,9 @@ def main(argv=None):
         slm, slm.init(0), llm, llm.init(1),
         FUS.init_alignment(2, slm_cfg.vocab_size, device=device),
         latency=LatencyModel(rtt_ms=args.rtt_ms),
-        timeout_ms=args.timeout_ms, page_size=args.page_size,
-        adapter_slots=args.adapter_slots, adapter_rank=args.adapter_rank,
-        device=device)
+        timeout_ms=args.timeout_ms, sample_seed=args.sample_seed,
+        page_size=args.page_size, adapter_slots=args.adapter_slots,
+        adapter_rank=args.adapter_rank, device=device)
     if args.batch > 1:
         sched = ContinuousBatchScheduler.from_deployment(
             dep, batch_size=args.batch, macro_k=args.macro_k,
@@ -132,7 +139,7 @@ def main(argv=None):
         # round-robin user ids, one adapter-free row in the mix
         aids = [f"user{j % args.adapters}" for j in range(3)] + [None]
     for i, prompt in enumerate(DEMO_PROMPTS):
-        sched.submit(prompt, max_new_tokens=8,
+        sched.submit(prompt, max_new_tokens=8, greedy=not args.sample,
                      adapter_id=aids[i] if aids else None)
     res = sched.run()
     for r in res:

@@ -16,8 +16,10 @@ adapter slot bank (``adapter_slots=``) that an engine's
 ``AdapterCache`` owns and writes through ``write_adapter_slot``.
 The K-token macro step's per-lane state and body live in
 ``serving/macro.py``; the deployment gives it ``fuse_mask`` (the fusion
-on a device arrived mask) and ``fetch_traces``.  Meshes, dense lanes,
-prefix sharing, chunked prefill and speculation are later slices.
+on a device arrived mask), ``select_sample`` (the greedy argmax or the
+keyed draw through K7, keyed by ``sample_seed``) and ``fetch_traces``.
+Meshes, dense lanes, prefix sharing, chunked prefill and speculation
+are later slices.
 
 Without an LLM the deployment is SLM-only (``SoloEngine``); its SLM may
 be a dense model or a Mamba-1 SSM, whose recurrent state has no pages
@@ -42,6 +44,7 @@ import torch
 from repro_torch import resolve_device, to_device
 from repro_torch.core import fusion as FUS
 from repro_torch.core import lora as LORA
+from repro_torch.kernels.logit_fusion import ops as OPS
 from repro_torch.models.attention import FREED_POS, ring_kv_positions
 from repro_torch.models.model import LOCAL_KINDS, cache_kv
 from repro_torch.serving import paging as PAG
@@ -80,7 +83,7 @@ class ServingDeployment:
                  block_b: int = 4, page_size: int = 16,
                  max_ctx: Optional[int] = None, adapter_slots: int = 0,
                  adapter_rank: Optional[int] = None, fault=None,
-                 device=None):
+                 sample_seed: int = 0, device=None):
         if fault is not None:
             raise NotImplementedError("a fault model (fault injection): "
                                       "later slice")
@@ -119,6 +122,7 @@ class ServingDeployment:
         self.timeout_ms = timeout_ms
         self.max_seq = max_seq
         self.block_b = block_b
+        self.sample_seed = sample_seed
 
     def tokens(self, ids) -> torch.Tensor:
         """(1, S) int64 token tensor on the deployment's device."""
@@ -356,6 +360,22 @@ class ServingDeployment:
     def argmax_batched(p: torch.Tensor) -> torch.Tensor:
         return torch.argmax(p, dim=-1)
 
+    def sample_batched(self, probs: torch.Tensor, rids, steps):
+        """Keyed draws from (B, V) probabilities, row i keyed by host ints
+        rids[i] and steps[i] (K7): (B,) int64 ids on the device."""
+        return OPS.sample_fused(probs, _int32(rids, probs.device),
+                                _int32(steps, probs.device),
+                                seed=self.sample_seed)
+
+    def select_sample(self, probs: torch.Tensor, greedy: torch.Tensor,
+                      key_ids: torch.Tensor, steps: torch.Tensor,
+                      sample: bool):
+        """The macro step's epilogue on (B,) device tensors: the greedy
+        argmax on ``greedy`` rows, the keyed draw elsewhere (K7), or the
+        argmax alone when ``sample`` is False."""
+        return OPS.select_sample_fused(probs, greedy, key_ids, steps,
+                                       seed=self.sample_seed, sample=sample)
+
     def lat_batched(self, rids, steps):
         """One vectorised weather draw for a batch of rows: (lat_ms (B,)
         float32, cloud_used (B,) bool) numpy arrays."""
@@ -399,6 +419,12 @@ def _write_pages(pool, pages, plan):
         # index_fill_: ``pool[idx] = 0`` would copy the 0 from the host
         # and wait for the device
         pool.index_fill_(0, _index(pid[~have], dev), 0)
+
+
+def _int32(vals, device) -> torch.Tensor:
+    """Host ints as an int32 tensor on ``device``, wrapped modulo 2**32
+    as the reference's int32 key and step arrays hold them."""
+    return to_device(np.asarray(vals, np.int64).astype(np.int32), device)
 
 
 def _index(idx, device) -> torch.Tensor:

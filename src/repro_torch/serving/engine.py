@@ -15,16 +15,25 @@ Pipeline per request (paper Fig. 8):
      Eq. 14-15 (K1); if the cloud misses the timeout the fusion weight
      is forced to w = 1 (Sec. IV-D fallback).
 
-The port serves greedy decoding without fault injection.  The batched
-engine serves paged lanes with lazy or eager page reservation, through
+The port serves greedy and keyed sampled decoding (``greedy=False``:
+row i's token t is drawn from the fused distribution with key
+fold_in(fold_in(key(sample_seed), key id), t), the key id being the
+request's seed, else its rid, through K7) without fault injection.  The
+batched engine serves paged lanes with lazy or eager page reservation,
+through
 the K-token macro step (``macro_k=K``, the default 8: one dispatch and
 one host sync per lane per K tokens, a CUDA graph replayed on the card,
 ``serving/macro.py``) or the per-token step (``macro_k=0``); its LoRA
 decode goes through K5 on the lane's (B, E) gate rows, or through K4 on
 per-row slot ids with ``use_slot_kernel=True``.  Dense lanes, COW prefix
-sharing, chunked prefill, park/evict under pool pressure, keyed
-sampling, faults, deadlines and speculation are later slices and raise
+sharing, chunked prefill, park/evict under pool pressure, faults,
+deadlines and speculation are later slices and raise
 ``NotImplementedError``.
+
+Every engine takes a deployment (``deployment=``) or, as the reference's
+engines do, the models and deployment-level settings by keyword, from
+which it builds one (on ``device=``, CUDA unless the caller asks for the
+CPU); giving both raises (``_reject_deployment_args``).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.core.privacy import PrivacyDetector
 from repro_torch.core.router import Router
 from repro_torch.data import tokenizer as TOK
 from repro_torch.kernels.logit_fusion import ops as OPS
+from repro_torch.serving.latency import LatencyModel
 from repro_torch.models.attention import FREED_POS, check_row_positions
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.deployment import ServingDeployment
@@ -76,6 +86,41 @@ def _admission_gates(eng, items: List[Tuple[str, Optional[int]]],
         g[:rows.shape[0]] = rows
         rows = g
     return to_device(rows, eng.dep.device)
+
+
+def _reject_deployment_args(**named):
+    """An engine given ``deployment=`` must not also receive
+    deployment-level settings, which it would silently ignore.  ``named``
+    maps each argument's name to (value, default)."""
+    clashing = [k for k, (v, d) in named.items()
+                if (v is not d if d is None else v != d)]
+    if clashing:
+        raise ValueError(
+            "deployment-level arguments are ignored when deployment= is "
+            f"given — set them on the ServingDeployment instead: "
+            f"{sorted(clashing)}")
+
+
+def _hybrid_deployment(deployment, slm, slm_params, llm, llm_params,
+                       alignment_mlp, expert_bank, latency, timeout_ms,
+                       max_seq, sample_seed, device, **extra):
+    """The engines' keyword form: build the deployment from the models
+    and settings, or check that none is given beside ``deployment``.
+    ``extra`` maps further deployment arguments to (value, default)."""
+    if deployment is None:
+        return ServingDeployment(
+            slm, slm_params, llm, llm_params, alignment_mlp,
+            expert_bank=expert_bank, latency=latency,
+            timeout_ms=timeout_ms, max_seq=max_seq,
+            sample_seed=sample_seed, device=device,
+            **{k: v for k, (v, _) in extra.items()})
+    _reject_deployment_args(
+        slm=(slm, None), slm_params=(slm_params, None), llm=(llm, None),
+        llm_params=(llm_params, None), alignment_mlp=(alignment_mlp, None),
+        expert_bank=(expert_bank, None), latency=(latency, None),
+        timeout_ms=(timeout_ms, 200.0), max_seq=(max_seq, 96),
+        sample_seed=(sample_seed, 0), device=(device, None), **extra)
+    return deployment
 
 
 @dataclass
@@ -118,10 +163,21 @@ class HybridEngine:
     ``router`` gates the deployment's expert bank (Eq. 8-11); a
     deployment with ``adapter_slots`` gives the engine its own
     ``AdapterCache`` (``engine.adapters``) for per-user adapters.  A bank
-    without a router, or a bank with adapter slots, raises."""
+    without a router, or a bank with adapter slots, raises.
+    ``detector`` replaces the default privacy detector (Alg. 2)."""
 
-    def __init__(self, deployment: ServingDeployment,
-                 router: Optional[Router] = None):
+    def __init__(self, slm=None, slm_params=None, llm=None, llm_params=None,
+                 alignment_mlp=None, expert_bank=None,
+                 router: Optional[Router] = None,
+                 detector: Optional[PrivacyDetector] = None,
+                 latency: Optional[LatencyModel] = None,
+                 timeout_ms: float = 200.0, max_seq: int = 96,
+                 sample_seed: int = 0,
+                 deployment: Optional[ServingDeployment] = None,
+                 device=None):
+        deployment = _hybrid_deployment(
+            deployment, slm, slm_params, llm, llm_params, alignment_mlp,
+            expert_bank, latency, timeout_ms, max_seq, sample_seed, device)
         if deployment.llm is None or deployment.mlp is None:
             raise ValueError("HybridEngine needs a hybrid deployment (llm + "
                              "alignment mlp); an SLM-only deployment "
@@ -131,10 +187,11 @@ class HybridEngine:
         self.llm_params = deployment.llm_params
         self.bank = deployment.bank
         self.router = router
-        self.detector = PrivacyDetector()
+        self.detector = detector or PrivacyDetector()
         self.latency = deployment.latency
         self.timeout_ms = deployment.timeout_ms
         self.max_seq = deployment.max_seq
+        self.sample_seed = deployment.sample_seed
         self.adapters = (deployment.make_adapter_cache()
                          if deployment.adapter_slots else None)
         if self.bank is not None and router is None:
@@ -167,22 +224,32 @@ class HybridEngine:
         if self.adapters is not None and s.aslot is not None:
             self.adapters.release(s.aslot)
 
+    @staticmethod
+    def _sample_key(rid: Optional[int]) -> int:
+        """A request's sampling key id: its key is fold_in(key(
+        sample_seed), id) and token t's fold_in(that key, t), so no two
+        requests (or tokens) share a sampling key."""
+        return 0 if rid is None else rid
+
     @torch.inference_mode()
     def generate(self, prompt: str, max_new_tokens: int = 16,
                  greedy: bool = True, rid: Optional[int] = None,
+                 sample_key_id: Optional[int] = None,
                  adapter_id: Optional[Any] = None,
                  deadline_ms: Optional[float] = None
                  ) -> Tuple[str, GenStats]:
-        """``rid``, when given, keys the latency draws per (request,
-        token), order-independently; without it they come from the
-        latency model's stateful stream.  ``adapter_id`` pins a
+        """``rid``, when given, keys the latency draws and the sampling
+        per (request, token), order-independently, so batched and
+        sequential serving see the same weather and samples; without it
+        the latency draws come from the latency model's stateful stream.
+        ``greedy=False`` draws each token from the fused distribution;
+        ``sample_key_id`` (a per-request seed) replaces the rid in the
+        sampling key only.  ``adapter_id`` pins a
         registered per-user adapter for the whole request (unknown ids
         raise ``adapters.UnknownAdapter``); otherwise a router-gated
         engine gates its bank with the prompt's ω.  ``deadline_ms``
         bounds the simulated decode clock: token t is emitted iff the
         clock after token t-1 is still under it."""
-        if not greedy:
-            raise NotImplementedError("sampling: later slice")
         dep = self.dep
         stats = GenStats()
         stats.private = self.detector.detect(prompt)
@@ -199,6 +266,8 @@ class HybridEngine:
         elif self.router is not None and self.bank is not None:
             gates = _admission_gates(self, [(prompt, None)])
             lora = self.lora
+        key_id = self._sample_key(rid if sample_key_id is None
+                                  else sample_key_id)
 
         raw = TOK.encode(prompt + " ")
         cap = self.max_seq - max_new_tokens - 1
@@ -238,7 +307,8 @@ class HybridEngine:
             stats.push_latency(float(lat_ms))
             stats.fusion_w.append(float(w[0]))
 
-            nxt = int(torch.argmax(p_out[0]))
+            nxt = int(torch.argmax(p_out[0])) if greedy else int(
+                dep.sample_batched(p_out, [key_id], [step])[0])
             out_ids.append(nxt)
             stats.tokens += 1
             if nxt == TOK.EOS:
@@ -263,12 +333,13 @@ class HybridEngine:
 
 @dataclass
 class _Slot:
-    """Host-side bookkeeping for one occupied decode-batch row (greedy:
-    sampling is a later slice)."""
+    """Host-side bookkeeping for one occupied decode-batch row."""
     rid: int
     max_new: int
+    greedy: bool
     stats: GenStats
     out_ids: List[int] = field(default_factory=list)
+    key_id: Optional[int] = None     # per-request sampling seed override
     seq: int = -1                    # admission order (FIFO observable)
     # lazy growth: token n writes at position prompt_len + n
     prompt_len: int = 0
@@ -283,8 +354,10 @@ class _PagedJob:
     slot: int
     prompt: str
     max_new: int
+    greedy: bool
     rid: int
     private: bool
+    key_id: Optional[int]            # per-request sampling seed, or None
     ids: List[int]                   # token ids (already truncated)
     rows_s: Any                      # RowPages in the lane's SLM pager
     rows_l: Any                      # RowPages in the LLM pager (cloud)
@@ -383,10 +456,11 @@ class _Lane:
     # --------------------------------------------------------- admission
     def _finish_admit(self, j: _PagedJob):
         self.slots[j.slot] = _Slot(
-            j.rid, j.max_new,
+            j.rid, j.max_new, j.greedy,
             GenStats(private=j.private, truncated=j.truncated,
                      admit_seq=j.seq),
-            seq=j.seq, prompt_len=len(j.ids), aslot=j.aslot)
+            key_id=j.key_id, seq=j.seq, prompt_len=len(j.ids),
+            aslot=j.aslot)
 
     def _pad_group(self, ids: List[List[int]], width_cap: int):
         """Shared right-padding for an admission group: chunk-rounded
@@ -459,13 +533,15 @@ class _Lane:
         if self.active == 0:
             return []
         b = self.batch
+        occ = np.zeros((b,), bool)
+        rids = np.zeros((b,), np.int32)
+        keys = np.zeros((b,), np.int64)
+        steps = np.zeros((b,), np.int32)
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                occ[i], rids[i], steps[i] = True, s.rid, len(s.out_ids)
+                keys[i] = s.rid if s.key_id is None else s.key_id
         if self.use_cloud:
-            occ = np.zeros((b,), bool)
-            rids = np.zeros((b,), np.int32)
-            steps = np.zeros((b,), np.int32)
-            for i, s in enumerate(self.slots):
-                if s is not None:
-                    occ[i], rids[i], steps[i] = True, s.rid, len(s.out_ids)
             # one vectorised counter-based draw for the whole batch
             lat, ok = dep.lat_batched(rids, steps)
             arrived = OPS.cloud_arrival_mask(ok, occ)
@@ -475,6 +551,11 @@ class _Lane:
             w = torch.ones((b,))
         nxt = dep.argmax_batched(probs).cpu().numpy()
         w_host = w.cpu().numpy()
+        drawn = None
+        if any(s is not None and not s.greedy for s in self.slots):
+            # one keyed draw for the whole batch (K7); keys fold_in(key
+            # id, step) are the sequential engine's
+            drawn = dep.sample_batched(probs, keys, steps).cpu().numpy()
 
         done: List[Tuple[int, str, GenStats]] = []
         freed: List[int] = []
@@ -491,7 +572,7 @@ class _Lane:
             else:
                 st.push_latency(float(eng.latency.edge_compute_ms))
             st.fusion_w.append(float(w_host[i]))
-            tok = int(nxt[i])
+            tok = int(nxt[i]) if s.greedy else int(drawn[i])
             s.out_ids.append(tok)
             st.tokens += 1
             if tok == TOK.EOS or len(s.out_ids) >= s.max_new:
@@ -553,13 +634,20 @@ class _Lane:
             return
         dep, b = self.eng.dep, self.batch
         rids = np.zeros((b,), np.int32)
+        keys = np.zeros((b,), np.int64)
         steps = np.zeros((b,), np.int32)
         maxn = np.zeros((b,), np.int32)
+        greedy = np.ones((b,), bool)
         done = np.ones((b,), bool)
         for i, s in enumerate(self.slots):
             if s is not None:
                 rids[i], steps[i], maxn[i] = s.rid, len(s.out_ids), s.max_new
+                keys[i] = s.rid if s.key_id is None else s.key_id
+                greedy[i] = s.greedy
                 done[i] = False
+        # the sampled graph only when a live row draws (the reference's
+        # static ``sample`` flag)
+        sample = bool((~greedy & ~done).any())
         # the last slot each live row can write in the next k tokens
         # (the last selected token is never fed), checked here once as
         # the per-token decode checks its positions at every layer
@@ -577,8 +665,10 @@ class _Lane:
             lat, ok = dep.lat_batched(np.broadcast_to(rids, grid.shape),
                                       grid)
         m = self.macro(k)
-        m.load(ok, steps, maxn, done, self._slot_ids())
-        m.run()
+        m.prepare(sample)
+        m.load(ok, steps, maxn, done, self._slot_ids(),
+               keys.astype(np.int32), greedy)
+        m.run(sample)
         self._inflight = (m, lat, ok, ~done)
 
     @torch.inference_mode()
@@ -745,21 +835,33 @@ class BatchedHybridEngine(HybridEngine):
     ``macro_k=0`` is the per-token path.  The port serves ``paged=True``;
     the other options raise ``NotImplementedError``."""
 
-    def __init__(self, deployment: ServingDeployment, batch_size: int = 8,
-                 edge_batch_size: Optional[int] = None,
+    def __init__(self, slm=None, slm_params=None, llm=None, llm_params=None,
+                 alignment_mlp=None, expert_bank=None,
+                 router: Optional[Router] = None,
+                 detector: Optional[PrivacyDetector] = None,
+                 latency: Optional[LatencyModel] = None,
+                 timeout_ms: float = 200.0, max_seq: int = 96,
+                 sample_seed: int = 0, batch_size: int = 8,
+                 edge_batch_size: Optional[int] = None, block_b: int = 4,
                  macro_k: int = 8, paged: bool = True,
                  pool_pages: Optional[int] = None,
                  local_pool_pages: Optional[int] = None,
                  llm_pool_pages: Optional[int] = None,
                  lazy_pages: bool = True,
                  chunk_width: Optional[int] = None, spec_k: int = 0,
-                 router: Optional[Router] = None,
-                 use_slot_kernel: bool = False):
+                 use_slot_kernel: bool = False,
+                 deployment: Optional[ServingDeployment] = None,
+                 device=None):
+        deployment = _hybrid_deployment(
+            deployment, slm, slm_params, llm, llm_params, alignment_mlp,
+            expert_bank, latency, timeout_ms, max_seq, sample_seed, device,
+            block_b=(block_b, 4))
         if deployment.llm is None:
             raise ValueError(
                 "BatchedHybridEngine needs a hybrid (SLM+LLM) deployment; "
                 "this one is SLM-only — serve it with SoloEngine")
-        super().__init__(deployment, router=router)
+        super().__init__(router=router, detector=detector,
+                         deployment=deployment)
         for lm in (self.dep.slm, self.dep.llm):
             if lm.cfg.family != "dense":
                 raise NotImplementedError(
@@ -856,8 +958,7 @@ class BatchedHybridEngine(HybridEngine):
         retried later, hard rejects land in ``pop_rejected``."""
         for prompt, max_new, greedy, rid, *rest in reqs:
             rest = list(rest) + [None] * (4 - len(rest))
-            for bad, what in ((not greedy, "sampling (greedy=False)"),
-                              (rest[1] is not None,
+            for bad, what in ((rest[1] is not None,
                                "COW prefix sharing (prefix=)"),
                               (rest[3] is not None,
                                "deadline cancellation (deadline_ms=)")):
@@ -878,7 +979,8 @@ class BatchedHybridEngine(HybridEngine):
         free = {True: self.edge_lane.free_slots(),
                 False: self.cloud_lane.free_slots()}
         blocked = {True: False, False: False}
-        for i, (prompt, max_new, _, rid, *rest) in enumerate(reqs):
+        for i, (prompt, max_new, greedy, rid, *rest) in enumerate(reqs):
+            seed = rest[0] if rest else None
             aid = rest[2] if len(rest) > 2 else None
             private = self.detector.detect(prompt)
             lane = self.edge_lane if private else self.cloud_lane
@@ -927,8 +1029,9 @@ class BatchedHybridEngine(HybridEngine):
             rows_l = (lane.pager_l.admit(slot, nf_l, cap_pages=cap_pages)
                       if lane.use_cloud else None)
             jobs[private].append(_PagedJob(
-                slot, prompt, max_new, rid, private, ids, rows_s, rows_l,
-                seq=self._next_seq(), truncated=truncated, aslot=aslot))
+                slot, prompt, max_new, greedy, rid, private, seed, ids,
+                rows_s, rows_l, seq=self._next_seq(), truncated=truncated,
+                aslot=aslot))
             flags[i] = True
         self.edge_lane.admit_many(jobs[True])
         self.cloud_lane.admit_many(jobs[False])
@@ -968,14 +1071,17 @@ class BatchedHybridEngine(HybridEngine):
         return self.cloud_lane.active + self.edge_lane.active
 
     def macro_stats(self) -> Dict[str, float]:
-        """Over both lanes: macro steps built (graphs captured on CUDA),
-        the seconds their captures took, graph replays, (iteration, row)
-        pairs that rows live at dispatch spent parked after finishing,
-        and iterations in which no row of the lane decoded."""
+        """Over both lanes: macro steps built, the seconds their graph
+        captures took on CUDA (the sampled graphs' alone too), graph
+        replays (of the sampled graphs too), (iteration, row) pairs that
+        rows live at dispatch spent parked after finishing, and
+        iterations in which no row of the lane decoded."""
         ms = [lane._macro for lane in (self.cloud_lane, self.edge_lane)
               if lane._macro is not None]
         return dict(macros=len(ms), capture_s=sum(m.capture_s for m in ms),
+                    sample_capture_s=sum(m.sample_capture_s for m in ms),
                     replays=sum(m.replays for m in ms),
+                    sample_replays=sum(m.sample_replays for m in ms),
                     parked_rows=sum(m.parked_rows for m in ms),
                     idle_iters=sum(m.idle_iters for m in ms))
 
@@ -1019,8 +1125,19 @@ class SoloEngine:
     gives the engine its own ``AdapterCache``.  LoRA is served for the
     dense family only (an SSM model refuses a bank)."""
 
-    def __init__(self, deployment: ServingDeployment,
-                 router: Optional[Router] = None):
+    def __init__(self, lm=None, params=None, expert_bank=None,
+                 router: Optional[Router] = None, max_seq: int = 96,
+                 deployment: Optional[ServingDeployment] = None,
+                 device=None):
+        if deployment is None:
+            deployment = ServingDeployment(lm, params,
+                                           expert_bank=expert_bank,
+                                           max_seq=max_seq, device=device)
+        else:
+            _reject_deployment_args(lm=(lm, None), params=(params, None),
+                                    expert_bank=(expert_bank, None),
+                                    max_seq=(max_seq, 96),
+                                    device=(device, None))
         self.dep = deployment
         self.lm, self.params = deployment.slm, deployment.slm_params
         self.bank, self.router = deployment.bank, router

@@ -4,8 +4,9 @@
 One macro step decodes K tokens for every row of a lane with one host
 sync.  Each iteration runs the per-token step on the device: the
 Sec. IV-D arrived mask (``cloud_arrival_mask``), the Eq. 14-15 fusion
-through K1 (the SLM softmax on the edge lane), the greedy argmax, the
-EOS and ``max_new`` done masks, the parking of rows that just finished
+through K1 (the SLM softmax on the edge lane), the next-token epilogue
+(the greedy argmax, or per row the argmax or the keyed draw through K7),
+the EOS and ``max_new`` done masks, the parking of rows that just finished
 (pos = FREED_POS before the decode, so their caches never see the dummy
 token), the SLM decode (K2, and K4/K5 on the lane's gates) and the LLM
 decode (K2), the keep mask that holds a finished row's pending logits,
@@ -18,11 +19,17 @@ lane's caches to it.  Here every update is in place on the lane's own
 tensors (caches, positions, pending logits) and on static buffers
 (``steps``, ``done``, the traces), so the addresses never change: on a
 CUDA device the K iterations are captured once into a CUDA graph and
-replayed at every dispatch; on the CPU they run eagerly.  Nothing inside
-the step copies from the host: the weather, the budgets and the slot ids
-are uploaded from pinned memory before the replay, and the decode gets a
-view of each lane cache without its host mirror ``pos_host``, which the
-lane rebuilds from the traces at collect.
+replayed at every dispatch; on the CPU they run eagerly.  As in the
+reference, whether any row draws is static: a lane holds the greedy
+graph, captured with the macro step, and the sampled graph, captured at
+the first dispatch with a live sampled row and replayed whenever one is
+live; the second graph shares the first's memory pool (the two run on
+one stream, never at once, and neither keeps a tensor of the pool alive
+between replays).  Nothing inside the step copies from the host: the
+weather, the budgets, the sampling key ids and greedy flags and the slot
+ids are uploaded from pinned memory before the replay, and the decode
+gets a view of each lane cache without its host mirror ``pos_host``,
+which the lane rebuilds from the traces at collect.
 
 A kernel wrapper counts a launch when its Python runs, which in a graph
 is once, at capture: the counts made while capturing (``launches``,
@@ -38,7 +45,7 @@ table it reads is the lane's own tensor, updated in place.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -46,6 +53,7 @@ from repro_torch import to_device
 from repro_torch.data import tokenizer as TOK
 from repro_torch.kernels.logit_fusion import ops as OPS
 from repro_torch.kernels.logit_fusion.kernel import fuse_logits
+from repro_torch.kernels.logit_fusion.sample import sample_fused
 from repro_torch.kernels.moe_lora.kernel import (moe_lora_delta,
                                                  moe_lora_delta_slots)
 from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
@@ -54,22 +62,24 @@ from repro_torch.models.attention import FREED_POS
 # every (wrapper, counter) a macro step can advance, which replays add to
 COUNTED = ((fuse_logits, "launches"), (paged_decode_attention, "launches"),
            (paged_decode_attention, "ring_launches"),
-           (moe_lora_delta, "launches"), (moe_lora_delta_slots, "launches"))
+           (moe_lora_delta, "launches"), (moe_lora_delta_slots, "launches"),
+           (sample_fused, "launches"))
 
 
 class LaneMacro:
     """The K-step body of one lane and its static buffers.
 
     ``load`` fills the step's inputs (the (K, B) arrived-in-time weather,
-    each row's steps so far, budget and done flag, and the K4 slot ids
-    when the lane decodes through per-row slots); ``run`` decodes K
-    tokens; ``traces`` then holds (3, K, B) float64 rows of the selected
-    token, the fusion weight (cloud lane) and the active mask.  On CUDA
-    the body is captured here, at construction: one iteration runs first
-    on a side stream with every row parked (the warm-up that
-    ``torch.cuda.graphs`` asks for, which changes no lane state: parked
-    rows write to the sink page and keep their logits), then the K
-    iterations are captured."""
+    each row's steps so far, budget, done flag, sampling key id and
+    greedy flag, and the K4 slot ids when the lane decodes through
+    per-row slots); ``run(sample)`` decodes K tokens; ``traces`` then
+    holds (3, K, B) float64 rows of the selected token, the fusion weight
+    (cloud lane) and the active mask.  On CUDA the greedy body is
+    captured here, at construction, and the sampled one by ``prepare``
+    at its first use, before ``load``: one iteration runs first on a side
+    stream with every row parked (the warm-up that ``torch.cuda.graphs``
+    asks for, which changes no lane state: parked rows write to the sink
+    page and keep their logits), then the K iterations are captured."""
 
     def __init__(self, lane, k: int, slot_ids: bool):
         dep = lane.eng.dep
@@ -79,6 +89,8 @@ class LaneMacro:
         self.steps = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.max_new = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.done = torch.ones((b,), dtype=torch.bool, device=dev)
+        self.key_ids = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.greedy = torch.ones((b,), dtype=torch.bool, device=dev)
         self.traces = torch.zeros((3, k, b), dtype=torch.float64,
                                   device=dev)
         self.slot_ids = (torch.full((b,), -1, dtype=torch.int32, device=dev)
@@ -86,23 +98,35 @@ class LaneMacro:
         self.gates = self.slot_ids if slot_ids else lane.gates
         self.caches = [{n: t for n, t in c.items() if n != "pos_host"}
                        for c in (lane.s_cache, lane.l_cache) if c is not None]
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        # (wrapper, counter) -> its advance per replay
-        self.captured: Dict = {}
+        # sample flag -> its graph, and (wrapper, counter) -> its advance
+        # per replay of that graph
+        self.graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
+        self.captured: Dict[bool, Dict] = {}
         self.replays = 0
+        self.sample_replays = 0
         self.capture_s = 0.0
+        self.sample_capture_s = 0.0
         # parked (iteration, row) pairs and idle iterations, from traces
         self.parked_rows = 0
         self.idle_iters = 0
-        if dev.type == "cuda":
-            self._capture()
+        self.on_cuda = dev.type == "cuda"
+        self.prepare(False)
 
-    def load(self, ok, steps, max_new, done, slots) -> None:
+    @torch.inference_mode()
+    def prepare(self, sample: bool) -> None:
+        """Capture the ``sample`` graph on CUDA if the lane has none yet;
+        capturing parks every row, so it precedes ``load``."""
+        if self.on_cuda and sample not in self.graphs:
+            self._capture(sample)
+
+    def load(self, ok, steps, max_new, done, slots, key_ids,
+             greedy) -> None:
         """The step's inputs from host arrays, uploaded without blocking
         the host (``to_device``); the edge lane (``ok`` None) reads no
         weather and a lane without slot ids no ``slots``."""
         pairs = [(self.steps, steps), (self.max_new, max_new),
-                 (self.done, done)]
+                 (self.done, done), (self.key_ids, key_ids),
+                 (self.greedy, greedy)]
         if ok is not None:
             pairs.append((self.ok, ok))
         if self.slot_ids is not None:
@@ -110,8 +134,9 @@ class LaneMacro:
         for dst, a in pairs:
             dst.copy_(to_device(a, dst.device))
 
-    def body(self, t: int) -> None:
-        """Iteration t: one token for every active row, in place."""
+    def body(self, t: int, sample: bool) -> None:
+        """Iteration t: one token for every active row, in place; with
+        ``sample`` the rows not flagged greedy draw theirs."""
         lane = self.lane
         eng, dep = lane.eng, lane.eng.dep
         active = ~self.done
@@ -121,7 +146,8 @@ class LaneMacro:
             self.traces[1, t] = w
         else:
             probs = dep.softmax_batched(lane.sl)
-        nxt = dep.argmax_batched(probs)
+        nxt = dep.select_sample(probs, self.greedy, self.key_ids,
+                                self.steps, sample)
         done_now = active & ((nxt == TOK.EOS)
                              | (self.steps + 1 >= self.max_new))
         feed = torch.where(active & ~done_now, nxt, 0)[:, None]
@@ -142,23 +168,26 @@ class LaneMacro:
         self.steps += active
         self.done |= done_now
 
-    def run(self) -> None:
-        """Decode K tokens: replay the graph on CUDA, the body K times
-        on the CPU."""
-        if self.graph is None:
+    def run(self, sample: bool = False) -> None:
+        """Decode K tokens: replay the ``sample`` graph on CUDA (after
+        ``prepare``), the body K times on the CPU."""
+        if not self.on_cuda:
             for t in range(self.k):
-                self.body(t)
+                self.body(t, sample)
             return
-        self.graph.replay()
+        self.graphs[sample].replay()
         self.replays += 1
-        for (fn, counter), n in self.captured.items():
+        self.sample_replays += sample
+        for (fn, counter), n in self.captured[sample].items():
             setattr(fn, counter, getattr(fn, counter) + n)
 
-    def per_replay(self, fn, counter: str = "launches") -> int:
-        """How far one replay advances ``fn``'s ``counter``."""
-        return self.captured.get((fn, counter), 0)
+    def per_replay(self, fn, counter: str = "launches",
+                   sample: bool = False) -> int:
+        """How far one replay of the ``sample`` graph advances ``fn``'s
+        ``counter``."""
+        return self.captured.get(sample, {}).get((fn, counter), 0)
 
-    def _capture(self) -> None:
+    def _capture(self, sample: bool) -> None:
         t0 = time.perf_counter()
         saved = [c["pos"].clone() for c in self.caches]
         for c in self.caches:
@@ -167,18 +196,24 @@ class LaneMacro:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            self.body(0)
+            self.body(0, sample)
         torch.cuda.current_stream().wait_stream(side)
         before = {key: getattr(*key) for key in COUNTED}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        first = self.graphs.get(not sample)
+        with torch.cuda.graph(graph, pool=None if first is None
+                              else first.pool()):
             for t in range(self.k):
-                self.body(t)
-        self.captured = {key: getattr(*key) - n for key, n in before.items()
-                         if getattr(*key) != n}
+                self.body(t, sample)
+        self.captured[sample] = {key: getattr(*key) - n
+                                 for key, n in before.items()
+                                 if getattr(*key) != n}
         for (fn, counter), n in before.items():
             setattr(fn, counter, n)
         for c, pos in zip(self.caches, saved):
             c["pos"].copy_(pos)
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        self.graphs[sample] = graph
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        if sample:
+            self.sample_capture_s = dt

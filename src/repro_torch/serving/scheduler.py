@@ -86,17 +86,20 @@ class Scheduler:
         self._next = 0
 
     @classmethod
-    def from_deployment(cls, deployment: ServingDeployment) -> "Scheduler":
-        return cls(HybridEngine(deployment))
+    def from_deployment(cls, deployment: ServingDeployment,
+                        **engine_kw) -> "Scheduler":
+        return cls(HybridEngine(deployment=deployment, **engine_kw))
 
     def submit(self, prompt: str, max_new_tokens: int = 16,
-               greedy: bool = True,
+               greedy: bool = True, seed: Optional[int] = None,
                adapter_id: Optional[Any] = None,
                deadline_ms: Optional[float] = None) -> int:
+        """Queue a request; ``seed`` replaces its rid in the sampling key
+        of a ``greedy=False`` request."""
         rid = self._next
         self._next += 1
         self.queue.append(Request(rid, prompt, max_new_tokens, time.time(),
-                                  greedy, adapter_id=adapter_id,
+                                  greedy, seed, adapter_id=adapter_id,
                                   deadline_ms=deadline_ms))
         return rid
 
@@ -113,7 +116,8 @@ class Scheduler:
             try:
                 text, stats = self.engine.generate(
                     r.prompt, r.max_new_tokens, greedy=r.greedy, rid=r.rid,
-                    adapter_id=r.adapter_id, deadline_ms=r.deadline_ms)
+                    sample_key_id=r.seed, adapter_id=r.adapter_id,
+                    deadline_ms=r.deadline_ms)
             except UnknownAdapter as e:
                 # a hard reject, as the batched scheduler's pop_rejected
                 out.append(Response(
@@ -153,7 +157,7 @@ class ContinuousBatchScheduler:
     def from_deployment(cls, deployment: ServingDeployment,
                         **engine_kw) -> "ContinuousBatchScheduler":
         """Build the continuous-batching engine on a deployment."""
-        return cls(BatchedHybridEngine(deployment, **engine_kw))
+        return cls(BatchedHybridEngine(deployment=deployment, **engine_kw))
 
     def submit(self, prompt: str, max_new_tokens: int = 16,
                greedy: bool = True, seed: Optional[int] = None,

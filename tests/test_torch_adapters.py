@@ -232,9 +232,9 @@ def test_router_gated_sequential_engine_matches_reference(pair):
     jdep, tdep = _deps(pair, expert_bank=bank)
     jeng = JEngine(deployment=jdep,
                    router=_router(JRouter, JMeta, jexpert_embedding))
-    teng = HybridEngine(tdep, router=_router(Router, ExpertMeta,
+    teng = HybridEngine(deployment=tdep, router=_router(Router, ExpertMeta,
                                              expert_embedding))
-    plain = HybridEngine(_deps(pair)[1])
+    plain = HybridEngine(deployment=_deps(pair)[1])
     moved = 0
     for i, (p, n) in enumerate(zip(PROMPTS, BUDGETS)):
         jtext, jst = jeng.generate(p, n, rid=i)
@@ -253,7 +253,8 @@ def test_mixed_adapter_batch_matches_reference_and_solo(pair,
     kw = dict(batch_size=4, edge_batch_size=2, macro_k=0)
     jeng = JBatched(deployment=jdep, paged=True,
                     use_slot_kernel=use_slot_kernel, **kw)
-    teng = BatchedHybridEngine(tdep, use_slot_kernel=use_slot_kernel, **kw)
+    teng = BatchedHybridEngine(deployment=tdep,
+                               use_slot_kernel=use_slot_kernel, **kw)
     _register(jeng, teng, adapters)
     jsched, tsched = JCBS(jeng), ContinuousBatchScheduler(teng)
     for p, n, aid in zip(PROMPTS, BUDGETS, AID_OF):
@@ -266,9 +267,9 @@ def test_mixed_adapter_batch_matches_reference_and_solo(pair,
         _same_stats(a.stats, b.stats)
     assert teng.adapter_stats() == jeng.adapter_stats()
     assert teng.adapter_stats()["pinned"] == 0
-    solo = HybridEngine(tdep)
+    solo = HybridEngine(deployment=tdep)
     _register(None, solo, adapters)
-    plain = HybridEngine(_deps(pair)[1])
+    plain = HybridEngine(deployment=_deps(pair)[1])
     moved = 0
     for r, p, n, aid in zip(tres, PROMPTS, BUDGETS, AID_OF):
         text, st = solo.generate(p, n, rid=r.rid, adapter_id=aid)
@@ -285,7 +286,7 @@ def test_oversubscribed_adapters_match_reference_stats(pair):
     jdep, tdep = _deps(pair, adapter_slots=2)
     kw = dict(batch_size=4, edge_batch_size=1, macro_k=0)
     jeng = JBatched(deployment=jdep, paged=True, **kw)
-    teng = BatchedHybridEngine(tdep, **kw)
+    teng = BatchedHybridEngine(deployment=tdep, **kw)
     _register(jeng, teng, adapters)
     jsched, tsched = JCBS(jeng), ContinuousBatchScheduler(teng)
     for i in range(8):
@@ -303,7 +304,7 @@ def test_oversubscribed_adapters_match_reference_stats(pair):
 def test_unknown_adapter_is_a_hard_reject(pair):
     _, tdep = _deps(pair, adapter_slots=2)
     adapters = _adapters(pair[0][0], ["u0"])
-    eng = BatchedHybridEngine(tdep, batch_size=2, macro_k=0)
+    eng = BatchedHybridEngine(deployment=tdep, batch_size=2, macro_k=0)
     _register(None, eng, adapters)
     sched = ContinuousBatchScheduler(eng)
     good = sched.submit(PROMPTS[0], 4, adapter_id="u0")
@@ -320,7 +321,7 @@ def test_unknown_adapter_is_a_hard_reject(pair):
     assert r.status is ResponseStatus.REJECTED and "nope" in r.error
     with pytest.raises(UnknownAdapter):
         seq.engine.generate(PROMPTS[0], 4, adapter_id="nope")
-    plain = HybridEngine(_deps(pair)[1])
+    plain = HybridEngine(deployment=_deps(pair)[1])
     with pytest.raises(ValueError, match="adapter_slots"):
         plain.generate(PROMPTS[0], 4, adapter_id="u0")
 
@@ -331,13 +332,13 @@ def test_construction_errors(pair):
         [jax.tree.map(jnp.asarray, a) for a in ads.values()]))
     _, tdep = _deps(pair, expert_bank=bank)
     with pytest.raises(ValueError, match="nothing gates it"):
-        HybridEngine(tdep)
+        HybridEngine(deployment=tdep)
     with pytest.raises(ValueError, match="nothing gates it"):
-        BatchedHybridEngine(tdep, macro_k=0)
+        BatchedHybridEngine(deployment=tdep, macro_k=0)
     _, both = _deps(pair, expert_bank=bank, adapter_slots=2)
     router = _router(Router, ExpertMeta, expert_embedding)
     with pytest.raises(ValueError, match="mutually exclusive"):
-        HybridEngine(both, router=router)
+        HybridEngine(deployment=both, router=router)
 
 
 def test_adapters_change_tokens_and_empty_slots_do_not(pair):
@@ -345,9 +346,9 @@ def test_adapters_change_tokens_and_empty_slots_do_not(pair):
     adapter-free stream for some prompt; an adapter-free request on an
     adapter engine (all-zero gate rows) is exactly the plain engine."""
     _, tdep = _deps(pair, adapter_slots=2)
-    solo = HybridEngine(tdep)
+    solo = HybridEngine(deployment=tdep)
     _register(None, solo, _adapters(pair[0][0], ["u0"], scale=2.0))
-    plain = HybridEngine(_deps(pair)[1])
+    plain = HybridEngine(deployment=_deps(pair)[1])
     diff = 0
     for i, p in enumerate(PROMPTS):
         with_ad = solo.generate(p, 6, rid=i, adapter_id="u0")[0]

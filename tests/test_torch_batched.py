@@ -111,7 +111,7 @@ def test_scheduler_matches_reference(pair, batch, lazy):
     _same(jres, tres)
     assert sum(r.stats.private for r in tres) == 2
     assert any(0 < r.stats.fallback_tokens < r.stats.tokens for r in tres)
-    seq = HybridEngine(_dep(pair, JITTER))
+    seq = HybridEngine(deployment=_dep(pair, JITTER))
     for r, p, n in zip(tres, PROMPTS, BUDGETS):
         text, st = seq.generate(p, n, rid=r.rid)
         assert text == r.text and st.latency_ms == r.stats.latency_ms
@@ -159,8 +159,9 @@ def test_freed_rows_parked_not_written(pair):
     parked (pos = FREED_POS, table NO_PAGE) and its old pages are not
     written while the surviving row decodes; re-admission into the
     recycled pages gives the fresh-admit text."""
-    eng = BatchedHybridEngine(_dep(pair, dict(rtt_ms=10, jitter_ms=0)),
-                              batch_size=2, edge_batch_size=1, macro_k=0)
+    eng = BatchedHybridEngine(
+        deployment=_dep(pair, dict(rtt_ms=10, jitter_ms=0)), batch_size=2,
+        edge_batch_size=1, macro_k=0)
     p2 = "sort ascending: 40 12 77 31 ->"
     assert eng.add_request(p2, 4, True, 2)
     ref = {}
@@ -239,8 +240,8 @@ def test_page_gated_admission_refusals(pair):
     lat = dict(rtt_ms=10, jitter_ms=0)
     jeng = JBatched(deployment=_jdep(pair, lat, 48), batch_size=3,
                     macro_k=0, paged=True, pool_pages=2)
-    eng = _shrink(BatchedHybridEngine(_dep(pair, lat, 48), batch_size=3,
-                                      macro_k=0), 2, 2)
+    eng = _shrink(BatchedHybridEngine(deployment=_dep(pair, lat, 48),
+                                      batch_size=3, macro_k=0), 2, 2)
     geo = eng.dep.paged_geometry(eng.slm)["page_bytes_full"] + \
         eng.dep.paged_geometry(eng.llm)["page_bytes_full"]
     a, c, big = "list three colors", "hi", "what time is it now"
@@ -283,8 +284,8 @@ def test_hard_reject_names_offending_model(pair):
             (dict(llm_pool_pages=2), (None, 2), "llm")):
         jeng = JBatched(deployment=_jdep(pair, lat, 48), batch_size=3,
                         macro_k=0, paged=True, **kw)
-        eng = _shrink(BatchedHybridEngine(_dep(pair, lat, 48), batch_size=3,
-                                          macro_k=0), *shrink)
+        eng = _shrink(BatchedHybridEngine(deployment=_dep(pair, lat, 48),
+                                          batch_size=3, macro_k=0), *shrink)
         reasons = []
         for e in (jeng, eng):
             assert not e.add_request("what time is it now", 40, True, 11)
@@ -311,9 +312,9 @@ def test_unported_options_raise(pair):
                dict(macro_k=0, local_pool_pages=4),
                dict(macro_k=0, chunk_width=48)):
         with pytest.raises(NotImplementedError, match="later slice"):
-            BatchedHybridEngine(dep, **kw)
-    eng = BatchedHybridEngine(dep, batch_size=2, macro_k=0)
-    for req in (("hi", 2, False, 0), ("hi", 2, True, 0, None, "pre "),
+            BatchedHybridEngine(deployment=dep, **kw)
+    eng = BatchedHybridEngine(deployment=dep, batch_size=2, macro_k=0)
+    for req in (("hi", 2, True, 0, None, "pre "),
                 ("hi", 2, True, 0, None, None, None, 50.0)):
         with pytest.raises(NotImplementedError, match="later slice"):
             eng.add_requests([req])
@@ -324,6 +325,12 @@ def test_unported_options_raise(pair):
     (rid, why), = eng.pop_rejected()
     assert rid == 7 and "adapter_slots" in why
     assert eng.active_count() == 0
+    # keyed sampling is ported: a sampled request is served
+    assert eng.add_requests([("hi", 2, False, 0)]) == [True]
+    done = []
+    while eng.active_count():
+        done += eng.step()
+    assert [st.tokens for _, _, st in done] == [2]
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         ServingDeployment(pair[1][0], pair[1][1], max_seq=48, max_ctx=96,
                           device="cpu")

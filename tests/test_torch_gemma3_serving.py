@@ -267,7 +267,8 @@ def reference(pair):
 
 def test_sequential_engine_matches_reference(pair, reference):
     _, dep = _deps(pair)
-    res = _submit(Scheduler(HybridEngine(dep)), PROMPTS[:5], BUDGETS[:5])
+    res = _submit(Scheduler(HybridEngine(deployment=dep)), PROMPTS[:5],
+                  BUDGETS[:5])
     _same(reference["seq"], res)
     assert sum(r.stats.private for r in res) == 2
     assert any(0 < r.stats.fallback_tokens < r.stats.tokens for r in res)
@@ -285,7 +286,7 @@ def test_batched_engine_matches_reference(pair, reference, k):
     res = _submit(sched)
     _same(reference[k if k in reference else 0], res)
     if k == 0:               # and so, through the reference, every K
-        seq = HybridEngine(dep)
+        seq = HybridEngine(deployment=dep)
         for r, p, n in zip(res, PROMPTS, BUDGETS):
             text, st = seq.generate(p, n, rid=r.rid)
             assert text == r.text and st.latency_ms == r.stats.latency_ms
@@ -305,7 +306,7 @@ def test_lazy_growth_with_fixed_local_rings(pair):
     _, dep = _deps(pair)
     eager = _submit(ContinuousBatchScheduler.from_deployment(
         dep, macro_k=0, lazy_pages=False, **LANES))
-    eng = BatchedHybridEngine(dep, macro_k=0, **LANES)
+    eng = BatchedHybridEngine(deployment=dep, macro_k=0, **LANES)
     flags = eng.add_requests([(p, n, True, i) for i, (p, n) in
                               enumerate(zip(PROMPTS, BUDGETS))])
     assert sum(flags) == 6
@@ -390,7 +391,7 @@ def test_macro_lane_tensors_keep_their_addresses(pair):
     keep their storage across macros and admissions (on the card, the
     graph reads and writes these addresses)."""
     _, dep = _deps(pair)
-    eng = BatchedHybridEngine(dep, macro_k=3, **LANES)
+    eng = BatchedHybridEngine(deployment=dep, macro_k=3, **LANES)
     reqs = [(p, n, True, i) for i, (p, n) in
             enumerate(zip(PROMPTS, BUDGETS))]
     flags = eng.add_requests(reqs)

@@ -25,12 +25,16 @@ to K4's output bit for bit.  K6: y per (batch, position) row,
 max|out - ref| / max|ref| over d_inner, 2**-7 in bf16 (the kernel and
 the plain version round their f32 y to bf16 separately, one ulp at
 most) and 1e-5 in f32; h_final 1e-5 of its max (f32 recurrences whose
-updates round once more in the plain version)."""
+updates round once more in the plain version).  K7: ids and perturbed
+scores equal to the plain version's bit for bit (the kernel computes
+the plain version's integer and float steps, each rounded the same
+way)."""
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as K3
 from repro_torch.kernels.logit_fusion import kernel as K1
+from repro_torch.kernels.logit_fusion import sample as K7
 from repro_torch.kernels.moe_lora import kernel as KL
 from repro_torch.kernels.paged_attention import kernel as K2
 from repro_torch.kernels.ssm_scan import kernel as K6
@@ -614,6 +618,60 @@ def test_ssm_scan_raises_instead_of_falling_back(cuda):
         K6.ssm_scan(dt, x, gappy, cm, a)
 
 
+def k7_case(cuda, b, v, seed):
+    """Probabilities with near-flat rows (softmax of 0.1 randn) and
+    peaked ones (softmax of 8 randn), key ids past int32's range and
+    negative, and a greedy mask mixing both kinds of row."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    scale = torch.tensor([0.1, 8.0] * b, device=cuda)[:b, None]
+    probs = torch.softmax(scale * torch.randn(b, v, device=cuda,
+                                              generator=g), -1)
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (b,), device=cuda,
+                         generator=g, dtype=torch.int64).to(torch.int32)
+    steps = torch.randint(0, 4096, (b,), device=cuda, generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    greedy = torch.tensor([False, False, True] * b, device=cuda)[:b]
+    return probs, greedy, keys, steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("v", [512, 256_000])
+def test_sample_fused_matches_plain(cuda, b, v):
+    """K7's ids and scores equal the plain version's bit for bit, with
+    and without a greedy mask, for a seed past 2**32 too; two calls give
+    the same bits, one launch each."""
+    probs, greedy, keys, steps = k7_case(cuda, b, v, b * v)
+    for seed, mask in ((0, None), (7, greedy), (2 ** 32 + 9, greedy)):
+        before = K7.sample_fused.launches
+        ids, sc = K7.sample_fused(probs, mask, keys, steps, seed,
+                                  scores=True)
+        again = K7.sample_fused(probs, mask, keys, steps, seed)
+        torch.cuda.synchronize()
+        assert K7.sample_fused.launches == before + 2
+        assert ids.dtype == torch.int64 and torch.equal(ids, again)
+        ref_ids, ref_sc = K7.sample_fused_plain(probs, mask, keys, steps,
+                                                seed, scores=True)
+        assert torch.equal(ids, ref_ids)
+        assert torch.equal(sc.view(torch.int32), ref_sc.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_sample_fused_raises_instead_of_falling_back(cuda):
+    probs, greedy, keys, steps = k7_case(cuda, 2, 512, 0)
+    with pytest.raises(ValueError):                      # bf16 probs
+        K7.sample_fused(probs.bfloat16(), greedy, keys, steps, 0)
+    with pytest.raises(ValueError):                      # strided probs
+        K7.sample_fused(probs[:, ::2], greedy, keys, steps, 0)
+    with pytest.raises(TypeError):                       # float key ids
+        K7.sample_fused(probs, greedy, keys.float(), steps, 0)
+    with pytest.raises(ValueError):                      # host steps
+        K7.sample_fused(probs, greedy, keys, steps.cpu(), 0)
+    with pytest.raises(ValueError):                      # (B+1,) greedy
+        K7.sample_fused(probs, torch.ones(3, dtype=torch.bool,
+                                          device=cuda), keys, steps, 0)
+
+
 MACRO_PROMPTS = [
     "math: compute 12 plus 7 =",
     "my ssn is 123-45-6789, fill the benefits form",       # private
@@ -645,7 +703,18 @@ def test_macro_graph_replay_equals_eager_body_gemma3(cuda):
     macro_graph_vs_eager(cuda, "gemma3")
 
 
-def macro_graph_vs_eager(cuda, pair):
+@pytest.mark.gpu
+def test_sampled_macro_graph_replay_equals_eager_body(cuda):
+    """The same with odd requests sampled (seeds 2000 + i): the cloud
+    lane replays its sampled graph while a sampled row is live and its
+    greedy graph after, the edge lane only its sampled one; both sides
+    draw the same ids through K7 and count the same launches, and the
+    lane's tensors, the sampling key ids and greedy flags included, keep
+    their addresses across greedy and sampled replays."""
+    macro_graph_vs_eager(cuda, "2b", sampled=True)
+
+
+def macro_graph_vs_eager(cuda, pair, sampled=False):
     import dataclasses
 
     from repro_torch.configs.floe_pair import needs_ring_cache, pair_configs
@@ -666,10 +735,10 @@ def macro_graph_vs_eager(cuda, pair):
                              cloud_compute_ms=20, seed=7),
         max_seq=96, device=cuda)
     k = 4
-    graph, eager = (BatchedHybridEngine(dep, batch_size=4,
+    graph, eager = (BatchedHybridEngine(deployment=dep, batch_size=4,
                                         edge_batch_size=2, macro_k=k)
                     for _ in range(2))
-    reqs = [(p, n, True, i)
+    reqs = [(p, n, not (sampled and i % 2), i, 2000 + i)
             for i, (p, n) in enumerate(zip(MACRO_PROMPTS, MACRO_BUDGETS))]
     for eng in (graph, eager):
         assert eng.add_requests(reqs) == [True] * len(reqs)
@@ -678,9 +747,11 @@ def macro_graph_vs_eager(cuda, pair):
     for g, e in lanes:
         # build (and capture) both sides before counting: the warm-up
         # iteration of a capture launches kernels of its own
-        g.macro(k)
+        g.macro(k).prepare(sampled)
         m = e.macro(k)
-        m.run = lambda m=m: [m.body(t) for t in range(m.k)]
+        m.prepare(sampled)
+        m.run = lambda sample=False, m=m: [m.body(t, sample)
+                                           for t in range(m.k)]
     layers = {True: scfg.num_layers + lcfg.num_layers,
               False: scfg.num_layers}
 
@@ -688,7 +759,7 @@ def macro_graph_vs_eager(cuda, pair):
         return [t.data_ptr() for lane, _ in lanes
                 for m in (lane._macro,)
                 for t in (m.ok, m.steps, m.max_new, m.done, m.traces,
-                          lane.sl, lane.s_cache["pos"],
+                          m.key_ids, m.greedy, lane.sl, lane.s_cache["pos"],
                           lane.s_cache["block"],
                           lane.s_cache.get("local", lane.sl))]
 
@@ -700,9 +771,11 @@ def macro_graph_vs_eager(cuda, pair):
         got = []
         for eng in (graph, eager):
             K2.paged_decode_attention.launches = 0
+            K7.sample_fused.launches = 0
             out = eng.step()
             torch.cuda.synchronize()
-            got.append((out, K2.paged_decode_attention.launches))
+            got.append((out, K2.paged_decode_attention.launches,
+                        K7.sample_fused.launches))
         assert got[0] == got[1] and got[0][1] == want
         ptrs = ptrs or buffers()
         assert buffers() == ptrs
@@ -715,3 +788,11 @@ def macro_graph_vs_eager(cuda, pair):
     st = graph.macro_stats()
     assert st["macros"] == 2 and st["replays"] >= 3
     assert eager.macro_stats()["replays"] == 0
+    if sampled:
+        cloud = graph.cloud_lane._macro
+        assert set(cloud.graphs) == {False, True}
+        assert 0 < cloud.sample_replays < cloud.replays
+        assert graph.edge_lane._macro.sample_replays \
+            == graph.edge_lane._macro.replays
+        assert cloud.per_replay(K7.sample_fused, sample=True) == k
+        assert cloud.per_replay(K7.sample_fused) == 0

@@ -69,9 +69,46 @@ def test_entry_points_raise_without_a_card():
         serve.main(["--local", "--batch", "4", "--macro-k", "0"])
 
 
+def test_engine_keyword_form_raises_without_a_card():
+    """The engines' keyword form builds its deployment on CUDA unless
+    the caller asks for the CPU."""
+    from repro_torch.serving.engine import (BatchedHybridEngine,
+                                            HybridEngine, SoloEngine)
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the entry points run on it")
+    scfg, lcfg = pair_configs("2b")
+    slm, llm = LM(scfg, device="cpu"), LM(lcfg, device="cpu")
+    sp, lp = slm.init(0), llm.init(1)
+    mlp = FUS.init_alignment(2, scfg.vocab_size, device="cpu")
+    for build in (lambda: HybridEngine(slm, sp, llm, lp, mlp),
+                  lambda: BatchedHybridEngine(slm, sp, llm, lp, mlp),
+                  lambda: SoloEngine(slm, sp)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
+def test_serve_sample_on_cpu(capsys):
+    """``--sample --sample-seed 3`` serves the demo prompts by keyed
+    sampling: the sequential engine, the batched engine at K = 8 and its
+    per-token step at K = 0 print the same per-request lines (queue
+    waits aside: the keys are the rids in every path)."""
+    import re
+
+    def lines(argv):
+        res = serve.main(["--local", "--device", "cpu", "--sample"] + argv)
+        assert all(r.stats.tokens for r in res)
+        out = capsys.readouterr().out
+        return [re.sub(r" wait=\d+ms", "", ln) for ln in out.splitlines()
+                if ln.startswith("[")]
+    seq = lines(["--sample-seed", "3"])
+    assert len(seq) == 4
+    assert lines(["--sample-seed", "3", "--batch", "4"]) == seq
+    assert lines(["--sample-seed", "3", "--batch", "4", "--macro-k",
+                  "0"]) == seq
+
+
 def test_serve_refuses_later_slice_flags(capsys):
     for argv in (["--local", "--spec-k", "4"],
-                 ["--local", "--sample"],
                  ["--local", "--batch", "4", "--macro-k", "0", "--dense"],
                  ["--local", "--batch", "4", "--macro-k", "0",
                   "--pool-pages", "8"],

@@ -111,7 +111,7 @@ def _serve(pair, macro_k, lora=None, use_slot_kernel=False):
                                    sorted(DOMAINS.items()))])
     else:
         dep = _dep(pair)
-    eng = BatchedHybridEngine(dep, macro_k=macro_k,
+    eng = BatchedHybridEngine(deployment=dep, macro_k=macro_k,
                               use_slot_kernel=use_slot_kernel, **LANES,
                               **kw)
     if lora == "adapters":
@@ -183,10 +183,10 @@ def test_macro_with_lora_equals_per_token_path(pair, per_token, lora,
 
 
 def test_default_engine_is_the_macro_step(pair):
-    eng = BatchedHybridEngine(_dep(pair))
+    eng = BatchedHybridEngine(deployment=_dep(pair))
     assert eng.macro_k == 8
     with pytest.raises(ValueError, match="macro_k"):
-        BatchedHybridEngine(_dep(pair), macro_k=-1)
+        BatchedHybridEngine(deployment=_dep(pair), macro_k=-1)
 
 
 def test_dispatch_discipline(pair, monkeypatch):
@@ -195,7 +195,7 @@ def test_dispatch_discipline(pair, monkeypatch):
     dispatch, and no per-token step; the per-token path's entry points
     run only inside the body."""
     k, n_tok = 4, 8
-    eng = BatchedHybridEngine(_dep(pair), macro_k=k, **LANES)
+    eng = BatchedHybridEngine(deployment=_dep(pair), macro_k=k, **LANES)
     counts = dict(fetch=0, body=0, step=0)
 
     def count(name, fn):
@@ -252,8 +252,8 @@ def test_lane_tensors_keep_their_addresses(pair):
     pending logits, gate rows and the step's static buffers keep their
     storage across macros and admissions (on the card, the graph reads
     and writes these addresses)."""
-    eng = BatchedHybridEngine(_dep(pair, adapter_slots=3), macro_k=3,
-                              **LANES)
+    eng = BatchedHybridEngine(deployment=_dep(pair, adapter_slots=3),
+                              macro_k=3, **LANES)
     for name, ad in zip(("u0", "u1", "u2"), _adapters(eng.dep.slm,
                                                       range(3))):
         eng.adapters.register(name, ad)
@@ -277,7 +277,7 @@ def test_host_positions_follow_the_device(pair):
     """After every collect the host mirror of each lane cache equals the
     device positions, including rows admitted while a macro step was in
     flight (those start decoding at the next dispatch)."""
-    eng = BatchedHybridEngine(_dep(pair), macro_k=3, batch_size=4,
+    eng = BatchedHybridEngine(deployment=_dep(pair), macro_k=3, batch_size=4,
                               edge_batch_size=3)
     eng.add_requests([(PROMPTS[0], 5, True, 0), (PROMPTS[1], 4, True, 1)])
     admitted_in_flight = 0

@@ -9,6 +9,7 @@ network, scheduler summary."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import fusion as JFUS
 from repro.serving.deployment import ServingDeployment as JDep
@@ -44,7 +45,7 @@ def _engines(pair, **lat):
     jeng = JEngine(deployment=JDep(
         jslm, sp, jllm, lp, mlp, latency=JLat(**lat) if lat else None,
         max_seq=MAX_SEQ))
-    teng = HybridEngine(ServingDeployment(
+    teng = HybridEngine(deployment=ServingDeployment(
         slm, tsp, llm, tlp, tmlp, latency=LatencyModel(**lat) if lat else None,
         max_seq=MAX_SEQ, device="cpu"))
     return jeng, teng
@@ -135,3 +136,107 @@ def test_deadline_cancels_like_reference(pair):
     assert st.cancelled and jst.cancelled and st.tokens < 8
     assert text == jtext
     _same(jst, st)
+
+
+# ------------------------------------------------- the engines' keyword form
+
+
+class _AllPrivate:
+    """A detector that holds every prompt on the device."""
+
+    @staticmethod
+    def detect(prompt):
+        return True
+
+
+def test_keyword_form_equals_deployment_form(pair):
+    """The reference's keyword form builds the deployment the engine
+    would otherwise be given: the same greedy and sampled tokens, stats
+    and sampling seed, for all three engines."""
+    from repro_torch.serving.engine import BatchedHybridEngine, SoloEngine
+    _, (slm, tsp, llm, tlp, tmlp) = pair
+    kw = dict(latency=LatencyModel(rtt_ms=160, jitter_ms=40.0, seed=7),
+              max_seq=MAX_SEQ, sample_seed=5)
+    by_kw = HybridEngine(slm, tsp, llm, tlp, tmlp, device="cpu", **kw)
+    by_dep = HybridEngine(deployment=ServingDeployment(
+        slm, tsp, llm, tlp, tmlp, device="cpu", **kw))
+    assert by_kw.sample_seed == by_kw.dep.sample_seed == 5
+    assert by_kw.dep.device == torch.device("cpu")
+    for greedy in (True, False):
+        a = by_kw.generate("translate to french: water ->", 6,
+                           greedy=greedy, rid=3)
+        b = by_dep.generate("translate to french: water ->", 6,
+                            greedy=greedy, rid=3)
+        assert a[0] == b[0]
+        _same(a[1], b[1])
+    batched = [BatchedHybridEngine(slm, tsp, llm, tlp, tmlp, batch_size=2,
+                                   macro_k=0, device="cpu", **kw),
+               BatchedHybridEngine(deployment=by_dep.dep, batch_size=2,
+                                   macro_k=0)]
+    outs = []
+    for eng in batched:
+        assert eng.add_requests([("list three colors", 5, False, 0, 9),
+                                 ("explain rain", 5, True, 1)]) == [True] * 2
+        done = []
+        while eng.active_count():
+            done += eng.step()
+        outs.append(sorted((rid, text, st.tokens) for rid, text, st in done))
+    assert outs[0] == outs[1]
+    solo = [SoloEngine(slm, tsp, max_seq=MAX_SEQ, device="cpu"),
+            SoloEngine(deployment=ServingDeployment(slm, tsp,
+                                                    max_seq=MAX_SEQ,
+                                                    device="cpu"))]
+    assert len({s.generate("list three colors", 5) for s in solo}) == 1
+
+
+@pytest.mark.parametrize("clash", [
+    dict(max_seq=48), dict(timeout_ms=100.0), dict(sample_seed=1),
+    dict(latency="lat"), dict(slm="slm", llm_params="lp"),
+    dict(alignment_mlp="mlp", expert_bank="bank")])
+def test_reject_deployment_args(pair, clash):
+    """Deployment-level arguments beside ``deployment=`` raise, naming
+    them, as the reference's ``_reject_deployment_args`` does (the
+    reference's cases; the port's ``device=`` too)."""
+    from repro.serving.engine import BatchedHybridEngine as JBatched
+    from repro.serving.engine import SoloEngine as JSolo
+    from repro_torch.serving.engine import BatchedHybridEngine, SoloEngine
+    jeng, teng = _engines(pair)
+    args = {k: (JLat() if v == "lat" else v) for k, v in clash.items()}
+    targs = {k: (LatencyModel() if v == "lat" else v)
+             for k, v in clash.items()}
+    for jcls, tcls in ((JEngine, HybridEngine),
+                       (JBatched, BatchedHybridEngine)):
+        with pytest.raises(ValueError) as jerr:
+            jcls(deployment=jeng.dep, **args)
+        with pytest.raises(ValueError) as terr:
+            tcls(deployment=teng.dep, **targs)
+        assert str(terr.value) == str(jerr.value)
+        with pytest.raises(ValueError, match=r"\['device'\]"):
+            tcls(deployment=teng.dep, device="cpu")
+    solo = {k: v for k, v in targs.items() if k == "max_seq"}
+    if solo:
+        with pytest.raises(ValueError) as jerr:
+            JSolo(deployment=jeng.dep, **solo)
+        with pytest.raises(ValueError) as terr:
+            SoloEngine(deployment=teng.dep, **solo)
+        assert str(terr.value) == str(jerr.value)
+
+
+def test_detector_is_honoured(pair):
+    """``detector=`` replaces the privacy detector: a detector that holds
+    every prompt private keeps each request off the cloud, in the
+    sequential and the batched engine."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+    _, teng = _engines(pair)
+    prompt = "translate to french: water ->"
+    assert not teng.detector.detect(prompt)
+    eng = HybridEngine(deployment=teng.dep, detector=_AllPrivate())
+    _, st = eng.generate(prompt, 4, rid=0)
+    assert st.private and st.cloud_tokens == 0 and st.cloud_calls == 0
+    bat = BatchedHybridEngine(deployment=teng.dep, detector=_AllPrivate(),
+                              batch_size=2, macro_k=0)
+    assert bat.add_requests([(prompt, 4, True, 0)]) == [True]
+    assert bat.edge_lane.active == 1 and bat.cloud_lane.active == 0
+    while bat.active_count():
+        for _, _, st in bat.step():
+            assert st.private and st.cloud_tokens == 0

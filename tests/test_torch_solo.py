@@ -138,20 +138,20 @@ def test_solo_router_matches_reference():
     jeng = JSolo(deployment=JDep(jlm, jp, max_seq=96,
                                  expert_bank=jax.tree.map(jnp.asarray, bank)),
                  router=jr)
-    teng = SoloEngine(ServingDeployment(lm, tp, max_seq=96,
+    teng = SoloEngine(deployment=ServingDeployment(lm, tp, max_seq=96,
                                         expert_bank=bridge.from_numpy(bank),
                                         device="cpu"), router=tr)
     for p in PROMPTS[:3]:
         assert teng.generate(p, 6) == jeng.generate(p, 6)
     with pytest.raises(ValueError, match="nothing gates it"):
-        SoloEngine(teng.dep)
+        SoloEngine(deployment=teng.dep)
 
 
 def test_solo_ssm_refuses_lora():
     _, _, lm, tp = _model("falcon-mamba-7b", 0)
     with pytest.raises(NotImplementedError, match="later slice"):
-        SoloEngine(ServingDeployment(lm, tp, max_seq=48, adapter_slots=2,
-                                     device="cpu"))
+        SoloEngine(deployment=ServingDeployment(
+            lm, tp, max_seq=48, adapter_slots=2, device="cpu"))
 
 
 def test_solo_ssm_prompt_lengths_follow_the_chunk_rule():
@@ -193,7 +193,7 @@ def test_engine_construction_errors():
     with pytest.raises(NotImplementedError, match="got ssm") as want:
         JBatched(deployment=jdep)
     with pytest.raises(NotImplementedError, match="got ssm") as got:
-        BatchedHybridEngine(tdep)
+        BatchedHybridEngine(deployment=tdep)
     assert str(got.value) == str(want.value)
 
 
@@ -207,4 +207,4 @@ def test_ssm_entry_points_raise_without_a_card():
         LM(cfg)
     lm = LM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        SoloEngine(ServingDeployment(lm, lm.init(0), max_seq=48))
+        SoloEngine(deployment=ServingDeployment(lm, lm.init(0), max_seq=48))
