@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero before the result lines:
               shapes (K2's ring mode and K3's windowed mode also at the
               gemma3 SLM's H 4, KV 1: window 512 on (8, 32) ring-local
               tables, and (8, 4, 1552, 256) bursts windowed and
-              causal), timed with CUDA events beside its bound and a
+              causal; K2's full-length window mode, window 512 over (8,
+              128) block tables, rows below, at and past the window and
+              all past it), timed with CUDA events beside its bound and a
               library call where one exists (K1, K2, K6, and K4/K5 at
               T = 8, also replayed from a CUDA graph, without the host's
               dispatch; K6 also beside its exponentials' floor);
@@ -123,7 +125,25 @@ Phases, in order; any failure exits non-zero before the result lines:
               gather); serve_batched's 20 requests at macro_k 0 and 8
               (K2 once per decode layer-step, in ring mode on the local
               layers; K = 8 equal to K = 0 where the admission groups
-              match); one profiled K = 8 boundary.
+              match); one profiled K = 8 boundary; the 20 requests on
+              dense lanes at K = 8, equal to the paged run bit for bit;
+              then the SLM built without rings (full-length local leaves,
+              K2's full-length window mode on them), eight requests at
+              K = 8, token ids equal to the ring engine's;
+  11. serve_dense  serve_batched's 20 requests on the 2b pair's dense
+              lanes (paged=False: stacked rows, read by K2 in place as
+              pages) at macro_k 0 and 8: every response equal to the
+              paged run's at the same K bit for bit; tokens/s, peak
+              memory, lane bytes;
+  12. serve_pool_pressure  serve_batched's prompts at 40 tokens each,
+              macro_k 8 and 0, on default pools and on 110-page pools a
+              lane model (sized by a replay of the page traffic on the
+              CPU):
+              parks, evictions and no forced completion in the timed
+              run; token ids equal to the default pools'; never-evicted
+              requests bit-equal, evicted ones (re-prefilled) with their
+              fusion weights within 1e-5;
+              tokens/s against the default pools'.
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
@@ -165,6 +185,29 @@ K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
 GEMMA3_RING_POSITIONS = [0, 100, 511, 512, 513, 1541, FREED_POS, 2047]
 # the tail of a batched run: a few short live rows among parked ones
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
+# the gemma3 SLM built without rings: K2's window over full-length block
+# tables, every row past its window (the bound's case)
+GEMMA3_PAST_POSITIONS = [600, 777, 1024, 1300, 1541, 1800, 2000, 2047]
+# serve_pool_pressure: serve_batched's prompts, every budget at 40 (with
+# serve_batched's budgets only four rows grow, so no lane can wedge and
+# evict: the 98-page long prompt sets the pool's floor), over pools of
+# POOL_PRESSURE_PAGES pages a lane model against the default 8 x 128.
+# The size was chosen once by replaying this traffic's page bookkeeping
+# on the CPU (the reduced pair at max_seq 2048, 16-slot pages, EOS off):
+# at K 8 and K 0, 98 pages reject the long prompt (a demand of 99), 110
+# park 8 times and evict rids 4 and 9 with no forced completion, 130
+# park 7 times and evict none.  The run on the card asserts parks,
+# evictions and no forced completion.
+POOL_PRESSURE_BUDGET = 40
+POOL_PRESSURE_PAGES = 110
+# An evicted row's next token comes from a K3 prefill of prompt + tokens
+# so far, where the roomy run decoded it through K2: two bf16 attention
+# orders over the same values, card against card.  Each lies within the
+# bf16-against-f32 gap of the f32 weights, which the reduced checks read
+# at 1.3e-6 at most on the card (gemma3 engines; 6.0e-8 on the 2b pair),
+# so the two differ by about twice that; the limit leaves a factor of
+# four.  On evicted rows at full width the gap read 0 in every run.
+EVICTED_W_TOL = 1e-5
 # K4/K5: per row, max|out - ref| / max|ref|: f32 sums of up to 16,384
 # products in another order (read 2.7e-6 at most on the card, at the
 # admission shape with k 16,384; 8.7e-7 at T = 8); rows without an
@@ -218,7 +261,7 @@ SSM_LONG_TOKENS = 1536
 # 16 new tokens (cap = max_seq - 16 - 1)
 SSM_MAX_SEQ = 1568
 # quiet time on each side of a profiled block (see ``profiled``)
-PROFILE_MARGIN_S = 0.02
+PROFILE_MARGIN_S = 0.1
 # serve_sampled: odd requests of serve_batched's traffic draw with seed
 # SAMPLED_SEED + i
 SAMPLED_SEED = 2000
@@ -311,13 +354,15 @@ def bound(nbytes: float, flops: float, flop_rate: float):
                                        else "operations")
 
 
-def paged_case(torch, g, h, kvh, window, positions, n_pool=1024, hd=256):
+def paged_case(torch, g, h, kvh, window, positions, n_pool=1024, hd=256,
+               ring=True):
     """Random bf16 pages and block tables as the allocator builds them: a
-    live plain row maps the pages its position needs (NO_PAGE past
-    that), a ring row a full ring of window / 16 pages, a parked row
-    nothing."""
+    live plain row (or, without ``ring``, a window row) maps the pages
+    its position needs (NO_PAGE past that), a ring row a full ring of
+    window / 16 pages, a parked row nothing."""
     dev, ps, b = torch.device("cuda"), 16, len(positions)
-    nb = window // ps if window else 2048 // ps
+    ring = bool(window) and ring
+    nb = window // ps if ring else 2048 // ps
     q = torch.randn(b, h, hd, device=dev, generator=g).bfloat16()
     pk = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
     pv = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
@@ -325,10 +370,32 @@ def paged_case(torch, g, h, kvh, window, positions, n_pool=1024, hd=256):
     table = torch.full((b, nb), NO_PAGE, dtype=torch.int32)
     for i, p in enumerate(positions):
         if p < FREED_POS:
-            n = window // ps if window else p // ps + 1
+            n = window // ps if ring else p // ps + 1
             table[i, :n] = torch.tensor([free.pop() for _ in range(n)])
     pos = torch.tensor(positions, dtype=torch.int32)
     return q, pk, pv, table.to(dev), pos.to(dev)
+
+
+def k2_pages_read(positions, window, ring):
+    """(pages, slots) K2 reads for these rows: the live pages of each
+    row (a ring's first min(pos + 1, window) slots; a full-length
+    window's pages from that of pos - window + 1 to that of pos) and
+    the live slots among them."""
+    pages = slots = 0
+    for p in positions:
+        if p >= FREED_POS:
+            continue
+        if window and ring:
+            n = min(p + 1, window)
+            pages += -(-n // 16)
+        elif window:
+            n = min(p + 1, window)
+            pages += p // 16 - max(0, p - window + 1) // 16 + 1
+        else:
+            n = p + 1
+            pages += -(-n // 16)
+        slots += n
+    return pages, slots
 
 
 def phase_k2(torch):
@@ -337,53 +404,67 @@ def phase_k2(torch):
     parked), plain and window=512 on a ring-local table, then the batched
     run's tail (K2_TAIL_POSITIONS, half the rows parked), plain; then the
     gemma3 SLM's ring mode (H 4, KV 1, window 512 on (8, 32) ring-local
-    tables, GEMMA3_RING_POSITIONS)."""
+    tables, GEMMA3_RING_POSITIONS); then its full-length window mode,
+    the gemma3 SLM built without rings (window 512 over (8, 128) block
+    tables: GEMMA3_RING_POSITIONS, rows below, at and past the window
+    and one parked, then GEMMA3_PAST_POSITIONS, every row past it)."""
     from repro_torch.kernels.paged_attention import kernel as K2
 
     g = torch.Generator(device="cuda").manual_seed(2)
     cases = []
-    runs = [(m, h, kvh, w, K2_POSITIONS)
+    runs = [(m, h, kvh, w, True, K2_POSITIONS)
             for m, h, kvh in (("slm", 8, 1), ("llm", 16, 16))
             for w in (0, 512)]
-    runs += [(m, h, kvh, 0, K2_TAIL_POSITIONS)
+    runs += [(m, h, kvh, 0, True, K2_TAIL_POSITIONS)
              for m, h, kvh in (("slm", 8, 1), ("llm", 16, 16))]
     # the gemma3 SLM's local layers: H 4, KV 1, (8, 32) ring-local tables
-    runs += [("slm_gemma3", 4, 1, 512, GEMMA3_RING_POSITIONS)]
-    for model, h, kvh, window, positions in runs:
-        args = paged_case(torch, g, h, kvh, window, positions)
-        out = K2.paged_decode_attention(*args, window=window)
-        again = K2.paged_decode_attention(*args, window=window)
+    runs += [("slm_gemma3", 4, 1, 512, True, GEMMA3_RING_POSITIONS)]
+    # ... and without rings: (8, 128) block tables, the window masked
+    runs += [("slm_gemma3_full", 4, 1, 512, False, pos)
+             for pos in (GEMMA3_RING_POSITIONS, GEMMA3_PAST_POSITIONS)]
+    for model, h, kvh, window, ring, positions in runs:
+        args = paged_case(torch, g, h, kvh, window, positions, ring=ring)
+        kw = dict(window=window, ring=ring)
+        before = K2.paged_decode_attention.window_launches
+        out = K2.paged_decode_attention(*args, **kw)
+        again = K2.paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
             raise SystemExit("K2: two calls on the same inputs differ")
-        ref = K2.paged_decode_attention_plain(*args, window=window)
+        if K2.paged_decode_attention.window_launches - before \
+                != 2 * (bool(window) and not ring):
+            raise SystemExit("K2: the window-mode count is wrong")
+        ref = K2.paged_decode_attention_plain(*args, **kw)
         live = [i for i, p in enumerate(positions) if p < FREED_POS]
         parked = [i for i, p in enumerate(positions) if p >= FREED_POS]
         if out[parked].any():
             raise SystemExit("K2 wrote a non-zero parked row")
-        # bytes: each live row's mapped pages of K and V once, q and
-        # the output; ops: 2 * 2 * H * hd per live slot (QK and PV)
-        need = [min(p + 1, window) if window else p + 1
-                for p in positions if p < FREED_POS]
-        pages, slots = sum(-(-n // 16) for n in need), sum(need)
-        nbytes = pages * 16 * kvh * 256 * 2 * 2 + 2 * 8 * h * 256 * 2
-        bms, by = bound(nbytes, 4 * h * 256 * slots, BF16_FLOP_PER_S)
+        # bytes: the live slots of each row, K and V once, q and the
+        # output; ops: 2 * 2 * H * hd per live slot (QK and PV).  The
+        # whole pages the kernel reads give ``page_bound_ms`` beside it
+        pages, slots = k2_pages_read(positions, window, ring)
+        qo = 2 * 8 * h * 256 * 2
+        ops = 4 * h * 256 * slots
+        bms, by = bound(slots * kvh * 256 * 2 * 2 + qo, ops,
+                        BF16_FLOP_PER_S)
+        page_bms, _ = bound(pages * 16 * kvh * 256 * 2 * 2 + qo, ops,
+                            BF16_FLOP_PER_S)
         cases.append(dict(
             shape=dict(model=model, B=8, H=h, KV=kvh, hd=256, ps=16,
                        nb=args[3].shape[1], pool=1024, window=window,
-                       pos=positions),
+                       ring=ring, pos=positions),
             dtype="bfloat16",
             max_abs_err=(out[live].float() - ref[live].float()
                          ).abs().max().item(),
             max_rel_err=row_rel_err(out[live], ref[live]),
             ms=time_ms(torch, lambda: K2.paged_decode_attention(
-                *args, window=window), 100),
+                *args, **kw), 100),
             graph_ms=graph_ms(torch, lambda: K2.paged_decode_attention(
-                *args, window=window)),
+                *args, **kw)),
             plain_ms=time_ms(torch, lambda: K2.paged_decode_attention_plain(
-                *args, window=window), 10),
+                *args, **kw), 10),
             library_ms=None, bound_ms=bms, bound_by=by,
-            live_pages=pages))
+            live_slots=slots, live_pages=pages, page_bound_ms=page_bms))
         print(f"K2 paged_decode_attention: {cases[-1]}")
         del args, out, ref
     bad = [c for c in cases if not c["max_rel_err"] <= K2_ROW_RTOL]
@@ -1579,17 +1660,21 @@ def phase_serve_macro(torch, dep, base, base_groups):
     equal it on every request admitted in the same group (budgets of 16
     and 40 are multiples of 8, so all of them unless a row ends on EOS).
     K2 launches are held to K x decode layers x replays per lane, K1 to
-    K x cloud replays.  Returns ({K: launches}, the K = 8 engine)."""
-    out, eng = {}, None
+    K x cloud replays.  Returns ({K: launches}, the K = 8 engine, its
+    responses)."""
+    out, eng, res = {}, None, {}
     for k in (1, 8):
         # one engine at a time: the last one's lane pools are freed
         # before the next is read
         eng = None
-        out[k], eng = serve_macro_k(torch, dep, k, base, base_groups)
-    return out, eng
+        out[k], eng, res[k] = serve_macro_k(torch, dep, k, base,
+                                            base_groups)
+    return out, eng, res[8]
 
 
 def serve_macro_k(torch, dep, k, base, base_groups):
+    """One engine at macro_k ``k`` (see ``phase_serve_macro``): returns
+    (launches, engine, responses)."""
     from repro_torch.kernels.paged_attention import kernel as K2
     from repro_torch.serving.engine import BatchedHybridEngine
 
@@ -1639,7 +1724,194 @@ def serve_macro_k(torch, dep, k, base, base_groups):
     if bad:
         raise SystemExit(f"{tag}: requests {bad} admitted in the same "
                          "group differ from the per-token run")
-    return launches, eng
+    return launches, eng, res
+
+
+def check_k2_launches(tag, eng, launches, replays, calls=None):
+    """K2 once per decode layer-step of the run: K x decode layers x
+    replays per lane on the macro path, the counted decode dispatches
+    x layers on the per-token path."""
+    from repro_torch.kernels.paged_attention import kernel as K2
+    lanes = (eng.cloud_lane, eng.edge_lane)
+    k = eng.macro_k
+    if k:
+        graphs = [lane._macro.per_replay(K2.paged_decode_attention)
+                  for lane in lanes if lane._macro is not None]
+        want = sum(k * n * lane_layers(lane)
+                   for n, lane in zip(replays, lanes))
+    else:
+        graphs = []
+        want = (calls["slm_decode"] * eng.slm.cfg.num_layers
+                + calls["llm_decode"] * eng.llm.cfg.num_layers)
+    got = launches["paged_decode_attention"]
+    if got != want or want <= 0 or any(
+            g != k * lane_layers(lane) for g, lane in zip(graphs, lanes)):
+        raise SystemExit(f"{tag}: K2 launched {got} times (graphs "
+                         f"{graphs}), expected {want}")
+    return want
+
+
+def serve_run(torch, dep, k, requests, tag, n_private=4, **engine_kw):
+    """``requests`` on a fresh batched engine at macro_k ``k`` (8 rows,
+    lazy pages; ``engine_kw`` adds to that): ``serve_run_on``."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    eng = BatchedHybridEngine(deployment=dep, batch_size=8, macro_k=k,
+                              lazy_pages=True, **engine_kw)
+    return serve_run_on(torch, eng, dep, requests, tag, n_private=n_private)
+
+
+def serve_run_on(torch, eng, dep, requests, tag, first=None, n_private=4):
+    """``requests`` through ``serve_macro_run`` on ``eng`` (``first``
+    around its untimed run), printed and checked as serve_batched is
+    (``check_batched_responses``, K2 once per decode layer-step, no K7,
+    K1 and K3 launched, no request or page left behind).  Returns
+    (responses, tokens/s, launches, peak GiB, admission groups, engine,
+    graph replays per lane)."""
+    res, wall, launches, calls, peak, replays, first_s, groups = \
+        serve_macro_run(torch, eng, requests, dep,
+                        ("slm_decode", "llm_decode"), first=first)
+    print_batched(tag, res, wall, launches, calls, peak,
+                  macro_k=eng.macro_k)
+    print(f"{tag}: first run {first_s:.3f} s; graph replays (cloud, "
+          f"edge) {replays}; KV pool {eng.kv_pool_bytes()} B; growth "
+          f"{eng.growth_stats()} (both runs)")
+    check_batched_responses(tag, eng, res, requests, n_private)
+    check_k2_launches(tag, eng, launches, replays, calls)
+    if launches["sample_fused"] != 0 or min(
+            launches[n] for n in ("fuse_logits", "flash_attention")) <= 0:
+        raise SystemExit(f"{tag}: launches {launches}")
+    left = eng.resident_kv_bytes() - (0 if eng.paged
+                                      else eng.kv_pool_bytes())
+    if left or eng.active_count():
+        raise SystemExit(f"{tag}: pages leaked or a request was lost")
+    tokens = sum(r.stats.tokens for r in res)
+    return res, tokens / wall, launches, peak, groups, eng, replays
+
+
+def phase_serve_dense(torch, dep, paged):
+    """serve_batched's 20 requests on dense lanes (``paged=False``, the
+    stacked rows that K2 reads in place as pages) at macro_k 0 and 8:
+    every response equal to the paged engine's at the same K (``paged``
+    {K: responses}) bit for bit: ids, counts, latencies and fusion
+    weights.  Returns {K: launches}."""
+    out = {}
+    for k in (0, 8):
+        tag = f"serve_dense (macro_k={k})"
+        res, rate, launches, peak, _, eng, _ = serve_run(
+            torch, dep, k, BATCHED_REQUESTS, tag, paged=False)
+        equal = [same_response(a, b) for a, b in zip(paged[k], res)]
+        print(f"{tag}: {rate:.2f} tokens/s, peak {peak:.2f} GiB, lane KV "
+              f"{eng.kv_pool_bytes()} B (dense); {sum(equal)} of "
+              f"{len(res)} responses equal to the paged engine's bit for "
+              f"bit")
+        if not all(equal):
+            raise SystemExit(f"{tag}: requests "
+                             f"{[r.rid for r, e in zip(res, equal) if not e]}"
+                             " differ from the paged lanes")
+        out[k] = launches
+        del eng
+        gc.collect()
+    return out
+
+
+class PoolWatch:
+    """The ``first`` context of a pool-pressure run: it notes the
+    engine's growth counters and evictions after the untimed run, so
+    that the timed run's can be told apart."""
+
+    def __init__(self, eng):
+        self.eng, self.base, self.n_evicted = eng, None, 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.base = self.eng.growth_stats()
+        self.n_evicted = len(self.eng.evicted_rids)
+
+    def timed_stats(self):
+        """Growth counters of the timed run alone."""
+        now = self.eng.growth_stats()
+        return {key: now[key] - self.base[key] for key in now}
+
+    @property
+    def evicted(self):
+        """The rids evicted in the timed run."""
+        return set(self.eng.evicted_rids[self.n_evicted:])
+
+
+def phase_serve_pool_pressure(torch, dep):
+    """serve_batched's prompts with every budget at POOL_PRESSURE_BUDGET,
+    at macro_k 8 and 0, on default pools (8 x 128 pages a lane model)
+    and on POOL_PRESSURE_PAGES: rows park for pages and the wedged
+    cloud lane evicts and re-admits (parks > 0, evictions > 0, forced
+    == 0 in the timed run).  Every response keeps the roomy run's token
+    ids; a never-evicted request equals it bit for bit (parked rows keep
+    their cache and logits; admissions may land in other groups, and so
+    prefill at other padded shapes); an evicted one (re-prefilled
+    through K3) keeps its counts and latencies and its fusion weights
+    within EVICTED_W_TOL.
+    Returns {K: launches} of the pressed runs."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    reqs = [(p, POOL_PRESSURE_BUDGET) for p, _ in BATCHED_REQUESTS]
+    out = {}
+    for k in (8, 0):
+        tag = f"serve_pool_pressure (macro_k={k})"
+        roomy, r_rate, _, r_peak, r_groups, eng, _ = serve_run(
+            torch, dep, k, reqs, f"{tag}, default pools")
+        default = eng.cloud_lane.pager_l.alloc.num_pages
+        del eng
+        gc.collect()
+        pressed = BatchedHybridEngine(deployment=dep, batch_size=8,
+                                      macro_k=k,
+                                      pool_pages=POOL_PRESSURE_PAGES)
+        watch = PoolWatch(pressed)
+        res, rate, launches, peak, groups, _, _ = serve_run_on(
+            torch, pressed, dep, reqs, tag, watch)
+        st = watch.timed_stats()
+        ids = [a.text == b.text for a, b in zip(roomy, res)]
+        exact = [same_response(a, b) for a, b in zip(roomy, res)]
+        same_group = [r_groups[r.rid] == groups[r.rid] for r in res]
+        w_err = max((abs(x - y) for a, b in zip(roomy, res)
+                     if b.rid in watch.evicted
+                     for x, y in zip(a.stats.fusion_w, b.stats.fusion_w)),
+                    default=0.0)
+        print(f"{tag}: pool {POOL_PRESSURE_PAGES} pages a lane model "
+              f"against the default {default}; {rate:.2f} tokens/s "
+              f"against {r_rate:.2f} on default pools "
+              f"({100 * (1 - rate / r_rate):.1f}% slower), peak "
+              f"{peak:.2f} GiB against {r_peak:.2f}; growth (timed run) "
+              f"{st}; evicted rids {sorted(watch.evicted)}; ids equal "
+              f"{sum(ids)} of {len(res)}; bit-equal {sum(exact)} "
+              f"({sum(same_group)} in the roomy run's admission group); "
+              f"evicted rows' fusion weights within {w_err:.3e} of the "
+              f"roomy run's (limit {EVICTED_W_TOL})")
+        if st["parks"] <= 0 or st["evictions"] <= 0 or st["forced"] != 0:
+            raise SystemExit(f"{tag}: growth {st}, expected parks and "
+                             "evictions and no forced completion")
+        if not all(ids):
+            raise SystemExit(f"{tag}: token ids differ from the roomy run")
+        bad = [r.rid for r, e in zip(res, exact)
+               if not e and r.rid not in watch.evicted]
+        if bad:
+            raise SystemExit(f"{tag}: never-evicted requests {bad} differ "
+                             "from the roomy run")
+        for a, b in zip(roomy, res):
+            if b.rid in watch.evicted and (
+                    a.stats.latency_ms != b.stats.latency_ms
+                    or a.stats.cloud_tokens != b.stats.cloud_tokens
+                    or a.stats.tokens != b.stats.tokens):
+                raise SystemExit(f"{tag}: evicted rid {b.rid} changed its "
+                                 "counts or latencies")
+        if w_err > EVICTED_W_TOL:
+            raise SystemExit(f"{tag}: evicted rows' fusion weights off by "
+                             f"{w_err}")
+        out[k] = launches
+        del pressed, watch
+        gc.collect()
+    return out
 
 
 def counted(dep, names):
@@ -1673,17 +1945,19 @@ def lora_kernels():
 
 def reset_counts():
     """Every kernel count of the serving paths to 0, the per-mode ones
-    (K2 in ring mode, K3 windowed) included."""
+    (K2 in ring and in full-length window mode, K3 windowed) included."""
     for fn in all_kernels():
         fn.launches = 0
     k2, k3 = lora_kernels()[1:3]
-    k2.ring_launches = k3.windowed_launches = 0
+    k2.ring_launches = k2.window_launches = k3.windowed_launches = 0
 
 
 def mode_counts():
-    """K2's ring-mode and K3's windowed launches since ``reset_counts``."""
+    """K2's ring-mode and full-length window launches and K3's windowed
+    launches since ``reset_counts``."""
     k2, k3 = lora_kernels()[1:3]
     return {"paged_decode_attention_ring": k2.ring_launches,
+            "paged_decode_attention_window": k2.window_launches,
             "flash_attention_windowed": k3.windowed_launches}
 
 
@@ -1712,13 +1986,14 @@ def run_counted(torch, sched, dep, names):
         torch.cuda.max_memory_allocated() / 2**30
 
 
-def check_batched_responses(tag, eng, res, requests):
-    """Every request served within budget, the privacy split right, no
-    cloud token on a private request, sane fusion weights/latencies."""
+def check_batched_responses(tag, eng, res, requests, n_private=4):
+    """Every request served within budget, the privacy split right
+    (``n_private`` private requests), no cloud token on a private
+    request, sane fusion weights/latencies."""
     private = {i for i, req in enumerate(requests)
                if eng.detector.detect(req[0])}
-    if len(private) != 4 or {r.rid for r in res if r.stats.private} \
-            != private:
+    if len(private) != n_private \
+            or {r.rid for r in res if r.stats.private} != private:
         raise SystemExit(f"{tag}: privacy split is wrong: {private}")
     for r, (_, n, *_) in zip(res, requests):
         if r.stats.private and (r.stats.cloud_tokens or r.stats.cloud_calls):
@@ -2025,9 +2300,78 @@ def phase_serve_gemma3(torch, dep):
                          "the same group differ from the K = 0 run")
     trace_batched(torch, eng8)
     del eng8
+    gc.collect()
+    dense = serve_gemma3_dense(torch, g_dep, res8)
+    nonring = serve_gemma3_nonring(torch, g_dep)
     flat = phase_flat_keys(torch, g_dep, "flat_keys_gemma3", 4, 8)
     return {"serve_gemma3": seq, "serve_gemma3_batched": k8,
-            "serve_gemma3_batched_k0": k0, **flat}
+            "serve_gemma3_batched_k0": k0, "serve_dense_gemma3": dense,
+            "serve_gemma3_nonring": nonring, **flat}
+
+
+def serve_gemma3_dense(torch, g_dep, paged):
+    """serve_batched's 20 requests on the gemma3 pair's dense lanes at
+    macro_k 8 (window-sized rings per row, read by K2 in its ring mode
+    through identity tables): every response equal to the paged K = 8
+    run's (``paged``) bit for bit.  Returns the launches."""
+    tag = "serve_dense_gemma3 (macro_k=8)"
+    res, rate, launches, peak, _, eng, replays = serve_run(
+        torch, g_dep, 8, BATCHED_REQUESTS, tag, paged=False)
+    equal = [same_response(a, b) for a, b in zip(paged, res)]
+    ring = launches["paged_decode_attention_ring"]
+    print(f"{tag}: {rate:.2f} tokens/s, peak {peak:.2f} GiB, lane KV "
+          f"{eng.kv_pool_bytes()} B (dense); K2 in ring mode {ring}; "
+          f"{sum(equal)} of {len(res)} responses equal to the paged "
+          f"engine's bit for bit")
+    if not all(equal):
+        raise SystemExit(f"{tag}: requests "
+                         f"{[r.rid for r, e in zip(res, equal) if not e]} "
+                         "differ from the paged lanes")
+    if ring != 8 * gemma3_layers(g_dep.slm)[0] * sum(replays):
+        raise SystemExit(f"{tag}: K2 ring launches {ring}")
+    return launches
+
+
+def serve_gemma3_nonring(torch, g_dep):
+    """The gemma3 SLM built without ring caches (the reference's ``LM``
+    default: full-length local leaves, paged from the block table),
+    the same parameters: eight of serve_batched's requests at macro_k
+    8, against the ring engine on the same eight.  K2 takes every local
+    layer in its full-length window mode (none in ring mode); the token
+    ids must equal the ring run's.  Returns the launches."""
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+
+    reqs = BATCHED_REQUESTS[:8]          # two private
+    ring_res = serve_run(torch, g_dep, 8, reqs,
+                         "serve_gemma3_nonring: ring engine", 2)[0]
+    gc.collect()
+    flat = LM(g_dep.slm.cfg, ring_cache=False)
+    f_dep = ServingDeployment(flat, g_dep.slm_params, g_dep.llm,
+                              g_dep.llm_params, g_dep.mlp, max_seq=2048,
+                              page_size=16)
+    tag = "serve_gemma3_nonring (macro_k=8)"
+    res, rate, launches, peak, _, eng, replays = serve_run(
+        torch, f_dep, 8, reqs, tag, 2)
+    n_local = gemma3_layers(flat)[0]
+    window = launches["paged_decode_attention_window"]
+    ids = [a.text == b.text for a, b in zip(ring_res, res)]
+    print(f"{tag}: {rate:.2f} tokens/s, KV pool {eng.kv_pool_bytes()} B "
+          f"(no ring pool); K2 {launches['paged_decode_attention']} "
+          f"launches, {window} in full-length window mode, "
+          f"{launches['paged_decode_attention_ring']} in ring mode; ids "
+          f"equal to the ring engine's on {sum(ids)} of {len(res)}")
+    for a, b, same in zip(ring_res, res, ids):
+        if not same:
+            print(f"  rid {a.rid}: ring {a.text[:80]} / full-length "
+                  f"{b.text[:80]}")
+    if launches["paged_decode_attention_ring"] != 0 \
+            or window != 8 * n_local * sum(replays) or window <= 0:
+        raise SystemExit(f"{tag}: K2 launches {launches}, expected "
+                         f"{8 * n_local * sum(replays)} in window mode")
+    if not all(ids):
+        raise SystemExit(f"{tag}: token ids differ from the ring engine's")
+    return launches
 
 
 def serve_gemma3_sequential(torch, g_dep):
@@ -2511,14 +2855,15 @@ def phase_flat_keys(torch, dep, tag, n_req, budget):
 @contextlib.contextmanager
 def profiled(torch):
     """torch.profiler over the block, CPU and CUDA, with a margin on each
-    side: the profiler keeps a device record only if its span, on the
-    host's clock, lies inside the window, so a kernel at the very edge
-    of the block could be lost to the skew between the card's timestamps
-    and the host's, and an exact kernel count read from the profile
-    would then be one short.  The block starts after a few spin kernels
+    side.  The profiler keeps a device record only if its span, on the
+    host's clock, lies inside the window, and on the H100 it has dropped
+    the first ~45 ms of a block six minutes into a run of this script,
+    with 20 ms of quiet before the block (a sampled boundary then held
+    30 of its 32 K7 kernels), so an exact kernel count read from the
+    profile would be short.  The window opens with a few spin kernels
     (``torch.cuda._sleep``, left out of ``profile_rows``) and
-    PROFILE_MARGIN_S of quiet, and the window closes PROFILE_MARGIN_S
-    after the block's last kernel has ended."""
+    PROFILE_MARGIN_S of quiet, and closes PROFILE_MARGIN_S after the block's
+    last kernel has ended."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2548,6 +2893,18 @@ def profile_edges(torch, prof, n: int = 8) -> str:
     return f"{len(ev)} device records; " + "; ".join(
         f"{e.time_range.start - t0:.1f} us {e.name[:48]}"
         for e in ev[:n] + [None] + ev[-n:] if e is not None)
+
+
+def kernel_offsets(prof, name: str):
+    """Start times, in microseconds from the profile's first device
+    record, of the device records whose name holds ``name``."""
+    from torch.autograd import DeviceType
+
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    t0 = ev[0].time_range.start if ev else 0
+    return [round(e.time_range.start - t0) for e in ev if name in e.name]
 
 
 def profile_rows(torch, prof):
@@ -2664,7 +3021,8 @@ def profile_step(torch, eng, what: str, sampled: bool = False):
     if sum(r[1] for r in k7) != want_k7:
         raise SystemExit(f"trace_batched (macro_k={k}): {what}: K7 "
                          f"kernels {sum(r[1] for r in k7)}, expected "
-                         f"{want_k7}; {profile_edges(torch, prof)}")
+                         f"{want_k7}, at {kernel_offsets(prof, 'sample_')} "
+                         f"us; {profile_edges(torch, prof)}")
     per_lane = [lane._macro.per_replay(K2.paged_decode_attention)
                 for lane in busy_lanes]
     one_each = [int(lane in busy_lanes)
@@ -2757,7 +3115,8 @@ def main() -> int:
     seq_launches = phase_serve(torch, dep)
     k0_launches, k0_res, k0_groups = phase_serve_batched(torch, dep)
     plain_ids = [r.text for r in k0_res]
-    macro_launches, eng8 = phase_serve_macro(torch, dep, k0_res, k0_groups)
+    macro_launches, eng8, k8_res = phase_serve_macro(torch, dep, k0_res,
+                                                     k0_groups)
     # the main path is the engine's default, the K = 8 macro step
     launches = macro_launches[8]
     trace_batched(torch, eng8)
@@ -2767,6 +3126,11 @@ def main() -> int:
     ad_runs = phase_serve_adapters(torch, dep, plain_ids)
     router_run = phase_serve_router(torch, dep, plain_ids)
     gemma3_paths = phase_serve_gemma3(torch, dep)
+    # dense lanes and pool pressure on the 2b pair last, after every
+    # profiled boundary
+    gc.collect()
+    dense = phase_serve_dense(torch, dep, {0: k0_res, 8: k8_res})
+    pressure = phase_serve_pool_pressure(torch, dep)
     paths = {"serve": seq_launches, "serve_batched": launches,
              "serve_batched_k0": k0_launches,
              "serve_batched_k1": macro_launches[1],
@@ -2776,7 +3140,11 @@ def main() -> int:
              "serve_router": router_run["launches"],
              "serve_router_sequential": router_run["seq_launches"],
              "serve_ssm": ssm_launches, "serve_sampled": sampled[8],
-             "serve_sampled_k0": sampled[0], **flat, **gemma3_paths}
+             "serve_sampled_k0": sampled[0], "serve_dense": dense[8],
+             "serve_dense_k0": dense[0],
+             "serve_pool_pressure": pressure[8],
+             "serve_pool_pressure_k0": pressure[0], **flat,
+             **gemma3_paths}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}
@@ -2804,6 +3172,8 @@ def main() -> int:
              launches_by_path=by_path["paged_decode_attention"],
              ring_launches_by_path=mode_by_path(
                  paths, "paged_decode_attention_ring"),
+             window_launches_by_path=mode_by_path(
+                 paths, "paged_decode_attention_window"),
              max_abs_err=max(c["max_abs_err"] for c in k2_cases),
              max_rel_err=max(c["max_rel_err"] for c in k2_cases),
              rel_tol=K2_ROW_RTOL, shape=k2["shape"], ms=k2["ms"],

@@ -6,12 +6,17 @@
 // table (B, nb) of page ids and per-row positions pos (B,) -> (B, H, hd).
 // Query head h reads KV head h / (H / KV).  Slot j of a row lives at page
 // table[b, j / ps], offset j % ps; a sentinel page id (NO_PAGE = 2**20)
-// is clamped onto page P - 1 and masked by position.  Plain mode masks
-// slot > pos; window mode (table = the row's ring-local table) maps slot
-// i to the absolute position pos - (pos - i) mod window and masks it
-// unless 0 <= kv_pos <= pos and i < window.  Masked scores are
-// NEG_INF = -2**30, as the reference, so once a live slot has been seen
-// they weigh exactly 0.
+// is clamped onto page P - 1 and masked by position.  Three modes:
+//  * plain (window 0): masks slot > pos;
+//  * ring (window > 0, ring = 1; table = the row's ring-local table):
+//    maps slot i to the absolute position pos - (pos - i) mod window
+//    and masks it unless 0 <= kv_pos <= pos and i < window;
+//  * full-length window (window > 0, ring = 0; table = the row's whole
+//    block table, slot j = position j): masks slots below
+//    pos - window + 1 and above pos, and walks only the pages those
+//    live slots touch, [max(0, pos - window + 1) / ps, pos / ps].
+// Masked scores are NEG_INF = -2**30, as the reference, so once a live
+// slot has been seen they weigh exactly 0.
 //
 // Bound on the H100: bytes.  A decode step reads each live slot's K and
 // V once, ps * KV * hd * 2 bytes * 2 per page, against 2 * G multiply-
@@ -21,10 +26,13 @@
 //
 // Design: split-K over pages (flash-decoding), two launches.
 //  1. split pass, grid (splits, B * KV), 4 warps a CTA.  CTA (s, b, kvh)
-//     takes pages [s * pps, (s + 1) * pps) of row b, clipped to the
-//     row's live pages: min(cover, pos / ps + 1), cover = nb, or the
-//     ring's ceil(window / ps) pages (a ring row younger than its window
-//     holds live slots 0..pos only; older, every slot < window).  A
+//     takes pages base + [s * pps, (s + 1) * pps) of row b, clipped to
+//     the row's live pages (row_pages): base 0 and min(cover, pos / ps
+//     + 1) pages, cover = nb, or the ring's ceil(window / ps) pages (a
+//     ring row younger than its window holds live slots 0..pos only;
+//     older, every slot < window); in full-length window mode base =
+//     max(0, pos - window + 1) / ps and pos / ps - base + 1 pages, at
+//     most cover = ceil((window - 1) / ps) + 1 (33 at window 512).  A
 //     page past pos contributes exact zeros in the Pallas kernel, so
 //     skipping it changes nothing; a CTA whose range lies wholly past
 //     the live pages, or whose row is parked (pos >= FREED_POS = 2**30),
@@ -74,10 +82,20 @@ constexpr int kSMs = 132;
 constexpr int kMinPages = 2;              // pages per split, at least
 constexpr int kMaxDevices = 64;
 
-// Pages the row's live slots touch: min(cover, pos / ps + 1); 0 when the
-// row is parked.
-__device__ __forceinline__ int live_pages(int p, int cover) {
-  return p >= kFreedPos ? 0 : min(cover, p / kPS + 1);
+// The pages the row's live slots touch: from page `base` of its table,
+// `n` of them (0 when the row is parked).  Full-length window mode
+// (window > 0, ring 0) starts at the page of pos - window + 1.
+struct RowPages {
+  int base, n;
+};
+__device__ __forceinline__ RowPages row_pages(int p, int cover, int window,
+                                              int ring) {
+  if (p >= kFreedPos) return {0, 0};
+  if (window && !ring) {
+    const int base = max(0, p - window + 1) / kPS;
+    return {base, min(cover, p / kPS - base + 1)};
+  }
+  return {0, min(cover, p / kPS + 1)};
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -167,15 +185,16 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
     const bf16* __restrict__ pool_v, const int32_t* __restrict__ table,
     const int32_t* __restrict__ pos, float* __restrict__ part_o,
     float2* __restrict__ part_ml, int kv_heads, int n_pool, int nb,
-    int cover, int pps, int window, float scale) {
+    int cover, int pps, int window, int ring_table, float scale) {
   using S = Split<HD, G>;
   constexpr int DPL = S::kDPL;
   const int split = blockIdx.x, n_splits = gridDim.x;
   const int bk = blockIdx.y;                       // b * KV + kvh
   const int b = bk / kv_heads, kvh = bk % kv_heads;
   const int p = pos[b];
-  const int page_lo = split * pps;
-  const int page_hi = min(page_lo + pps, live_pages(p, cover));
+  const RowPages rp = row_pages(p, cover, window, ring_table);
+  const int page_lo = rp.base + split * pps;
+  const int page_hi = min(page_lo + pps, rp.base + rp.n);
   if (page_lo >= page_hi) return;                  // empty or parked
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int d0 = lane * DPL;
@@ -270,9 +289,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
 #pragma unroll
     for (int s = 0; s < kSlotsPerWarp; ++s) {
       const int slot = slot0 + s;
-      if (window) {
+      if (window && ring_table) {
         const int kv_pos = p - ((p - slot) % window + window) % window;
         live[s] = kv_pos >= 0 && kv_pos <= p && slot < window;
+      } else if (window) {
+        live[s] = slot <= p && slot > p - window;
       } else {
         live[s] = slot <= p;
       }
@@ -355,7 +376,7 @@ template <int HD>
 __global__ void __launch_bounds__(kCombineThreads) paged_decode_combine(
     const float* __restrict__ part_o, const float2* __restrict__ part_ml,
     const int32_t* __restrict__ pos, bf16* __restrict__ out, int kv_heads,
-    int n_splits, int cover, int pps) {
+    int n_splits, int cover, int pps, int window, int ring) {
   constexpr int kDL = HD / 8;                      // 8 elements of d each
   constexpr int kSL = kCombineThreads / kDL;       // lanes of splits
   extern __shared__ __align__(16) float cs[];
@@ -367,7 +388,7 @@ __global__ void __launch_bounds__(kCombineThreads) paged_decode_combine(
   const int b = bk / kv_heads, kvh = bk % kv_heads;
   const int tid = threadIdx.x;
   bf16* ob = out + ((static_cast<size_t>(b) * kv_heads + kvh) * G + g) * HD;
-  const int live = (live_pages(pos[b], cover) + pps - 1) / pps;
+  const int live = (row_pages(pos[b], cover, window, ring).n + pps - 1) / pps;
   if (live == 0) {                      // parked: zeros, no page read
     for (int d = tid; d < HD; d += kCombineThreads)
       ob[d] = __float2bfloat16(0.f);
@@ -411,10 +432,16 @@ __global__ void __launch_bounds__(kCombineThreads) paged_decode_combine(
 
 // Pages each row covers, pages per split and the split count, from the
 // static shapes alone: about 8 CTAs per SM over all (row, KV head)
-// pairs, at least kMinPages pages a split.
-void split_layout(int batch, int kv_heads, int nb, int window, int* cover,
-                  int* pps, int* splits) {
-  *cover = window ? (window + kPS - 1) / kPS : nb;
+// pairs, at least kMinPages pages a split.  A full-length window of w
+// slots touches at most ceil((w - 1) / ps) + 1 pages of the table.
+void split_layout(int batch, int kv_heads, int nb, int window, int ring,
+                  int* cover, int* pps, int* splits) {
+  if (!window)
+    *cover = nb;
+  else if (ring)
+    *cover = (window + kPS - 1) / kPS;
+  else
+    *cover = min(nb, (window + kPS - 2) / kPS + 1);
   const int pairs = batch * kv_heads;
   const int want = (8 * kSMs + pairs - 1) / pairs;
   *pps = max(kMinPages, (*cover + want - 1) / want);
@@ -424,11 +451,11 @@ void split_layout(int batch, int kv_heads, int nb, int window, int* cover,
 template <int HD, int G>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const void* table, const void* pos, void* scratch, void* out,
-           int batch, int kv_heads, int n_pool, int nb, int window,
+           int batch, int kv_heads, int n_pool, int nb, int window, int ring,
            float scale, cudaStream_t stream) {
   using S = Split<HD, G>;
   int cover, pps, splits;
-  split_layout(batch, kv_heads, nb, window, &cover, &pps, &splits);
+  split_layout(batch, kv_heads, nb, window, ring, &cover, &pps, &splits);
   const size_t rows = static_cast<size_t>(batch) * kv_heads * splits * G;
   float* part_o = static_cast<float*>(scratch);
   float2* part_ml = reinterpret_cast<float2*>(part_o + rows * HD);
@@ -451,7 +478,7 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
           static_cast<const bf16*>(pool_v),
           static_cast<const int32_t*>(table),
           static_cast<const int32_t*>(pos), part_o, part_ml, kv_heads, n_pool,
-          nb, cover, pps, window, scale);
+          nb, cover, pps, window, ring, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t combine_smem =
@@ -459,7 +486,8 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   paged_decode_combine<HD>
       <<<dim3(batch * kv_heads, G), kCombineThreads, combine_smem, stream>>>(
           part_o, part_ml, static_cast<const int32_t*>(pos),
-          static_cast<bf16*>(out), kv_heads, splits, cover, pps);
+          static_cast<bf16*>(out), kv_heads, splits, cover, pps, window,
+          ring);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,20 +495,21 @@ template <int HD>
 int launch_hd(int group, const void* q, const void* pool_k,
               const void* pool_v, const void* table, const void* pos,
               void* scratch, void* out, int batch, int kv_heads, int n_pool,
-              int nb, int window, float scale, cudaStream_t stream) {
+              int nb, int window, int ring, float scale,
+              cudaStream_t stream) {
   switch (group) {
     case 1:
       return launch<HD, 1>(q, pool_k, pool_v, table, pos, scratch, out, batch,
-                           kv_heads, n_pool, nb, window, scale, stream);
+                           kv_heads, n_pool, nb, window, ring, scale, stream);
     case 2:
       return launch<HD, 2>(q, pool_k, pool_v, table, pos, scratch, out, batch,
-                           kv_heads, n_pool, nb, window, scale, stream);
+                           kv_heads, n_pool, nb, window, ring, scale, stream);
     case 4:
       return launch<HD, 4>(q, pool_k, pool_v, table, pos, scratch, out, batch,
-                           kv_heads, n_pool, nb, window, scale, stream);
+                           kv_heads, n_pool, nb, window, ring, scale, stream);
     case 8:
       return launch<HD, 8>(q, pool_k, pool_v, table, pos, scratch, out, batch,
-                           kv_heads, n_pool, nb, window, scale, stream);
+                           kv_heads, n_pool, nb, window, ring, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -491,9 +520,9 @@ int launch_hd(int group, const void* q, const void* pool_k,
 // Splits of the split pass for these static shapes (the wrapper sizes
 // its scratch from it): f32 scratch of splits * B * H * (hd + 2) floats.
 extern "C" int paged_decode_splits(int batch, int kv_heads, int nb,
-                                   int window) {
+                                   int window, int ring) {
   int cover, pps, splits;
-  split_layout(batch, kv_heads, nb, window, &cover, &pps, &splits);
+  split_layout(batch, kv_heads, nb, window, ring, &cover, &pps, &splits);
   return splits;
 }
 
@@ -501,27 +530,28 @@ extern "C" int paged_decode_splits(int batch, int kv_heads, int nb,
 // bf16; table (B, nb) and pos (B,): contiguous int32; scratch: f32,
 // 16-byte aligned, paged_decode_splits(...) * B * H * (hd + 2) floats.
 // page_size must be 16, H / KV one of 1, 2, 4, 8; head_dim 256 is the 2b
-// pair at full width, 32 its reduced configs.  Returns 0 or the
-// cudaError_t of the launch.
+// pair at full width, 32 its reduced configs.  window > 0 with ring 1
+// reads a ring-local table, with ring 0 a full-length block table.
+// Returns 0 or the cudaError_t of the launch.
 extern "C" int paged_decode_attention_bf16(
     const void* q, const void* pool_k, const void* pool_v, const void* table,
     const void* pos, void* scratch, void* out, int batch, int heads,
     int kv_heads, int head_dim, int n_pool, int page_size, int nb,
-    int window, float scale, cudaStream_t stream) {
+    int window, int ring, float scale, cudaStream_t stream) {
   if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || n_pool <= 0 ||
       nb <= 0 || page_size != kPS || window < 0 ||
-      (window && nb * kPS < window))
+      (window && ring && nb * kPS < window))
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = heads / kv_heads;
   switch (head_dim) {
     case 32:
       return launch_hd<32>(group, q, pool_k, pool_v, table, pos, scratch,
-                           out, batch, kv_heads, n_pool, nb, window, scale,
-                           stream);
+                           out, batch, kv_heads, n_pool, nb, window, ring,
+                           scale, stream);
     case 256:
       return launch_hd<256>(group, q, pool_k, pool_v, table, pos, scratch,
-                            out, batch, kv_heads, n_pool, nb, window, scale,
-                            stream);
+                            out, batch, kv_heads, n_pool, nb, window, ring,
+                            scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,8 +6,13 @@
 Pallas kernel ``repro/kernels/paged_attention/kernel.py::
 paged_decode_attention`` with the same contract: q (B, H, hd), pools
 (P, page_size, KV, hd), table (B, n_pages) int32 page ids (the row's
-block table, or its ring-local table when ``window > 0``), pos (B,)
-int32 per-row absolute positions -> (B, H, hd) in q's dtype.  Query
+block table, or its ring-local table when ``window > 0`` and ``ring``),
+pos (B,) int32 per-row absolute positions -> (B, H, hd) in q's dtype.
+A window with ``ring=False`` reads the row's full-length block table
+(slot j is position j) and masks slots below pos - window + 1; the
+CUDA kernel then walks only the pages those live slots touch, at most
+ceil((window - 1) / page_size) + 1 of them (the reference gathers the
+whole table and masks it, ``attention.py:366-371``).  Query
 head h reads KV head h // (H // KV); sentinel table entries are clamped
 onto page P - 1 and masked by position; masked scores are
 NEG_INF = -2**30, so they weigh exactly 0 once a live slot is seen.
@@ -36,12 +41,12 @@ FREED_POS = 1 << 30
 HEAD_DIMS = (32, 256)
 GROUPS = (1, 2, 4, 8)
 PAGE_SIZE = 16
-_CTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (
+_CTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9 + (
     ctypes.c_float, ctypes.c_void_p)
 
 
 def paged_decode_attention_plain(q, pool_k, pool_v, table, pos, *,
-                                 window: int = 0):
+                                 window: int = 0, ring: bool = True):
     """The kernel's function in plain PyTorch (the port of
     ``paged_attention/ref.py``): gather each row's mapped pages, f32
     scores, an f32 softmax over the live slots, output in q's dtype."""
@@ -49,18 +54,21 @@ def paged_decode_attention_plain(q, pool_k, pool_v, table, pos, *,
     n_pool, ps, kvh, _ = pool_k.shape
     nb = table.shape[1]
     group = h // kvh
-    n_slots = window if window else nb * ps
+    ring = bool(window) and ring
+    n_slots = window if ring else nb * ps
     j = torch.arange(n_slots, device=q.device)
     pid = table[:, j // ps].long()                              # (B, n)
     flat = pid.clamp(0, n_pool - 1) * ps + (j % ps)[None, :]
     k = pool_k.reshape(n_pool * ps, kvh, hd)[flat]              # (B,n,KV,hd)
     v = pool_v.reshape(n_pool * ps, kvh, hd)[flat]
     pos = pos.long()[:, None]
-    if window:
+    if ring:
         kv_pos = pos - torch.remainder(pos - j[None, :], window)
         mask = (kv_pos >= 0) & (kv_pos <= pos)
     else:
         mask = j[None, :] <= pos
+        if window:
+            mask &= j[None, :] > pos - window
     kk = k.float().repeat_interleave(group, dim=2)              # (B,n,H,hd)
     vv = v.float().repeat_interleave(group, dim=2)
     scores = torch.einsum("bhd,bnhd->bhn", q.float(), kk) / math.sqrt(hd)
@@ -71,16 +79,19 @@ def paged_decode_attention_plain(q, pool_k, pool_v, table, pos, *,
 
 
 def paged_decode_splitk_model(q, pool_k, pool_v, table, pos, *,
-                              window: int = 0, splits: int,
-                              skip_dead: bool = True):
+                              window: int = 0, ring: bool = True,
+                              splits: int, skip_dead: bool = True):
     """The CUDA kernel's two-stage algorithm in plain PyTorch, for the
     tests (nothing on the serving path calls it).  Each row's covered
-    pages (nb, or the ring's ceil(window / ps)) are cut into ``splits``
-    ranges of ceil(cover / splits) pages; a range is clipped to the row's
-    live pages, min(cover, pos // ps + 1), and an empty one is skipped;
-    ``skip_dead=False`` keeps every covered page instead, as the Pallas
-    kernel walks them, so splits whose slots exist but are all masked
-    reach the combine and must weigh 0 through exp(m_s - m_row).
+    pages (nb, the ring's ceil(window / ps), or a full-length window's
+    ceil((window - 1) / ps) + 1 from the page of pos - window + 1) are
+    cut into ``splits`` ranges of ceil(cover / splits) pages; a range is
+    clipped to the row's live pages (min(cover, pos // ps + 1), or the
+    pages up to pos // ps of a full-length window), and an empty one is
+    skipped; ``skip_dead=False`` keeps every covered page of the table
+    instead, as the Pallas kernel walks them, so splits whose slots
+    exist but are all masked reach the combine and must weigh 0 through
+    exp(m_s - m_row).
     A range's partial is (m, l, O): its masked f32 score maximum, the sum
     of exp(score - m) and the unnormalised exp-weighted sum of V.  The
     partials are combined in ascending split order with weights
@@ -88,7 +99,14 @@ def paged_decode_splitk_model(q, pool_k, pool_v, table, pos, *,
     b, h, hd = q.shape
     n_pool, ps, kvh, _ = pool_k.shape
     group = h // kvh
-    cover = -(-window // ps) if window else table.shape[1]
+    nb = table.shape[1]
+    ring = bool(window) and ring
+    if not window:
+        cover = nb
+    elif ring:
+        cover = -(-window // ps)
+    else:
+        cover = min(nb, (window + ps - 2) // ps + 1)
     pps = -(-cover // splits)
     out = torch.zeros(b, h, hd, dtype=torch.float32)
     qf = q.float() / math.sqrt(hd)
@@ -96,21 +114,25 @@ def paged_decode_splitk_model(q, pool_k, pool_v, table, pos, *,
         p = int(pos[row])
         if p >= FREED_POS:
             continue
-        live = min(cover, p // ps + 1) if skip_dead else cover
+        base = max(0, p - window + 1) // ps if window and not ring else 0
+        live = min(cover, p // ps + 1 - base) if skip_dead \
+            else min(cover, nb - base)
         parts = []
         for s in range(splits):
             lo, hi = s * pps, min((s + 1) * pps, live)
             if lo >= hi:
                 continue
-            j = torch.arange(lo * ps, hi * ps)
+            j = torch.arange((base + lo) * ps, (base + hi) * ps)
             pid = table[row, j // ps].long().clamp(0, n_pool - 1)
             k = pool_k[pid, j % ps].float()                   # (n, KV, hd)
             v = pool_v[pid, j % ps].float()
-            if window:
+            if ring:
                 kv_pos = p - torch.remainder(p - j, window)
                 mask = (kv_pos >= 0) & (kv_pos <= p) & (j < window)
             else:
                 mask = j <= p
+                if window:
+                    mask &= j > p - window
             sc = torch.einsum("hd,nhd->hn", qf[row],
                               k.repeat_interleave(group, dim=1))
             sc = torch.where(mask[None, :], sc, torch.full_like(sc, NEG_INF))
@@ -134,14 +156,14 @@ def _lib():
     lib = build.load("paged_attention")
     lib.paged_decode_attention_bf16.argtypes = _CTYPES
     lib.paged_decode_attention_bf16.restype = ctypes.c_int
-    lib.paged_decode_splits.argtypes = (ctypes.c_int,) * 4
+    lib.paged_decode_splits.argtypes = (ctypes.c_int,) * 5
     lib.paged_decode_splits.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=256)
 def _layout(q_shape, pool_shape, pool_v_shape, table_shape, pos_shape,
-            dtypes, window):
+            dtypes, window, ring):
     """Check what the CUDA kernel takes from the shapes and dtypes alone
     (cached: a serving loop repeats them) and return the C entry point,
     the launch's static arguments and the floats of its scratch."""
@@ -158,7 +180,7 @@ def _layout(q_shape, pool_shape, pool_v_shape, table_shape, pos_shape,
         raise ValueError("paged_decode_attention: table must be (B, nb) "
                          "and pos (B,)")
     nb = table_shape[1]
-    if window and nb * ps < window:
+    if window and ring and nb * ps < window:
         raise ValueError(f"paged_decode_attention: {nb} pages of {ps} "
                          f"cannot hold a window of {window}")
     if hd not in HEAD_DIMS or ps != PAGE_SIZE or h // kvh not in GROUPS:
@@ -175,26 +197,29 @@ def _layout(q_shape, pool_shape, pool_v_shape, table_shape, pos_shape,
                         "int32")
     # per split and (row, head): unnormalised O (hd floats), then (m, l)
     lib = _lib()
-    splits = lib.paged_decode_splits(b, kvh, nb, int(window))
+    splits = lib.paged_decode_splits(b, kvh, nb, int(window), int(ring))
     return lib.paged_decode_attention_bf16, (
-        b, h, kvh, hd, n_pool, ps, nb, int(window),
+        b, h, kvh, hd, n_pool, ps, nb, int(window), int(ring),
         1.0 / math.sqrt(hd)), splits * b * h * (hd + 2)
 
 
 def paged_decode_attention(q, pool_k, pool_v, table, pos, *,
-                           window: int = 0):
+                           window: int = 0, ring: bool = True):
     """q (B, H, hd); pools (P, ps, KV, hd); table (B, nb) int32; pos
-    (B,) int32 -> (B, H, hd)."""
+    (B,) int32 -> (B, H, hd).  ``window`` > 0 reads a ring-local table
+    with ``ring``, a full-length block table without."""
+    ring = bool(window) and ring
     if not q.is_cuda:
         if q.device.type == "cpu":
             return paged_decode_attention_plain(q, pool_k, pool_v, table,
-                                                pos, window=window)
+                                                pos, window=window,
+                                                ring=ring)
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
     entry, dims, n_scratch = _layout(
         q.shape, pool_k.shape, pool_v.shape, table.shape, pos.shape,
         (q.dtype, pool_k.dtype, pool_v.dtype, table.dtype, pos.dtype),
-        window)
+        window, ring)
     dev = q.get_device()
     if not (pool_k.get_device() == pool_v.get_device() == table.get_device()
             == pos.get_device() == dev):
@@ -214,10 +239,13 @@ def paged_decode_attention(q, pool_k, pool_v, table, pos, *,
     if rc:
         build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
-    paged_decode_attention.ring_launches += bool(window)
+    paged_decode_attention.ring_launches += ring
+    paged_decode_attention.window_launches += bool(window) and not ring
     return out
 
 
-# launches of the kernel, and of those the ring-mode ones (window > 0)
+# launches of the kernel, and of those the ring-mode ones and the
+# full-length window ones
 paged_decode_attention.launches = 0
 paged_decode_attention.ring_launches = 0
+paged_decode_attention.window_launches = 0

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --local [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
-        [--macro-k 8] [--page-size 16] [--no-lazy-pages] [--device cpu]
+        [--macro-k 8] [--page-size 16] [--no-lazy-pages] [--device cpu] \
+        [--dense | --pool-pages N]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
         --adapters 3 --adapter-slots 2 [--adapter-rank 4]
     PYTHONPATH=src python -m repro_torch.launch.serve --local \
@@ -13,8 +14,12 @@ default, or ``--pair gemma3``, whose SLM keeps ring caches on its
 sliding-window layers), printing one line per request and the summary,
 as the reference does.  ``--batch``
 0 or 1 is the sequential engine; ``--batch N>1`` builds the
-continuous-batching scheduler on paged lanes and prints the
-``lane KV: paged, pool capacity ...`` line.  ``--adapters N
+continuous-batching scheduler on paged lanes (``--dense``: dense
+stacked lane caches, the bit-exact parity oracle) and prints the
+``lane KV: paged, pool capacity ...`` (or ``dense``) line;
+``--pool-pages N`` gives each lane model a pool of N pages (0, the
+default, sizes it for the dense worst case), so rows park, and a
+wedged lane evicts and re-admits, when it runs short.  ``--adapters N
 --adapter-slots E`` registers N per-user adapters (``user{j}``, rank
 ``--adapter-rank``) over an E-slot bank, spreads the demo requests over
 them with one adapter-free row, and prints the cache's stats; fewer
@@ -36,8 +41,7 @@ import sys
 
 LATER_SLICE_FLAGS = (
     "--arch", "--shape", "--multi-pod", "--mesh-devices", "--rules",
-    "--model-parallel", "--spec-k", "--dense",
-    "--pool-pages", "--max-ctx", "--chunk-width",
+    "--model-parallel", "--spec-k", "--max-ctx", "--chunk-width",
     "--fault-rate", "--outage", "--fault-seed", "--deadline-ms")
 
 DEMO_PROMPTS = (
@@ -59,7 +63,13 @@ def main(argv=None):
     ap.add_argument("--macro-k", type=int, default=8,
                     help="tokens a lane decodes per dispatch with one "
                          "host sync (0 = the per-token step)")
+    ap.add_argument("--dense", action="store_true",
+                    help="dense stacked lane caches (the paged=False "
+                         "bit-exact oracle); default serves paged KV")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="page-pool capacity per lane model (0 = size "
+                         "for the dense worst case, batch * max_seq)")
     ap.add_argument("--no-lazy-pages", action="store_true")
     ap.add_argument("--pair", default="2b", choices=("2b", "gemma3"),
                     help="the FLOE_PAIRS model pair to serve")
@@ -122,9 +132,10 @@ def main(argv=None):
     if args.batch > 1:
         sched = ContinuousBatchScheduler.from_deployment(
             dep, batch_size=args.batch, macro_k=args.macro_k,
-            lazy_pages=not args.no_lazy_pages)
-        print(f"lane KV: paged, pool capacity "
-              f"{sched.engine.kv_pool_bytes()}B")
+            paged=not args.dense, lazy_pages=not args.no_lazy_pages,
+            pool_pages=args.pool_pages or None)
+        print(f"lane KV: {'dense' if args.dense else 'paged'}, pool "
+              f"capacity {sched.engine.kv_pool_bytes()}B")
     else:
         sched = Scheduler.from_deployment(dep)
     aids = []

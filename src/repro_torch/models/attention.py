@@ -2,30 +2,37 @@
 sliding-window layers — the port of ``repro/models/attention.py``.
 
 ``attention_block`` covers ``prefill`` (no history; the reference's
-branch at ``attention.py:343-345``) and three decode forms:
+branch at ``attention.py:343-345``) and four decode forms:
 scalar-position decode against a dense cache (``attention.py:396-415``),
-full-length or window-sized ring, and **paged** decode with per-row
-positions against a page pool through a block table, or through a
-row's ring-local table on a windowed layer (``:346-371``).  Per-row
-decode against a dense cache (``:372-395``) comes with the dense-lanes
-slice.  ``is_global`` picks a layer's rope theta and window as the
-reference does (``:312-321``): a local layer of a mixed layout (gemma3)
-attends over the last ``sliding_window`` positions.  On CUDA, prefill
+full-length or window-sized ring; per-row decode against a dense lane
+cache (``:372-395``), each row at its own depth; and **paged** decode
+with per-row positions against a page pool through a block table, or
+through a row's ring-local table on a windowed layer (``:346-371``).
+``is_global`` picks a layer's rope theta and window as the reference
+does (``:312-321``): a local layer of a mixed layout (gemma3) attends
+over the last ``sliding_window`` positions.  On CUDA, prefill
 attention is the hand-written kernel K3 (``kernels/flash_attention``,
-windowed on a local layer) and paged decode attention is K2
-(``kernels/paged_attention``, in its ring mode on a ring-local table);
-each launches or raises.  On the CPU, prefill is
-``chunked_causal_attention`` and paged decode ``gather_pages`` plus
-``rowwise_decode_attention`` or ``rowwise_ring_decode_attention``, the
-reference's own math.  Dense decode attention (``decode_attention``,
-``ring_decode_attention``) is plain PyTorch on both, as the reference
-computes it outside any Pallas kernel.
+windowed on a local layer) and per-row decode attention, paged or
+dense, is K2 (``kernels/paged_attention``: in its ring mode on a
+ring-local table, in its full-length window mode on a window layer's
+full block table); each launches or raises.  A dense lane's (B, S, KV,
+hd) leaf is read by K2 in place as B * S / 16 pages of 16 slots
+through the lane's identity tables (row b's page j is b * S / 16 + j),
+so a dense lane and a paged one run the same kernel over the same
+values.  On the CPU, prefill is ``chunked_causal_attention`` and
+per-row decode ``rowwise_decode_attention`` or
+``rowwise_ring_decode_attention`` (over ``gather_pages`` views on a
+paged lane), the reference's own math.  Scalar-position decode
+attention (``decode_attention``, ``ring_decode_attention``) is plain
+PyTorch on both, as the reference computes it outside any Pallas
+kernel.
 
 Decode writes the new token's K/V into the cache IN PLACE (the
 reference returns an updated copy).  torch has neither
 ``mode="drop"`` nor ``mode="clip"``, so the writes the reference drops
 are masked explicitly: a parked row (pos >= FREED_POS), a slot past the
-cache and an unmapped NO_PAGE table entry write nothing.  A paged pool
+cache and an unmapped NO_PAGE table entry write nothing.  A dense row
+that writes nothing rewrites its slot's own value.  A paged pool
 carries one extra SINK page after its P real pages, (P + 1, ps, KV,
 hd): dropped writes land there, so the scatter needs no host sync and
 no out-of-range index ever reaches the device.  Nothing reads the sink:
@@ -39,8 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.paged_attention.kernel import \
-    paged_decode_attention
+from repro_torch.kernels.paged_attention.kernel import (
+    PAGE_SIZE, paged_decode_attention)
 from repro_torch.models import layers as L
 
 NEG_INF = -2.0 ** 30
@@ -200,6 +207,31 @@ def scatter_page_token(pool, table, row_pos, slot, token_kv,
     pool.view((n_pool + 1) * ps, *pool.shape[2:])[flat] = token_kv
 
 
+def write_row_token(leaf, row_pos, slot, token_kv) -> None:
+    """Write one decode token per row of a dense lane leaf (B, S, KV,
+    hd) at its in-row ``slot``, IN PLACE.  A parked row (row_pos >=
+    FREED_POS) rewrites the current value of its (clamped) slot, so
+    nothing changes, as the reference's out-of-range scatter drops:
+    no host sync and no out-of-range index reaches the device."""
+    b, s_len = leaf.shape[:2]
+    rows = torch.arange(b, device=leaf.device)
+    slot = slot.long().clamp(0, s_len - 1)
+    parked = (row_pos >= FREED_POS).view(b, *(1,) * (leaf.dim() - 2))
+    leaf[rows, slot] = torch.where(parked, leaf[rows, slot], token_kv)
+
+
+def identity_tables(batch: int, n_slots: int, device) -> torch.Tensor:
+    """(B, n_slots / 16) int32 page ids b * n_slots / 16 + j: a dense
+    lane leaf (B, n_slots, KV, hd) read in place as K2's 16-slot
+    pages."""
+    if n_slots % PAGE_SIZE:
+        raise ValueError(f"a dense lane of {n_slots} slots is not a whole "
+                         f"number of K2's {PAGE_SIZE}-slot pages")
+    nb = n_slots // PAGE_SIZE
+    return torch.arange(batch * nb, dtype=torch.int32,
+                        device=device).view(batch, nb)
+
+
 def check_row_positions(host_pos, n_slots: int) -> None:
     """Host-side guard before a per-row decode dispatch, as a scalar
     position past the cache raises: a live row (pos < FREED_POS) at or
@@ -210,6 +242,20 @@ def check_row_positions(host_pos, n_slots: int) -> None:
     if (host_pos[live] >= n_slots).any() or (host_pos < 0).any():
         raise ValueError(f"decode positions {host_pos.tolist()} outside "
                          f"the {n_slots}-slot cache")
+
+
+def _k2(q, pool_k, pool_v, table, row_pos, window: int, ring: bool,
+        n_slots: int) -> torch.Tensor:
+    """Per-row decode attention through K2: q (B, 1, H, hd), pools (P,
+    16, KV, hd) -> (B, 1, H, hd).  A ring reads its ring-local table; a
+    full-length window layer its whole table in K2's window mode, where
+    a window no shorter than the table masks nothing."""
+    b, _, h, hd = q.shape
+    if not ring and window >= n_slots:
+        window = 0
+    return paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v,
+                                  table, row_pos, window=window,
+                                  ring=ring).reshape(b, 1, h, hd)
 
 
 def _qk_norm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -230,8 +276,8 @@ def layer_window(cfg, is_global: bool) -> int:
 
 
 def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
-                    pages=None, host_pos=None, lora=None, gates=None,
-                    is_global: bool = True):
+                    pages=None, ident=None, host_pos=None, lora=None,
+                    gates=None, is_global: bool = True):
     """Attention sub-layer of one layer.
 
     ``is_global``: False on a local layer of a mixed layout, which
@@ -247,9 +293,13 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
     ring-local table]}, a (B,) int32 tensor of per-row depths against
     page pools (P + 1, ps, KV, hd) with the sink page last; a window
     layer with a "local" table writes slot pos % window of its ring.
-    ``host_pos``, the host's mirror of per-row ``positions``, is
-    validated against the full-length table before any dispatch (a
-    ring never overflows).  Returns (y, None).
+    Without ``pages``, a (B,) ``positions`` tensor decodes a dense lane:
+    (B, S, KV, hd) rows, a window layer's leaf of exactly ``window``
+    slots a ring per row; on CUDA ``ident`` holds the lane's identity
+    tables ({"block"[, "local"]}, ``identity_tables``) through which K2
+    reads the rows as pages.  ``host_pos``, the host's mirror of per-row
+    ``positions``, is validated against the full-length table or rows
+    before any dispatch (a ring never overflows).  Returns (y, None).
 
     ``lora`` is this layer's {"q", "k", "v", "o": {"A", "B"}} bank slice
     (any target may be missing) and ``gates`` its gates, as
@@ -304,18 +354,9 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
         scatter_page_token(pool_k, table, row_pos, slot, k[:, 0], n_slots)
         scatter_page_token(pool_v, table, row_pos, slot, v[:, 0], n_slots)
         n_pool = pool_k.shape[0] - 1
-        # a window no shorter than the table masks nothing
-        masked = bool(window) and not ring and window < n_slots
         if x.device.type == "cuda":
-            if masked:
-                raise NotImplementedError(
-                    "paged decode of a full-length window layer (an LM "
-                    "built without ring_cache): K2 takes windows through a "
-                    "ring-local table only")
-            out = paged_decode_attention(
-                q[:, 0].contiguous(), pool_k[:n_pool], pool_v[:n_pool],
-                table, row_pos, window=window if ring else 0
-            ).reshape(b, 1, h, hd)
+            out = _k2(q, pool_k[:n_pool], pool_v[:n_pool], table, row_pos,
+                      window, ring, n_slots)
         else:
             flat = lambda a: a[:n_pool].reshape(n_pool * ps, *a.shape[2:])
             gk = gather_pages(flat(pool_k), table, n_slots, ps)
@@ -324,10 +365,35 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
                 if ring else rowwise_decode_attention(q, gk, gv, row_pos,
                                                       window)
         new_kv = None
+    elif mode == "decode" and row_pos is not None:
+        # a dense lane: each row writes its token at its own position
+        # (a ring leaf: at pos % window), parked rows write nothing
+        n_slots = cache["k"].shape[1]
+        ring = bool(window) and n_slots == window
+        if ring:
+            slot = torch.remainder(row_pos, window)
+        else:
+            slot = row_pos
+            if host_pos is not None:
+                check_row_positions(host_pos, n_slots)
+        write_row_token(cache["k"], row_pos, slot, k[:, 0])
+        write_row_token(cache["v"], row_pos, slot, v[:, 0])
+        if x.device.type == "cuda":
+            if ident is None:
+                raise ValueError("per-row decode of a dense lane on CUDA "
+                                 "needs the lane's identity tables")
+            pages_of = lambda a: a.view(-1, PAGE_SIZE, *a.shape[2:])
+            out = _k2(q, pages_of(cache["k"]), pages_of(cache["v"]),
+                      ident["local" if ring else "block"], row_pos, window,
+                      ring, n_slots)
+        elif ring:
+            out = rowwise_ring_decode_attention(q, cache["k"], cache["v"],
+                                                row_pos, window)
+        else:
+            out = rowwise_decode_attention(q, cache["k"], cache["v"],
+                                           row_pos, window)
+        new_kv = None
     elif mode == "decode":
-        if row_pos is not None:
-            raise NotImplementedError("per-row decode against a dense cache "
-                                      "(dense lanes): later slice")
         pos = positions
         if pos < 0:
             raise ValueError(f"decode position {pos} outside the cache")

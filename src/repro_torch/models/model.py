@@ -21,6 +21,10 @@ returns an updated copy, which the port saves):
   {"inner", "tail", "global": {"k", "v"}} instead, each with its stack
   dims in front; with ``LM(ring_cache=True)`` the local leaves hold
   min(max_seq, window) slots, a ring written at position % window;
+* a dense lane of the batched engine (built by the deployment): the
+  dense tree with "pos": (B,) int32 per-row depths on the device,
+  "pos_host": its host mirror, and on CUDA "ident": the identity tables
+  through which K2 reads the rows as pages;
 * paged (a lane of the batched engine, built by the deployment): the
   same tree with each leaf's (B, S) replaced by a page pool (P + 1, ps)
   whose last page is the write sink, "block": (B, nb) int32 block
@@ -93,14 +97,15 @@ def cache_kv(cache, addr, name: str) -> torch.Tensor:
 
 
 def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
-                host_pos=None, lora=None, gates=None, is_global=True):
+                ident=None, host_pos=None, lora=None, gates=None,
+                is_global=True):
     """Pre-norm attention + MLP.  ``lora`` is this layer's slice of the
     bank ({target: {"A", "B"}}).  Returns (x, fresh (k, v) or None)."""
     h = L.norm(cfg, p["ln1"], x)
     a, kv = ATT.attention_block(cfg, p["attn"], h, positions=positions,
                                 cache=cache, mode=mode, pages=pages,
-                                host_pos=host_pos, lora=lora, gates=gates,
-                                is_global=is_global)
+                                ident=ident, host_pos=host_pos, lora=lora,
+                                gates=gates, is_global=is_global)
     x = x + a
     h = L.norm(cfg, p["ln2"], x)
     get = (lora or {}).get
@@ -387,7 +392,7 @@ class LM:
 
     @torch.inference_mode()
     def prefill_packed(self, params, tokens: torch.Tensor, lengths,
-                       max_seq: int, write_kv, lora=None, gates=None):
+                       max_seq: int, write_kv=None, lora=None, gates=None):
         """Packed ragged-batch prefill: B prompts right-padded to one
         shared length, in a single pass.  tokens (B, Lpad); lengths (B,)
         valid token counts (host ints).  Causal masking keeps every
@@ -399,10 +404,13 @@ class LM:
         ``write_kv(addr, k, v)`` with the layer's cache address
         (``LayerSite.addr``: the layer index of the plain layout, (kind,
         idx) of the grouped one), in the order the stack runs the
-        layers; the deployment streams them into pool pages, so no dense
-        (L, B, max_seq) cache is built.  ``lora``/
+        layers; the deployment streams them into pool pages or lane rows,
+        so no dense (L, B, max_seq) transient is built.  ``lora``/
         ``gates`` as in ``prefill``.  Returns the per-row last-valid-token
-        logits (B, 1, V) float32."""
+        logits (B, 1, V) float32.  Without ``write_kv`` it returns
+        (logits, cache): a dense max_seq cache with per-row "pos" =
+        ``lengths``, each row placed as ``packed_rows`` places it (the
+        reference's ``_pad_cache(lengths=)``)."""
         cfg = self.cfg
         if cfg.family != "dense":
             raise NotImplementedError(f"packed prefill of the {cfg.family} "
@@ -415,6 +423,12 @@ class LM:
                 or (lengths > s).any():
             raise ValueError(f"lengths {lengths.tolist()} do not fit "
                              f"(B={b}, Lpad={s})")
+        cache = None
+        if write_kv is None:
+            cache = self.init_cache(b, max_seq)
+            write_kv = row_writer(cache, range(b), range(b), lengths)
+            cache["pos"] = to_device(lengths.astype(np.int32),
+                                     tokens.device)
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(s, device=tokens.device)
         for site in self.layer_sites():
@@ -428,7 +442,8 @@ class LM:
         idx = to_device(np.asarray(lengths) - 1, tokens.device)
         last = x[torch.arange(b, device=tokens.device), idx][:, None]
         last = L.norm(cfg, params["ln_f"], last)
-        return L.unembed(cfg, params["embed"], last)
+        logits = L.unembed(cfg, params["embed"], last)
+        return logits if cache is None else (logits, cache)
 
     @torch.inference_mode()
     def decode_step(self, params, cache, tokens: torch.Tensor, lora=None,
@@ -438,9 +453,10 @@ class LM:
         written at each row's position, positions advanced by one).
 
         With an int "pos" every row sits at that depth (dense cache).
-        With a (B,) "pos" tensor and a "block" table (paged lane) each
-        row decodes at its own depth against the page pools, a ring
-        layer through the lane's "local" table.  Parked
+        With a (B,) "pos" tensor each row decodes at its own depth: in
+        its dense lane rows, or, with a "block" table (paged lane),
+        against the page pools, a ring layer through the lane's "local"
+        table.  Parked
         rows (pos >= FREED_POS) write nothing and keep their position.
         ``lora``/``gates`` as in ``prefill``; integer (B,) gates are
         per-row adapter slots (K4).  An SSM advances its conv and scan
@@ -450,7 +466,7 @@ class LM:
         pages = None
         if "block" in cache:
             pages = {n: cache[n] for n in ("block", "local") if n in cache}
-        host_pos = cache.get("pos_host")
+        host_pos, ident = cache.get("pos_host"), cache.get("ident")
         x = L.embed(cfg, params["embed"], tokens)
         for site in self.layer_sites():
             p_i, l_i = self._layer(params, site), self._lora_layer(lora,
@@ -467,8 +483,8 @@ class LM:
                            for n in ("k", "v")}
             x, _ = dense_layer(cfg, p_i, x, positions=pos, mode="decode",
                                cache=layer_cache, pages=pages,
-                               host_pos=host_pos, lora=l_i, gates=gates,
-                               is_global=site.is_global)
+                               ident=ident, host_pos=host_pos, lora=l_i,
+                               gates=gates, is_global=site.is_global)
         # parked rows hold position, so "freed" stays an exact marker
         if isinstance(pos, torch.Tensor):
             pos.add_((pos < ATT.FREED_POS).to(pos.dtype))
@@ -478,6 +494,54 @@ class LM:
             cache["pos"] = pos if pos >= ATT.FREED_POS else pos + 1
         x = L.norm(cfg, params["ln_f"], x)
         return L.unembed(cfg, params["embed"], x), cache
+
+
+def ring_gather(lengths, n_slots: int, s_len: int, device) -> torch.Tensor:
+    """(B, n_slots) prefill positions that the ring slots of rows of
+    ``lengths`` (host ints) hold after a packed prefill of width
+    ``s_len``: slot j of row b holds ``ring_kv_positions(lengths[b] - 1,
+    n_slots)[j]``, clipped into the prompt (the reference's
+    ``_pad_cache(lengths=)``, ``model.py:730-742``)."""
+    last = to_device(np.asarray(lengths, np.int64) - 1, device)
+    return ATT.ring_kv_positions(last, n_slots).clamp(0, s_len - 1)
+
+
+def packed_rows(t: torch.Tensor, n_slots: int, gather=None) -> torch.Tensor:
+    """A packed prefill's fresh (B, Lpad, KV, hd) K or V as the rows of a
+    cache leaf of ``n_slots`` slots hold it: zero-padded past Lpad when
+    it fits, else a ring gathered at ``gather`` (``ring_gather``) —
+    the reference's ``_pad_cache(lengths=)`` placement."""
+    b, s_len = t.shape[:2]
+    if n_slots >= s_len:
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n_slots - s_len))
+    return t[torch.arange(b, device=t.device)[:, None], gather]
+
+
+def row_writer(full, src, dst, lengths):
+    """``write_kv`` callback for ``LM.prefill_packed`` that writes row
+    src[i] of each layer's fresh K/V into row dst[i] of every leaf of
+    the dense cache or dense lane cache ``full``, IN PLACE, placed by
+    ``packed_rows`` from the prefill rows' (B,) host ``lengths``: the
+    whole row is replaced, zeros past the padded prompt (the reference's
+    ``insert_slm``/``insert_llm``, ``deployment.py:769``, of a
+    ``_pad_cache(lengths=)`` row).  The admitted rows' positions are
+    then the caller's to set."""
+    gather = {}
+
+    def write(addr, k, v):
+        if not gather:               # once for every layer
+            gather["src"], gather["dst"] = (
+                to_device(np.asarray(list(i), np.int64), k.device)
+                for i in (src, dst))
+        for name, t in (("k", k), ("v", v)):
+            leaf = cache_kv(full, addr, name)
+            n_slots, s_len = leaf.shape[1], t.shape[1]
+            if n_slots < s_len and n_slots not in gather:
+                gather[n_slots] = ring_gather(lengths, n_slots, s_len,
+                                              t.device)
+            leaf[gather["dst"]] = packed_rows(t, n_slots, gather.get(
+                n_slots))[gather["src"]]
+    return write
 
 
 def _place(dst: torch.Tensor, src: torch.Tensor) -> None:

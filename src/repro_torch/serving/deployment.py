@@ -5,11 +5,12 @@ One object owns the models, their parameters on the device and the
 entry points the engines call: B=1 and packed B>1 prefill and one-token
 decode of each model, the Eq. 14-15 fusion step (through K1, one row or
 a batch with a per-row arrived mask), the counter-based network weather
-of one request or of a batch of rows, and the paged lane caches of the
-batched engine — page pools (a ring/local pool beside the full-length
-one for the ring leaves of a grouped SLM), block and ring-local tables,
-per-row positions and the admission scatter that streams prefilled K/V
-into pool pages.  The
+of one request or of a batch of rows, and the lane caches of the
+batched engine: dense stacked rows (``init_lane_cache``, which an
+admission writes in place through ``model.row_writer``) or paged ones — page
+pools (a ring/local pool beside the full-length one for the ring leaves
+of a grouped SLM), block and ring-local tables, per-row positions and
+the admission scatter that streams prefilled K/V into pool pages.  The
 SLM's entry points take a merged-LoRA bank and its gates: a router-gated
 expert bank (``expert_bank=``, placed once as ``lora``) or the per-user
 adapter slot bank (``adapter_slots=``) that an engine's
@@ -18,8 +19,8 @@ The K-token macro step's per-lane state and body live in
 ``serving/macro.py``; the deployment gives it ``fuse_mask`` (the fusion
 on a device arrived mask), ``select_sample`` (the greedy argmax or the
 keyed draw through K7, keyed by ``sample_seed``) and ``fetch_traces``.
-Meshes, dense lanes, prefix sharing, chunked prefill and speculation
-are later slices.
+Meshes, prefix sharing, chunked prefill and speculation are later
+slices.
 
 Without an LLM the deployment is SLM-only (``SoloEngine``); its SLM may
 be a dense model or a Mamba-1 SSM, whose recurrent state has no pages
@@ -45,8 +46,9 @@ from repro_torch import resolve_device, to_device
 from repro_torch.core import fusion as FUS
 from repro_torch.core import lora as LORA
 from repro_torch.kernels.logit_fusion import ops as OPS
-from repro_torch.models.attention import FREED_POS, ring_kv_positions
-from repro_torch.models.model import LOCAL_KINDS, cache_kv
+from repro_torch.models.attention import FREED_POS, identity_tables
+from repro_torch.models.model import (LOCAL_KINDS, cache_kv, packed_rows,
+                                      ring_gather)
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.adapters import AdapterCache
 from repro_torch.serving.latency import LatencyModel
@@ -180,6 +182,34 @@ class ServingDeployment:
         full[_index(dst, full.device)] = rows[_index(src, rows.device)]
         return full
 
+    # ------------------------------------------------------ dense lanes
+    def init_lane_cache(self, lm, batch: int) -> Dict[str, Any]:
+        """A fresh dense lane cache: ``lm``'s dense tree of (..., B,
+        max_seq or ring, KV, hd) zeroed leaves with per-row "pos" (B,)
+        int32 and its host mirror "pos_host", every row parked (pos =
+        FREED_POS) until an admission sets its position, as a paged
+        lane's rows start (the reference's rows start at 0; see
+        ``init_paged_lane_cache``), and on CUDA "ident": the identity
+        tables through which K2 reads the rows as 16-slot pages (the
+        reference's ``init_lane_cache``, ``deployment.py:407``)."""
+        cache = lm.init_cache(batch, self.max_seq)
+        cache.update(pos=torch.full((batch,), FREED_POS, dtype=torch.int32,
+                                    device=self.device),
+                     pos_host=np.full((batch,), FREED_POS, np.int64))
+        if self.device.type == "cuda":
+            cache["ident"] = {"block": identity_tables(
+                batch, self.max_seq, self.device)}
+            local = lm._ring_local_len(self.max_seq)
+            if local:
+                cache["ident"]["local"] = identity_tables(batch, local,
+                                                          self.device)
+        return cache
+
+    def lane_kv_bytes(self, lm, batch: int) -> int:
+        """Bytes of a dense lane cache's K/V leaves."""
+        return sum(int(np.prod(shape)) * lm.dtype.itemsize
+                   for shape in _leaves(lm.kv_shapes(batch, self.max_seq)))
+
     # ------------------------------------------------------ paged lanes
     def _is_local(self, shape) -> bool:
         """Whether a dense KV leaf shape (..., B, S, KV, hd) is a ring/
@@ -240,7 +270,8 @@ class ServingDeployment:
         return cache
 
     def set_row_pos(self, cache, idx, val):
-        """pos[idx] = val on the device and in the host mirror."""
+        """pos[idx] = val on the device and in the host mirror, on a
+        dense or a paged lane cache."""
         idx, val = np.asarray(idx, np.int64), np.asarray(val, np.int64)
         cache["pos"][_index(idx, self.device)] = to_device(
             val.astype(np.int32), self.device)
@@ -292,26 +323,16 @@ class ServingDeployment:
                                           n_pool)
             return plans[local]
 
-        def ring_rows(t):
-            """(B, local_len, KV, hd) ring content of the rows of t."""
-            b, s_len = t.shape[:2]
-            if local_len >= s_len:
-                return torch.nn.functional.pad(
-                    t, (0, 0, 0, 0, 0, local_len - s_len))
-            if not gather:                  # once for every ring leaf
-                last = to_device(np.asarray(lengths, np.int64) - 1, dev)
-                gather["rows"] = _index(np.arange(b), dev)[:, None]
-                gather["slots"] = ring_kv_positions(last, local_len).clamp(
-                    0, s_len - 1)
-            return t[gather["rows"], gather["slots"]]
-
         def write(addr, k, v):
             local = ring and isinstance(addr, tuple) \
                 and addr[0] in LOCAL_KINDS
             for name, t in (("k", k), ("v", v)):
                 pool = cache_kv(full, addr, name)
                 if local:
-                    t = ring_rows(t)
+                    if not gather and local_len < t.shape[1]:
+                        gather["slots"] = ring_gather(lengths, local_len,
+                                                      t.shape[1], dev)
+                    t = packed_rows(t, local_len, gather.get("slots"))
                 b, s_len = t.shape[:2]
                 n_pages = PAG.pages_for(s_len, ps)
                 if n_pages * ps != s_len:

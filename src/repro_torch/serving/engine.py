@@ -19,16 +19,17 @@ The port serves greedy and keyed sampled decoding (``greedy=False``:
 row i's token t is drawn from the fused distribution with key
 fold_in(fold_in(key(sample_seed), key id), t), the key id being the
 request's seed, else its rid, through K7) without fault injection.  The
-batched engine serves paged lanes with lazy or eager page reservation,
-through
+batched engine serves paged lanes with lazy or eager page reservation
+under pool budgets (rows park when their growth cannot be met, the
+youngest are evicted and re-admitted when a lane wedges), or dense
+lanes (``paged=False``, the parity oracle), through
 the K-token macro step (``macro_k=K``, the default 8: one dispatch and
 one host sync per lane per K tokens, a CUDA graph replayed on the card,
 ``serving/macro.py``) or the per-token step (``macro_k=0``); its LoRA
 decode goes through K5 on the lane's (B, E) gate rows, or through K4 on
-per-row slot ids with ``use_slot_kernel=True``.  Dense lanes, COW prefix
-sharing, chunked prefill, park/evict under pool pressure, faults,
-deadlines and speculation are later slices and raise
-``NotImplementedError``.
+per-row slot ids with ``use_slot_kernel=True``.  COW prefix sharing,
+chunked prefill, faults, deadlines and speculation are later slices and
+raise ``NotImplementedError``.
 
 Every engine takes a deployment (``deployment=``) or, as the reference's
 engines do, the models and deployment-level settings by keyword, from
@@ -51,6 +52,7 @@ from repro_torch.data import tokenizer as TOK
 from repro_torch.kernels.logit_fusion import ops as OPS
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.models.attention import FREED_POS, check_row_positions
+from repro_torch.models.model import row_writer
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.deployment import ServingDeployment
 from repro_torch.serving.macro import LaneMacro
@@ -327,7 +329,7 @@ class HybridEngine:
 
 
 # ===========================================================================
-# Batched continuous decode on paged lanes
+# Batched continuous decode on dense or paged lanes
 # ===========================================================================
 
 
@@ -341,16 +343,24 @@ class _Slot:
     out_ids: List[int] = field(default_factory=list)
     key_id: Optional[int] = None     # per-request sampling seed override
     seq: int = -1                    # admission order (FIFO observable)
-    # lazy growth: token n writes at position prompt_len + n
+    # lazy growth: token n writes at position prompt_len + n, eviction
+    # and resume included; the prompt ids and text for an eviction's
+    # re-prefill; parked = pos at FREED_POS with pending logits kept
     prompt_len: int = 0
-    aslot: Optional[int] = None      # pinned adapter slot, or None
+    prompt_ids: List[int] = field(default_factory=list)
+    full_text: str = ""
+    parked: bool = False
+    # pinned adapter slot, or None: released at completion, not at
+    # eviction (a resumed request keeps it)
+    aslot: Optional[int] = None
 
 
 @dataclass
-class _PagedJob:
-    """One paged admission: tokenization and page reservation happen at
-    ``add_requests`` time (the admission gate needs the page demand), so
-    the job carries them to the lane's prefill and page scatter."""
+class _Job:
+    """One admission: tokenization (and on paged lanes the page
+    reservation) happens at ``add_requests`` time (the admission gate
+    needs the page demand), so the job carries them to the lane's
+    prefill and insert."""
     slot: int
     prompt: str
     max_new: int
@@ -361,9 +371,10 @@ class _PagedJob:
     ids: List[int]                   # token ids (already truncated)
     rows_s: Any                      # RowPages in the lane's SLM pager
     rows_l: Any                      # RowPages in the LLM pager (cloud)
-    seq: int = -1
+    seq: int = -1                    # dense lanes: set at admission
     truncated: bool = False
     aslot: Optional[int] = None      # pinned adapter slot, or None
+    resume: Optional[_Slot] = None   # an evicted request's slot
 
 
 def _paged_tables(pager: PAG.LanePager, rows: List[PAG.RowPages]):
@@ -377,9 +388,10 @@ def _paged_tables(pager: PAG.LanePager, rows: List[PAG.RowPages]):
 
 
 class _Lane:
-    """One decode batch on paged lanes: SLM (+ LLM) page pools with block
-    tables, and a free-slot list.  The cloud lane fuses SLM+LLM logits
-    per row; the edge lane is SLM-only (private traffic, Alg. 2)."""
+    """One decode batch: SLM (+ LLM) dense stacked rows, or page pools
+    with block tables, and a free-slot list.  The cloud lane fuses
+    SLM+LLM logits per row; the edge lane is SLM-only (private traffic,
+    Alg. 2)."""
 
     def __init__(self, engine: "BatchedHybridEngine", batch: int,
                  use_cloud: bool):
@@ -392,9 +404,16 @@ class _Lane:
         self.sl = None               # (B, V) current SLM logits
         self.ll = None               # (B, V) current LLM logits
         self.gates = None            # (B, E) gate rows, or None
-        self.pager_s = engine._make_pager(engine.dep.slm, batch)
-        self.pager_l = (engine._make_pager(engine.dep.llm, batch)
-                        if use_cloud else None)
+        # host page bookkeeping (paged lanes only)
+        self.pager_s = self.pager_l = None
+        if engine.paged:
+            self.pager_s = engine._make_pager(engine.dep.slm, batch)
+            if use_cloud:
+                self.pager_l = engine._make_pager(engine.dep.llm, batch)
+        # requests evicted under pool pressure, awaiting re-admission,
+        # and forced completions surfaced at the next collect
+        self._evictq: List[_Slot] = []
+        self._pending_done: List[Tuple[int, str, GenStats]] = []
         self._macro: Optional[LaneMacro] = None  # built at first dispatch
         # (macro, lat, ok, live rows) of the macro step in flight
         self._inflight = None
@@ -440,11 +459,14 @@ class _Lane:
             # be adapter-free, later rows scatter their one-hot rows in
             n_experts = self.eng.adapters.num_slots
         vocab = dep.slm.cfg.vocab_size
-        self.s_cache = dep.init_paged_lane_cache(
-            dep.slm, b, *self.pager_s.pool_pages())
+
+        def cache(lm, pager):
+            if pager is None:
+                return dep.init_lane_cache(lm, b)
+            return dep.init_paged_lane_cache(lm, b, *pager.pool_pages())
+        self.s_cache = cache(dep.slm, self.pager_s)
         if self.use_cloud:
-            self.l_cache = dep.init_paged_lane_cache(
-                dep.llm, b, *self.pager_l.pool_pages())
+            self.l_cache = cache(dep.llm, self.pager_l)
             self.ll = torch.zeros((b, vocab), dtype=torch.float32,
                                   device=dep.device)
         self.sl = torch.zeros((b, vocab), dtype=torch.float32,
@@ -454,13 +476,21 @@ class _Lane:
                                      device=dep.device)
 
     # --------------------------------------------------------- admission
-    def _finish_admit(self, j: _PagedJob):
+    def _finish_admit(self, j: _Job):
+        """Install the slot of an admitted job: fresh, or the kept slot
+        of an evicted request, whose stats and tokens continue (its
+        re-prefill of prompt + tokens so far lands on the distribution
+        it was parked on)."""
+        if j.resume is not None:
+            j.resume.parked = False
+            self.slots[j.slot] = j.resume
+            return
         self.slots[j.slot] = _Slot(
             j.rid, j.max_new, j.greedy,
             GenStats(private=j.private, truncated=j.truncated,
                      admit_seq=j.seq),
             key_id=j.key_id, seq=j.seq, prompt_len=len(j.ids),
-            aslot=j.aslot)
+            prompt_ids=list(j.ids), full_text=j.prompt, aslot=j.aslot)
 
     def _pad_group(self, ids: List[List[int]], width_cap: int):
         """Shared right-padding for an admission group: chunk-rounded
@@ -480,13 +510,15 @@ class _Lane:
         return to_device(toks, self.eng.dep.device), lens_p
 
     @torch.inference_mode()
-    def admit_many(self, jobs: List[_PagedJob]):
-        """Admit a burst of requests (unshared paged admission): ONE
-        packed B>1 prefill per model whose per-layer K/V stream straight
-        into the rows' reserved pool pages — the pool contents the
-        reference's dense prefill + page-row scatter gives.  The rows'
+    def admit_many(self, jobs: List[_Job]):
+        """Admit a burst of requests: ONE packed B>1 prefill per model
+        whose per-layer K/V stream straight into the rows' dense lane
+        rows (the reference's dense prefill + row insert) or, on paged
+        lanes, into their reserved pool pages (the pool contents the
+        reference's dense prefill + page-row scatter gives: the rows'
         block-table rows double as their destination pages, and their
-        local-table rows as those of their rings."""
+        local-table rows as those of their rings).  A dense lane numbers
+        its admissions here, as the reference's does."""
         if not jobs:
             return
         eng = self.eng
@@ -497,24 +529,35 @@ class _Lane:
                              bp=int(toks.shape[0]))
         if self.s_cache is None:
             self._alloc(None if g is None else g.shape[-1])
+        if not eng.paged:
+            for j in jobs:
+                j.seq = eng._next_seq()
         src = list(range(n))
         dst = [j.slot for j in jobs]
-        block, local = _paged_tables(self.pager_s, [j.rows_s for j in jobs])
-        s_logits = dep.slm_prefill_packed(
-            eng.slm_params, toks, lens,
-            dep.page_writer(self.s_cache, src, block, lens, local,
-                            self.pager_s.local_len), eng.lora, g)
-        dep.finish_paged_insert(self.s_cache, dst, lens[:n], block, local)
+
+        def insert(cache, pager, rows):
+            """The prefill's ``write_kv`` and what sets the admitted
+            rows' positions (and tables) once it ran."""
+            if pager is None:
+                return (row_writer(cache, src, dst, lens),
+                        lambda: dep.set_row_pos(cache, dst, lens[:n]))
+            block, local = _paged_tables(pager, rows)
+            return (dep.page_writer(cache, src, block, lens, local,
+                                    pager.local_len),
+                    lambda: dep.finish_paged_insert(cache, dst, lens[:n],
+                                                    block, local))
+        write, finish = insert(self.s_cache, self.pager_s,
+                               [j.rows_s for j in jobs])
+        s_logits = dep.slm_prefill_packed(eng.slm_params, toks, lens, write,
+                                          eng.lora, g)
+        finish()
         dep.insert_row(self.sl, s_logits[:, 0], src, dst)
         if self.use_cloud:
-            blk_l, loc_l = _paged_tables(self.pager_l,
-                                         [j.rows_l for j in jobs])
-            l_logits = dep.llm_prefill_packed(
-                eng.llm_params, toks, lens,
-                dep.page_writer(self.l_cache, src, blk_l, lens, loc_l,
-                                self.pager_l.local_len))
-            dep.finish_paged_insert(self.l_cache, dst, lens[:n], blk_l,
-                                    loc_l)
+            write, finish = insert(self.l_cache, self.pager_l,
+                                   [j.rows_l for j in jobs])
+            l_logits = dep.llm_prefill_packed(eng.llm_params, toks, lens,
+                                              write)
+            finish()
             dep.insert_row(self.ll, l_logits[:, 0], src, dst)
         if g is not None:
             dep.insert_row(self.gates, g, src, dst)
@@ -524,23 +567,28 @@ class _Lane:
     # ------------------------------------------------------------- decode
     @torch.inference_mode()
     def step(self) -> List[Tuple[int, str, GenStats]]:
-        """One fused decode step over every occupied row (the per-token
-        path, ``macro_k=0``).  Returns the requests that finished this
-        step as (rid, text, stats)."""
+        """One fused decode step over every occupied row that is not
+        parked (the per-token path, ``macro_k=0``), after re-admitting
+        evicted requests and provisioning pages.  Returns the requests
+        that finished this step (forced completions included) as (rid,
+        text, stats)."""
         eng = self.eng
         dep = eng.dep
-        self._provision(1)
-        if self.active == 0:
-            return []
+        self._readmit_evicted()
+        done = self._provision(1)
+        live = [i for i, s in enumerate(self.slots)
+                if s is not None and not s.parked]
+        if not live:
+            return done
         b = self.batch
         occ = np.zeros((b,), bool)
         rids = np.zeros((b,), np.int32)
         keys = np.zeros((b,), np.int64)
         steps = np.zeros((b,), np.int32)
-        for i, s in enumerate(self.slots):
-            if s is not None:
-                occ[i], rids[i], steps[i] = True, s.rid, len(s.out_ids)
-                keys[i] = s.rid if s.key_id is None else s.key_id
+        for i in live:
+            s = self.slots[i]
+            occ[i], rids[i], steps[i] = True, s.rid, len(s.out_ids)
+            keys[i] = s.rid if s.key_id is None else s.key_id
         if self.use_cloud:
             # one vectorised counter-based draw for the whole batch
             lat, ok = dep.lat_batched(rids, steps)
@@ -552,17 +600,15 @@ class _Lane:
         nxt = dep.argmax_batched(probs).cpu().numpy()
         w_host = w.cpu().numpy()
         drawn = None
-        if any(s is not None and not s.greedy for s in self.slots):
+        if any(not self.slots[i].greedy for i in live):
             # one keyed draw for the whole batch (K7); keys fold_in(key
             # id, step) are the sequential engine's
             drawn = dep.sample_batched(probs, keys, steps).cpu().numpy()
 
-        done: List[Tuple[int, str, GenStats]] = []
         freed: List[int] = []
         next_tok = np.zeros((b, 1), np.int64)
-        for i, s in enumerate(self.slots):
-            if s is None:
-                continue
+        for i in live:
+            s = self.slots[i]
             st = s.stats
             if self.use_cloud:
                 st.cloud_tokens += int(arrived[i])
@@ -585,10 +631,14 @@ class _Lane:
         if freed:
             # park even when the lane drains: a later partial admission
             # must not revive stale rows at live positions
-            self._release_rows(freed)
-        if self.active:
-            # freed rows ride along in the fixed-width batch, parked at
-            # FREED_POS with NO_PAGE tables: their writes drop
+            self._park_rows(freed)
+        parked = [i for i, s in enumerate(self.slots)
+                  if s is not None and s.parked]
+        if any(s is not None and not s.parked for s in self.slots):
+            # freed and parked rows ride along in the fixed-width batch
+            # at FREED_POS: their writes drop, and parked rows get their
+            # pending logits back after the decode
+            old_sl, old_ll = self.sl, self.ll
             toks = to_device(next_tok, dep.device)
             s_logits, self.s_cache = dep.slm_decode(
                 eng.slm_params, self.s_cache, toks, eng.lora,
@@ -598,6 +648,10 @@ class _Lane:
                 l_logits, self.l_cache = dep.llm_decode(
                     eng.llm_params, self.l_cache, toks)
                 self.ll = l_logits[:, 0]
+            if parked:
+                dep.insert_row(self.sl, old_sl, parked, parked)
+                if self.use_cloud:
+                    dep.insert_row(self.ll, old_ll, parked, parked)
         return done
 
     # -------------------------------------------------------- macro decode
@@ -625,12 +679,16 @@ class _Lane:
         replays the traces into the slots.  Between the two the host may
         admit into free rows (the scheduler's admission pipelining);
         rows freed in the macro give their pages back only at collect,
-        so no admission takes a page the step still writes.  No-op when
-        the lane is idle or a macro step is already in flight."""
+        so no admission takes a page the step still writes.  Evicted
+        requests are re-admitted and pages provisioned first; rows
+        parked for pages enter the step done, keeping their pending
+        logits.  No-op when the lane is idle or a macro step is already
+        in flight."""
         if self._inflight is not None:
             return
-        self._provision(k)
-        if self.active == 0:
+        self._readmit_evicted()
+        self._pending_done.extend(self._provision(k))
+        if not any(s is not None and not s.parked for s in self.slots):
             return
         dep, b = self.eng.dep, self.batch
         rids = np.zeros((b,), np.int32)
@@ -640,7 +698,7 @@ class _Lane:
         greedy = np.ones((b,), bool)
         done = np.ones((b,), bool)
         for i, s in enumerate(self.slots):
-            if s is not None:
+            if s is not None and not s.parked:
                 rids[i], steps[i], maxn[i] = s.rid, len(s.out_ids), s.max_new
                 keys[i] = s.rid if s.key_id is None else s.key_id
                 greedy[i] = s.greedy
@@ -656,7 +714,7 @@ class _Lane:
             if c is not None:
                 check_row_positions(
                     np.where(done, FREED_POS, c["pos_host"] + fed - 1),
-                    c["block"].shape[1] * dep.page_size)
+                    dep.max_seq)
         lat = ok = None
         if self.use_cloud:
             # a row's step advances once per active iteration, so the
@@ -676,11 +734,13 @@ class _Lane:
         """The one host sync of the macro step in flight: fetch its
         traces and replay them into the slots' stats, as ``step`` would
         have recorded them token by token.  Returns the requests that
-        finished.  Rows admitted while it was in flight were done for
-        the whole step (their traces are all inactive) and keep their
-        host positions."""
+        finished, forced completions of the dispatch's provisioning
+        first.  Rows admitted while it was in flight were done for the
+        whole step (their traces are all inactive) and keep their host
+        positions."""
+        pending, self._pending_done = self._pending_done, []
         if self._inflight is None:
-            return []
+            return pending
         m, lat, ok, live = self._inflight
         self._inflight = None
         toks, w, emit = self.eng.dep.fetch_traces(m.traces)
@@ -690,7 +750,7 @@ class _Lane:
         m.parked_rows += int((live[None, :] & ~emit).sum())
         m.idle_iters += int((~emit.any(1)).sum())
         eng = self.eng
-        out: List[Tuple[int, str, GenStats]] = []
+        out: List[Tuple[int, str, GenStats]] = pending
         freed: List[int] = []
         for t in range(m.k):
             for i, s in enumerate(self.slots):
@@ -721,8 +781,8 @@ class _Lane:
             if c is not None:
                 c["pos_host"][on] += emit[:, on].sum(0)
         if freed:
-            # parked in the step; now unmap them and return their pages
-            self._release_rows(freed)
+            # parked in the step; now mirror that and return their pages
+            self._park_rows(freed)
         return out
 
     def macro_step(self, k: int) -> List[Tuple[int, str, GenStats]]:
@@ -731,10 +791,20 @@ class _Lane:
         self.macro_dispatch(k)
         return self.macro_collect()
 
+    def _park_rows(self, freed: List[int]):
+        """Park freed rows at FREED_POS: the fixed-width batch still
+        spends their work, but their cache writes drop and their
+        positions hold.  A dense row stays resident until an admission
+        replaces it whole; a paged row's pages are released."""
+        if self.eng.paged:
+            self._release_rows(freed)
+            return
+        self._set_positions([(i, FREED_POS) for i in freed])
+
     def _release_rows(self, freed: List[int]):
-        """Parking releases memory for real: pos to FREED_POS AND table
-        rows to NO_PAGE on the device, then the pages go back to the
-        host free lists for the next admission."""
+        """Paged parking releases memory for real: pos to FREED_POS AND
+        table rows to NO_PAGE on the device, then the pages go back to
+        the host free lists for the next admission."""
         dep = self.eng.dep
         dep.free_paged_rows(self.s_cache, freed)
         if self.use_cloud:
@@ -745,6 +815,16 @@ class _Lane:
                 self.pager_l.release(i)
 
     # ------------------------------------------------------- lazy growth
+    def _set_positions(self, updates: List[Tuple[int, int]]):
+        """Row positions (park and unpark) of both caches, in place and
+        outside any graph: (row, pos) pairs."""
+        if not updates:
+            return
+        idx, val = zip(*updates)
+        for c in (self.s_cache, self.l_cache):
+            if c is not None:
+                self.eng.dep.set_row_pos(c, idx, val)
+
     def _apply_growth(self, which: str, ups: List[Tuple[int, int, int]]):
         """ONE block-table scatter per model per boundary for all rows'
         freshly grown pages."""
@@ -788,30 +868,113 @@ class _Lane:
         self.eng._stat["grown_pages"] += len(got_s) + len(got_l)
         return True
 
-    def _provision(self, k: int):
+    def _provision(self, k: int) -> List[Tuple[int, str, GenStats]]:
         """Lazy-growth pass at a decode boundary: extend live rows' block
-        tables (oldest admission first) before the next k tokens.  The
-        reference parks a row whose growth cannot be met and evicts
-        when the lane wedges; the port raises instead.  With the default
-        pools (batch x full table width) growth always succeeds.  Eager
-        reservation (``lazy_pages=False``) makes this a no-op."""
-        if not self.eng.lazy_pages:
+        tables (oldest admission first: deterministic page handout, no
+        starvation among waiters) before the next k tokens.  A row whose
+        growth cannot be met PARKS (pos to FREED_POS, its writes drop,
+        its pending logits are kept) and resumes bit-identically once
+        pages free.  If every live row is parked the lane is wedged: the
+        youngest rows are EVICTED (pages released, the request
+        re-admitted later from prompt + tokens so far) until the oldest
+        grows.  The admission gate bounds each row's worst case by the
+        pool, so a lone row always completes; one that still cannot
+        grow is force-completed with the tokens it has.  Returns the
+        forced completions.  Dense lanes and eager reservation
+        (``lazy_pages=False``) make this a no-op (the reference's
+        ``_provision``, ``engine.py:1317-1376``)."""
+        eng = self.eng
+        if not eng.paged or not eng.lazy_pages:
+            return []
+        forced: List[Tuple[int, str, GenStats]] = []
+        while True:
+            order = sorted((i for i, s in enumerate(self.slots)
+                            if s is not None),
+                           key=lambda i: self.slots[i].seq)
+            if not order:
+                return forced
+            ups_s: List[Tuple[int, int, int]] = []
+            ups_l: List[Tuple[int, int, int]] = []
+            pos_ups: List[Tuple[int, int]] = []
+            any_active = False
+            for i in order:
+                s = self.slots[i]
+                if self._grow_row(i, s, k, ups_s, ups_l):
+                    if s.parked:
+                        s.parked = False
+                        pos_ups.append((i, s.prompt_len + len(s.out_ids)))
+                    any_active = True
+                elif not s.parked:
+                    s.parked = True
+                    pos_ups.append((i, FREED_POS))
+                    eng._stat["parks"] += 1
+            self._apply_growth("s", ups_s)
+            if self.use_cloud:
+                self._apply_growth("l", ups_l)
+            self._set_positions(pos_ups)
+            if any_active:
+                return forced
+            if len(order) > 1:
+                self._evict(order[-1])      # youngest first
+                continue
+            i = order[0]
+            s = self.slots[i]
+            forced.append((s.rid, TOK.decode(s.out_ids), s.stats))
+            eng._release_adapter(s)
+            self.slots[i] = None
+            self._release_rows([i])
+            eng._stat["forced"] += 1
+
+    def _evict(self, i: int):
+        """Release a parked row's pages and queue its request for
+        re-admission: prompt + every selected token re-prefill later,
+        landing on the distribution it was parked on (the prefill's
+        last-position logits are the next selection's)."""
+        s = self.slots[i]
+        self.slots[i] = None
+        self._release_rows([i])
+        self._evictq.append(s)
+        self.eng._stat["evictions"] += 1
+        self.eng.evicted_rids.append(s.rid)
+
+    def _readmit_evicted(self):
+        """Re-admit evicted requests, oldest first, into free slots and
+        pages, each reserving its lazy demand for prompt + tokens so
+        far, capped at its worst case.  The admission gate refuses
+        external requests while an eviction is pending, so FIFO order
+        survives eviction; a blocked head blocks the rest (the
+        reference's ``_readmit_evicted``, ``engine.py:1389-1424``)."""
+        if not self._evictq:
             return
-        order = sorted((i for i, s in enumerate(self.slots)
-                        if s is not None), key=lambda i: self.slots[i].seq)
-        ups_s: List[Tuple[int, int, int]] = []
-        ups_l: List[Tuple[int, int, int]] = []
-        for i in order:
-            if not self._grow_row(i, self.slots[i], k, ups_s, ups_l):
-                raise NotImplementedError(
-                    "park/evict under pool pressure: later slice")
-        self._apply_growth("s", ups_s)
-        if self.use_cloud:
-            self._apply_growth("l", ups_l)
+        eng = self.eng
+        self._evictq.sort(key=lambda s: s.seq)
+        free = self.free_slots()
+        jobs: List[_Job] = []
+        while self._evictq and free:
+            s = self._evictq[0]
+            ids = list(s.prompt_ids) + list(s.out_ids)
+            alloc_len = min(s.prompt_len + s.max_new, eng.max_ctx)
+            nf_s, _ = self.pager_s.demand_lazy(len(ids), alloc_len)
+            nf_l = (self.pager_l.demand_lazy(len(ids), alloc_len)[0]
+                    if self.use_cloud else 0)
+            if not self.pager_s.fits_free(nf_s, self.pager_s.nl) or (
+                    self.use_cloud
+                    and not self.pager_l.fits_free(nf_l, self.pager_l.nl)):
+                break
+            slot = free.pop(0)
+            cap = PAG.pages_for(alloc_len, eng.dep.page_size)
+            rows_s = self.pager_s.admit(slot, nf_s, cap_pages=cap)
+            rows_l = (self.pager_l.admit(slot, nf_l, cap_pages=cap)
+                      if self.use_cloud else None)
+            jobs.append(_Job(slot, s.full_text, s.max_new, s.greedy, s.rid,
+                             s.stats.private, s.key_id, ids, rows_s,
+                             rows_l, seq=s.seq, aslot=s.aslot, resume=s))
+            self._evictq.pop(0)
+        self.admit_many(jobs)
 
 
 class BatchedHybridEngine(HybridEngine):
-    """Continuous-batching Floe engine on paged lanes.
+    """Continuous-batching Floe engine on paged (or dense) lanes.
 
     Two fixed-width decode batches ("lanes"): cloud-eligible requests
     share a hybrid SLM+LLM batch whose per-token fusion runs through K1
@@ -823,17 +986,24 @@ class BatchedHybridEngine(HybridEngine):
     K2.  Admission is gated on free slots and free pages: the lazy
     demand (prompt pages + one decode page) is reserved and grown at
     page boundaries; a worst-case demand beyond the total pool is a
-    hard reject (``pop_rejected``).  A request naming a per-user adapter
-    pins it into a slot of the engine's ``AdapterCache`` for its
-    lifetime; every slot pinned is a soft refusal (FIFO, like pages),
-    an unknown adapter id a hard reject.  Decode LoRA runs through K5 on
+    hard reject (``pop_rejected``).  ``pool_pages`` (both models, or the
+    SLM's with ``llm_pool_pages``) and ``local_pool_pages`` (ring pages)
+    set pools below the default, batch x table width: a row whose
+    growth cannot be met parks, and a wedged lane evicts its youngest
+    rows and re-admits them later (``growth_stats``).  ``paged=False``
+    keeps dense stacked lane caches, the bit-exact parity oracle,
+    whose rows K2 reads in place as pages on the card.  A request
+    naming a per-user adapter pins it into a slot of the engine's
+    ``AdapterCache`` for its lifetime; every slot pinned is a soft
+    refusal (FIFO, like pages), an unknown adapter id a hard reject.
+    Decode LoRA runs through K5 on
     the lane's gate rows, or through K4 on per-row slot ids with
     ``use_slot_kernel=True``; admission prefill always takes K5.
 
     ``macro_k=K`` (default 8, the reference's) decodes K tokens a lane
     per dispatch with one host sync (a CUDA graph per lane on the card);
-    ``macro_k=0`` is the per-token path.  The port serves ``paged=True``;
-    the other options raise ``NotImplementedError``."""
+    ``macro_k=0`` is the per-token path.  ``spec_k`` and ``chunk_width``
+    raise ``NotImplementedError``."""
 
     def __init__(self, slm=None, slm_params=None, llm=None, llm_params=None,
                  alignment_mlp=None, expert_bank=None,
@@ -869,12 +1039,7 @@ class BatchedHybridEngine(HybridEngine):
                     f"models (got {lm.cfg.family})")
         if macro_k < 0:
             raise ValueError(f"macro_k={macro_k} must be >= 0")
-        later = [(not paged, "dense lanes (paged=False)"),
-                 (spec_k != 0, "speculative decode (spec_k)"),
-                 (pool_pages is not None or local_pool_pages is not None
-                  or llm_pool_pages is not None,
-                  "pool budgets below the default (park/evict under pool "
-                  "pressure)"),
+        later = [(spec_k != 0, "speculative decode (spec_k)"),
                  (chunk_width not in (None, deployment.max_seq),
                   "chunked prefill (chunk_width)")]
         for bad, what in later:
@@ -882,6 +1047,10 @@ class BatchedHybridEngine(HybridEngine):
                 raise NotImplementedError(f"{what}: later slice")
         self.slm, self.llm = deployment.slm, deployment.llm
         self.macro_k = macro_k
+        self.paged = paged
+        self.pool_pages = pool_pages
+        self.local_pool_pages = local_pool_pages
+        self.llm_pool_pages = llm_pool_pages
         self.lazy_pages = lazy_pages
         self.max_ctx = deployment.max_ctx
         # decode LoRA through K4 on per-row adapter slots instead of K5
@@ -889,6 +1058,8 @@ class BatchedHybridEngine(HybridEngine):
         self.use_slot_kernel = use_slot_kernel
         self._seq = 0
         self._stat = dict(grown_pages=0, parks=0, evictions=0, forced=0)
+        # the rid of every eviction, in order, beside the counters
+        self.evicted_rids: List[int] = []
         self._rejected: List[Tuple[int, str]] = []
         self.cloud_lane = _Lane(self, batch_size, use_cloud=True)
         self.edge_lane = _Lane(self, edge_batch_size or batch_size,
@@ -900,18 +1071,26 @@ class BatchedHybridEngine(HybridEngine):
         return s
 
     def growth_stats(self) -> Dict[str, int]:
-        """Lazy-growth counters: pages grown at boundaries; parks,
-        evictions and forced completions stay 0 (pool pressure raises)."""
+        """Lazy-growth counters: pages grown at boundaries, rows parked
+        for pages, evictions and forced completions."""
         return dict(self._stat)
 
     def _make_pager(self, lm, batch: int) -> PAG.LanePager:
         """Host page bookkeeping for one (lane, model): the default pools
         are the dense equivalent, batch x full table width and batch x
-        ring-local table width."""
+        ring-local table width; ``pool_pages`` (the LLM's
+        ``llm_pool_pages`` where given) and ``local_pool_pages`` replace
+        them."""
         geo = self.dep.paged_geometry(lm)
+        pages = (self.pool_pages if self.pool_pages is not None
+                 else batch * geo["nb"])
+        if lm is self.dep.llm and self.llm_pool_pages is not None:
+            pages = self.llm_pool_pages
+        local = (self.local_pool_pages if self.local_pool_pages is not None
+                 else batch * geo["nl"])
         pager = PAG.LanePager(batch, self.max_seq, self.dep.page_size,
-                              batch * geo["nb"], geo["local_len"],
-                              batch * geo["nl"], max_ctx=self.max_ctx)
+                              pages, geo["local_len"], local,
+                              max_ctx=self.max_ctx)
         pager.geo = geo
         return pager
 
@@ -922,7 +1101,8 @@ class BatchedHybridEngine(HybridEngine):
                     prefix: Optional[str] = None,
                     adapter_id: Optional[Any] = None) -> bool:
         """Admit one request; False if it could not be admitted now (lane
-        full, free pages short or every adapter slot pinned).  A page
+        full, free pages short, an eviction pending or every adapter
+        slot pinned).  A page
         demand beyond the total pool or an unknown adapter id is a hard
         reject, surfaced through ``pop_rejected``."""
         return self.add_requests([(prompt, max_new_tokens, greedy, rid,
@@ -965,20 +1145,22 @@ class BatchedHybridEngine(HybridEngine):
                 if bad:
                     raise NotImplementedError(f"{what} on the batched "
                                               "engine: later slice")
-        return self._add_requests_paged(reqs)
+        return self._add_requests(reqs)
 
-    def _add_requests_paged(self, reqs: List[Tuple]) -> List[bool]:
-        """Paged admission gate: free SLOT and free PAGES, per lane and
-        model.  The lazy demand (prompt pages + one decode page, capped
-        at the worst case) is reserved here; the hard-reject predicate
-        is the worst case against TOTAL pool capacity.  A soft refusal
-        blocks the lane for the rest of the burst (FIFO: later arrivals
-        never overtake a waiting request)."""
+    def _add_requests(self, reqs: List[Tuple]) -> List[bool]:
+        """Admission gate: a free SLOT and, on paged lanes, free PAGES
+        per model.  The lazy demand (prompt pages + one decode page,
+        capped at the worst case) is reserved here; the hard-reject
+        predicate is the worst case against TOTAL pool capacity.  A soft
+        refusal blocks the lane for the rest of the burst (FIFO: later
+        arrivals never overtake a waiting request), and a lane with an
+        eviction pending admits nothing external."""
         flags = [False] * len(reqs)
-        jobs: Dict[bool, List[_PagedJob]] = {True: [], False: []}
+        jobs: Dict[bool, List[_Job]] = {True: [], False: []}
         free = {True: self.edge_lane.free_slots(),
                 False: self.cloud_lane.free_slots()}
-        blocked = {True: False, False: False}
+        blocked = {True: bool(self.edge_lane._evictq),
+                   False: bool(self.cloud_lane._evictq)}
         for i, (prompt, max_new, greedy, rid, *rest) in enumerate(reqs):
             seed = rest[0] if rest else None
             aid = rest[2] if len(rest) > 2 else None
@@ -992,6 +1174,18 @@ class BatchedHybridEngine(HybridEngine):
             cap_ids = self.max_ctx - max_new - 1
             ids = raw[:cap_ids]
             truncated = len(raw) > cap_ids
+            if not self.paged:
+                if blocked[private] or not free[private]:
+                    continue
+                ok, aslot = self._acquire_or_block(aid, blocked, private)
+                if not ok:
+                    continue
+                jobs[private].append(_Job(
+                    free[private].pop(0), prompt, max_new, greedy, rid,
+                    private, seed, ids, None, None, truncated=truncated,
+                    aslot=aslot))
+                flags[i] = True
+                continue
             alloc_len = min(len(ids) + max_new, self.max_ctx)
             cap_pages = PAG.pages_for(alloc_len, self.dep.page_size)
             worst_s = lane.pager_s.demand(alloc_len)
@@ -1028,7 +1222,7 @@ class BatchedHybridEngine(HybridEngine):
             rows_s = lane.pager_s.admit(slot, nf_s, cap_pages=cap_pages)
             rows_l = (lane.pager_l.admit(slot, nf_l, cap_pages=cap_pages)
                       if lane.use_cloud else None)
-            jobs[private].append(_PagedJob(
+            jobs[private].append(_Job(
                 slot, prompt, max_new, greedy, rid, private, seed, ids,
                 rows_s, rows_l, seq=self._next_seq(), truncated=truncated,
                 aslot=aslot))
@@ -1044,31 +1238,48 @@ class BatchedHybridEngine(HybridEngine):
         out, self._rejected = self._rejected, []
         return out
 
+    def _lane_models(self, lane: _Lane):
+        """(model, its lane cache, its pager) of a lane's models."""
+        out = [(self.slm, lane.s_cache, lane.pager_s)]
+        if lane.use_cloud:
+            out.append((self.llm, lane.l_cache, lane.pager_l))
+        return out
+
     def resident_kv_bytes(self) -> int:
-        """Bytes of KV state currently LIVE: allocated pages."""
+        """Bytes of KV state currently LIVE: allocated pages on paged
+        lanes; on dense lanes the allocated lane caches, batch x max_seq
+        whatever the occupancy."""
         total = 0
         for lane in (self.cloud_lane, self.edge_lane):
-            for pager in (lane.pager_s, lane.pager_l):
+            for lm, cache, pager in self._lane_models(lane):
                 if pager is not None:
                     total += pager.live_bytes(pager.geo["page_bytes_full"],
                                               pager.geo["page_bytes_local"])
+                elif cache is not None:
+                    total += self.dep.lane_kv_bytes(lm, lane.batch)
         return total
 
     def kv_pool_bytes(self) -> int:
-        """Total KV capacity in bytes: every lane's pool pages (computed
-        from the geometry, so it is meaningful before first admission;
-        the sink page each pool carries is not capacity)."""
+        """Total KV capacity in bytes: every lane's pool pages (the sink
+        page each pool carries is not capacity), or its dense lane
+        caches; computed from the geometry, so it is meaningful before
+        first admission."""
         total = 0
         for lane in (self.cloud_lane, self.edge_lane):
-            for pager in (lane.pager_s, lane.pager_l):
-                if pager is not None:
-                    full, local = pager.pool_pages()
-                    total += (full * pager.geo["page_bytes_full"]
-                              + local * pager.geo["page_bytes_local"])
+            for lm, _, pager in self._lane_models(lane):
+                if pager is None:
+                    total += self.dep.lane_kv_bytes(lm, lane.batch)
+                    continue
+                full, local = pager.pool_pages()
+                total += (full * pager.geo["page_bytes_full"]
+                          + local * pager.geo["page_bytes_local"])
         return total
 
     def active_count(self) -> int:
-        return self.cloud_lane.active + self.edge_lane.active
+        """Occupied rows, and evicted requests awaiting re-admission:
+        they hold no pages, but the lane owes them a completion."""
+        return sum(lane.active + len(lane._evictq)
+                   for lane in (self.cloud_lane, self.edge_lane))
 
     def macro_stats(self) -> Dict[str, float]:
         """Over both lanes: macro steps built, the seconds their graph

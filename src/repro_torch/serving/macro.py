@@ -33,14 +33,19 @@ which the lane rebuilds from the traces at collect.
 
 A kernel wrapper counts a launch when its Python runs, which in a graph
 is once, at capture: the counts made while capturing (``launches``,
-and K2's ``ring_launches``) are taken back and added again at every
-replay, so they stay the number of kernels the device ran.
+and K2's ``ring_launches`` and ``window_launches``) are taken back and
+added again at every replay, so they stay the number of kernels the
+device ran.
 
 A lane cache is a tree: the plain layout's {"k", "v"} pools, or the
 grouped (gemma3) layout's {"inner", "tail", "global": {"k", "v"}} pools
-with a "local" ring table beside "block".  The step decodes through a
-shallow copy of the top level without "pos_host", so every pool and
-table it reads is the lane's own tensor, updated in place.
+with a "local" ring table beside "block"; on a dense lane the same
+trees of stacked rows, with K2's identity tables.  The step decodes
+through a shallow copy of the top level without "pos_host", so every
+leaf and table it reads is the lane's own tensor, updated in place.
+Rows parked for pages (or evicted) enter a dispatch done, so they keep
+their pending logits and resume at a later boundary; the lane parks and
+unparks them in place before ``load``, outside the graph.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ from repro_torch.models.attention import FREED_POS
 # every (wrapper, counter) a macro step can advance, which replays add to
 COUNTED = ((fuse_logits, "launches"), (paged_decode_attention, "launches"),
            (paged_decode_attention, "ring_launches"),
+           (paged_decode_attention, "window_launches"),
            (moe_lora_delta, "launches"), (moe_lora_delta_slots, "launches"),
            (sample_fused, "launches"))
 

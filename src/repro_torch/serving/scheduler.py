@@ -183,7 +183,9 @@ class ContinuousBatchScheduler:
                      for pager in (lane.pager_s, lane.pager_l)
                      if pager is not None]
             lines.append(f"{name} lane: {len(lane.free_slots())}/"
-                         f"{lane.batch} slots free, free pages={pools}")
+                         f"{lane.batch} slots free, "
+                         f"evictq={len(lane._evictq)}, "
+                         f"free pages={pools or 'dense'}")
         lines.append(f"growth: {eng.growth_stats()}")
         if eng.adapter_stats():
             lines.append(f"adapters: {eng.adapter_stats()}")

@@ -44,6 +44,7 @@ from repro_torch.serving.engine import BatchedHybridEngine, HybridEngine
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
                                            ResponseStatus, Scheduler)
 from repro_torch.serving.latency import LatencyModel
+from _threads import one_thread  # noqa: F401
 
 W_TOL = 1e-5
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -30,6 +30,7 @@ from repro_torch.serving.engine import BatchedHybridEngine, HybridEngine
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
                                            ResponseStatus)
+from _threads import one_thread  # noqa: F401
 
 W_TOL = 1e-5
 MAX_SEQ = 96
@@ -219,19 +220,6 @@ def test_lazy_growth_crosses_boundary(pair):
     assert runs[False][1]["grown_pages"] == 0
 
 
-def _shrink(eng, slm_pages=None, llm_pages=None):
-    """Pools below the default, set on the pagers before the first
-    admission (the port refuses ``pool_pages`` at construction: growth
-    under pool pressure is a later slice, but the admission gate is
-    here)."""
-    for lane in (eng.cloud_lane, eng.edge_lane):
-        if slm_pages is not None:
-            lane.pager_s.alloc = PAG.PageAllocator(slm_pages, 16)
-        if llm_pages is not None and lane.pager_l is not None:
-            lane.pager_l.alloc = PAG.PageAllocator(llm_pages, 16)
-    return eng
-
-
 def test_page_gated_admission_refusals(pair):
     """A demand beyond the free list is a soft refusal (admitted once
     pages free up, with the fresh-admit text); a demand beyond the total
@@ -240,8 +228,8 @@ def test_page_gated_admission_refusals(pair):
     lat = dict(rtt_ms=10, jitter_ms=0)
     jeng = JBatched(deployment=_jdep(pair, lat, 48), batch_size=3,
                     macro_k=0, paged=True, pool_pages=2)
-    eng = _shrink(BatchedHybridEngine(deployment=_dep(pair, lat, 48),
-                                      batch_size=3, macro_k=0), 2, 2)
+    eng = BatchedHybridEngine(deployment=_dep(pair, lat, 48), batch_size=3,
+                              macro_k=0, pool_pages=2)
     geo = eng.dep.paged_geometry(eng.slm)["page_bytes_full"] + \
         eng.dep.paged_geometry(eng.llm)["page_bytes_full"]
     a, c, big = "list three colors", "hi", "what time is it now"
@@ -279,13 +267,12 @@ def test_hard_reject_names_offending_model(pair):
     """The hard-reject reason names the model whose pool overflowed,
     with the reference's wording."""
     lat = dict(rtt_ms=10, jitter_ms=0)
-    for kw, shrink, want in (
-            (dict(pool_pages=2, llm_pool_pages=64), (2, 64), "slm"),
-            (dict(llm_pool_pages=2), (None, 2), "llm")):
+    for kw, want in ((dict(pool_pages=2, llm_pool_pages=64), "slm"),
+                     (dict(llm_pool_pages=2), "llm")):
         jeng = JBatched(deployment=_jdep(pair, lat, 48), batch_size=3,
                         macro_k=0, paged=True, **kw)
-        eng = _shrink(BatchedHybridEngine(deployment=_dep(pair, lat, 48),
-                                          batch_size=3, macro_k=0), *shrink)
+        eng = BatchedHybridEngine(deployment=_dep(pair, lat, 48),
+                                  batch_size=3, macro_k=0, **kw)
         reasons = []
         for e in (jeng, eng):
             assert not e.add_request("what time is it now", 40, True, 11)
@@ -306,11 +293,13 @@ def test_unported_options_raise(pair):
         res = _run(sched, PROMPTS[:3], BUDGETS[:3])
         assert [r.stats.tokens for r in res] == BUDGETS[:3]
         assert sched.engine.resident_kv_bytes() == 0
-    for kw in (dict(macro_k=0, paged=False),
-               dict(macro_k=0, spec_k=2), dict(macro_k=0, pool_pages=4),
+    # dense lanes and pool budgets are ported: they construct
+    for kw in (dict(macro_k=0, paged=False), dict(macro_k=0, pool_pages=4),
                dict(macro_k=0, llm_pool_pages=4),
-               dict(macro_k=0, local_pool_pages=4),
-               dict(macro_k=0, chunk_width=48)):
+               dict(macro_k=0, local_pool_pages=4)):
+        BatchedHybridEngine(deployment=dep, **kw)
+    for kw in (dict(macro_k=0, spec_k=2), dict(macro_k=0, chunk_width=48),
+               dict(macro_k=0, paged=False, spec_k=2)):
         with pytest.raises(NotImplementedError, match="later slice"):
             BatchedHybridEngine(deployment=dep, **kw)
     eng = BatchedHybridEngine(deployment=dep, batch_size=2, macro_k=0)
@@ -337,9 +326,13 @@ def test_unported_options_raise(pair):
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingDeployment(pair[1][0], pair[1][1], fault=object(),
                           device="cpu")
+    # per-row decode against a dense cache is ported (dense lanes): a
+    # live row past its rows still raises before any write
     slm, params = pair[1][0], pair[1][1]
-    dense = dict(slm.init_cache(2, 48), pos=torch.tensor([3, 5]))
-    with pytest.raises(NotImplementedError, match="dense lanes"):
+    dense = dict(slm.init_cache(2, 48), pos=torch.tensor([3, 5],
+                                                         dtype=torch.int32),
+                 pos_host=np.array([3, 48]))
+    with pytest.raises(ValueError, match="outside"):
         slm.decode_step(params, dense, torch.tensor([[4], [4]]))
 
 

@@ -11,6 +11,7 @@ from repro.core import fusion as JFUS
 from repro.models.model import LM as JLM
 from repro_torch import bridge
 from repro_torch.models.model import LM
+from _threads import one_thread  # noqa: F401
 
 
 def _leaves(tree, prefix=()):

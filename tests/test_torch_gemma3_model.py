@@ -33,22 +33,12 @@ from repro.models.model import LM as JLM
 from repro_torch import bridge
 from repro_torch.models import attention as ATT
 from repro_torch.models.model import LM, cache_kv
+from _threads import one_thread  # noqa: F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
 MAX_SEQ = 48
 KINDS = ("inner", "tail", "global")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the reduced models' tensors are tiny, and
-    with several test workers on the cores a multi-threaded op waits on
-    its thread pool far longer than it computes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(layers):

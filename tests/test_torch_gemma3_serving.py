@@ -51,6 +51,7 @@ from repro_torch.serving.engine import BatchedHybridEngine, HybridEngine
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
                                            Scheduler)
+from _threads import one_thread  # noqa: F401
 
 W_TOL = 1e-5
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -68,17 +69,6 @@ PROMPTS = [
 ]
 BUDGETS = [20, 12, 20, 9, 20, 14, 5]
 LANES = dict(batch_size=4, edge_batch_size=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the reduced models' tensors are tiny, and
-    with several test workers on the cores a multi-threaded op waits on
-    its thread pool far longer than it computes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _slm_cfg(layers=5):

@@ -280,7 +280,7 @@ def split_edge_positions(kvh, nb=128):
     """Positions just before, at and after the first two split edges of
     the kernel's split layout for B = 8 rows (the layout depends on the
     static shapes alone)."""
-    splits = K2._lib().paged_decode_splits(8, kvh, nb, 0)
+    splits = K2._lib().paged_decode_splits(8, kvh, nb, 0, 0)
     span = -(-nb // splits) * 16                      # slots per split
     return [span - 1, span, span + 15, 2 * span - 1, 2 * span,
             2 * span + 16, FREED_POS, span - 16]
@@ -314,6 +314,38 @@ def test_paged_attention_split_k(cuda, h, kvh, hd, kind):
     assert K2.paged_decode_attention.launches == before + 2
     assert torch.equal(out, again)                      # bit for bit
     ref = K2.paged_decode_attention_plain(*case, window=window)
+    live = [i for i, p in enumerate(positions) if p < FREED_POS]
+    parked = [i for i, p in enumerate(positions) if p >= FREED_POS]
+    assert row_rel_err(out[live], ref[live]) <= 2 ** -6
+    assert torch.isfinite(out.float()).all()
+    assert not out[parked].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,hd", [(4, 1, 256), (4, 2, 32)])
+@pytest.mark.parametrize("positions", [
+    [0, 100, 511, 512, 513, 1541, FREED_POS, 2047],
+    [600, 777, 1024, 1300, 1541, 1800, 2000, 2047]])
+def test_paged_attention_window_over_full_table(cuda, h, kvh, hd,
+                                                positions):
+    """K2's full-length window mode (``ring=False``): window 512 over
+    (8, 128) block tables mapped up to each row's position, at the
+    gemma3 SLM's decode shape and a reduced one, rows below, at and past
+    the window (one parked) or all past it; against the plain version,
+    parked rows zeros, two calls bit-equal, counted as window launches
+    and not as ring ones."""
+    g = torch.Generator(device=cuda).manual_seed(h + hd + positions[0])
+    case = paged_case(cuda, g, 8, h, kvh, hd, 1024, 128, 0, positions)
+    counts = (K2.paged_decode_attention.window_launches,
+              K2.paged_decode_attention.ring_launches)
+    out = K2.paged_decode_attention(*case, window=512, ring=False)
+    again = K2.paged_decode_attention(*case, window=512, ring=False)
+    torch.cuda.synchronize()
+    assert (K2.paged_decode_attention.window_launches,
+            K2.paged_decode_attention.ring_launches) == (counts[0] + 2,
+                                                         counts[1])
+    assert torch.equal(out, again)
+    ref = K2.paged_decode_attention_plain(*case, window=512, ring=False)
     live = [i for i, p in enumerate(positions) if p < FREED_POS]
     parked = [i for i, p in enumerate(positions) if p >= FREED_POS]
     assert row_rel_err(out[live], ref[live]) <= 2 ** -6
@@ -714,26 +746,76 @@ def test_sampled_macro_graph_replay_equals_eager_body(cuda):
     macro_graph_vs_eager(cuda, "2b", sampled=True)
 
 
-def macro_graph_vs_eager(cuda, pair, sampled=False):
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair,ring", [("2b", True), ("gemma3", True),
+                                       ("gemma3", False)])
+@pytest.mark.parametrize("k", [0, 4])
+def test_dense_lanes_equal_paged_on_the_card(cuda, pair, ring, k):
+    """Dense lanes (``paged=False``: stacked rows that K2 reads in place
+    as pages through identity tables) against paged lanes on the card,
+    the reduced pairs in bf16, per-token and macro step: every response
+    bit for bit (token ids, counts, latencies, fusion weights) and the
+    same K2 launches by mode.  The gemma3 SLM runs with rings (K2's ring
+    mode) and without (its full-length window mode)."""
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    dep = reduced_bf16_deployment(cuda, pair, ring)
+    runs = []
+    decode, TOK.decode = TOK.decode, lambda ids: ",".join(map(str, ids))
+    try:
+        for paged in (True, False):
+            sched = ContinuousBatchScheduler.from_deployment(
+                dep, batch_size=4, edge_batch_size=2, macro_k=k,
+                paged=paged)
+            for p, n in zip(MACRO_PROMPTS, MACRO_BUDGETS):
+                sched.submit(p, n)
+            fn = K2.paged_decode_attention
+            fn.launches = fn.ring_launches = fn.window_launches = 0
+            res = sched.run()
+            torch.cuda.synchronize()
+            runs.append(([(r.text, r.stats.tokens, r.stats.cloud_tokens,
+                           r.stats.latency_ms, r.stats.fusion_w)
+                          for r in res],
+                         (fn.launches, fn.ring_launches,
+                          fn.window_launches)))
+    finally:
+        TOK.decode = decode
+    assert runs[0] == runs[1]
+    launches, ring_n, window_n = runs[0][1]
+    assert launches > 0
+    assert (ring_n > 0, window_n > 0) == (pair == "gemma3" and ring,
+                                          pair == "gemma3" and not ring)
+
+
+def reduced_bf16_deployment(cuda, pair, ring=True):
+    """The reduced ``pair`` in bf16 on the card, max_seq 96, jittery
+    weather; the gemma3 SLM with or without ring caches."""
     import dataclasses
 
     from repro_torch.configs.floe_pair import needs_ring_cache, pair_configs
     from repro_torch.core import fusion as FUS
     from repro_torch.models.model import LM
     from repro_torch.serving.deployment import ServingDeployment
-    from repro_torch.serving.engine import BatchedHybridEngine
     from repro_torch.serving.latency import LatencyModel
 
     scfg, lcfg = (dataclasses.replace(c, dtype="bfloat16")
                   for c in pair_configs(pair))
-    slm = LM(scfg, device=cuda, ring_cache=needs_ring_cache(scfg))
+    slm = LM(scfg, device=cuda, ring_cache=ring and needs_ring_cache(scfg))
     llm = LM(lcfg, device=cuda)
-    dep = ServingDeployment(
+    return ServingDeployment(
         slm, slm.init(0), llm, llm.init(1),
         FUS.init_alignment(2, scfg.vocab_size, device=cuda),
         latency=LatencyModel(rtt_ms=160, jitter_ms=40.0,
                              cloud_compute_ms=20, seed=7),
         max_seq=96, device=cuda)
+
+
+def macro_graph_vs_eager(cuda, pair, sampled=False):
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    dep = reduced_bf16_deployment(cuda, pair)
+    scfg, lcfg = dep.slm.cfg, dep.llm.cfg
     k = 4
     graph, eager = (BatchedHybridEngine(deployment=dep, batch_size=4,
                                         edge_batch_size=2, macro_k=k)

@@ -14,6 +14,7 @@ from repro_torch.core import fusion as FUS
 from repro_torch.launch import serve
 from repro_torch.models.model import LM
 from repro_torch.serving.deployment import ServingDeployment
+from _threads import one_thread  # noqa: F401
 
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 ROOT = Path(__file__).resolve().parents[1]
@@ -109,13 +110,33 @@ def test_serve_sample_on_cpu(capsys):
 
 def test_serve_refuses_later_slice_flags(capsys):
     for argv in (["--local", "--spec-k", "4"],
-                 ["--local", "--batch", "4", "--macro-k", "0", "--dense"],
-                 ["--local", "--batch", "4", "--macro-k", "0",
-                  "--pool-pages", "8"],
+                 ["--local", "--batch", "4", "--chunk-width", "48"],
+                 ["--local", "--batch", "4", "--deadline-ms", "50"],
                  ["--local", "--max-ctx", "192"]):
         with pytest.raises(SystemExit):
             serve.main(argv)
         assert "later slice" in capsys.readouterr().err
+
+
+def test_serve_dense_and_pool_pages_print_the_paged_lines(capsys):
+    """``--dense`` (dense lanes) and ``--pool-pages 4`` (a pool that makes
+    the second cloud request wait for pages) print the paged run's
+    per-request lines, queue waits aside, and the lane KV line names
+    the layout."""
+    import re
+
+    def run(argv):
+        serve.main(["--local", "--device", "cpu", "--batch", "4",
+                    "--macro-k", "0"] + argv)
+        out = capsys.readouterr().out.splitlines()
+        return out[0], [re.sub(r" wait=\d+ms", "", ln) for ln in out
+                        if ln.startswith("[")]
+    kv_paged, paged = run([])
+    assert kv_paged.startswith("lane KV: paged") and len(paged) == 4
+    kv, dense = run(["--dense"])
+    assert kv.startswith("lane KV: dense") and dense == paged
+    kv, small = run(["--pool-pages", "4"])
+    assert small == paged and kv != kv_paged
 
 
 def test_serve_batched_default_is_the_macro_step(capsys):

@@ -32,6 +32,7 @@ from repro_torch.core import lora as LORA
 from repro_torch.kernels.moe_lora import kernel as K
 from repro_torch.models import layers as L
 from repro_torch.models.model import LM
+from _threads import one_thread  # noqa: F401
 
 RTOL = 1e-5
 

@@ -40,6 +40,7 @@ from repro_torch.serving.engine import BatchedHybridEngine
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.macro import LaneMacro
 from repro_torch.serving.scheduler import ContinuousBatchScheduler
+from _threads import one_thread  # noqa: F401
 
 W_TOL = 1e-5
 MAX_SEQ = 48

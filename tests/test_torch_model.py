@@ -15,6 +15,7 @@ from repro.configs import get_config
 from repro.models.model import LM as JLM
 from repro_torch import bridge
 from repro_torch.models.model import LM
+from _threads import one_thread  # noqa: F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 MAX_SEQ = 48

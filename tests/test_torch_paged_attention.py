@@ -22,6 +22,7 @@ from repro.models.model import LM as JLM
 from repro_torch import bridge
 from repro_torch.kernels.paged_attention import kernel as K2
 from repro_torch.models import attention as ATT
+from _threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 NO_PAGE = 1 << 20

@@ -23,6 +23,7 @@ from repro_torch.serving.deployment import ServingDeployment
 from repro_torch.serving.engine import HybridEngine
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.scheduler import Scheduler, summarize
+from _threads import one_thread  # noqa: F401
 
 W_TOL = 1e-5
 MAX_SEQ = 48

@@ -41,6 +41,7 @@ from repro_torch.serving.adapters import UnknownAdapter
 from repro_torch.serving.deployment import ServingDeployment
 from repro_torch.serving.engine import (BatchedHybridEngine, HybridEngine,
                                         SoloEngine)
+from _threads import one_thread  # noqa: F401
 
 PROMPTS = ["math: compute 12 plus 7 =", "translate to french: water ->",
            "my doctor said my blood pressure is 140 over 90",

@@ -36,6 +36,7 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels.ssm_scan import kernel as K6
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import LM
+from _threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 REL_LOGITS = 1e-4
