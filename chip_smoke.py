@@ -143,7 +143,24 @@ Phases, in order; any failure exits non-zero before the result lines:
               run; token ids equal to the default pools'; never-evicted
               requests bit-equal, evicted ones (re-prefilled) with their
               fusion weights within 1e-5;
-              tokens/s against the default pools'.
+              tokens/s against the default pools';
+  13. serve_prefix  serve_batched's 20 requests behind PREAMBLE (1,001
+              tokens) at macro_k 8 and 0: COW-shared (``prefix=``)
+              against the preamble written into every prompt on paged
+              lanes: ids, counts and latencies equal, fusion weights
+              within PREFIX_W_TOL, ``build_prefix`` once per lane model,
+              fewer peak live pages and resident KV bytes, the registry
+              back at refcount 1, K3's offset mode once per layer of each
+              suffix prefill; the same traffic on dense lanes at K 8 (ids
+              equal to the unshared run); serve_gemma3_prefix and
+              serve_gemma3_chunked (chunk width 512, ids equal to the
+              default width) run at the end of phase 10;
+  14. serve_long  LONG_REQUESTS (five of ~3,500 tokens) on max_seq 2048 /
+              max_ctx 4096 at macro_k 8 and 0 and chunk widths 2,048 and
+              512: ids equal, nothing truncated; truncated on max_ctx
+              2048; a one-shot max_seq 4096 run gives the same ids.
+The kernels phase also holds K3's history-offset mode (K3_OFFSET_SHAPES)
+and K2 over (8, 256) block tables against their plain versions.
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
@@ -286,6 +303,55 @@ BATCHED_REQUESTS = [
     ("describe the water cycle step by step", 40),
     ("translate to german: good morning ->", 16),
 ]
+# serve_prefix: one shared system instruction of 1,000 bytes (1,001
+# tokens with BOS: 62 shared pages of 16 and a 9-token tail) that the
+# privacy detector does not flag
+PREAMBLE = ("You are a careful and friendly assistant. Answer each question "
+            "in plain words, briefly and politely, and stay on the topic "
+            "that was asked. " * 10)[:1000]
+# serve_prefix: the COW run against the unshared one, fusion weights,
+# card against card in bf16 (as EVICTED_W_TOL).  The shared preamble's
+# K/V come from a B=1 prefill, the unshared rows' from a B=8 packed one:
+# bf16 GEMMs at another M may round a value in its last place, and the
+# suffix attention runs K3's offset mode where the unshared run runs its
+# plain mode (other tile sums).  Each such gap lies within the bf16-vs-
+# f32 fusion-weight gap the reduced checks read on the card (1.3e-6 at
+# most), and the COW rows' gap read 0 in both full runs on the H100.
+PREFIX_W_TOL = 1e-5
+# serve_long: five prompts of about 3,500 tokens (four cloud-eligible,
+# one private) and four short ones of serve_batched, 16 tokens each, on
+# max_seq 2048 / max_ctx 4096
+LONG_REQUESTS = [((LONG_PROMPT * 3)[:3490 + 7 * i], 16) for i in range(4)] \
+    + [("my ssn is 123-45-6789, " + (LONG_PROMPT * 3)[:3470], 16)] \
+    + [BATCHED_REQUESTS[i][:1] + (16,) for i in (1, 2, 4, 5)]
+# K2 over 256-page block tables (max_ctx 4096): rows deep in the long
+# prompts, short ones, a parked one and one at the last slot
+K2_LONG_POSITIONS = [3507, 3514, 3521, 3499, 40, 700, FREED_POS, 4095]
+# K3's history-offset mode at the shapes of its paths: (label, B, H, KV,
+# P, S, window).  COW suffixes behind the 1,001-token preamble (the
+# group holding the long prompt pads its suffixes to 1,040, a group of
+# short ones to 48) of the LLM (H = KV = 16), the 2b SLM (H = 8, KV = 1)
+# and the gemma3 SLM's local (window 512) and global layers (H = 4,
+# KV = 1); the final chunk (1,456 at width 2,048) and a middle one (512
+# at width 512) of the LLM's and the 2b SLM's chunked prefill; the
+# gemma3 SLM's middle chunks at width 512, local and global, and a
+# local chunk far past the window.
+K3_OFFSET_SHAPES = [
+    ("cow_llm", 8, 16, 16, 1001, 1040, 0),
+    ("cow_llm_short", 8, 16, 16, 1001, 48, 0),
+    ("cow_slm", 8, 8, 1, 1001, 1040, 0),
+    ("cow_slm_short", 8, 8, 1, 1001, 48, 0),
+    ("chunk_final_llm", 1, 16, 16, 2048, 1456, 0),
+    ("chunk_middle_llm", 1, 16, 16, 1536, 512, 0),
+    ("chunk_final_slm", 1, 8, 1, 2048, 1456, 0),
+    ("chunk_middle_slm", 1, 8, 1, 1536, 512, 0),
+    ("cow_gemma3_local", 8, 4, 1, 1001, 1040, 512),
+    ("cow_gemma3_local_short", 8, 4, 1, 1001, 48, 512),
+    ("cow_gemma3_global", 8, 4, 1, 1001, 1040, 0),
+    ("chunk_middle_gemma3_local", 1, 4, 1, 1024, 512, 512),
+    ("chunk_middle_gemma3_global", 1, 4, 1, 1024, 512, 0),
+    ("chunk_gemma3_local", 1, 4, 1, 3072, 512, 512),
+]
 
 
 def smi() -> str:
@@ -355,14 +421,14 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 
 
 def paged_case(torch, g, h, kvh, window, positions, n_pool=1024, hd=256,
-               ring=True):
+               ring=True, ctx=2048):
     """Random bf16 pages and block tables as the allocator builds them: a
     live plain row (or, without ``ring``, a window row) maps the pages
-    its position needs (NO_PAGE past that), a ring row a full ring of
-    window / 16 pages, a parked row nothing."""
+    its position needs (NO_PAGE past that) of a ``ctx``-slot table, a
+    ring row a full ring of window / 16 pages, a parked row nothing."""
     dev, ps, b = torch.device("cuda"), 16, len(positions)
     ring = bool(window) and ring
-    nb = window // ps if ring else 2048 // ps
+    nb = window // ps if ring else ctx // ps
     q = torch.randn(b, h, hd, device=dev, generator=g).bfloat16()
     pk = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
     pv = torch.randn(n_pool, ps, kvh, hd, device=dev, generator=g).bfloat16()
@@ -422,8 +488,13 @@ def phase_k2(torch):
     # ... and without rings: (8, 128) block tables, the window masked
     runs += [("slm_gemma3_full", 4, 1, 512, False, pos)
              for pos in (GEMMA3_RING_POSITIONS, GEMMA3_PAST_POSITIONS)]
+    # serve_long's LLM lane: (8, 256) block tables over a 2,048-page pool
+    runs += [("llm_ctx4096", 16, 16, 0, True, K2_LONG_POSITIONS)]
     for model, h, kvh, window, ring, positions in runs:
-        args = paged_case(torch, g, h, kvh, window, positions, ring=ring)
+        ctx = 4096 if model == "llm_ctx4096" else 2048
+        n_pool = 2048 if ctx == 4096 else 1024
+        args = paged_case(torch, g, h, kvh, window, positions, ring=ring,
+                          ctx=ctx, n_pool=n_pool)
         kw = dict(window=window, ring=ring)
         before = K2.paged_decode_attention.window_launches
         out = K2.paged_decode_attention(*args, **kw)
@@ -451,7 +522,7 @@ def phase_k2(torch):
                             BF16_FLOP_PER_S)
         cases.append(dict(
             shape=dict(model=model, B=8, H=h, KV=kvh, hd=256, ps=16,
-                       nb=args[3].shape[1], pool=1024, window=window,
+                       nb=args[3].shape[1], pool=n_pool, window=window,
                        ring=ring, pos=positions),
             dtype="bfloat16",
             max_abs_err=(out[live].float() - ref[live].float()
@@ -558,6 +629,73 @@ def phase_kernels(torch, long_len: int):
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     return k1_cases, k3_cases
+
+
+def phase_k3_offset(torch):
+    """K3's history-offset mode at K3_OFFSET_SHAPES, bf16, D = 256, on
+    (B, H, S, D) views of (B, S, H, D) projections behind a B = 1
+    history read in place: per query row against its plain version
+    (K3_ROW_RTOL), timed beside the plain version, SDPA with the
+    explicit boolean mask over the expanded [history; fresh] (the
+    library call, its operands expanded outside the timed call) and the
+    bound: bytes (q, the output, the fresh K/V and the history positions
+    some query sees — with a window only the last window - 1 — each
+    once) over 3.35 TB/s against 4 H D per visible (query, key) pair
+    over 989 TFLOP/s."""
+    from repro_torch.kernels.flash_attention import kernel as K3
+    import torch.nn.functional as F
+
+    dev, d = torch.device("cuda"), 256
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = []
+    for label, b, h, kvh, p, s, window in K3_OFFSET_SHAPES:
+        q, k, v = (torch.randn(b, s, n, d, device=dev, generator=g)
+                   .bfloat16().transpose(1, 2) for n in (h, kvh, kvh))
+        hk, hv = (torch.randn(1, p, kvh, d, device=dev, generator=g)
+                  .bfloat16().transpose(1, 2) for _ in range(2))
+        kw = dict(window=window, hist_k=hk, hist_v=hv)
+        before = K3.flash_attention.offset_launches
+        out = K3.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if K3.flash_attention.offset_launches != before + 1:
+            raise SystemExit("K3: the offset-mode count is wrong")
+        ref = K3.flash_attention_plain(q, k, v, **kw)
+        kk = torch.cat([hk.expand(b, -1, -1, -1), k], dim=2)
+        vv = torch.cat([hv.expand(b, -1, -1, -1), v], dim=2)
+        mask = K3.attention_mask(s, True, window, dev, hist=p)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask, enable_gqa=kvh != h)
+        visible = b * sum(min(p + i + 1, window or p + s)
+                          for i in range(s))
+        seen = min(p, window - 1) if window else p
+        nbytes = 2 * (2 * b * h * s * d + 2 * b * kvh * s * d
+                      + 2 * kvh * seen * d)
+        bms, by = bound(nbytes, 4 * d * h * visible, BF16_FLOP_PER_S)
+        iters = 20 if b * s > 2048 else 100
+        cases.append(dict(
+            shape=dict(path=label, B=b, H=h, KVH=kvh, P=p, S=s, D=d,
+                       window=window, history_batch=1,
+                       layout="(B, S, H, D) views"),
+            dtype="bfloat16",
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            max_rel_err=row_rel_err(out, ref),
+            ms=time_ms(torch, lambda: K3.flash_attention(q, k, v, **kw),
+                       iters),
+            plain_ms=time_ms(torch, lambda: K3.flash_attention_plain(
+                q, k, v, **kw), max(5, iters // 10)),
+            library_ms=time_ms(torch, lib, iters),
+            library_max_rel_err=row_rel_err(lib(), ref),
+            bound_ms=bms, bound_by=by, visible_pairs=visible,
+            history_read=seen))
+        print(f"K3 flash_attention (history offset): {cases[-1]}")
+        del q, k, v, hk, hv, kk, vv, out, ref
+    bad = [c for c in cases if not c["max_rel_err"] <= K3_ROW_RTOL]
+    if bad:
+        raise SystemExit(f"K3's offset mode disagrees with its plain "
+                         f"version: {bad}")
+    return cases
 
 
 def lora_inputs(torch, g, t, k, n):
@@ -1914,6 +2052,386 @@ def phase_serve_pool_pressure(torch, dep):
     return out
 
 
+class PageWatch:
+    """Within the block, samples the engine after every admission burst
+    and every collect: the peak of live pages over both lanes and models
+    and of ``resident_kv_bytes``; and times each admission burst on the
+    device stream with CUDA events (no host sync: the events complete
+    when the stream reaches them, so a burst queued behind a macro step
+    in flight is timed from that step's end)."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.peak_pages = self.peak_bytes = 0
+        self.events = []
+
+    def _sample(self):
+        eng = self.eng
+        pages = sum(p.alloc.live_pages for lane in (eng.cloud_lane,
+                                                    eng.edge_lane)
+                    for p in (lane.pager_s, lane.pager_l) if p is not None)
+        self.peak_pages = max(self.peak_pages, pages)
+        self.peak_bytes = max(self.peak_bytes, eng.resident_kv_bytes())
+
+    def __enter__(self):
+        torch, eng = self.torch, self.eng
+        add, collect = eng.add_requests, eng.collect_step
+
+        def timed_add(reqs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = add(reqs)
+            end.record()
+            if any(out):
+                self.events.append((start, end))
+            self._sample()
+            return out
+
+        def sampled_collect():
+            out = collect()
+            self._sample()
+            return out
+        eng.add_requests, eng.collect_step = timed_add, sampled_collect
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("add_requests", "collect_step"):
+            self.eng.__dict__.pop(name, None)
+        # the engine's lane pools are freed with it, not with the watch
+        self.eng = None
+
+    def admission_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+PREFIX_CALLS = ("slm_build_prefix", "llm_build_prefix", "slm_prefill_suffix",
+                "llm_prefill_suffix", "slm_prefill_chunk", "llm_prefill_chunk",
+                "slm_prefill_packed", "llm_prefill_packed", "slm_decode",
+                "llm_decode")
+
+
+def traffic_run(torch, eng, dep, requests, tag, prefix=None, concat=False,
+                n_private=4):
+    """One run of ``requests`` [(prompt, budget)] through
+    ContinuousBatchScheduler on ``eng``, each request behind ``prefix``
+    (as ``prefix=``, or with ``concat`` written in front of its prompt),
+    every count set to 0 just before it (``run_counted``) and the
+    deployment's prefill and decode entry points counted, its pages
+    watched (``PageWatch``); printed and checked as serve_batched is
+    (``check_batched_responses``, K2 once per decode layer-step, no K7,
+    K1 and K3 launched).  One run, graph captures included: its wall
+    is not a steady-state rate.  Returns (responses, wall s, launches,
+    calls, peak GiB, watch)."""
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    sc = ContinuousBatchScheduler(eng)
+    for p, n in requests:
+        if concat:
+            sc.submit(prefix + p, max_new_tokens=n)
+        else:
+            sc.submit(p, max_new_tokens=n, prefix=prefix)
+    lanes = (eng.cloud_lane, eng.edge_lane)
+    before = macro_replays(eng)
+    fresh = [lane._macro is None for lane in lanes]
+    with PageWatch(torch, eng) as watch, NoSyncAdmission(torch, eng) as ns:
+        res, wall, launches, calls, peak = run_counted(torch, sc, dep,
+                                                       PREFIX_CALLS)
+    replays = [b - a for a, b in zip(before, macro_replays(eng))]
+    # a lane graph captured in this run first ran its body once, eagerly
+    # with every row parked (``LaneMacro._capture``): K2 once a layer
+    warm = sum(lane_layers(lane) for f, lane in zip(fresh, lanes)
+               if f and lane._macro is not None)
+    print_batched(tag, res, wall, launches, calls, peak,
+                  macro_k=eng.macro_k)
+    print(f"{tag}: peak live pages {watch.peak_pages}, peak resident KV "
+          f"{watch.peak_bytes} B, admission {watch.admission_ms():.3f} ms "
+          f"on the device stream over {len(watch.events)} bursts "
+          f"({ns.overlapped} admission calls overlapped a macro step in "
+          f"flight without a host sync); graph replays (cloud, edge) "
+          f"{replays}, K2 launches of the captures' warm-up {warm}; "
+          f"growth {eng.growth_stats()}")
+    seen = [(prefix + p if prefix else p, n) for p, n in requests]
+    check_batched_responses(tag, eng, res, seen, n_private)
+    decode_k2 = dict(launches, paged_decode_attention=launches[
+        "paged_decode_attention"] - warm)
+    check_k2_launches(tag, eng, decode_k2, replays, calls)
+    if launches["sample_fused"] != 0 or min(
+            launches[n] for n in ("fuse_logits", "flash_attention")) <= 0:
+        raise SystemExit(f"{tag}: launches {launches}")
+    # K3 in its offset mode once per layer of every suffix and chunk
+    # prefill (none on the packed or B=1 prefix prefills)
+    want = sum(calls[f"{m}_prefill_{kind}"] * lm.cfg.num_layers
+               for m, lm in (("slm", dep.slm), ("llm", dep.llm))
+               for kind in ("suffix", "chunk"))
+    if launches["flash_attention_offset"] != want:
+        raise SystemExit(f"{tag}: K3 offset launches "
+                         f"{launches['flash_attention_offset']}, expected "
+                         f"{want}")
+    if eng.active_count():
+        raise SystemExit(f"{tag}: a request was lost")
+    return res, wall, launches, calls, peak, watch
+
+
+def registry_pages_at_one(tag, eng):
+    """Every lane's registered prefix pages back at refcount 1 (the
+    registry's own reference) once the rows drained, and nothing else
+    live."""
+    for lane in (eng.cloud_lane, eng.edge_lane):
+        for entry in lane._prefixes.values():
+            if entry is None:
+                continue
+            for pager, pids in ((lane.pager_s, entry["pids_s"]),
+                                (lane.pager_l, entry["pids_l"])):
+                if pager is None:
+                    continue
+                if any(pager.alloc.refcount(p) != 1 for p in pids) \
+                        or pager.alloc.live_pages != len(pids):
+                    raise SystemExit(f"{tag}: registry pages not at "
+                                     "refcount 1 after the drain")
+
+
+def compare_prefix_runs(tag, shared, unshared, w_tol=PREFIX_W_TOL):
+    """A COW run against the unshared oracle: token ids, tokens, cloud
+    and fallback tokens, latencies and the truncation flag equal; fusion
+    weights within ``w_tol``.  Returns the largest weight gap."""
+    gap = 0.0
+    for a, b in zip(unshared, shared):
+        if (a.text, a.stats.tokens, a.stats.cloud_tokens,
+                a.stats.fallback_tokens, a.stats.latency_ms,
+                a.stats.truncated) != (
+                b.text, b.stats.tokens, b.stats.cloud_tokens,
+                b.stats.fallback_tokens, b.stats.latency_ms,
+                b.stats.truncated):
+            raise SystemExit(f"{tag}: rid {a.rid} differs from the "
+                             f"unshared run: {a.text} / {b.text}")
+        gap = max([gap] + [abs(x - y) for x, y in zip(a.stats.fusion_w,
+                                                      b.stats.fusion_w)])
+    if gap > w_tol:
+        raise SystemExit(f"{tag}: fusion weights {gap} off the unshared "
+                         f"run's (limit {w_tol})")
+    return gap
+
+
+def phase_serve_prefix(torch, dep):
+    """serve_batched's 20 requests behind PREAMBLE on the 2b pair at
+    macro_k 8 and 0: COW-shared (``prefix=``) against the unshared
+    oracle (the preamble written in front of each prompt) on paged
+    lanes, and the ``prefix=`` traffic on dense lanes at K 8.  Returns
+    ({path: launches}, the shared K = 8 run's launches)."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    out = {}
+    for k in (8, 0):
+        runs = {}
+        for mode in ("shared", "unshared"):
+            tag = f"serve_prefix (macro_k={k}, {mode})"
+            eng = BatchedHybridEngine(deployment=dep, batch_size=8,
+                                      macro_k=k, lazy_pages=True)
+            runs[mode] = traffic_run(torch, eng, dep, BATCHED_REQUESTS, tag,
+                                     PREAMBLE, concat=mode == "unshared")
+            if mode == "shared":
+                registry_pages_at_one(tag, eng)
+            del eng
+            gc.collect()
+        s_res, _, s_launch, s_calls, s_peak, s_watch = runs["shared"]
+        u_res, _, _, _, u_peak, u_watch = runs["unshared"]
+        tag = f"serve_prefix (macro_k={k})"
+        gap = compare_prefix_runs(tag, s_res, u_res)
+        long_rids = [i for i, (p, _) in enumerate(BATCHED_REQUESTS)
+                     if p == LONG_PROMPT]
+        cut = [r.stats.truncated for res in (s_res, u_res)
+               for r in res if r.rid in long_rids]
+        print(f"{tag}: shared against unshared: ids, counts and latencies "
+              f"equal on all {len(s_res)}; fusion weights within "
+              f"{gap:.3e} (limit {PREFIX_W_TOL}); build_prefix SLM "
+              f"{s_calls['slm_build_prefix']}, LLM "
+              f"{s_calls['llm_build_prefix']}; peak live pages "
+              f"{s_watch.peak_pages} against {u_watch.peak_pages}, peak "
+              f"resident KV {s_watch.peak_bytes} B against "
+              f"{u_watch.peak_bytes} B; admission "
+              f"{s_watch.admission_ms():.3f} ms against "
+              f"{u_watch.admission_ms():.3f} ms on the device stream; "
+              f"peak memory {s_peak:.2f} GiB against {u_peak:.2f} GiB; "
+              f"long prompts truncated {cut}")
+        if (s_calls["slm_build_prefix"], s_calls["llm_build_prefix"]) \
+                != (2, 1):
+            raise SystemExit(f"{tag}: build_prefix ran "
+                             f"{s_calls['slm_build_prefix']} (SLM) and "
+                             f"{s_calls['llm_build_prefix']} (LLM) times, "
+                             "expected once per lane model: 2 and 1")
+        if not all(cut) or len(cut) != 4:
+            raise SystemExit(f"{tag}: the long prompts were not truncated")
+        if not s_watch.peak_pages < u_watch.peak_pages \
+                or not s_watch.peak_bytes < u_watch.peak_bytes:
+            raise SystemExit(f"{tag}: the shared run holds no fewer pages")
+        if s_launch["flash_attention_offset"] <= 0:
+            raise SystemExit(f"{tag}: K3's offset mode never launched")
+        out[f"serve_prefix_k{k}" if k != 8 else "serve_prefix"] = s_launch
+        out[f"serve_prefix_unshared_k{k}"] = runs["unshared"][2]
+        if k == 8:
+            unshared8 = u_res
+    tag = "serve_prefix (macro_k=8, dense lanes)"
+    eng = BatchedHybridEngine(deployment=dep, batch_size=8, macro_k=8,
+                              paged=False)
+    d_res, _, d_launch, d_calls, _, _ = traffic_run(
+        torch, eng, dep, BATCHED_REQUESTS, tag, PREAMBLE)
+    bad = [a.rid for a, b in zip(unshared8, d_res) if a.text != b.text]
+    print(f"{tag}: ids equal to the unshared paged run's on "
+          f"{len(d_res) - len(bad)} of {len(d_res)}; build_prefix "
+          f"{d_calls['slm_build_prefix'] + d_calls['llm_build_prefix']}")
+    if bad or d_calls["slm_build_prefix"] or d_calls["llm_build_prefix"]:
+        raise SystemExit(f"{tag}: rids {bad} differ from the unshared "
+                         "paged run, or the dense lanes shared")
+    out["serve_prefix_dense"] = d_launch
+    del eng
+    gc.collect()
+    return out
+
+
+def serve_gemma3_prefix(torch, g_dep):
+    """serve_prefix's traffic on the gemma3 pair at K 8: COW-shared
+    against unshared, ids, counts and latencies equal (each row's ring
+    gathered from [history; fresh] at its own depth); K3 windowed in its
+    offset mode on the SLM's 22 local layers of every suffix prefill.
+    Returns {path: launches}."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    runs = {}
+    for mode in ("shared", "unshared"):
+        tag = f"serve_gemma3_prefix (macro_k=8, {mode})"
+        eng = BatchedHybridEngine(deployment=g_dep, batch_size=8, macro_k=8,
+                                  lazy_pages=True)
+        runs[mode] = traffic_run(torch, eng, g_dep, BATCHED_REQUESTS, tag,
+                                 PREAMBLE, concat=mode == "unshared")
+        if mode == "shared":
+            registry_pages_at_one(tag, eng)
+        del eng
+        gc.collect()
+    s_res, _, launches, calls, _, s_watch = runs["shared"]
+    u_res, _, _, _, _, u_watch = runs["unshared"]
+    tag = "serve_gemma3_prefix (macro_k=8)"
+    gap = compare_prefix_runs(tag, s_res, u_res)
+    n_local = gemma3_layers(g_dep.slm)[0]
+    print(f"{tag}: ids, counts and latencies equal on all {len(s_res)}; "
+          f"fusion weights within {gap:.3e}; peak live pages "
+          f"{s_watch.peak_pages} against {u_watch.peak_pages}; K3 offset "
+          f"{launches['flash_attention_offset']}, windowed "
+          f"{launches['flash_attention_windowed']} ({n_local} local SLM "
+          f"layers x {calls['slm_prefill_suffix']} SLM suffix prefills "
+          f"in offset mode)")
+    if launches["flash_attention_windowed"] < \
+            n_local * calls["slm_prefill_suffix"] \
+            or calls["slm_prefill_suffix"] <= 0:
+        raise SystemExit(f"{tag}: the SLM's local layers skipped K3's "
+                         "windowed offset mode")
+    return {"serve_gemma3_prefix": launches,
+            "serve_gemma3_prefix_unshared": runs["unshared"][2]}
+
+
+def serve_gemma3_chunked(torch, g_dep, default):
+    """serve_batched's traffic on the gemma3 pair at K 8 and chunk_width
+    512: ids equal to the default width's run (``default``); each of
+    the two 1,542-token prompts streams as chunk 0, two middle chunks of
+    512 (no ring write) and a final one of 6 (the ring) per model.
+    Returns the launches."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    tag = "serve_gemma3_chunked (macro_k=8, chunk_width=512)"
+    eng = BatchedHybridEngine(deployment=g_dep, batch_size=8, macro_k=8,
+                              lazy_pages=True, chunk_width=512)
+    res, _, launches, calls, _, _ = traffic_run(torch, eng, g_dep,
+                                                BATCHED_REQUESTS, tag)
+    bad = [a.rid for a, b in zip(default, res) if a.text != b.text]
+    n_long = sum(p == LONG_PROMPT for p, _ in BATCHED_REQUESTS)
+    print(f"{tag}: ids equal to the default width's on "
+          f"{len(res) - len(bad)} of {len(res)}; middle chunks (SLM, LLM) "
+          f"{calls['slm_prefill_chunk']}, {calls['llm_prefill_chunk']}; "
+          f"K3 offset {launches['flash_attention_offset']}")
+    if bad:
+        raise SystemExit(f"{tag}: rids {bad} differ from the default "
+                         "chunk width")
+    if (calls["slm_prefill_chunk"], calls["llm_prefill_chunk"]) \
+            != (2 * n_long, 2 * n_long):
+        raise SystemExit(f"{tag}: middle chunks {calls}")
+    del eng
+    gc.collect()
+    return launches
+
+
+def phase_serve_long(torch, dep):
+    """Prompts past max_seq: ``ServingDeployment(max_seq=2048,
+    max_ctx=4096)`` over the 2b deployment's parameter tensors (shared,
+    not copied), LONG_REQUESTS at macro_k 8 and 0 and chunk widths
+    2,048 and 512: ids equal across the runs, nothing truncated, every
+    token served; the same prompts on the max_ctx = 2048 deployment are
+    truncated and say so; a one-shot run on a max_seq = 4096 deployment
+    over the same parameters gives the same ids at K 8.  Returns {path:
+    launches}."""
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    def deployment(**kw):
+        return ServingDeployment(dep.slm, dep.slm_params, dep.llm,
+                                 dep.llm_params, dep.mlp, device=dep.device,
+                                 **kw)
+    long_dep = deployment(max_seq=2048, max_ctx=4096)
+    n_long = 5
+    out, ids = {}, {}
+    for k, width in ((8, None), (0, None), (8, 512), (0, 512)):
+        tag = f"serve_long (macro_k={k}, chunk_width={width or 2048})"
+        eng = BatchedHybridEngine(deployment=long_dep, batch_size=8,
+                                  macro_k=k, lazy_pages=True,
+                                  chunk_width=width)
+        res, wall, launches, calls, peak, _ = traffic_run(
+            torch, eng, long_dep, LONG_REQUESTS, tag, n_private=2)
+        nb = eng.cloud_lane.l_cache["block"].shape[1]
+        print(f"{tag}: LLM block tables (8, {nb}); KV pool "
+              f"{eng.kv_pool_bytes()} B; middle chunks "
+              f"{calls['slm_prefill_chunk']} (SLM), "
+              f"{calls['llm_prefill_chunk']} (LLM); K3 offset "
+              f"{launches['flash_attention_offset']}")
+        if nb != 256 or any(r.stats.truncated for r in res) or any(
+                r.stats.tokens != n for r, (_, n) in zip(res,
+                                                         LONG_REQUESTS)):
+            raise SystemExit(f"{tag}: a prompt was truncated or a budget "
+                             "not served, or the tables are not 256 wide")
+        ids[tag] = [r.text for r in res]
+        out[f"serve_long_k{k}_w{width or 2048}"] = launches
+        del eng
+        gc.collect()
+    first = next(iter(ids.values()))
+    if any(v != first for v in ids.values()):
+        raise SystemExit(f"serve_long: ids differ across the runs: "
+                         f"{[k for k, v in ids.items() if v != first]}")
+    eng = BatchedHybridEngine(deployment=dep, batch_size=8, macro_k=8)
+    res, *_ = traffic_run(torch, eng, dep, LONG_REQUESTS,
+                          "serve_long (max_ctx=2048)", n_private=2)
+    cut = [r.stats.truncated for r in res]
+    if cut != [True] * n_long + [False] * (len(res) - n_long):
+        raise SystemExit(f"serve_long: truncation flags {cut} at max_ctx "
+                         "2048")
+    del eng, long_dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = "serve_long (one-shot, max_seq=4096)"
+    one_dep = deployment(max_seq=4096)
+    eng = BatchedHybridEngine(deployment=one_dep, batch_size=8, macro_k=8)
+    res, _, out["serve_long_oneshot"], *_ = traffic_run(
+        torch, eng, one_dep, LONG_REQUESTS, tag, n_private=2)
+    same = [a == r.text for a, r in zip(first, res)]
+    print(f"serve_long: ids equal across the four chunked runs; truncated "
+          f"at max_ctx 2048: {cut}; {tag}: ids equal to the chunked runs' "
+          f"on {sum(same)} of {len(res)}")
+    if not all(same):
+        raise SystemExit(f"{tag}: ids differ from the chunked runs")
+    del eng, one_dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def counted(dep, names):
     """Count calls of the deployment's entry points ``names`` (instance
     attributes shadowing the methods; ``uncounted`` removes them)."""
@@ -1945,20 +2463,23 @@ def lora_kernels():
 
 def reset_counts():
     """Every kernel count of the serving paths to 0, the per-mode ones
-    (K2 in ring and in full-length window mode, K3 windowed) included."""
+    (K2 in ring and in full-length window mode, K3 windowed and in its
+    history-offset mode) included."""
     for fn in all_kernels():
         fn.launches = 0
     k2, k3 = lora_kernels()[1:3]
     k2.ring_launches = k2.window_launches = k3.windowed_launches = 0
+    k3.offset_launches = 0
 
 
 def mode_counts():
     """K2's ring-mode and full-length window launches and K3's windowed
-    launches since ``reset_counts``."""
+    and history-offset launches since ``reset_counts``."""
     k2, k3 = lora_kernels()[1:3]
     return {"paged_decode_attention_ring": k2.ring_launches,
             "paged_decode_attention_window": k2.window_launches,
-            "flash_attention_windowed": k3.windowed_launches}
+            "flash_attention_windowed": k3.windowed_launches,
+            "flash_attention_offset": k3.offset_launches}
 
 
 def run_counted(torch, sched, dep, names):
@@ -2304,9 +2825,12 @@ def phase_serve_gemma3(torch, dep):
     dense = serve_gemma3_dense(torch, g_dep, res8)
     nonring = serve_gemma3_nonring(torch, g_dep)
     flat = phase_flat_keys(torch, g_dep, "flat_keys_gemma3", 4, 8)
+    prefix = serve_gemma3_prefix(torch, g_dep)
+    chunked = serve_gemma3_chunked(torch, g_dep, res8)
     return {"serve_gemma3": seq, "serve_gemma3_batched": k8,
             "serve_gemma3_batched_k0": k0, "serve_dense_gemma3": dense,
-            "serve_gemma3_nonring": nonring, **flat}
+            "serve_gemma3_nonring": nonring, **flat, **prefix,
+            "serve_gemma3_chunked": chunked}
 
 
 def serve_gemma3_dense(torch, g_dep, paged):
@@ -3101,6 +3625,7 @@ def main() -> int:
 
     long_len = len(TOK.encode(LONG_PROMPT + " "))
     k1_cases, k3_cases = phase_kernels(torch, long_len)
+    k3_offset_cases = phase_k3_offset(torch)
     k2_cases = phase_k2(torch)
     k4_cases, k5_cases = phase_lora(torch)
     k6_cases = phase_k6(torch, len(TOK.encode(DEMO_PROMPTS[0] + " ")))
@@ -3131,6 +3656,9 @@ def main() -> int:
     gc.collect()
     dense = phase_serve_dense(torch, dep, {0: k0_res, 8: k8_res})
     pressure = phase_serve_pool_pressure(torch, dep)
+    gc.collect()
+    prefix = phase_serve_prefix(torch, dep)
+    long_paths = phase_serve_long(torch, dep)
     paths = {"serve": seq_launches, "serve_batched": launches,
              "serve_batched_k0": k0_launches,
              "serve_batched_k1": macro_launches[1],
@@ -3144,7 +3672,7 @@ def main() -> int:
              "serve_dense_k0": dense[0],
              "serve_pool_pressure": pressure[8],
              "serve_pool_pressure_k0": pressure[0], **flat,
-             **gemma3_paths}
+             **gemma3_paths, **prefix, **long_paths}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}
@@ -3186,12 +3714,33 @@ def main() -> int:
              launches_by_path=by_path["flash_attention"],
              windowed_launches_by_path=mode_by_path(
                  paths, "flash_attention_windowed"),
+             offset_launches_by_path=mode_by_path(
+                 paths, "flash_attention_offset"),
              max_abs_err=max(c["max_abs_err"] for c in k3_cases),
              max_rel_err=max(c["max_rel_err"] for c in k3_cases),
              rel_tol=K3_ROW_RTOL, shape=k3["shape"], ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=k3["library_ms"],
              cases=k3_cases),
+        # K3's history-offset mode (the same kernel, a second KV source)
+        # at the COW suffix of the LLM; launches on serve_prefix at K 8
+        dict(name="flash_attention_offset", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:80",
+             note="the reference's Pallas kernel takes q_len == kv_len "
+                  "only; it computes this case in jnp "
+                  "(src/repro/models/attention.py:327-342)",
+             launches=prefix["serve_prefix"]["flash_attention_offset"],
+             launches_by_path=mode_by_path(paths, "flash_attention_offset"),
+             max_abs_err=max(c["max_abs_err"] for c in k3_offset_cases),
+             max_rel_err=max(c["max_rel_err"] for c in k3_offset_cases),
+             rel_tol=K3_ROW_RTOL, shape=k3_offset_cases[0]["shape"],
+             ms=k3_offset_cases[0]["ms"],
+             plain_ms=k3_offset_cases[0]["plain_ms"],
+             bound_ms=k3_offset_cases[0]["bound_ms"],
+             bound_by=k3_offset_cases[0]["bound_by"],
+             library_ms=k3_offset_cases[0]["library_ms"],
+             cases=k3_offset_cases),
     ]
     # K4 and K5 at mlp_in (k 2048, n 32768, the largest bank share),
     # T = 8; launches summed over the LoRA serving paths

@@ -8,6 +8,22 @@
 // h / (H / KVH), masks k_pos <= q_pos (causal) and k_pos > q_pos - window,
 // masked scores at NEG_INF = -2**30.
 //
+// History-offset mode (hist > 0): the queries sit at absolute positions
+// hist + i and attend over hist history positions 0..hist-1 ahead of the
+// seq fresh ones, key visible iff its position is <= hist + i (and with
+// a window > hist + i - window).  This is the suffix / chunk prefill of
+// COW prefix sharing and chunked prefill, which the reference computes
+// in jnp over [history; fresh] (src/repro/models/attention.py:327-342):
+// its Pallas kernel takes q_len == kv_len only.  The history (1, KVH,
+// hist, D) is a second KV source with tensor maps of its own, read in
+// place ahead of the fresh K/V: a B = 1 history shared by every row of a
+// suffix group is never expanded (every row reads batch 0).
+// Its tiles are numbered from position 0, the fresh ones from position
+// hist, so a ragged history tail is a masked tile, not a shifted one.
+// Tiles wholly outside the window or past the causal edge are skipped,
+// not masked: a chunk at offset 3,072 with window 512 reads the ~512
+// keys behind it.
+//
 // Bound on the H100: at S = 2048, H = 16, D = 256, causal, the work is
 // about 2 * S^2 * D * H = 34 GFLOP of bf16 products (35 us at the 989
 // TFLOP/s dense peak) against about 67 MB of q/k/v/o traffic (20 us at
@@ -287,7 +303,9 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[16],
 
 // One KV tile of the online softmax on the wgmma accumulator layout:
 // this thread holds rows q_pos and q_pos + 8 (register i is row
-// (i >> 1) & 1, key k_pos + (i >> 2) * 8 + (i & 1)).  Scales the scores
+// (i >> 1) & 1, key k_pos + (i >> 2) * 8 + (i & 1)), both absolute
+// positions; keys at or past ``limit`` (the end of the tile's source)
+// are masked.  Scales the scores
 // into log2 units, masks them (kMask), updates the running max m and the
 // thread's partial sum l, rescales O, and returns P in bf16 as the four
 // register-A fragments of P V.
@@ -295,7 +313,7 @@ template <int NO, bool kMask>
 __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[NO],
                                              float (&m)[2], float (&l)[2],
                                              uint32_t (&pa)[4][4], int q_pos,
-                                             int k_pos, int seq, int causal,
+                                             int k_pos, int limit, int causal,
                                              int window, float scale_log2) {
   uint32_t vis = 0xffffffffu;
   float mx[2] = {m[0], m[1]};
@@ -305,7 +323,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[NO],
     if (kMask) {
       const int qp = q_pos + ((i & 2) ? 8 : 0);
       const int kp = k_pos + (i >> 2) * 8 + (i & 1);
-      const bool ok = kp < seq && (!causal || kp <= qp) &&
+      const bool ok = kp < limit && (!causal || kp <= qp) &&
                       (window <= 0 || kp > qp - window);
       if (!ok) {
         v = kNegInf;
@@ -346,9 +364,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
                        __grid_constant__ const CUtensorMap tv,
+                       __grid_constant__ const CUtensorMap thk,
+                       __grid_constant__ const CUtensorMap thv,
                        __grid_constant__ const CUtensorMap to, int batch,
-                       int heads, int kv_heads, int seq, int causal,
-                       int window, float scale_log2) {
+                       int heads, int kv_heads, int seq, int hist,
+                       int causal, int window, float scale_log2) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -365,11 +385,18 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
   const int kvh = h / (heads / kv_heads);
   const int q0 = qt * 2 * kRows;
   const int live_wgs = q0 + kRows < seq ? 2 : 1;
-  // KV tiles any row of this query tile can see.
+  // KV tiles any row of this query tile can see: history tiles
+  // [h_begin, h_begin + n_hist) over positions 0..hist-1 (every one at
+  // or before the first query, so the causal edge never cuts them), then
+  // fresh tiles [t_begin, t_end) over positions hist..hist+seq-1.
   const int kv_end = causal ? min(seq, q0 + 2 * kRows) : seq;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = kv_begin / kRows;
   const int t_end = (kv_end + kRows - 1) / kRows;
+  const int h_begin =
+      window > 0 ? max(0, hist + q0 - window + 1) / kRows : 0;
+  const int n_hist = max(0, (hist + kRows - 1) / kRows - h_begin);
+  const int n_tiles = n_hist + t_end - t_begin;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -390,17 +417,23 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
         for (int c = 0; c < C::kCols; ++c)
           tma_load(base + C::kQ + w * C::kTileBytes + c * C::kColBytes, &tq,
                    bar_q, c * C::kCW, q0 + w * kRows, h, b);
-      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
         if (i >= kStages)
           mbar_wait(bar_empty + 8 * st, ((i / kStages) - 1) & 1);
         const uint32_t full = bar_full + 8 * st;
         mbar_expect_tx(full, 2 * C::kTileBytes);
+        const bool from_hist = i < n_hist;
+        const CUtensorMap* mk = from_hist ? &thk : &tk;
+        const CUtensorMap* mv = from_hist ? &thv : &tv;
+        const int row = (from_hist ? h_begin + i : t_begin + i - n_hist) *
+                        kRows;
+        const int bb = from_hist ? 0 : b;
         for (int c = 0; c < C::kCols; ++c) {
-          tma_load(base + C::kK + st * C::kTileBytes + c * C::kColBytes, &tk,
-                   full, c * C::kCW, t * kRows, kvh, b);
-          tma_load(base + C::kV + st * C::kTileBytes + c * C::kColBytes, &tv,
-                   full, c * C::kCW, t * kRows, kvh, b);
+          tma_load(base + C::kK + st * C::kTileBytes + c * C::kColBytes, mk,
+                   full, c * C::kCW, row, kvh, bb);
+          tma_load(base + C::kV + st * C::kTileBytes + c * C::kColBytes, mv,
+                   full, c * C::kCW, row, kvh, bb);
         }
       }
     }
@@ -411,8 +444,11 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int row0 = q0 + wg * kRows;
     const bool live = wg < live_wgs;
-    const int hi = min(row0 + kRows - 1, seq - 1);
-    const int q_pos = row0 + warp * 16 + lane / 4;
+    // absolute positions: the first and last live row of the warpgroup
+    // and this thread's first row
+    const int a0 = hist + row0;
+    const int hi = hist + min(row0 + kRows - 1, seq - 1);
+    const int q_pos = a0 + warp * 16 + lane / 4;
     const uint32_t sq = base + C::kQ + wg * C::kTileBytes;
     constexpr uint32_t kSbo = 8 * C::kSwz;   // between groups of 8 rows
     float o[D / 2];
@@ -420,12 +456,16 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     if (live) mbar_wait(bar_q, 0);
-    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+    for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kStages;
       mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
-      const int k0 = t * kRows;
+      // the tile's first key position and the end of its source
+      const bool from_hist = i < n_hist;
+      const int k0 = from_hist ? (h_begin + i) * kRows
+                               : hist + (t_begin + i - n_hist) * kRows;
+      const int limit = from_hist ? hist : hist + seq;
       const bool seen = live && (!causal || k0 <= hi) &&
-                        (window <= 0 || k0 + kRows - 1 > row0 - window);
+                        (window <= 0 || k0 + kRows - 1 > a0 - window);
       if (seen) {
         const uint32_t sk = base + C::kK + st * C::kTileBytes;
         const uint32_t sv = base + C::kV + st * C::kTileBytes;
@@ -445,15 +485,15 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
         wg_wait0();
         pin(s);
         uint32_t pa[4][4];
-        const bool edge = (causal && k0 + kRows - 1 > row0) ||
+        const bool edge = (causal && k0 + kRows - 1 > a0) ||
                           (window > 0 && k0 <= hi - window) ||
-                          k0 + kRows > seq;
+                          k0 + kRows > limit;
         const int k_pos = k0 + 2 * (lane % 4);
         if (edge)
-          softmax_tile<D / 2, true>(s, o, m, l, pa, q_pos, k_pos, seq, causal,
-                                    window, scale_log2);
+          softmax_tile<D / 2, true>(s, o, m, l, pa, q_pos, k_pos, limit,
+                                    causal, window, scale_log2);
         else
-          softmax_tile<D / 2, false>(s, o, m, l, pa, q_pos, k_pos, seq,
+          softmax_tile<D / 2, false>(s, o, m, l, pa, q_pos, k_pos, limit,
                                      causal, window, scale_log2);
         pin(o);
         wg_fence();
@@ -543,17 +583,26 @@ bool encode(CUtensorMap* map, const void* ptr, int seq, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const long long* st, int batch, int heads, int kv_heads, int seq,
-           int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* hk,
+           const void* hv, void* out, const long long* st, int batch,
+           int heads, int kv_heads, int seq, int hist, int causal,
+           int window, float scale, cudaStream_t stream) {
   if (encoder() == nullptr)
     return static_cast<int>(cudaErrorSharedObjectInitFailed);
-  CUtensorMap tq, tk, tv, to;
+  CUtensorMap tq, tk, tv, thk, thv, to;
   if (!encode<D>(&tq, q, seq, heads, batch, st) ||
       !encode<D>(&tk, k, seq, kv_heads, batch, st + 3) ||
       !encode<D>(&tv, v, seq, kv_heads, batch, st + 6) ||
       !encode<D>(&to, out, seq, heads, batch, st + 9))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hist > 0) {
+    if (!encode<D>(&thk, hk, hist, kv_heads, 1, st + 12) ||
+        !encode<D>(&thv, hv, hist, kv_heads, 1, st + 15))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    thk = tk;  // never read: no history tile
+    thv = tv;
+  }
   const int smem = Cfg<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -561,36 +610,43 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (seq + 2 * kRows - 1) / (2 * kRows);
   flash_attention_kernel<D><<<n_qt * heads * batch, kThreads, smem, stream>>>(
-      tq, tk, tv, to, batch, heads, kv_heads, seq, causal, window,
-      scale * 1.4426950408889634f);
+      tq, tk, tv, thk, thv, to, batch, heads, kv_heads, seq, hist, causal,
+      window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, H, S, D), k/v (B, KVH, S, D), out (B, H, S, D): bf16 with a unit
-// stride over D; strides[12] holds the element strides over (S, heads,
-// batch) of q, k, v and out in turn, each a multiple of 8 (16 bytes), the
-// pointers 16-byte aligned.  head_dim 256 is the 2b pair at full width,
-// 32 its reduced configs.  Returns 0 or a cudaError_t.
+// q (B, H, S, D), k/v (B, KVH, S, D), out (B, H, S, D) and, when hist >
+// 0, the history hk/hv (1, KVH, hist, D) that every row reads: bf16
+// with a unit stride over D; strides[18] holds the element strides over
+// (S, heads, batch) of q, k, v, out, hk and hv in turn, each a multiple
+// of 8 (16 bytes; those of the history only when hist > 0), the pointers
+// 16-byte aligned.  head_dim 256 is the 2b pair at full width, 32 its reduced
+// configs.  Returns 0 or a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out,
+                                    const void* v, const void* hk,
+                                    const void* hv, void* out,
                                     const long long* strides, int batch,
                                     int heads, int kv_heads, int seq,
-                                    int head_dim, int causal, int window,
-                                    float scale, cudaStream_t stream) {
-  if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0)
+                                    int hist, int head_dim,
+                                    int causal, int window, float scale,
+                                    cudaStream_t stream) {
+  if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
+      hist < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int i = 0; i < 12; ++i)
+  for (int i = 0; i < (hist > 0 ? 18 : 12); ++i)
     if (strides[i] <= 0 || strides[i] % 8 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, out, strides, batch, heads, kv_heads, seq,
-                        causal, window, scale, stream);
+      return launch<32>(q, k, v, hk, hv, out, strides, batch, heads,
+                        kv_heads, seq, hist, causal, window, scale,
+                        stream);
     case 256:
-      return launch<256>(q, k, v, out, strides, batch, heads, kv_heads, seq,
-                         causal, window, scale, stream);
+      return launch<256>(q, k, v, hk, hv, out, strides, batch, heads,
+                         kv_heads, seq, hist, causal, window, scale,
+                         stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --local [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
         [--macro-k 8] [--page-size 16] [--no-lazy-pages] [--device cpu] \
-        [--dense | --pool-pages N]
+        [--dense | --pool-pages N] [--max-ctx N] [--chunk-width W]
     PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
         --adapters 3 --adapter-slots 2 [--adapter-rank 4]
     PYTHONPATH=src python -m repro_torch.launch.serve --local \
@@ -30,10 +30,13 @@ decodes ``--macro-k`` tokens a lane per dispatch (default 8, as in the
 reference; a CUDA graph per lane on the card), and ``--macro-k 0``
 takes the per-token step; both print the same per-request lines.  On
 CUDA ``--page-size`` must be 16, the page size of the paged decode
-kernel.  It runs on CUDA unless ``--device cpu`` is given; on CUDA the
-pair is served in bfloat16 (the attention kernels take bfloat16), on
-the CPU in the configs' float32.  The reference's other flags belong
-to later slices and are refused.
+kernel.  ``--max-ctx N`` (page-aligned, >= max_seq) widens the paged
+context, so a prompt longer than the dense row streams through chunked
+prefill up to N tokens; ``--chunk-width W`` (page-aligned, <= max_seq)
+is the width of the chunks.  It runs on CUDA unless ``--device cpu`` is
+given; on CUDA the pair is served in bfloat16 (the attention kernels
+take bfloat16), on the CPU in the configs' float32.  The reference's
+other flags belong to later slices and are refused.
 """
 import argparse
 import dataclasses
@@ -41,8 +44,8 @@ import sys
 
 LATER_SLICE_FLAGS = (
     "--arch", "--shape", "--multi-pod", "--mesh-devices", "--rules",
-    "--model-parallel", "--spec-k", "--max-ctx", "--chunk-width",
-    "--fault-rate", "--outage", "--fault-seed", "--deadline-ms")
+    "--model-parallel", "--spec-k", "--fault-rate", "--outage",
+    "--fault-seed", "--deadline-ms")
 
 DEMO_PROMPTS = (
     "math: compute 12 plus 7 =",
@@ -71,6 +74,15 @@ def main(argv=None):
                     help="page-pool capacity per lane model (0 = size "
                          "for the dense worst case, batch * max_seq)")
     ap.add_argument("--no-lazy-pages", action="store_true")
+    ap.add_argument("--max-ctx", type=int, default=0,
+                    help="paged context ceiling in tokens (>= max_seq, "
+                         "page-aligned); prompts longer than the dense "
+                         "row stream through chunked prefill up to "
+                         "this length (0 = max_seq, no long prompts)")
+    ap.add_argument("--chunk-width", type=int, default=0,
+                    help="dense-buffer width for chunked long-prompt "
+                         "prefill (page-aligned, <= max_seq; "
+                         "0 = max_seq)")
     ap.add_argument("--pair", default="2b", choices=("2b", "gemma3"),
                     help="the FLOE_PAIRS model pair to serve")
     ap.add_argument("--device", default=None,
@@ -127,13 +139,15 @@ def main(argv=None):
         FUS.init_alignment(2, slm_cfg.vocab_size, device=device),
         latency=LatencyModel(rtt_ms=args.rtt_ms),
         timeout_ms=args.timeout_ms, sample_seed=args.sample_seed,
-        page_size=args.page_size, adapter_slots=args.adapter_slots,
-        adapter_rank=args.adapter_rank, device=device)
+        page_size=args.page_size, max_ctx=args.max_ctx or None,
+        adapter_slots=args.adapter_slots, adapter_rank=args.adapter_rank,
+        device=device)
     if args.batch > 1:
         sched = ContinuousBatchScheduler.from_deployment(
             dep, batch_size=args.batch, macro_k=args.macro_k,
             paged=not args.dense, lazy_pages=not args.no_lazy_pages,
-            pool_pages=args.pool_pages or None)
+            pool_pages=args.pool_pages or None,
+            chunk_width=args.chunk_width or None)
         print(f"lane KV: {'dense' if args.dense else 'paged'}, pool "
               f"capacity {sched.engine.kv_pool_bytes()}B")
     else:

@@ -1,8 +1,11 @@
 """Attention: GQA prefill and decode with full-causal and
 sliding-window layers — the port of ``repro/models/attention.py``.
 
-``attention_block`` covers ``prefill`` (no history; the reference's
-branch at ``attention.py:343-345``) and four decode forms:
+``attention_block`` covers ``prefill`` (the reference's branches at
+``attention.py:327-345``: without a history, or against one — the
+suffix and chunk prefills of COW prefix sharing and chunked prefill,
+whose queries sit at positions P + i and attend over [history; fresh])
+and four decode forms:
 scalar-position decode against a dense cache (``attention.py:396-415``),
 full-length or window-sized ring; per-row decode against a dense lane
 cache (``:372-395``), each row at its own depth; and **paged** decode
@@ -12,7 +15,8 @@ through a row's ring-local table on a windowed layer (``:346-371``).
 does (``:312-321``): a local layer of a mixed layout (gemma3) attends
 over the last ``sliding_window`` positions.  On CUDA, prefill
 attention is the hand-written kernel K3 (``kernels/flash_attention``,
-windowed on a local layer) and per-row decode attention, paged or
+windowed on a local layer, in its history-offset mode against a
+history) and per-row decode attention, paged or
 dense, is K2 (``kernels/paged_attention``: in its ring mode on a
 ring-local table, in its full-length window mode on a window layer's
 full block table); each launches or raises.  A dense lane's (B, S, KV,
@@ -283,7 +287,11 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
     ``is_global``: False on a local layer of a mixed layout, which
     takes the local rope theta and attends over a window.
     prefill: ``positions`` (S,) tensor; returns (y, (k, v)) with the
-    fresh (B, S, KV, hd) keys and values.
+    fresh (B, S, KV, hd) keys and values.  A ``cache`` of {"k", "v":
+    (1 or B, P, KV, hd)} is a prefix HISTORY at positions 0..P-1: the
+    queries, at ``positions`` = P + arange(S), attend over [history;
+    fresh] and only the fresh K/V are returned (the reference's suffix
+    prefill).
     decode: ``cache`` is this layer's {"k", "v"}; the new token's K/V
     are written into it IN PLACE (the reference returns an updated
     copy; the port saves the copy).  ``positions`` is an int (dense
@@ -328,7 +336,28 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
     k = L.rope(k, rope_pos, theta)
     window = layer_window(cfg, is_global)
 
-    if mode == "prefill":
+    if mode == "prefill" and cache is not None:
+        # against a history: causality makes the history's K/V what a
+        # full-prompt prefill computes there, so these rows attend as a
+        # one-shot prefill would at the same positions
+        hk, hv = cache["k"], cache["v"]
+        if x.device.type == "cuda":
+            # K3's history-offset mode reads a B=1 history in place for
+            # every row
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  window=window,
+                                  hist_k=hk.transpose(1, 2),
+                                  hist_v=hv.transpose(1, 2)).transpose(1, 2)
+        else:
+            kv_pos = torch.cat([torch.arange(hk.shape[1],
+                                             device=x.device), positions])
+            out = chunked_causal_attention(
+                q, torch.cat([hk.expand(b, -1, -1, -1), k], dim=1),
+                torch.cat([hv.expand(b, -1, -1, -1), v], dim=1),
+                positions, kv_pos, window, chunk=max(1024, s))
+        new_kv = (k, v)
+    elif mode == "prefill":
         if x.device.type == "cuda":
             # K3 reads the (B, H, S, D) views in place and returns one
             # whose transpose is a contiguous (B, S, H, D)

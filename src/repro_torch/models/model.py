@@ -44,9 +44,19 @@ Every entry point takes an optional merged-LoRA bank (``lora``, the
 leaf, as the reference's layer scans do.  LoRA on the SSM projections
 is a later slice.
 
+The prefix history API of the dense family (the reference's
+``model.py:952-1100``): ``build_prefix`` prefills a shared preamble once
+(B=1) into a HISTORY — the cache tree's leaves over its P positions,
+linear even where the cache keeps rings, with "len" = P;
+``prefill_suffix`` prefills ragged suffixes of every row at positions
+P + i against it; ``extend_history`` appends a chunk's fresh K/V;
+``prefix_page_rows`` and ``suffix_page_rows`` give the page content of
+the shared pages and of each row's own pages (``suffix_rows`` per
+leaf, which the deployment's page writers stream layer by layer).
+
 The MoE, MLA, hybrid (zamba2), audio and vision layouts, the
 all-sliding layout, qkv biases, untied embeddings of a dense model and
-the prefix/speculative helpers are later slices.
+the speculative helpers are later slices.
 """
 from __future__ import annotations
 
@@ -301,19 +311,21 @@ class LM:
         return {"layers": ((cfg.num_layers,), t)}
 
     # --------------------------------------------------------------- cache
-    def kv_shapes(self, batch: int, max_seq: int) -> Dict[str, Any]:
+    def kv_shapes(self, batch: int, max_seq: int,
+                  rings: bool = True) -> Dict[str, Any]:
         """Shapes of a dense family's dense KV cache leaves: {"k", "v":
         (L, B, max_seq, KV, hd)} for the plain layout; {"inner", "tail",
         "global": {"k", "v"}} with stack dims (n_groups, g - 1), (tail,)
         and (n_groups,) in front for the grouped one, whose local leaves
-        hold ``_ring_local_len`` slots when it is not 0."""
+        hold ``_ring_local_len`` slots when it is not 0 (and ``rings``:
+        without, every leaf is linear over max_seq positions)."""
         cfg = self.cfg
         kind, n_groups, g, tail = self._layout()
         kv_hd = (cfg.num_kv_heads, cfg.head_dim)
         if kind == "plain":
             shape = (cfg.num_layers, batch, max_seq) + kv_hd
             return {"k": shape, "v": shape}
-        local = self._ring_local_len(max_seq) or max_seq
+        local = (rings and self._ring_local_len(max_seq)) or max_seq
 
         def kv(lead, seq):
             shape = lead + (batch, seq) + kv_hd
@@ -445,6 +457,167 @@ class LM:
         logits = L.unembed(cfg, params["embed"], last)
         return logits if cache is None else (logits, cache)
 
+    # ------------------------------------------------- prefix history
+    def _dense_only(self, what: str):
+        if self.cfg.family != "dense":
+            raise NotImplementedError(f"{what} of the {self.cfg.family} "
+                                      "family: attention families only")
+
+    def linear_kv(self, batch: int, n: int) -> Dict[str, Any]:
+        """An uninitialised K/V tree shaped as the dense cache's, every
+        leaf (..., batch, n, KV, hd) linear over n positions (no
+        rings)."""
+        return _map_tree(self.kv_shapes(batch, n, rings=False),
+                         lambda shape: torch.empty(shape, dtype=self.dtype,
+                                                   device=self.device))
+
+    def init_history(self, n: int) -> Dict[str, Any]:
+        """An empty history of ``n`` positions: ``linear_kv(1, n)`` with
+        "len" = n."""
+        hist = self.linear_kv(1, n)
+        hist["len"] = n
+        return hist
+
+    @torch.inference_mode()
+    def build_prefix(self, params, tokens: torch.Tensor, write_kv=None,
+                     lora=None, gates=None) -> Dict[str, Any]:
+        """Prefill a shared preamble ONCE (B=1) into a history: tokens
+        (1, P) -> the tree of ``init_history(P)`` holding every layer's
+        K/V over positions 0..P-1.  Causality makes these values what a
+        full-prompt prefill computes at the same positions, whatever
+        follows.  Each layer's (1, P, KV, hd) K/V also go to
+        ``write_kv(addr, k, v)`` when given (the one-time write of the
+        shared pages)."""
+        self._dense_only("build_prefix")
+        if tokens.shape[0] != 1:
+            raise ValueError("build_prefix takes one row (B=1)")
+        s = tokens.shape[1]
+        hist = self.init_history(s)
+        x = L.embed(self.cfg, params["embed"], tokens)
+        positions = torch.arange(s, device=tokens.device)
+        for site in self.layer_sites():
+            x, (k, v) = dense_layer(self.cfg, self._layer(params, site), x,
+                                    positions=positions, mode="prefill",
+                                    cache=None,
+                                    lora=self._lora_layer(lora, site),
+                                    gates=gates, is_global=site.is_global)
+            cache_kv(hist, site.addr, "k").copy_(k)
+            cache_kv(hist, site.addr, "v").copy_(v)
+            if write_kv is not None:
+                write_kv(site.addr, k, v)
+        return hist
+
+    @torch.inference_mode()
+    def prefill_suffix(self, params, tokens: torch.Tensor, lengths,
+                       history, write_kv=None, lora=None, gates=None):
+        """Packed ragged-batch prefill of prompt SUFFIXES behind one
+        history (``build_prefix``/``extend_history`` output) of P =
+        history["len"] positions.  tokens (B, s_pad) right-padded;
+        lengths (B,) valid counts (host ints).  Queries run at positions
+        P + [0, s_pad) against [history; fresh], so row b's last-token
+        logits and its suffix K/V are what a full-prompt packed prefill
+        gives there.  Each layer's fresh (B, s_pad, KV, hd) K/V go to
+        ``write_kv(addr, k, v)``; returns the last-valid-token logits
+        (B, 1, V) float32, or without ``write_kv`` (logits, suffix
+        cache): the tree of the fresh K/V, leaves (..., B, s_pad, KV,
+        hd)."""
+        self._dense_only("prefill_suffix")
+        cfg = self.cfg
+        b, s = tokens.shape
+        lengths = np.asarray(lengths, np.int64)
+        if lengths.shape != (b,) or (lengths < 1).any() \
+                or (lengths > s).any():
+            raise ValueError(f"lengths {lengths.tolist()} do not fit "
+                             f"(B={b}, s_pad={s})")
+        sfx = None
+        if write_kv is None:
+            sfx = self.linear_kv(b, s)
+            write_kv = _tree_writer(sfx)
+        pre = int(history["len"])
+        x = L.embed(cfg, params["embed"], tokens)
+        positions = pre + torch.arange(s, device=tokens.device)
+        for site in self.layer_sites():
+            hist = {n: cache_kv(history, site.addr, n) for n in ("k", "v")}
+            x, (k, v) = dense_layer(cfg, self._layer(params, site), x,
+                                    positions=positions, mode="prefill",
+                                    cache=hist,
+                                    lora=self._lora_layer(lora, site),
+                                    gates=gates, is_global=site.is_global)
+            write_kv(site.addr, k, v)
+        idx = to_device(lengths - 1, tokens.device)
+        last = x[torch.arange(b, device=tokens.device), idx][:, None]
+        last = L.norm(cfg, params["ln_f"], last)
+        logits = L.unembed(cfg, params["embed"], last)
+        return logits if sfx is None else (logits, sfx)
+
+    def extend_history(self, history, suffix_cache) -> Dict[str, Any]:
+        """A new history: ``history`` followed by a chunk's fresh K/V
+        (``prefill_suffix``'s suffix cache of an EXACT-width B=1 chunk,
+        so positions stay contiguous: "len" grows by its width)."""
+        width = cache_kv(suffix_cache, self.layer_sites()[0].addr,
+                         "k").shape[1]
+        hist, write = history_extender(self, history, width)
+        for site in self.layer_sites():
+            write(site.addr, cache_kv(suffix_cache, site.addr, "k"),
+                  cache_kv(suffix_cache, site.addr, "v"))
+        return hist
+
+    def _is_ring_leaf(self, addr, max_seq: int) -> bool:
+        return bool(self._ring_local_len(max_seq)) \
+            and isinstance(addr, tuple) and addr[0] in LOCAL_KINDS
+
+    def _per_kind(self, max_seq: int, fn, *trees) -> Dict[str, Any]:
+        """{"k", "v"} (per kind of the grouped layout) of fn(leaves...,
+        is_ring) over matching history/cache trees."""
+        local_len = self._ring_local_len(max_seq)
+
+        def kind(subs, ring):
+            return {n: fn(*(t[n] for t in subs), ring) for n in ("k", "v")}
+        if "k" in trees[0]:
+            return kind(trees, False)
+        return {kn: kind([t[kn] for t in trees],
+                         kn in LOCAL_KINDS and bool(local_len))
+                for kn in ("inner", "tail", "global")}
+
+    def prefix_page_rows(self, history, share_len: int, page_size: int,
+                         max_seq: int) -> Dict[str, Any]:
+        """Shared COW page content: the first ``share_len`` (page-
+        aligned) positions of each full-length history leaf as (lead...,
+        n_shared, ps, KV, hd); ring leaves, never shared, have zero
+        pages (the reference's ``prefix_page_rows``)."""
+        return self._per_kind(max_seq, lambda h, ring: prefix_pages(
+            h, 0 if ring else share_len, page_size), history)
+
+    def suffix_page_rows(self, history, suffix_cache, lengths,
+                         share_len: int, page_size: int,
+                         max_seq: int) -> Dict[str, Any]:
+        """Per-row PRIVATE page content after a suffix prefill (the
+        reference's ``suffix_page_rows``): full-length leaves hold the
+        positions [share_len, P + s_pad) (the prefix's partial tail,
+        then the suffix) as (lead..., B, n, ps, KV, hd); ring leaves
+        each row's ring at its own total depth, gathered from [history;
+        fresh] slot for slot.  "pos" = P + lengths."""
+        local_len = self._ring_local_len(max_seq)
+        lengths = np.asarray(lengths, np.int64)
+        pre = int(history["len"])
+
+        def leaf(h, sfx, ring):
+            lead, (b, s_len), kv_hd = (h.shape[:-4], sfx.shape[-4:-2],
+                                       sfx.shape[-2:])
+            width = local_len if ring else pre - share_len + s_len
+            out = sfx.new_empty(lead + (b, -(-width // page_size),
+                                        page_size) + kv_hd)
+            for o, a, c in zip(out.view((-1,) + out.shape[-5:]),
+                               h.reshape((-1,) + h.shape[-4:]),
+                               sfx.reshape((-1,) + sfx.shape[-4:])):
+                o.copy_(to_pages(suffix_rows(a, c, lengths, share_len,
+                                             local_len if ring else 0),
+                                 page_size))
+            return out
+        out = self._per_kind(max_seq, leaf, history, suffix_cache)
+        out["pos"] = pre + lengths
+        return out
+
     @torch.inference_mode()
     def decode_step(self, params, cache, tokens: torch.Tensor, lora=None,
                     gates=None):
@@ -541,6 +714,74 @@ def row_writer(full, src, dst, lengths):
                                               t.device)
             leaf[gather["dst"]] = packed_rows(t, n_slots, gather.get(
                 n_slots))[gather["src"]]
+    return write
+
+
+def history_extender(lm, history, width: int):
+    """(new history of history["len"] + ``width`` positions, ``write_kv``
+    that fills it layer by layer from the old one and a B=1 chunk's
+    fresh (1, width, KV, hd) K/V): the streaming ``extend_history``, so
+    no stacked copy of the chunk is made."""
+    pre = int(history["len"])
+    new = lm.init_history(pre + width)
+
+    def write(addr, k, v):
+        for name, t in (("k", k), ("v", v)):
+            if t.shape[0] != 1 or t.shape[1] != width:
+                raise ValueError(f"a history grows by exact-width B=1 "
+                                 f"chunks of {width}, got "
+                                 f"{tuple(t.shape[:2])}")
+            leaf = cache_kv(new, addr, name)
+            leaf[:, :pre] = cache_kv(history, addr, name)
+            leaf[:, pre:] = t
+    return new, write
+
+
+def prefix_pages(h: torch.Tensor, share_len: int,
+                 page_size: int) -> torch.Tensor:
+    """A history leaf (lead..., 1, P, KV, hd)'s first ``share_len``
+    (page-aligned) positions as (lead..., share_len / ps, ps, KV, hd)
+    shared pages."""
+    return h[..., 0, :share_len, :, :].reshape(
+        h.shape[:-4] + (share_len // page_size, page_size) + h.shape[-2:])
+
+
+def suffix_rows(h: torch.Tensor, sfx: torch.Tensor, lengths,
+                share_len: int, local_len: int = 0) -> torch.Tensor:
+    """One layer's per-row content after a suffix prefill, from its
+    history leaf h (1, P, KV, hd) and fresh sfx (B, s_pad, KV, hd): a
+    full-length leaf (``local_len`` 0) holds positions [share_len, P +
+    s_pad) — the prefix's unshared tail, then the suffix — as (B, P -
+    share_len + s_pad, KV, hd); a ring leaf of ``local_len`` slots holds
+    each row's ring at depth P + lengths[b] - 1, slot j the position
+    ``ring_kv_positions`` names, clipped into [history; fresh] (the
+    reference's ``suffix_page_rows``, ``model.py:1040-1086``)."""
+    b = sfx.shape[0]
+    if not local_len:
+        return torch.cat([h[:, share_len:].expand(b, -1, -1, -1), sfx],
+                         dim=1)
+    src = torch.cat([h.expand(b, -1, -1, -1), sfx], dim=1)
+    depth = h.shape[1] + np.asarray(lengths, np.int64)
+    idx = ring_gather(depth, local_len, src.shape[1], sfx.device)
+    return src[torch.arange(b, device=sfx.device)[:, None], idx]
+
+
+def to_pages(t: torch.Tensor, page_size: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, ceil(S / ps), ps, KV, hd), zero-padding the
+    last page (the reference's ``_to_pages``)."""
+    b, s_len = t.shape[:2]
+    n = -(-s_len // page_size)
+    if n * page_size != s_len:
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n * page_size - s_len))
+    return t.reshape(b, n, page_size, *t.shape[2:])
+
+
+def _tree_writer(tree):
+    """``write_kv`` that stores each layer's K/V at its address of a
+    cache-shaped ``tree`` whose leaves match them."""
+    def write(addr, k, v):
+        cache_kv(tree, addr, "k").copy_(k)
+        cache_kv(tree, addr, "v").copy_(v)
     return write
 
 

@@ -19,8 +19,16 @@ The K-token macro step's per-lane state and body live in
 ``serving/macro.py``; the deployment gives it ``fuse_mask`` (the fusion
 on a device arrived mask), ``select_sample`` (the greedy argmax or the
 keyed draw through K7, keyed by ``sample_seed``) and ``fetch_traces``.
-Meshes, prefix sharing, chunked prefill and speculation are later
-slices.
+A B=1 prefix prefill (``slm/llm_build_prefix``) builds a HISTORY whose
+whole pages a COW prefix writes into the pool once
+(``prefix_writer``); ``slm/llm_prefill_suffix`` prefills ragged
+suffixes against it and ``slm/llm_prefill_chunk`` one middle chunk of a
+chunked prefill, extending the history; ``page_writer`` streams their
+K/V into each row's own pages.  ``max_ctx`` > ``max_seq`` widens the
+paged context only: block tables and K2's reads cover ``max_ctx``
+positions, while the dense prefill buffer (and a dense lane) stays
+``max_seq`` wide, and longer prompts stream through chunked prefill.
+Meshes and speculation are later slices.
 
 Without an LLM the deployment is SLM-only (``SoloEngine``); its SLM may
 be a dense model or a Mamba-1 SSM, whose recurrent state has no pages
@@ -47,8 +55,10 @@ from repro_torch.core import fusion as FUS
 from repro_torch.core import lora as LORA
 from repro_torch.kernels.logit_fusion import ops as OPS
 from repro_torch.models.attention import FREED_POS, identity_tables
-from repro_torch.models.model import (LOCAL_KINDS, cache_kv, packed_rows,
-                                      ring_gather)
+from repro_torch.models.model import (LOCAL_KINDS, cache_kv,
+                                      history_extender, packed_rows,
+                                      prefix_pages, ring_gather,
+                                      suffix_rows, to_pages)
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.adapters import AdapterCache
 from repro_torch.serving.latency import LatencyModel
@@ -96,11 +106,9 @@ class ServingDeployment:
             raise ValueError(f"max_seq={max_seq} must be a multiple of "
                              f"page_size={page_size}")
         self.max_ctx = max_ctx or max_seq
-        if self.max_ctx > max_seq:
-            raise NotImplementedError(
-                "max_ctx > max_seq (chunked prefill): later slice")
-        if self.max_ctx != max_seq:
-            raise ValueError(f"max_ctx={self.max_ctx} must be >= "
+        if self.max_ctx % page_size or self.max_ctx < max_seq:
+            raise ValueError(f"max_ctx={self.max_ctx} must be a multiple "
+                             f"of page_size={page_size} and >= "
                              f"max_seq={max_seq}")
         self.page_size = page_size
         for lm in (slm, llm):
@@ -174,6 +182,29 @@ class ServingDeployment:
     def llm_prefill_packed(self, params, toks, lens, write_kv):
         return self.llm.prefill_packed(params, toks, lens, self.max_seq,
                                        write_kv)
+
+    def slm_build_prefix(self, params, toks, write_kv=None, lora=None,
+                         gates=None):
+        return self.slm.build_prefix(params, toks, write_kv, lora, gates)
+
+    def llm_build_prefix(self, params, toks, write_kv=None):
+        return self.llm.build_prefix(params, toks, write_kv)
+
+    def slm_prefill_suffix(self, params, toks, lens, hist, write_kv,
+                           lora=None, gates=None):
+        return self.slm.prefill_suffix(params, toks, lens, hist, write_kv,
+                                       lora, gates)
+
+    def llm_prefill_suffix(self, params, toks, lens, hist, write_kv):
+        return self.llm.prefill_suffix(params, toks, lens, hist, write_kv)
+
+    def slm_prefill_chunk(self, params, toks, lens, hist, write_kv,
+                          lora=None, gates=None):
+        return _chunk(self.slm, params, toks, lens, hist, write_kv, lora,
+                      gates)
+
+    def llm_prefill_chunk(self, params, toks, lens, hist, write_kv):
+        return _chunk(self.llm, params, toks, lens, hist, write_kv)
 
     @staticmethod
     def insert_row(full: torch.Tensor, rows: torch.Tensor, src, dst):
@@ -298,11 +329,12 @@ class ServingDeployment:
         return cache
 
     def page_writer(self, full, src, dpf, lengths=None, dpl=None,
-                    local_len: int = 0):
-        """``write_kv`` callback for ``LM.prefill_packed`` that streams
-        each layer's fresh (B, Lpad, KV, hd) K/V straight into the pool
-        pages of ``full`` — the paged admission scatter.  Row src[i] of
-        the prefill goes to the (n, cols) destination page ids dpf[i]
+                    local_len: int = 0, history=None, share_len: int = 0):
+        """``write_kv`` callback for ``LM.prefill_packed`` (and, with a
+        ``history``, ``LM.prefill_suffix``) that streams each layer's
+        fresh (B, Lpad, KV, hd) K/V straight into the pool pages of
+        ``full`` — the paged admission scatter.  Row src[i] of the
+        prefill goes to the (n, cols) destination page ids dpf[i]
         (NO_PAGE columns drop).  A ring leaf (``full`` has a "local"
         table) takes instead each row's ring of ``local_len`` slots at
         its own depth, from the (bp,) prompt ``lengths`` of the prefill's
@@ -312,7 +344,16 @@ class ServingDeployment:
         position j (zeros past it) — the reference's ``_pad_cache(
         lengths=)`` placement (``model.py:730-780``).  The pool gets what
         the reference's dense packed prefill and page-row scatter give
-        it, without a dense (L, B, max_seq) transient."""
+        it, without a dense (L, B, max_seq) transient.
+
+        Behind a ``history`` of P positions (a suffix or chunk prefill,
+        ``lengths`` the suffix lengths) a row's full-length content is
+        the positions [share_len, P + Lpad) — the prefix's unshared
+        tail, then its suffix — and its ring is gathered from [history;
+        fresh] at depth P + length, slot for slot (``suffix_rows``, the
+        reference's ``suffix_page_rows``).  ``dpl`` None writes no ring
+        (a middle chunk: only the final chunk's window is the row's
+        ring)."""
         ps, dev = self.page_size, self.device
         ring = "local" in full
         plans, gather = {}, {}
@@ -326,20 +367,44 @@ class ServingDeployment:
         def write(addr, k, v):
             local = ring and isinstance(addr, tuple) \
                 and addr[0] in LOCAL_KINDS
+            if local and dpl is None:
+                return
             for name, t in (("k", k), ("v", v)):
                 pool = cache_kv(full, addr, name)
-                if local:
+                if history is not None:
+                    t = suffix_rows(cache_kv(history, addr, name), t,
+                                    lengths, share_len,
+                                    local_len if local else 0)
+                elif local:
                     if not gather and local_len < t.shape[1]:
                         gather["slots"] = ring_gather(lengths, local_len,
                                                       t.shape[1], dev)
                     t = packed_rows(t, local_len, gather.get("slots"))
-                b, s_len = t.shape[:2]
-                n_pages = PAG.pages_for(s_len, ps)
-                if n_pages * ps != s_len:
-                    t = torch.nn.functional.pad(
-                        t, (0, 0, 0, 0, 0, n_pages * ps - s_len))
-                _write_pages(pool, t.reshape(b, n_pages, ps, *t.shape[2:]),
+                _write_pages(pool, to_pages(t, ps),
                              plan(local, pool.shape[0] - 1))
+        return write
+
+    def prefix_writer(self, full, pids, share_len: int):
+        """``write_kv`` callback for ``LM.build_prefix`` that writes the
+        first ``share_len`` (page-aligned) positions of each full-length
+        leaf's (1, P, KV, hd) K/V into pool pages ``pids`` of ``full``,
+        once — the COW prefix-page write (the reference's
+        ``_make_insert_prefix``, ``deployment.py:1046-1081``), also the
+        freeze of a chunked prefill's first chunk.  Ring leaves are
+        never shared and get nothing."""
+        ring = "local" in full
+        plan = {}
+
+        def write(addr, k, v):
+            if ring and isinstance(addr, tuple) and addr[0] in LOCAL_KINDS:
+                return
+            for name, t in (("k", k), ("v", v)):
+                pool = cache_kv(full, addr, name)
+                if not plan:
+                    plan["p"] = _page_plan([pids], [0], pool.shape[0] - 1)
+                _write_pages(pool, prefix_pages(t, share_len,
+                                                self.page_size)[None],
+                             plan["p"])
         return write
 
     def finish_paged_insert(self, full, dst, lengths, block_rows,
@@ -415,6 +480,21 @@ class ServingDeployment:
         steps = np.asarray(steps, np.int32)
         return self.latency.token_latency_device(
             self.timeout_ms, np.full_like(steps, rid), steps)
+
+
+def _chunk(lm, params, toks, lens, hist, write_kv, lora=None, gates=None):
+    """One MIDDLE chunk of a chunked prefill: the suffix prefill of an
+    exact-width B=1 chunk against the history so far, its K/V streamed
+    to ``write_kv`` (the chunk's own pages) and into the extended
+    history.  Returns (logits, history for the next chunk) — the
+    reference's ``_chunk_out``, ``deployment.py:959-973``."""
+    new_hist, extend = history_extender(lm, hist, toks.shape[1])
+
+    def write(addr, k, v):
+        write_kv(addr, k, v)
+        extend(addr, k, v)
+    return lm.prefill_suffix(params, toks, lens, hist, write, lora,
+                             gates), new_hist
 
 
 def _page_plan(dpf, src, n_pool: int):

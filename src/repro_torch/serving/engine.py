@@ -27,9 +27,13 @@ the K-token macro step (``macro_k=K``, the default 8: one dispatch and
 one host sync per lane per K tokens, a CUDA graph replayed on the card,
 ``serving/macro.py``) or the per-token step (``macro_k=0``); its LoRA
 decode goes through K5 on the lane's (B, E) gate rows, or through K4 on
-per-row slot ids with ``use_slot_kernel=True``.  COW prefix sharing,
-chunked prefill, faults, deadlines and speculation are later slices and
-raise ``NotImplementedError``.
+per-row slot ids with ``use_slot_kernel=True``.  On paged lanes a
+request's shared ``prefix=`` is copy-on-write: the lane prefills the
+preamble once (B=1) and maps its whole pages into every sharing row,
+whose suffix alone is prefilled, through K3's history-offset mode on
+the card; a prompt wider than ``chunk_width`` streams through chunked
+prefill, up to the deployment's ``max_ctx``.  Faults, deadlines and
+speculation are later slices and raise ``NotImplementedError``.
 
 Every engine takes a deployment (``deployment=``) or, as the reference's
 engines do, the models and deployment-level settings by keyword, from
@@ -375,6 +379,14 @@ class _Job:
     truncated: bool = False
     aslot: Optional[int] = None      # pinned adapter slot, or None
     resume: Optional[_Slot] = None   # an evicted request's slot
+    entry: Optional[dict] = None     # the lane's COW prefix entry, or None
+
+
+def _tokens(ids: List[int], device) -> torch.Tensor:
+    """(1, n) int64 token ids on ``device``, copied from pinned memory
+    without waiting for the stream (an admission may overlap a macro
+    step in flight)."""
+    return to_device(np.asarray([ids], np.int64), device)
 
 
 def _paged_tables(pager: PAG.LanePager, rows: List[PAG.RowPages]):
@@ -417,6 +429,9 @@ class _Lane:
         self._macro: Optional[LaneMacro] = None  # built at first dispatch
         # (macro, lat, ok, live rows) of the macro step in flight
         self._inflight = None
+        # COW prefix registry: prefix text -> entry (or None when it is
+        # structurally unshareable)
+        self._prefixes: Dict[str, Optional[dict]] = {}
 
     # ----------------------------------------------------------- helpers
     def free_slots(self) -> List[int]:
@@ -511,16 +526,43 @@ class _Lane:
 
     @torch.inference_mode()
     def admit_many(self, jobs: List[_Job]):
-        """Admit a burst of requests: ONE packed B>1 prefill per model
-        whose per-layer K/V stream straight into the rows' dense lane
-        rows (the reference's dense prefill + row insert) or, on paged
-        lanes, into their reserved pool pages (the pool contents the
-        reference's dense prefill + page-row scatter gives: the rows'
-        block-table rows double as their destination pages, and their
-        local-table rows as those of their rings).  A dense lane numbers
-        its admissions here, as the reference's does."""
+        """Admit a burst of requests.  A dense lane numbers them and
+        admits them in one packed prefill (``_admit_full``).  A paged
+        lane routes them as the reference's ``_admit_paged`` does
+        (``engine.py:739-763``): prompts wider than ``chunk_width``
+        stream one by one through chunked prefill, the jobs sharing a
+        COW prefix entry take one suffix prefill per entry, and the rest
+        one packed prefill."""
         if not jobs:
             return
+        eng = self.eng
+        if not eng.paged:
+            for j in jobs:
+                j.seq = eng._next_seq()
+            self._admit_full(jobs)
+            return
+        groups: Dict[Any, List[_Job]] = {}
+        for j in jobs:
+            if len(j.ids) <= eng.chunk_width:
+                key = None if j.entry is None else id(j.entry)
+                groups.setdefault(key, []).append(j)
+        for group in groups.values():
+            if group[0].entry is None:
+                self._admit_full(group)
+            else:
+                self._admit_suffix(group, group[0].entry)
+        for j in jobs:
+            if len(j.ids) > eng.chunk_width:
+                self._admit_chunked(j)
+
+    def _admit_full(self, jobs: List[_Job]):
+        """ONE packed B>1 prefill per model whose per-layer K/V stream
+        straight into the rows' dense lane rows (the reference's dense
+        prefill + row insert) or, on paged lanes, into their reserved
+        pool pages (the pool contents the reference's dense prefill +
+        page-row scatter gives: the rows' block-table rows double as
+        their destination pages, and their local-table rows as those of
+        their rings)."""
         eng = self.eng
         dep = eng.dep
         n = len(jobs)
@@ -529,9 +571,6 @@ class _Lane:
                              bp=int(toks.shape[0]))
         if self.s_cache is None:
             self._alloc(None if g is None else g.shape[-1])
-        if not eng.paged:
-            for j in jobs:
-                j.seq = eng._next_seq()
         src = list(range(n))
         dst = [j.slot for j in jobs]
 
@@ -563,6 +602,172 @@ class _Lane:
             dep.insert_row(self.gates, g, src, dst)
         for j in jobs:
             self._finish_admit(j)
+
+    # ------------------------------------------- COW prefix and chunks
+    @torch.inference_mode()
+    def ensure_prefix(self, prefix: str) -> Optional[dict]:
+        """The lane's COW registry entry for ``prefix``, built at its
+        first use: ONE B=1 prefill of the preamble per (lane, model),
+        whose whole pages are written into the pools once; later
+        admissions only fork them into their block tables.  None when
+        the prefix is structurally unshareable (under one page, or no
+        room left for a suffix and decode: cached) or when the pools
+        cannot hold its pages now (not cached: retried on a later
+        admission) — the reference's ``ensure_prefix``
+        (``engine.py:679-737``)."""
+        eng = self.eng
+        dep = eng.dep
+        if prefix in self._prefixes:
+            return self._prefixes[prefix]
+        ps = dep.page_size
+        pre_ids = TOK.encode(prefix)
+        share_np = len(pre_ids) // ps        # whole pages only
+        if share_np == 0 or len(pre_ids) >= eng.max_seq - 2:
+            self._prefixes[prefix] = None
+            return None
+        share_len = share_np * ps
+        if self.s_cache is None:
+            self._alloc(None)
+        pids_s = self.pager_s.alloc.alloc(share_np)
+        if pids_s is None:
+            return None
+        pids_l = None
+        if self.use_cloud:
+            pids_l = self.pager_l.alloc.alloc(share_np)
+            if pids_l is None:
+                self.pager_s.alloc.release(pids_s)
+                return None
+        toks = _tokens(pre_ids, dep.device)
+        # shared preambles are LoRA-free (the COW gate refuses router-
+        # gated and adapter requests): no bank, no gates
+        hist_s = dep.slm_build_prefix(
+            eng.slm_params, toks, dep.prefix_writer(self.s_cache, pids_s,
+                                                    share_len))
+        hist_l = None
+        if self.use_cloud:
+            hist_l = dep.llm_build_prefix(
+                eng.llm_params, toks, dep.prefix_writer(self.l_cache,
+                                                        pids_l, share_len))
+        entry = dict(pre_ids=list(pre_ids), pre_len=len(pre_ids),
+                     share_np=share_np, share_len=share_len,
+                     hist_s=hist_s, hist_l=hist_l,
+                     pids_s=pids_s, pids_l=pids_l)
+        self._prefixes[prefix] = entry
+        return entry
+
+    def _admit_suffix(self, jobs: List[_Job], entry: dict):
+        """COW admission against a registered prefix: ONE packed suffix
+        prefill over the shared history (the preamble is never
+        recomputed), each row's partial prefix tail and suffix streamed
+        into its owned pages and its ring gathered at its own depth; the
+        shared pages are only block-mapped (the reference's
+        ``_admit_paged_suffix``, ``engine.py:860-911``).  The rows are
+        LoRA-free; on a lane that carries gate rows their rows are
+        zeroed, so no earlier occupant's gates reach them."""
+        eng = self.eng
+        dep = eng.dep
+        n = len(jobs)
+        pre, share = entry["pre_len"], entry["share_len"]
+        toks, lens = self._pad_group([j.ids[pre:] for j in jobs],
+                                     eng.max_seq - pre)
+        np_content = PAG.pages_for(pre - share + toks.shape[1],
+                                   dep.page_size)
+        src = list(range(n))
+        dst = [j.slot for j in jobs]
+
+        def insert(cache, pager, rows, hist):
+            dpf = np.full((n, np_content), PAG.NO_PAGE, np.int64)
+            for i, r in enumerate(rows):
+                own = r.owned[:np_content]
+                dpf[i, :len(own)] = own
+            block, local = _paged_tables(pager, rows)
+            return (dep.page_writer(cache, src, dpf, lens, local,
+                                    pager.local_len, history=hist,
+                                    share_len=share),
+                    lambda: dep.finish_paged_insert(
+                        cache, dst, pre + lens[:n], block, local))
+        write, finish = insert(self.s_cache, self.pager_s,
+                               [j.rows_s for j in jobs], entry["hist_s"])
+        s_logits = dep.slm_prefill_suffix(eng.slm_params, toks, lens,
+                                          entry["hist_s"], write)
+        finish()
+        dep.insert_row(self.sl, s_logits[:, 0], src, dst)
+        if self.use_cloud:
+            write, finish = insert(self.l_cache, self.pager_l,
+                                   [j.rows_l for j in jobs],
+                                   entry["hist_l"])
+            l_logits = dep.llm_prefill_suffix(eng.llm_params, toks, lens,
+                                              entry["hist_l"], write)
+            finish()
+            dep.insert_row(self.ll, l_logits[:, 0], src, dst)
+        if self.gates is not None:
+            g = _admission_gates(eng, [(j.prompt, None) for j in jobs])
+            dep.insert_row(self.gates, g, src, dst)
+        for j in jobs:
+            self._finish_admit(j)
+
+    def _admit_chunked(self, j: _Job):
+        """Long-prompt admission: stream the prompt through the dense
+        prefill buffer ``chunk_width`` W tokens at a time, each chunk's
+        K/V written into the row's reserved pages as it goes (the
+        reference's ``_admit_paged_chunked``, ``engine.py:913-1027``).
+        Chunk 0 is a B=1 ``build_prefix`` whose whole pages freeze;
+        every middle chunk is exactly W tokens (positions stay
+        contiguous), prefills against the history so far and extends it,
+        and writes no ring; the final ragged chunk also writes the ring,
+        the row's position and tables, and its last-token logits seed
+        decode.  The adapter or router gates ride every chunk."""
+        eng = self.eng
+        dep = eng.dep
+        ps, width = dep.page_size, eng.chunk_width
+        ids = j.ids
+        g = _admission_gates(eng, [(j.prompt, j.aslot)])
+        if self.s_cache is None:
+            self._alloc(None if g is None else g.shape[-1])
+        models = [("s", self.s_cache, self.pager_s, j.rows_s)]
+        if self.use_cloud:
+            models.append(("l", self.l_cache, self.pager_l, j.rows_l))
+
+        def call(which, fn, *args):
+            """An SLM entry point with the bank and gates, an LLM one
+            without."""
+            name = ("slm_" if which == "s" else "llm_") + fn
+            extra = (eng.lora, g) if which == "s" else ()
+            params = eng.slm_params if which == "s" else eng.llm_params
+            return getattr(dep, name)(params, *args, *extra)
+
+        toks0 = _tokens(ids[:width], dep.device)
+        hist = {which: call(which, "build_prefix", toks0, dep.prefix_writer(
+                    cache, rows.full[:width // ps], width))
+                for which, cache, _, rows in models}
+        pre = width
+        while len(ids) - pre > width:
+            toks = _tokens(ids[pre:pre + width], dep.device)
+            for which, cache, _, rows in models:
+                write = dep.page_writer(
+                    cache, [0], [rows.full[pre // ps:(pre + width) // ps]],
+                    [width], history=hist[which], share_len=pre)
+                _, hist[which] = call(which, "prefill_chunk", toks,
+                                      [width], hist[which], write)
+            pre += width
+        w = len(ids) - pre
+        wpad = PAG.pages_for(w, ps) * ps
+        toks = _tokens(list(ids[pre:]) + [0] * (wpad - w), dep.device)
+        for which, cache, pager, rows in models:
+            block, local = _paged_tables(pager, [rows])
+            write = dep.page_writer(
+                cache, [0], [rows.full[pre // ps:(pre + wpad) // ps]],
+                [w], local, pager.local_len, history=hist[which],
+                share_len=pre)
+            logits = call(which, "prefill_suffix", toks, [w], hist[which],
+                          write)
+            dep.finish_paged_insert(cache, [j.slot], [len(ids)], block,
+                                    local)
+            dep.insert_row(self.sl if which == "s" else self.ll,
+                           logits[:, 0], [0], [j.slot])
+        if g is not None:
+            dep.insert_row(self.gates, g, [0], [j.slot])
+        self._finish_admit(j)
 
     # ------------------------------------------------------------- decode
     @torch.inference_mode()
@@ -714,7 +919,7 @@ class _Lane:
             if c is not None:
                 check_row_positions(
                     np.where(done, FREED_POS, c["pos_host"] + fed - 1),
-                    dep.max_seq)
+                    self.eng.max_ctx if self.eng.paged else dep.max_seq)
         lat = ok = None
         if self.use_cloud:
             # a row's step advances once per active iteration, so the
@@ -1002,8 +1207,16 @@ class BatchedHybridEngine(HybridEngine):
 
     ``macro_k=K`` (default 8, the reference's) decodes K tokens a lane
     per dispatch with one host sync (a CUDA graph per lane on the card);
-    ``macro_k=0`` is the per-token path.  ``spec_k`` and ``chunk_width``
-    raise ``NotImplementedError``."""
+    ``macro_k=0`` is the per-token path.  A request's ``prefix`` is
+    COW-shared on paged lanes (``_Lane.ensure_prefix``) when no router
+    gates the bank, it names no adapter and its prompt fits
+    ``chunk_width``; dense lanes prefill it as part of the prompt.
+    ``chunk_width`` (page-aligned, in [page_size, max_seq], default
+    max_seq) is the width of the dense prefill buffer: a wider prompt,
+    up to the deployment's ``max_ctx``, streams through chunked prefill
+    on paged lanes.  A dense lane cuts a prompt to max_seq - max_new - 1
+    tokens, a paged one to max_ctx - max_new - 1.  ``spec_k`` raises
+    ``NotImplementedError``."""
 
     def __init__(self, slm=None, slm_params=None, llm=None, llm_params=None,
                  alignment_mlp=None, expert_bank=None,
@@ -1039,12 +1252,15 @@ class BatchedHybridEngine(HybridEngine):
                     f"models (got {lm.cfg.family})")
         if macro_k < 0:
             raise ValueError(f"macro_k={macro_k} must be >= 0")
-        later = [(spec_k != 0, "speculative decode (spec_k)"),
-                 (chunk_width not in (None, deployment.max_seq),
-                  "chunked prefill (chunk_width)")]
-        for bad, what in later:
-            if bad:
-                raise NotImplementedError(f"{what}: later slice")
+        if spec_k != 0:
+            raise NotImplementedError("speculative decode (spec_k): later "
+                                      "slice")
+        ps = deployment.page_size
+        self.chunk_width = chunk_width or deployment.max_seq
+        if self.chunk_width % ps \
+                or not ps <= self.chunk_width <= deployment.max_seq:
+            raise ValueError(f"chunk_width={self.chunk_width} must be "
+                             f"page-aligned in [{ps}, {deployment.max_seq}]")
         self.slm, self.llm = deployment.slm, deployment.llm
         self.macro_k = macro_k
         self.paged = paged
@@ -1135,16 +1351,14 @@ class BatchedHybridEngine(HybridEngine):
         pins a registered per-user adapter for the request's lifetime.
         Requests landing in the same lane share ONE packed B>1 prefill.
         Returns per-request admitted flags; soft-refused requests are
-        retried later, hard rejects land in ``pop_rejected``."""
+        retried later, hard rejects land in ``pop_rejected``.  ``prefix``
+        is a shared preamble: the request serves prefix + prompt, with
+        the preamble's pages COW-shared where the paged gate allows."""
         for prompt, max_new, greedy, rid, *rest in reqs:
-            rest = list(rest) + [None] * (4 - len(rest))
-            for bad, what in ((rest[1] is not None,
-                               "COW prefix sharing (prefix=)"),
-                              (rest[3] is not None,
-                               "deadline cancellation (deadline_ms=)")):
-                if bad:
-                    raise NotImplementedError(f"{what} on the batched "
-                                              "engine: later slice")
+            if len(rest) > 3 and rest[3] is not None:
+                raise NotImplementedError(
+                    "deadline cancellation (deadline_ms=) on the batched "
+                    "engine: later slice")
         return self._add_requests(reqs)
 
     def _add_requests(self, reqs: List[Tuple]) -> List[bool]:
@@ -1163,15 +1377,19 @@ class BatchedHybridEngine(HybridEngine):
                    False: bool(self.cloud_lane._evictq)}
         for i, (prompt, max_new, greedy, rid, *rest) in enumerate(reqs):
             seed = rest[0] if rest else None
+            prefix = rest[1] if len(rest) > 1 else None
             aid = rest[2] if len(rest) > 2 else None
-            private = self.detector.detect(prompt)
+            full = (prefix or "") + prompt
+            private = self.detector.detect(full)
             lane = self.edge_lane if private else self.cloud_lane
             if aid is not None and (self.adapters is None
                                     or not self.adapters.known(aid)):
                 self._rejected.append((rid, self._adapter_reject_msg(aid)))
                 continue
-            raw = TOK.encode(prompt + " ")
-            cap_ids = self.max_ctx - max_new - 1
+            raw = TOK.encode(full + " ")
+            # a dense row holds max_seq positions, a paged one max_ctx
+            cap_ids = (self.max_ctx if self.paged
+                       else self.max_seq) - max_new - 1
             ids = raw[:cap_ids]
             truncated = len(raw) > cap_ids
             if not self.paged:
@@ -1181,16 +1399,30 @@ class BatchedHybridEngine(HybridEngine):
                 if not ok:
                     continue
                 jobs[private].append(_Job(
-                    free[private].pop(0), prompt, max_new, greedy, rid,
+                    free[private].pop(0), full, max_new, greedy, rid,
                     private, seed, ids, None, None, truncated=truncated,
                     aslot=aslot))
                 flags[i] = True
                 continue
             alloc_len = min(len(ids) + max_new, self.max_ctx)
             cap_pages = PAG.pages_for(alloc_len, self.dep.page_size)
-            worst_s = lane.pager_s.demand(alloc_len)
-            worst_l = (lane.pager_l.demand(alloc_len) if lane.use_cloud
-                       else (0, 0))
+            entry = None
+            if prefix and self.router is None and aid is None \
+                    and len(ids) <= self.chunk_width:
+                # COW sharing needs the tokenization to split at the
+                # prefix boundary, a suffix to prefill, and a prompt the
+                # dense prefill buffer holds (a wider one goes chunked,
+                # unshared); router-gated requests would merge their own
+                # LoRA into the preamble's K/V, so they never share
+                entry = lane.ensure_prefix(prefix)
+                if entry is not None and not (
+                        len(ids) > entry["pre_len"]
+                        and ids[:entry["pre_len"]] == entry["pre_ids"]):
+                    entry = None
+            share_np = entry["share_np"] if entry else 0
+            worst_s = lane.pager_s.demand(alloc_len, share_np)
+            worst_l = (lane.pager_l.demand(alloc_len, share_np)
+                       if lane.use_cloud else (0, 0))
             if not lane.pager_s.fits_pool(*worst_s):
                 self._rejected.append((rid, (
                     f"slm page demand {worst_s[0]} exceeds pool "
@@ -1204,8 +1436,10 @@ class BatchedHybridEngine(HybridEngine):
             if blocked[private]:
                 continue                   # FIFO: no overtaking
             if self.lazy_pages:
-                nf_s, nl_s = lane.pager_s.demand_lazy(len(ids), alloc_len)
-                nf_l, nl_l = (lane.pager_l.demand_lazy(len(ids), alloc_len)
+                nf_s, nl_s = lane.pager_s.demand_lazy(len(ids), alloc_len,
+                                                      share_np)
+                nf_l, nl_l = (lane.pager_l.demand_lazy(len(ids), alloc_len,
+                                                       share_np)
                               if lane.use_cloud else (0, 0))
             else:
                 (nf_s, nl_s), (nf_l, nl_l) = worst_s, worst_l
@@ -1219,13 +1453,16 @@ class BatchedHybridEngine(HybridEngine):
             if not ok:                     # soft: retry when pins drop
                 continue
             slot = free[private].pop(0)
-            rows_s = lane.pager_s.admit(slot, nf_s, cap_pages=cap_pages)
-            rows_l = (lane.pager_l.admit(slot, nf_l, cap_pages=cap_pages)
-                      if lane.use_cloud else None)
+            rows_s = lane.pager_s.admit(
+                slot, nf_s, shared=entry["pids_s"] if entry else (),
+                cap_pages=cap_pages)
+            rows_l = (lane.pager_l.admit(
+                slot, nf_l, shared=entry["pids_l"] if entry else (),
+                cap_pages=cap_pages) if lane.use_cloud else None)
             jobs[private].append(_Job(
-                slot, prompt, max_new, greedy, rid, private, seed, ids,
+                slot, full, max_new, greedy, rid, private, seed, ids,
                 rows_s, rows_l, seq=self._next_seq(), truncated=truncated,
-                aslot=aslot))
+                aslot=aslot, entry=entry))
             flags[i] = True
         self.edge_lane.admit_many(jobs[True])
         self.cloud_lane.admit_many(jobs[False])

@@ -13,15 +13,18 @@ ring leaves of a grouped model (gemma3's local layers) page from a
 second, local pool through a second table: a row takes its whole ring
 (``nl`` pages of ``local_len`` slots) at admission and never grows it.
 
-COW prefix sharing (the reference's ``fork``, refcounts above one and
-a row's shared prefix pages) is a later slice, so every live page has
-one reader.  Of the reference's layout helpers only ``page_bytes`` is
-here, counted over layers (the deployment sums the layers of each
-pool's leaves).
+Shared prefixes are copy-on-write at page granularity: a preamble's
+whole pages are written into the pool once and mapped into every
+sharing row's block table with a refcount bump (``fork``).  A row never
+writes inside its shared range (its writes start at its own prompt
+length), and the partial tail of the prefix lives in the row's first
+owned page, so no copy is ever made in place.  Of the reference's
+layout helpers only ``page_bytes`` is here, counted over layers (the
+deployment sums the layers of each pool's leaves).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -37,9 +40,12 @@ def pages_for(n_tokens: int, page_size: int) -> int:
 
 
 class PageAllocator:
-    """Free-list allocator over ``num_pages`` page ids, deterministic
-    (ascending ids).  ``alloc`` is atomic: ``n`` fresh pages, or None
-    without side effects.  A double free raises."""
+    """Refcounted free-list allocator over ``num_pages`` page ids,
+    deterministic (ascending ids).  ``alloc`` is atomic: ``n`` fresh
+    pages at refcount 1, or None without side effects.  ``fork`` adds a
+    reader to live pages (the COW share); ``release`` drops one and
+    frees a page at refcount 0.  A double free and a fork of a dead page
+    raise."""
 
     def __init__(self, num_pages: int, page_size: int):
         assert num_pages >= 0 and page_size > 0
@@ -47,7 +53,7 @@ class PageAllocator:
         self.page_size = page_size
         # pop() from the tail -> ascending allocation order
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
-        self._live: Set[int] = set()
+        self._ref: Dict[int, int] = {}
 
     @property
     def free_pages(self) -> int:
@@ -55,42 +61,64 @@ class PageAllocator:
 
     @property
     def live_pages(self) -> int:
-        return len(self._live)
+        return len(self._ref)
+
+    def refcount(self, pid: int) -> int:
+        return self._ref.get(pid, 0)
 
     def check(self) -> None:
         """Internal consistency: every page is exactly live or free."""
         free = set(self._free)
         assert len(free) == len(self._free), "free list holds duplicates"
-        assert not (free & self._live), "page both live and free"
-        assert len(free) + len(self._live) == self.num_pages, "leaked pages"
+        assert not (free & set(self._ref)), "page both live and free"
+        assert len(free) + len(self._ref) == self.num_pages, "leaked pages"
+        assert all(r > 0 for r in self._ref.values())
 
     def alloc(self, n: int) -> Optional[List[int]]:
         if n > len(self._free):
             return None
         pids = [self._free.pop() for _ in range(n)]
-        self._live.update(pids)
+        for p in pids:
+            self._ref[p] = 1
         return pids
 
-    def release(self, pids: Sequence[int]) -> None:
-        """Return live pages to the free list."""
+    def fork(self, pids: Sequence[int]) -> None:
+        """COW-share live pages: one more reader per page."""
         for p in pids:
-            if p not in self._live:
+            if p not in self._ref:
+                raise ValueError(f"fork of dead page {p}")
+        for p in pids:
+            self._ref[p] += 1
+
+    def release(self, pids: Sequence[int]) -> None:
+        """Drop one reader per page; a page at refcount 0 is free."""
+        for p in pids:
+            if p not in self._ref:
                 raise ValueError(f"double free of page {p}")
         for p in pids:
-            self._live.remove(p)
-            self._free.append(p)
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                del self._ref[p]
+                self._free.append(p)
 
 
 class RowPages:
-    """One lane row's page mappings: its ``full`` pages in position
-    order and its ``local`` ring pages; ``cap_pages`` bounds lazy growth
-    at the row's worst-case reservation."""
+    """One lane row's page mappings: ``shared`` prefix pages (forked,
+    never written by this row) then ``owned`` private pages, together
+    ``full`` in position order, and its ``local`` ring pages;
+    ``cap_pages`` bounds lazy growth at the row's worst-case reservation
+    (shared pages included)."""
 
-    def __init__(self, full: Sequence[int], local: Sequence[int],
-                 cap_pages: Optional[int] = None):
-        self.full = list(full)
+    def __init__(self, shared: Sequence[int], owned: Sequence[int],
+                 local: Sequence[int], cap_pages: Optional[int] = None):
+        self.shared = list(shared)
+        self.owned = list(owned)
         self.local = list(local)
         self.cap_pages = cap_pages
+
+    @property
+    def full(self) -> List[int]:
+        return self.shared + self.owned
 
 
 class LanePager:
@@ -117,18 +145,20 @@ class LanePager:
         return (self.alloc.num_pages,
                 self.local_alloc.num_pages if self.local_alloc else 0)
 
-    def demand(self, alloc_len: int) -> Tuple[int, int]:
-        """(full pages, local pages) a row of worst-case depth
-        ``alloc_len`` needs."""
-        return pages_for(alloc_len, self.page_size), self.nl
-
-    def demand_lazy(self, prompt_len: int, alloc_len: int
-                    ) -> Tuple[int, int]:
-        """Lazy reservation: prompt pages + ONE decode page, capped at
-        the worst case."""
-        ps = self.page_size
-        return (min(pages_for(prompt_len, ps) + 1, pages_for(alloc_len, ps)),
+    def demand(self, alloc_len: int, shared_pages: int = 0
+               ) -> Tuple[int, int]:
+        """(new full pages, local pages) a row of worst-case depth
+        ``alloc_len`` needs beyond ``shared_pages`` forked ones."""
+        return (max(pages_for(alloc_len, self.page_size) - shared_pages, 0),
                 self.nl)
+
+    def demand_lazy(self, prompt_len: int, alloc_len: int,
+                    shared_pages: int = 0) -> Tuple[int, int]:
+        """Lazy reservation: prompt pages + ONE decode page, capped at
+        the worst case, beyond ``shared_pages`` forked ones."""
+        ps = self.page_size
+        want = min(pages_for(prompt_len, ps) + 1, pages_for(alloc_len, ps))
+        return max(want - shared_pages, 0), self.nl
 
     def fits_pool(self, n_full: int, n_local: int) -> bool:
         """Whether the demand could EVER be satisfied (total capacity) —
@@ -152,24 +182,27 @@ class LanePager:
         return b
 
     # ------------------------------------------------------- row events
-    def admit(self, slot: int, n_full: int,
+    def admit(self, slot: int, n_full: int, shared: Sequence[int] = (),
               cap_pages: Optional[int] = None) -> Optional[RowPages]:
-        """Reserve a row's pages, atomically (None and no side effects
-        when the free lists cannot cover it)."""
+        """Reserve a row's pages: fork the ``shared`` prefix pages, alloc
+        ``n_full`` owned ones (and the ring), atomically (None and no
+        side effects when the free lists cannot cover it).
+        ``cap_pages`` counts shared + owned pages."""
         assert self.rows[slot] is None, f"slot {slot} already mapped"
         if not self.fits_free(n_full, self.nl):
             return None
-        full = self.alloc.alloc(n_full)
+        owned = self.alloc.alloc(n_full)
         local: List[int] = []
         if self.local_alloc is not None and self.nl:
             local = self.local_alloc.alloc(self.nl)
-        row = RowPages(full, local, cap_pages)
+        self.alloc.fork(shared)
+        row = RowPages(shared, owned, local, cap_pages)
         self.rows[slot] = row
         return row
 
     def grow(self, slot: int, n: int) -> Optional[List[int]]:
-        """Extend a live row by ``n`` full pages (atomic, bounded by the
-        row's worst-case reservation)."""
+        """Extend a live row's owned pages by ``n`` (atomic, bounded by
+        the row's worst-case reservation)."""
         row = self.rows[slot]
         assert row is not None, f"grow of empty slot {slot}"
         if row.cap_pages is not None:
@@ -178,24 +211,26 @@ class LanePager:
         pids = self.alloc.alloc(n)
         if pids is None:
             return None
-        row.full.extend(pids)
+        row.owned.extend(pids)
         return pids
 
     def ungrow(self, slot: int, pids: Sequence[int]) -> None:
         """Roll back the most recent ``grow``."""
         row = self.rows[slot]
-        assert row is not None and row.full[len(row.full) - len(pids):] \
+        assert row is not None and row.owned[len(row.owned) - len(pids):] \
             == list(pids)
-        del row.full[len(row.full) - len(pids):]
+        del row.owned[len(row.owned) - len(pids):]
         self.alloc.release(pids)
 
     def release(self, slot: int) -> None:
-        """Return a drained row's pages to the free lists."""
+        """Return a drained row's pages to the free lists: its forks of
+        shared prefix pages drop one reader and survive for the others."""
         row = self.rows[slot]
         if row is None:
             return
         self.rows[slot] = None
-        self.alloc.release(row.full)
+        self.alloc.release(row.shared)
+        self.alloc.release(row.owned)
         if self.local_alloc is not None and row.local:
             self.local_alloc.release(row.local)
 

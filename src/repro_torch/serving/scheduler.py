@@ -41,7 +41,7 @@ class Request:
     submitted_at: float = 0.0
     greedy: bool = True
     seed: Optional[int] = None       # sampling-key override (else rid)
-    prefix: Optional[str] = None     # shared preamble (later slice)
+    prefix: Optional[str] = None     # shared preamble (COW-shared paged)
     adapter_id: Optional[Any] = None  # per-user adapter (slot-cached)
     deadline_ms: Optional[float] = None  # simulated-clock decode budget
 
@@ -92,30 +92,34 @@ class Scheduler:
 
     def submit(self, prompt: str, max_new_tokens: int = 16,
                greedy: bool = True, seed: Optional[int] = None,
+               prefix: Optional[str] = None,
                adapter_id: Optional[Any] = None,
                deadline_ms: Optional[float] = None) -> int:
         """Queue a request; ``seed`` replaces its rid in the sampling key
-        of a ``greedy=False`` request."""
+        of a ``greedy=False`` request; ``prefix`` is a shared preamble,
+        served as prefix + prompt."""
         rid = self._next
         self._next += 1
         self.queue.append(Request(rid, prompt, max_new_tokens, time.time(),
-                                  greedy, seed, adapter_id=adapter_id,
-                                  deadline_ms=deadline_ms))
+                                  greedy, seed, prefix, adapter_id,
+                                  deadline_ms))
         return rid
 
     def run(self) -> List[Response]:
-        """Serve the queue one request at a time, private ones first."""
+        """Serve the queue one request at a time, private ones first;
+        detection and generation see prefix + prompt."""
         private, public = [], []
         for r in self.queue:
-            (private if self.engine.detector.detect(r.prompt)
-             else public).append(r)
+            (private if self.engine.detector.detect(
+                (r.prefix or "") + r.prompt) else public).append(r)
         self.queue = []
         out = []
         for r in private + public:
             t0 = time.time()
             try:
                 text, stats = self.engine.generate(
-                    r.prompt, r.max_new_tokens, greedy=r.greedy, rid=r.rid,
+                    (r.prefix or "") + r.prompt, r.max_new_tokens,
+                    greedy=r.greedy, rid=r.rid,
                     sample_key_id=r.seed, adapter_id=r.adapter_id,
                     deadline_ms=r.deadline_ms)
             except UnknownAdapter as e:

@@ -298,15 +298,23 @@ def test_unported_options_raise(pair):
                dict(macro_k=0, llm_pool_pages=4),
                dict(macro_k=0, local_pool_pages=4)):
         BatchedHybridEngine(deployment=dep, **kw)
-    for kw in (dict(macro_k=0, spec_k=2), dict(macro_k=0, chunk_width=48),
+    for kw in (dict(macro_k=0, spec_k=2),
                dict(macro_k=0, paged=False, spec_k=2)):
         with pytest.raises(NotImplementedError, match="later slice"):
             BatchedHybridEngine(deployment=dep, **kw)
+    # chunked prefill is ported: a page-aligned chunk_width constructs
+    BatchedHybridEngine(deployment=dep, macro_k=0, chunk_width=48)
     eng = BatchedHybridEngine(deployment=dep, batch_size=2, macro_k=0)
-    for req in (("hi", 2, True, 0, None, "pre "),
-                ("hi", 2, True, 0, None, None, None, 50.0)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            eng.add_requests([req])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        eng.add_requests([("hi", 2, True, 0, None, None, None, 50.0)])
+    # COW prefix sharing is ported: a prefix= request is served (this
+    # preamble is under one page, so it is prefilled unshared)
+    assert eng.add_requests([("hi", 2, True, 0, None, "pre ")]) == [True]
+    done = []
+    while eng.active_count():
+        done += eng.step()
+    assert [st.tokens for _, _, st in done] == [2]
+    assert eng.cloud_lane._prefixes == {"pre ": None}
     # per-user adapters are ported: on an engine without adapter slots
     # an adapter_id is a hard reject, as in the reference
     assert eng.add_requests([("hi", 2, True, 7, None, None, "user0")]) \
@@ -320,8 +328,13 @@ def test_unported_options_raise(pair):
     while eng.active_count():
         done += eng.step()
     assert [st.tokens for _, _, st in done] == [2]
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        ServingDeployment(pair[1][0], pair[1][1], max_seq=48, max_ctx=96,
+    # max_ctx > max_seq is ported (chunked prefill): it constructs, its
+    # block tables cover max_ctx; a max_ctx below max_seq raises
+    wide = ServingDeployment(pair[1][0], pair[1][1], max_seq=48,
+                             max_ctx=96, device="cpu")
+    assert wide.paged_geometry(pair[1][0])["nb"] == 96 // 16
+    with pytest.raises(ValueError, match="max_ctx"):
+        ServingDeployment(pair[1][0], pair[1][1], max_seq=48, max_ctx=32,
                           device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingDeployment(pair[1][0], pair[1][1], fault=object(),

@@ -388,6 +388,36 @@ def test_flash_attention_at_gemma3_burst(cuda, window):
     assert row_rel_err(out, ref) <= 2 ** -6
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,p,s,window", [
+    (8, 16, 16, 1001, 48, 0),          # COW suffix, the LLM
+    (8, 8, 1, 1001, 48, 0),            # COW suffix, the 2b SLM
+    (1, 16, 16, 2048, 1456, 0),        # final chunk at width 2,048
+    (1, 8, 1, 2048, 1456, 0),          # the 2b SLM's final chunk
+    (1, 16, 16, 1536, 512, 0),         # middle chunk at width 512
+    (8, 4, 1, 1001, 48, 512),          # gemma3 SLM suffix, windowed
+    (8, 4, 1, 1001, 48, 0),            # gemma3 SLM suffix, global
+    (1, 4, 1, 1024, 512, 512),         # gemma3 middle chunk, windowed
+    (1, 4, 1, 3072, 512, 512),         # a chunk far past the window
+    (3, 4, 2, 37, 50, 16),             # ragged history
+])
+def test_flash_attention_history_offset(cuda, b, h, kvh, p, s, window):
+    """K3's history-offset mode: queries at P + i over [history; fresh],
+    a B = 1 history read in place by every row, on (B, H, S, D) views of
+    (B, S, H, D) projections; counted apart."""
+    g = torch.Generator(device=cuda).manual_seed(p + s)
+    q, k, v = k3_inputs(cuda, g, b, h, kvh, s, 256, layout="bshd")
+    hk, hv = k3_inputs(cuda, g, 1, kvh, kvh, p, 256, layout="bshd")[1:]
+    before = (K3.flash_attention.launches, K3.flash_attention.offset_launches)
+    out = K3.flash_attention(q, k, v, window=window, hist_k=hk, hist_v=hv)
+    torch.cuda.synchronize()
+    assert (K3.flash_attention.launches, K3.flash_attention.offset_launches
+            ) == (before[0] + 1, before[1] + 1)
+    ref = K3.flash_attention_plain(q, k, v, window=window, hist_k=hk,
+                                   hist_v=hv)
+    assert row_rel_err(out, ref) <= 2 ** -6
+
+
 def lora_case(dev, g, t, k, n, e=4, r=16):
     x = torch.randn(t, k, device=dev, generator=g).bfloat16()
     a = torch.randn(e, r, k, device=dev, generator=g) / k ** 0.5

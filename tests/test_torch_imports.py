@@ -109,13 +109,22 @@ def test_serve_sample_on_cpu(capsys):
 
 
 def test_serve_refuses_later_slice_flags(capsys):
+    import re
     for argv in (["--local", "--spec-k", "4"],
-                 ["--local", "--batch", "4", "--chunk-width", "48"],
-                 ["--local", "--batch", "4", "--deadline-ms", "50"],
-                 ["--local", "--max-ctx", "192"]):
+                 ["--local", "--batch", "4", "--deadline-ms", "50"]):
         with pytest.raises(SystemExit):
             serve.main(argv)
         assert "later slice" in capsys.readouterr().err
+    # --max-ctx and --chunk-width are ported: the demo prompts fit the
+    # dense row, so the batched run prints the default run's lines
+    def lines(argv):
+        serve.main(["--local", "--device", "cpu", "--batch", "4"] + argv)
+        out = capsys.readouterr().out
+        return [re.sub(r" wait=\d+ms", "", ln) for ln in out.splitlines()
+                if ln.startswith("[")]
+    base = lines([])
+    assert len(base) == 4
+    assert lines(["--max-ctx", "192", "--chunk-width", "48"]) == base
 
 
 def test_serve_dense_and_pool_pages_print_the_paged_lines(capsys):
