@@ -158,7 +158,26 @@ Phases, in order; any failure exits non-zero before the result lines:
   14. serve_long  LONG_REQUESTS (five of ~3,500 tokens) on max_seq 2048 /
               max_ctx 4096 at macro_k 8 and 0 and chunk widths 2,048 and
               512: ids equal, nothing truncated; truncated on max_ctx
-              2048; a one-shot max_seq 4096 run gives the same ids.
+              2048; a one-shot max_seq 4096 run gives the same ids;
+  15. serve_faults  serve_batched's 20 requests on a lossy link
+              (FAULT_WEATHER: loss, outages, circuit breaker) at
+              macro_k 8, 1 and 0 (the breaker inside the graphs) and
+              through the sequential engine: status, counts, latencies,
+              degraded and lost tokens and clock equal request for
+              request, ids where the admission groups match (all at
+              K = 1), breaker trips, recoveries and degraded tokens
+              seen; a deadline run (FAULT_DEADLINE_MS) cancels every row
+              alike at K 8 and 0 and leaves no live page; tokens/s beside
+              fault-free serve_batched's;
+  16. serve_spec  the same requests at spec_k 4 (SLM drafts, one LLM
+              verify a burst, rollback) with macro_k 8 and 0, the burst
+              chain replayed from one CUDA graph per lane: ids equal to
+              the spec_k = 0 runs where the admission groups match,
+              cloud calls per token, acceptance, tokens/s, the graph's
+              K2 at n_bursts x ((k + 1) x 18 + k x 28) and K1 at n_bursts
+              x k; at K 8 on the faulted link (a breaker trip); one
+              profiled dispatch; serve_gemma3_spec (spec_k 4, K 8, ring
+              launches) at the end of phase 10.
 The kernels phase also holds K3's history-offset mode (K3_OFFSET_SHAPES)
 and K2 over (8, 256) block tables against their plain versions.
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line and,
@@ -324,6 +343,21 @@ PREFIX_W_TOL = 1e-5
 LONG_REQUESTS = [((LONG_PROMPT * 3)[:3490 + 7 * i], 16) for i in range(4)] \
     + [("my ssn is 123-45-6789, " + (LONG_PROMPT * 3)[:3470], 16)] \
     + [BATCHED_REQUESTS[i][:1] + (16,) for i in (1, 2, 4, 5)]
+# serve_faults: the reference tests' CHAOS weather — a quarter of the
+# cloud replies lost (keyed by (rid, step)), the link down 3 steps of
+# every 10, a breaker that trips after 2 failures in a row and holds a
+# row SLM-only for 3 steps.  On serve_batched's traffic the per-token
+# paths see 38 trips and 105 degraded tokens (a host replay of the
+# weather, which depends on (rid, step) alone)
+FAULT_WEATHER = dict(loss_rate=0.25, outage_period=10, outage_len=3, seed=3,
+                     breaker_n=2, breaker_m=3)
+# under the 65 ms edge floor a row needs more than 400 simulated ms for
+# its 7th token, so every row cancels mid-request
+FAULT_DEADLINE_MS = 400.0
+# serve_spec: drafted tokens a cloud round-trip
+SPEC_K = 4
+# tokens/s of each timed batched run, by its tag (``print_batched``)
+RATES = {}
 # K2 over 256-page block tables (max_ctx 4096): rows deep in the long
 # prompts, short ones, a parked one and one at the last slot
 K2_LONG_POSITIONS = [3507, 3514, 3521, 3499, 40, 700, FREED_POS, 4095]
@@ -1625,6 +1659,7 @@ def phase_serve_batched(torch, dep):
               f"wait={r.queue_wait_seconds * 1e3:.0f}ms ids={r.text[:48]}")
     print(summarize(res))
     tokens = sum(r.stats.tokens for r in res)
+    RATES["serve_batched (macro_k=0)"] = tokens / wall
     layer_steps = (calls["slm"] * dep.slm.cfg.num_layers
                    + calls["llm"] * dep.llm.cfg.num_layers)
     print(f"serve_batched: {tokens} tokens in {wall:.3f} s = "
@@ -1800,19 +1835,19 @@ def phase_serve_macro(torch, dep, base, base_groups):
     K2 launches are held to K x decode layers x replays per lane, K1 to
     K x cloud replays.  Returns ({K: launches}, the K = 8 engine, its
     responses)."""
-    out, eng, res = {}, None, {}
+    out, eng, res, groups = {}, None, {}, {}
     for k in (1, 8):
         # one engine at a time: the last one's lane pools are freed
         # before the next is read
         eng = None
-        out[k], eng, res[k] = serve_macro_k(torch, dep, k, base,
-                                            base_groups)
-    return out, eng, res[8]
+        out[k], eng, res[k], groups[k] = serve_macro_k(torch, dep, k, base,
+                                                       base_groups)
+    return out, eng, res[8], groups[8]
 
 
 def serve_macro_k(torch, dep, k, base, base_groups):
     """One engine at macro_k ``k`` (see ``phase_serve_macro``): returns
-    (launches, engine, responses)."""
+    (launches, engine, responses, admission groups)."""
     from repro_torch.kernels.paged_attention import kernel as K2
     from repro_torch.serving.engine import BatchedHybridEngine
 
@@ -1862,7 +1897,7 @@ def serve_macro_k(torch, dep, k, base, base_groups):
     if bad:
         raise SystemExit(f"{tag}: requests {bad} admitted in the same "
                          "group differ from the per-token run")
-    return launches, eng, res
+    return launches, eng, res, groups
 
 
 def check_k2_launches(tag, eng, launches, replays, calls=None):
@@ -2360,6 +2395,364 @@ def serve_gemma3_chunked(torch, g_dep, default):
     return launches
 
 
+def fault_deployment(torch, dep):
+    """The 2b deployment's models and tensors (shared, not copied) on a
+    link with FAULT_WEATHER."""
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.latency import FaultModel
+
+    f_dep = ServingDeployment(dep.slm, dep.slm_params, dep.llm,
+                              dep.llm_params, dep.mlp, max_seq=2048,
+                              fault=FaultModel(**FAULT_WEATHER))
+    if f_dep.llm_params["embed"]["tok"]["w"].data_ptr() \
+            != dep.llm_params["embed"]["tok"]["w"].data_ptr():
+        raise SystemExit("serve_faults holds a second copy of the LLM")
+    return f_dep
+
+
+def weather(r):
+    """A response's status, counts, latencies, clock and fault
+    accounting: what the link decides, token ids aside."""
+    st = r.stats
+    return (r.status.value, st.private, st.tokens, st.cloud_tokens,
+            st.fallback_tokens, st.cloud_calls, st.latency_ms,
+            st.degraded_tokens, st.cloud_lost, st.clock_ms)
+
+
+def batched_once(torch, eng, dep, requests, deadline_ms=None):
+    """``requests`` once through ContinuousBatchScheduler on ``eng``,
+    counted as ``run_counted``: (responses, wall s, launches, peak GiB,
+    admission groups, graph replays per lane)."""
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    sc = ContinuousBatchScheduler(eng)
+    for p, n in requests:
+        sc.submit(p, max_new_tokens=n, deadline_ms=deadline_ms)
+    before = macro_replays(eng)
+    with AdmissionGroups() as groups:
+        res, wall, launches, _, peak = run_counted(torch, sc, dep, ())
+    replays = [b - a for a, b in zip(before, macro_replays(eng))]
+    return res, wall, launches, peak, groups.of_rid, replays
+
+
+@contextlib.contextmanager
+def health_mark(eng, mark):
+    """Around a run: afterwards ``mark`` holds the engine's health
+    counters, which a later run's count adds to."""
+    yield
+    mark.update(eng.health_stats())
+
+
+def timed_health(eng, mark):
+    """The health counters since ``health_mark``."""
+    return {k: v - mark.get(k, 0) for k, v in eng.health_stats().items()}
+
+
+def check_drained(tag, eng):
+    if eng.active_count() or eng.resident_kv_bytes():
+        raise SystemExit(f"{tag}: a request or a page was left behind")
+    for lane in (eng.cloud_lane, eng.edge_lane):
+        for pager in (lane.pager_s, lane.pager_l):
+            if pager is not None and pager.alloc.live_pages:
+                raise SystemExit(f"{tag}: {pager.alloc.live_pages} live "
+                                 "pages after the run")
+    if eng.adapter_stats().get("pinned"):
+        raise SystemExit(f"{tag}: adapter pins left")
+
+
+def phase_serve_faults(torch, dep):
+    """serve_batched's 20 requests on a link with FAULT_WEATHER at
+    macro_k 8, 1 and 0 (the breaker inside the K = 8 and K = 1 graphs),
+    then through the sequential engine, and a deadline run at K 8 and
+    0.  Every run's status, counts, latencies, degraded and lost tokens
+    and clock equal the K = 0 run's request for request (the weather is
+    a function of (rid, step)); ids equal where the admission groups
+    match (all of them at K = 1); breaker trips and degraded tokens
+    happen; the deadline cancels every row alike and leaves no live
+    page.  Returns {path: launches}."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+    from repro_torch.serving.scheduler import Scheduler
+
+    t0 = time.perf_counter()
+    f_dep = fault_deployment(torch, dep)
+    runs = {}
+    for k in (8, 1, 0):
+        tag = f"serve_faults (macro_k={k})"
+        eng = BatchedHybridEngine(deployment=f_dep, batch_size=8,
+                                  macro_k=k, lazy_pages=True)
+        mark = {}
+        if k:
+            # an untimed run first captures the graphs
+            res, wall, launches, _, peak, replays, _, groups = \
+                serve_macro_run(torch, eng, BATCHED_REQUESTS, f_dep,
+                                first=health_mark(eng, mark))
+        else:
+            res, wall, launches, peak, groups, replays = batched_once(
+                torch, eng, f_dep, BATCHED_REQUESTS)
+        print_batched(tag, res, wall, launches, {}, peak, macro_k=k)
+        health = timed_health(eng, mark)
+        print(f"{tag}: link health {health}; graph replays (cloud, edge) "
+              f"{replays}")
+        check_batched_responses(tag, eng, res, BATCHED_REQUESTS)
+        check_drained(tag, eng)
+        if k:
+            graphs = [lane._macro.per_replay(K2_FN())
+                      for lane in (eng.cloud_lane, eng.edge_lane)]
+            want = sum(k * n * lane_layers(lane) for n, lane in zip(
+                replays, (eng.cloud_lane, eng.edge_lane)))
+            if launches["paged_decode_attention"] != want or graphs != [
+                    k * lane_layers(lane)
+                    for lane in (eng.cloud_lane, eng.edge_lane)]:
+                raise SystemExit(f"{tag}: K2 {launches} (graphs {graphs}), "
+                                 f"expected {want}")
+        if min(launches[n] for n in ("fuse_logits", "paged_decode_attention",
+                                     "flash_attention")) <= 0 \
+                or launches["sample_fused"]:
+            raise SystemExit(f"{tag}: launches {launches}")
+        runs[k] = (res, groups, launches, health)
+        del eng
+        gc.collect()
+    base, base_groups, _, base_health = runs[0]
+    for k in (8, 1):
+        res, groups, _, health = runs[k]
+        match = [base_groups[r.rid] == groups[r.rid] for r in res]
+        bad_w = [r.rid for a, r in zip(base, res) if weather(a) != weather(r)]
+        bad_ids = [r.rid for a, r, m in zip(base, res, match)
+                   if m and a.text != r.text]
+        print(f"serve_faults (macro_k={k}): {sum(match)} of {len(res)} "
+              f"requests in the per-token run's admission group; weather "
+              f"equal on {len(res) - len(bad_w)}, ids on "
+              f"{sum(a.text == r.text for a, r in zip(base, res))}")
+        if bad_w or bad_ids or health != base_health \
+                or (k == 1 and not all(match)):
+            raise SystemExit(f"serve_faults (macro_k={k}): weather differs "
+                             f"on {bad_w}, ids on {bad_ids}, health "
+                             f"{health} against {base_health}")
+    if base_health["breaker_trips"] < 1 or base_health["degraded_tokens"] < 1 \
+            or base_health["breaker_recoveries"] < 1:
+        raise SystemExit(f"serve_faults: the weather did not bite: "
+                         f"{base_health}")
+    # the sequential engine on the same requests: the same weather
+    sched = Scheduler.from_deployment(f_dep)
+    for p, n in BATCHED_REQUESTS:
+        sched.submit(p, max_new_tokens=n)
+    res, wall, seq_launches, _, peak = run_counted(torch, sched, f_dep, ())
+    tokens = sum(r.stats.tokens for r in res)
+    bad = [r.rid for a, r in zip(base, res) if weather(a) != weather(r)]
+    print(f"serve_faults (sequential): {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.2f} tokens/s; health "
+          f"{sched.engine.health_stats()}; weather equal to the per-token "
+          f"batched run on {len(res) - len(bad)} of {len(res)}")
+    # K1 once a cloud token (a degraded one fuses with w = 1), no K2
+    want_k1 = sum(r.stats.tokens for r in res if not r.stats.private)
+    if bad or sched.engine.health_stats() != base_health \
+            or seq_launches["fuse_logits"] != want_k1 \
+            or seq_launches["paged_decode_attention"]:
+        raise SystemExit(f"serve_faults (sequential): weather differs on "
+                         f"{bad}, or launches {seq_launches} (K1 "
+                         f"{want_k1})")
+    # deadlines: every row cancels mid-request, alike at K 8 and 0
+    dl = {}
+    for k in (8, 0):
+        tag = f"serve_faults_deadline (macro_k={k})"
+        eng = BatchedHybridEngine(deployment=f_dep, batch_size=8,
+                                  macro_k=k, lazy_pages=True)
+        res, wall, launches, peak, groups, _ = batched_once(
+            torch, eng, f_dep, BATCHED_REQUESTS,
+            deadline_ms=FAULT_DEADLINE_MS)
+        check_drained(tag, eng)
+        cancelled = sum(r.status.value == "cancelled" for r in res)
+        print(f"{tag}: {cancelled} of {len(res)} cancelled, tokens "
+              f"{[r.stats.tokens for r in res]}, health "
+              f"{eng.health_stats()}, {wall:.3f} s")
+        if cancelled != len(res) or not all(
+                0 < r.stats.tokens < n
+                for r, (_, n) in zip(res, BATCHED_REQUESTS)):
+            raise SystemExit(f"{tag}: not every row cancelled mid-request")
+        dl[k] = res
+        del eng
+        gc.collect()
+    bad = [r.rid for a, r in zip(dl[0], dl[8]) if weather(a) != weather(r)]
+    if bad:
+        raise SystemExit(f"serve_faults_deadline: K 8 and 0 differ on {bad}")
+    print(f"serve_faults: {RATES['serve_faults (macro_k=8)']:.2f} tokens/s "
+          f"at K 8 against {RATES['serve_batched (macro_k=8)']:.2f} "
+          f"fault-free (serve_batched, this run); "
+          f"{RATES['serve_faults (macro_k=0)']:.2f} at K 0 against "
+          f"{RATES['serve_batched (macro_k=0)']:.2f}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"serve_faults": runs[8][2], "serve_faults_k1": runs[1][2],
+            "serve_faults_k0": runs[0][2],
+            "serve_faults_sequential": seq_launches}, f_dep
+
+
+def K2_FN():
+    from repro_torch.kernels.paged_attention import kernel as K2
+    return K2.paged_decode_attention
+
+
+def spec_k2_per_burst(eng, k) -> int:
+    """K2 launches of one burst: k drafts and the correction decode of
+    the SLM, k verify decodes of the LLM, a launch per decode layer
+    each."""
+    return (k + 1) * eng.slm.cfg.num_layers + k * eng.llm.cfg.num_layers
+
+
+def spec_run(torch, dep, k, macro_k, base=None, base_groups=None,
+             tag="serve_spec"):
+    """serve_batched's 20 requests at spec_k ``k`` and ``macro_k`` on a
+    fresh engine (untimed first: it captures the burst chain's graph):
+    tokens/s, cloud calls per token, acceptance; the chain's graph holds
+    K2 at n_bursts x ((k + 1) x SLM + k x LLM layers) and K1 at
+    n_bursts x k; with ``base`` (the spec_k = 0 run at the same
+    macro_k) ids and token counts equal where the admission groups
+    match.  Returns (launches, engine, responses, the timed run's health
+    counters)."""
+    from repro_torch.kernels.logit_fusion.kernel import fuse_logits
+    from repro_torch.serving.engine import BatchedHybridEngine
+    from repro_torch.serving.scheduler import summarize
+
+    tag = f"{tag} (spec_k={k}, macro_k={macro_k})"
+    eng = BatchedHybridEngine(deployment=dep, batch_size=8,
+                              macro_k=macro_k, spec_k=k, lazy_pages=True)
+    mark = {}
+    res, wall, launches, _, peak, _, first_s, groups = serve_macro_run(
+        torch, eng, BATCHED_REQUESTS, dep, first=health_mark(eng, mark))
+    health = timed_health(eng, mark)
+    print_batched(tag, res, wall, launches, {}, peak, macro_k=macro_k)
+    st = eng.spec_stats()
+    summ = summarize(res)
+    print(f"{tag}: cloud_calls_per_token {summ['cloud_calls_per_token']:.4f}, "
+          f"accept_rate {summ['accept_rate']:.4f}, "
+          f"{RATES[tag]:.2f} tokens/s; first run {first_s:.3f} s; chain "
+          f"{st}; health {health}")
+    check_batched_responses(tag, eng, res, BATCHED_REQUESTS)
+    check_drained(tag, eng)
+    chain = eng.cloud_lane._spec_chain
+    graph = (chain.per_replay(K2_FN()), chain.per_replay(fuse_logits))
+    want = (chain.n_bursts * spec_k2_per_burst(eng, k), chain.n_bursts * k)
+    if graph != want or launches["sample_fused"]:
+        raise SystemExit(f"{tag}: the chain's graph holds (K2, K1) {graph}, "
+                         f"expected {want}; launches {launches}")
+    drafted = sum(r.stats.spec_drafted for r in res)
+    if drafted <= 0 or any(r.stats.cloud_calls + r.stats.degraded_tokens
+                           > r.stats.tokens for r in res):
+        raise SystemExit(f"{tag}: no drafts, or more cloud calls than "
+                         "tokens")
+    if base is not None:
+        match = [base_groups[r.rid] == groups[r.rid] for r in res]
+        equal = [a.text == r.text and a.stats.tokens == r.stats.tokens
+                 for a, r in zip(base, res)]
+        calls = (sum(r.stats.cloud_calls for r in base),
+                 sum(r.stats.cloud_calls for r in res))
+        print(f"{tag}: {sum(match)} of {len(res)} requests in the spec_k = "
+              f"0 run's admission group, {sum(equal)} with its ids; cloud "
+              f"calls {calls[1]} against {calls[0]}")
+        bad = [r.rid for r, m, e in zip(res, match, equal) if m and not e]
+        if bad or calls[1] > calls[0]:
+            raise SystemExit(f"{tag}: requests {bad} admitted in the same "
+                             "group differ from the spec_k = 0 run, or it "
+                             "made more cloud calls")
+    return launches, eng, res, health
+
+
+def profile_spec_burst(torch, eng):
+    """One profiled dispatch of the spec_k engine's cloud lane alone (8
+    cloud rows seeded by a first step): one graph launch; K2 at n_bursts
+    x ((k + 1) x 18 + k x 28) split kernels, K1 at n_bursts x k (stats
+    and write passes), by the replay-aware count and in the profile."""
+    from repro_torch.kernels.logit_fusion.kernel import fuse_logits
+
+    cloud = [p for p, _ in BATCHED_REQUESTS if not eng.detector.detect(p)]
+    if not all(eng.add_requests([(p, 40, True, 700 + i)
+                                 for i, p in enumerate(cloud[1:9])])):
+        raise SystemExit("serve_spec: a profiled request was not admitted")
+    eng.step()
+    chain = eng.cloud_lane._spec_chain
+    want_k2 = chain.n_bursts * spec_k2_per_burst(eng, chain.k)
+    want_k1 = chain.n_bursts * chain.k
+    k2_0, k1_0 = K2_FN().launches, fuse_logits.launches
+    with profiled(torch) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counted = (K2_FN().launches - k2_0, fuse_logits.launches - k1_0)
+    rows = profile_rows(torch, prof)
+    busy = sum(r[0] for r in rows)
+    graphs = sum(e.count for e in prof.key_averages()
+                 if "GraphLaunch" in e.key)
+    k2 = sum(r[1] for r in rows if "paged_decode_split" in r[2])
+    k1 = [sum(r[1] for r in rows if p in r[2])
+          for p in ("fuse_stats", "fuse_write")]
+    print(f"serve_spec: one profiled dispatch of {chain.n_bursts} bursts of "
+          f"{chain.k}: {ms:.2f} ms traced, device busy {busy:.2f} ms; K2 "
+          f"{k2} calls profiled, {counted[0]} counted (expected "
+          f"{want_k2}); K1 {k1} passes, {counted[1]} counted (expected "
+          f"{want_k1}); {graphs} graph launches")
+    for t, n, key in rows[:10]:
+        print(f"  {t:9.3f} ms  {n:6d} x  {key[:100]}")
+    if k2 != want_k2 or counted != (want_k2, want_k1) \
+            or k1 != [want_k1, want_k1] or graphs != 1:
+        raise SystemExit(f"serve_spec: profiled burst counts are off; "
+                         f"{profile_edges(torch, prof)}")
+    while eng.active_count():
+        eng.step()
+
+
+def phase_serve_spec(torch, dep, f_dep, base):
+    """Speculative decode on the 2b pair: serve_batched's 20 requests at
+    spec_k SPEC_K with macro_k 8 and 0, ids held to the spec_k = 0 runs
+    (``base``: {K: (responses, admission groups)}) where the admission
+    groups match; the same at K 8 on FAULT_WEATHER's link; one profiled
+    dispatch.  Returns {path: launches}."""
+    t0 = time.perf_counter()
+    out = {}
+    for mk in (8, 0):
+        out[f"serve_spec{'_k0' if not mk else ''}"], eng, _, _ = spec_run(
+            torch, dep, SPEC_K, mk, *base[mk])
+        if mk == 8:
+            profile_spec_burst(torch, eng)
+        del eng
+        gc.collect()
+    out["serve_spec_faults"], eng, res, h = spec_run(
+        torch, f_dep, SPEC_K, 8, tag="serve_spec_faults")
+    print(f"serve_spec_faults: degraded tokens "
+          f"{sum(r.stats.degraded_tokens for r in res)}, lost "
+          f"{sum(r.stats.cloud_lost for r in res)}, fallback "
+          f"{sum(r.stats.fallback_tokens for r in res)}; "
+          f"{RATES['serve_spec_faults (spec_k=4, macro_k=8)']:.2f} tokens/s "
+          f"against {RATES['serve_faults (macro_k=8)']:.2f} per-token K 8 "
+          f"on the same link")
+    if h["breaker_trips"] < 1:
+        raise SystemExit(f"serve_spec_faults: no breaker trip: {h}")
+    del eng
+    gc.collect()
+    print(f"serve_spec: phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def serve_gemma3_spec(torch, g_dep, res8, groups8):
+    """serve_batched's 20 requests on the gemma3 pair at spec_k SPEC_K,
+    macro_k 8: ids equal to its K = 8 run where the admission groups
+    match; the burst chain's graph holds K2's ring launches at n_bursts
+    x (k + 1) x 22 (the SLM's local layers)."""
+    t0 = time.perf_counter()
+    launches, eng, _, _ = spec_run(torch, g_dep, SPEC_K, 8, res8, groups8,
+                                   tag="serve_gemma3_spec")
+    chain = eng.cloud_lane._spec_chain
+    ring = chain.per_replay(K2_FN(), "ring_launches")
+    want = chain.n_bursts * (SPEC_K + 1) * gemma3_layers(g_dep.slm)[0]
+    print(f"serve_gemma3_spec: ring launches per replay {ring} (expected "
+          f"{want}); phase {time.perf_counter() - t0:.1f} s")
+    if ring != want:
+        raise SystemExit("serve_gemma3_spec: ring launches are off")
+    del eng
+    gc.collect()
+    return launches
+
+
 def phase_serve_long(torch, dep):
     """Prompts past max_seq: ``ServingDeployment(max_seq=2048,
     max_ctx=4096)`` over the 2b deployment's parameter tensors (shared,
@@ -2535,6 +2928,7 @@ def print_batched(tag, res, wall, launches, calls, peak, extra="",
               f"lat={r.stats.mean_latency_ms:.0f}ms ids={r.text[:48]}")
     print(summarize(res))
     tokens = sum(r.stats.tokens for r in res)
+    RATES[tag] = tokens / wall
     print(f"{tag}: {tokens} tokens in {wall:.3f} s = {tokens / wall:.2f} "
           f"tokens/s ({len(res)} requests, batch 8, macro_k={macro_k}, "
           f"prefill included); peak memory {peak:.2f} GiB; launches "
@@ -2827,10 +3221,11 @@ def phase_serve_gemma3(torch, dep):
     flat = phase_flat_keys(torch, g_dep, "flat_keys_gemma3", 4, 8)
     prefix = serve_gemma3_prefix(torch, g_dep)
     chunked = serve_gemma3_chunked(torch, g_dep, res8)
+    spec = serve_gemma3_spec(torch, g_dep, res8, groups8)
     return {"serve_gemma3": seq, "serve_gemma3_batched": k8,
             "serve_gemma3_batched_k0": k0, "serve_dense_gemma3": dense,
             "serve_gemma3_nonring": nonring, **flat, **prefix,
-            "serve_gemma3_chunked": chunked}
+            "serve_gemma3_chunked": chunked, "serve_gemma3_spec": spec}
 
 
 def serve_gemma3_dense(torch, g_dep, paged):
@@ -3640,8 +4035,8 @@ def main() -> int:
     seq_launches = phase_serve(torch, dep)
     k0_launches, k0_res, k0_groups = phase_serve_batched(torch, dep)
     plain_ids = [r.text for r in k0_res]
-    macro_launches, eng8, k8_res = phase_serve_macro(torch, dep, k0_res,
-                                                     k0_groups)
+    macro_launches, eng8, k8_res, k8_groups = phase_serve_macro(
+        torch, dep, k0_res, k0_groups)
     # the main path is the engine's default, the K = 8 macro step
     launches = macro_launches[8]
     trace_batched(torch, eng8)
@@ -3659,6 +4054,11 @@ def main() -> int:
     gc.collect()
     prefix = phase_serve_prefix(torch, dep)
     long_paths = phase_serve_long(torch, dep)
+    gc.collect()
+    fault_paths, f_dep = phase_serve_faults(torch, dep)
+    spec_paths = phase_serve_spec(torch, dep, f_dep, {
+        0: (k0_res, k0_groups), 8: (k8_res, k8_groups)})
+    del f_dep
     paths = {"serve": seq_launches, "serve_batched": launches,
              "serve_batched_k0": k0_launches,
              "serve_batched_k1": macro_launches[1],
@@ -3672,7 +4072,8 @@ def main() -> int:
              "serve_dense_k0": dense[0],
              "serve_pool_pressure": pressure[8],
              "serve_pool_pressure_k0": pressure[0], **flat,
-             **gemma3_paths, **prefix, **long_paths}
+             **gemma3_paths, **prefix, **long_paths, **fault_paths,
+             **spec_paths}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}

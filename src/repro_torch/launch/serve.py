@@ -8,6 +8,9 @@
         --adapters 3 --adapter-slots 2 [--adapter-rank 4]
     PYTHONPATH=src python -m repro_torch.launch.serve --local \
         [--batch 4] --sample [--sample-seed 3]
+    PYTHONPATH=src python -m repro_torch.launch.serve --local --batch 4 \
+        [--spec-k 4] [--fault-rate 0.25] [--outage 10:3] [--fault-seed 3] \
+        [--deadline-ms 400]
 
 serves the four demo prompts on a reduced pair (``--pair 2b``, the
 default, or ``--pair gemma3``, whose SLM keeps ring caches on its
@@ -33,10 +36,19 @@ CUDA ``--page-size`` must be 16, the page size of the paged decode
 kernel.  ``--max-ctx N`` (page-aligned, >= max_seq) widens the paged
 context, so a prompt longer than the dense row streams through chunked
 prefill up to N tokens; ``--chunk-width W`` (page-aligned, <= max_seq)
-is the width of the chunks.  It runs on CUDA unless ``--device cpu`` is
-given; on CUDA the pair is served in bfloat16 (the attention kernels
-take bfloat16), on the CPU in the configs' float32.  The reference's
-other flags belong to later slices and are refused.
+is the width of the chunks.  ``--spec-k K`` (batched only) decodes the
+cloud lane in speculative bursts of K drafted tokens a cloud
+round-trip; the summary's ``cloud_calls_per_token`` drops and
+``accept_rate`` rises while the texts stay those of ``--spec-k 0``.
+``--fault-rate R`` drops each cloud reply with probability R (a draw
+keyed by (rid, step)), ``--outage P:L`` takes the link down for L of
+every P decode steps, ``--fault-seed`` seeds both, and ``--deadline-ms
+D`` cancels a request whose simulated clock reaches D ms; with any of
+them the run ends with a ``link health:`` line.  It runs on CUDA unless
+``--device cpu`` is given; on CUDA the pair is served in bfloat16 (the
+attention kernels take bfloat16), on the CPU in the configs' float32.
+The reference's mesh and dry-run flags belong to later slices and are
+refused.
 """
 import argparse
 import dataclasses
@@ -44,8 +56,7 @@ import sys
 
 LATER_SLICE_FLAGS = (
     "--arch", "--shape", "--multi-pod", "--mesh-devices", "--rules",
-    "--model-parallel", "--spec-k", "--fault-rate", "--outage",
-    "--fault-seed", "--deadline-ms")
+    "--model-parallel")
 
 DEMO_PROMPTS = (
     "math: compute 12 plus 7 =",
@@ -96,6 +107,23 @@ def main(argv=None):
                          "adapter serving; E < --adapters evicts)")
     ap.add_argument("--adapter-rank", type=int, default=4,
                     help="LoRA rank of the demo adapters and their bank")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decode window: the SLM drafts K "
+                         "tokens, one LLM verify scores them and rejected "
+                         "drafts roll back (0 = off; needs --batch > 1)")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="per-token cloud-reply loss probability, drawn "
+                         "per (rid, step) (0 = the fault-free path)")
+    ap.add_argument("--outage", default="",
+                    help="periodic cloud-link outages as PERIOD:LEN in "
+                         "decode steps, e.g. 32:8 (empty = none)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault weather (loss draws and the "
+                         "outage phase)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request decode deadline in simulated ms; "
+                         "an expired request is cancelled with its "
+                         "partial text (0 = none)")
     ap.add_argument("--sample", action="store_true",
                     help="non-greedy decoding (per-request PRNG keys)")
     ap.add_argument("--sample-seed", type=int, default=0,
@@ -112,6 +140,9 @@ def main(argv=None):
     if args.adapters and not args.adapter_slots:
         ap.error("--adapters requires --adapter-slots > 0 (the resident "
                  "device-bank capacity)")
+    if args.spec_k and args.batch <= 1:
+        ap.error("--spec-k requires --batch > 1 (the draft/verify burst "
+                 "runs on the batched cloud lane)")
 
     from repro_torch import resolve_device
     from repro_torch.configs.floe_pair import needs_ring_cache, pair_configs
@@ -120,7 +151,7 @@ def main(argv=None):
     from repro_torch.kernels.paged_attention.kernel import PAGE_SIZE
     from repro_torch.models.model import LM
     from repro_torch.serving.deployment import ServingDeployment
-    from repro_torch.serving.latency import LatencyModel
+    from repro_torch.serving.latency import FaultModel, LatencyModel
     from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
                                                Scheduler, summarize)
 
@@ -132,6 +163,14 @@ def main(argv=None):
     if device.type == "cuda":
         slm_cfg, llm_cfg = (dataclasses.replace(c, dtype="bfloat16")
                             for c in (slm_cfg, llm_cfg))
+    fault = None
+    if args.fault_rate > 0.0 or args.outage:
+        period, olen = ((int(x) for x in args.outage.split(":"))
+                        if args.outage else (0, 0))
+        fault = FaultModel(loss_rate=args.fault_rate, outage_period=period,
+                           outage_len=olen, seed=args.fault_seed)
+        print(f"fault weather: loss_rate={args.fault_rate} "
+              f"outage={args.outage or 'none'} seed={args.fault_seed}")
     slm = LM(slm_cfg, device=device, ring_cache=needs_ring_cache(slm_cfg))
     llm = LM(llm_cfg, device=device)
     dep = ServingDeployment(
@@ -141,11 +180,12 @@ def main(argv=None):
         timeout_ms=args.timeout_ms, sample_seed=args.sample_seed,
         page_size=args.page_size, max_ctx=args.max_ctx or None,
         adapter_slots=args.adapter_slots, adapter_rank=args.adapter_rank,
-        device=device)
+        fault=fault, device=device)
     if args.batch > 1:
         sched = ContinuousBatchScheduler.from_deployment(
             dep, batch_size=args.batch, macro_k=args.macro_k,
-            paged=not args.dense, lazy_pages=not args.no_lazy_pages,
+            spec_k=args.spec_k, paged=not args.dense,
+            lazy_pages=not args.no_lazy_pages,
             pool_pages=args.pool_pages or None,
             chunk_width=args.chunk_width or None)
         print(f"lane KV: {'dense' if args.dense else 'paged'}, pool "
@@ -165,7 +205,8 @@ def main(argv=None):
         aids = [f"user{j % args.adapters}" for j in range(3)] + [None]
     for i, prompt in enumerate(DEMO_PROMPTS):
         sched.submit(prompt, max_new_tokens=8, greedy=not args.sample,
-                     adapter_id=aids[i] if aids else None)
+                     adapter_id=aids[i] if aids else None,
+                     deadline_ms=args.deadline_ms or None)
     res = sched.run()
     for r in res:
         print(f"[{r.rid}] {r.status.value} private={r.stats.private} "
@@ -174,6 +215,8 @@ def main(argv=None):
               f"lat={r.stats.mean_latency_ms:.0f}ms "
               f"wait={r.queue_wait_seconds * 1e3:.0f}ms  {r.text!r}")
     print(summarize(res))
+    if fault is not None or args.deadline_ms:
+        print(f"link health: {sched.engine.health_stats()}")
     if args.adapters:
         print(f"adapter cache: {sched.engine.adapter_stats()}")
     return res

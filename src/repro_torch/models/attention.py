@@ -214,14 +214,17 @@ def scatter_page_token(pool, table, row_pos, slot, token_kv,
 def write_row_token(leaf, row_pos, slot, token_kv) -> None:
     """Write one decode token per row of a dense lane leaf (B, S, KV,
     hd) at its in-row ``slot``, IN PLACE.  A parked row (row_pos >=
-    FREED_POS) rewrites the current value of its (clamped) slot, so
-    nothing changes, as the reference's out-of-range scatter drops:
-    no host sync and no out-of-range index reaches the device."""
+    FREED_POS), and a slot past the row (a speculative draft's), rewrite
+    the current value of the (clamped) slot, so nothing changes, as the
+    reference's out-of-range scatter drops: no host sync and no
+    out-of-range index reaches the device."""
     b, s_len = leaf.shape[:2]
     rows = torch.arange(b, device=leaf.device)
-    slot = slot.long().clamp(0, s_len - 1)
-    parked = (row_pos >= FREED_POS).view(b, *(1,) * (leaf.dim() - 2))
-    leaf[rows, slot] = torch.where(parked, leaf[rows, slot], token_kv)
+    slot = slot.long()
+    drop = ((row_pos >= FREED_POS) | (slot >= s_len)).view(
+        b, *(1,) * (leaf.dim() - 2))
+    slot = slot.clamp(0, s_len - 1)
+    leaf[rows, slot] = torch.where(drop, leaf[rows, slot], token_kv)
 
 
 def identity_tables(batch: int, n_slots: int, device) -> torch.Tensor:

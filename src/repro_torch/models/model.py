@@ -54,9 +54,21 @@ P + i against it; ``extend_history`` appends a chunk's fresh K/V;
 the shared pages and of each row's own pages (``suffix_rows`` per
 leaf, which the deployment's page writers stream layer by layer).
 
+The speculative rollback of a lane cache (the reference's
+``model.py:827-950``): ``spec_snapshot`` copies the k decode-write
+targets [pos0, pos0 + k) of every KV leaf before a draft/verify burst,
+and ``spec_restore`` puts back every target at or past a row's accepted
+count, in place, so a rejected draft suffix leaves the cache as if it
+was never decoded.  Both follow the decode write path's slot arithmetic
+(a full-length leaf writes slot p, a ring slot p % window, a paged leaf
+through the row's block or local table; parked rows never wrote); a
+write the reference drops goes to the pool's sink page, or on a dense
+lane rewrites the current value of a slot no other write of the call
+touches.  Neither copies from the host, so both run inside a CUDA graph.
+
 The MoE, MLA, hybrid (zamba2), audio and vision layouts, the
-all-sliding layout, qkv biases, untied embeddings of a dense model and
-the speculative helpers are later slices.
+all-sliding layout, qkv biases and untied embeddings of a dense model
+are later slices.
 """
 from __future__ import annotations
 
@@ -617,6 +629,122 @@ class LM:
         out = self._per_kind(max_seq, leaf, history, suffix_cache)
         out["pos"] = pre + lengths
         return out
+
+    # ------------------------------------------- speculative rollback
+    def _spec_kinds(self, max_seq: int) -> List[Tuple[str, bool]]:
+        """(kind, is_ring) of the cache's KV kinds; kind "" is the plain
+        layout's top-level {"k", "v"}."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                "speculative rollback: dense-family caches only "
+                f"(got {self.cfg.family})")
+        if self._layout()[0] == "plain":
+            return [("", False)]
+        ring = self._ring_local_len(max_seq) > 0
+        return [("inner", ring), ("tail", ring), ("global", False)]
+
+    def _spec_slots(self, cache, leaf: torch.Tensor, pos0: torch.Tensor,
+                    k: int, is_ring: bool, max_seq: int):
+        """(targets, written) of the k decode writes of one KV leaf per
+        row, both (B, k): slot indices into a dense lane leaf's rows, or
+        flat slot indices into a paged pool (the sink page's slots where
+        the write was dropped); ``written`` marks the writes the decode
+        made.  A dense lane's dropped targets are in-range slots that no
+        write of the row touches: slot j of a parked row, and pos0 + j -
+        k past a full-length leaf's end."""
+        j = torch.arange(k, dtype=torch.int64, device=pos0.device)[None, :]
+        p0 = pos0.to(torch.int64)[:, None]
+        idx = p0 + j
+        alive = p0 < ATT.FREED_POS
+        if "block" not in cache:
+            s_len = leaf.shape[-3]
+            if is_ring:
+                return torch.where(alive, idx % s_len, j), alive.expand(
+                    -1, k)
+            written = alive & (idx < s_len)
+            return torch.where(written, idx, torch.where(
+                alive, idx - k, j)), written
+        n_pool, ps = leaf.shape[-4] - 1, leaf.shape[-3]
+        if is_ring:
+            slot = idx % self._ring_local_len(max_seq)
+            tbl = cache["local"]
+            ok = alive
+        else:
+            slot = idx
+            tbl = cache["block"]
+            ok = alive & (slot < tbl.shape[1] * ps)
+        col = torch.clamp(torch.where(alive, slot, 0) // ps,
+                          max=tbl.shape[1] - 1)
+        page = tbl.gather(1, col).to(torch.int64)
+        ok = ok & (page < n_pool)
+        return torch.where(ok, page * ps + slot % ps,
+                           n_pool * ps + j % ps), ok
+
+    def _spec_leaves(self, cache, max_seq: int):
+        """(kind, name, leaf, is_ring) of every non-empty KV leaf."""
+        for kind, ring in self._spec_kinds(max_seq):
+            sub = cache if kind == "" else cache[kind]
+            for name in ("k", "v"):
+                if sub[name].numel():
+                    yield kind, name, sub[name], ring
+
+    @staticmethod
+    def _spec_view(cache, leaf: torch.Tensor) -> torch.Tensor:
+        """The leaf with its stack dims flattened: (Lf, B, S, KV, hd)
+        dense rows, or (Lf, (P + 1) * ps, KV, hd) pool slots."""
+        lf = math.prod(leaf.shape[:-4])
+        if "block" in cache:
+            return leaf.view(lf, -1, *leaf.shape[-2:])
+        return leaf.view(lf, *leaf.shape[-4:])
+
+    def spec_snapshot(self, cache, pos0: torch.Tensor, k: int,
+                      max_seq: int, out=None) -> Dict[str, Any]:
+        """The k decode-write targets [pos0, pos0 + k) of every KV leaf
+        of a lane cache, before a speculative burst: {(kind, name): (Lf,
+        B, k, KV, hd)}.  ``out``, a snapshot of the same shapes, is
+        filled in place and returned (a CUDA graph's static buffers)."""
+        snap = {} if out is None else out
+        for kind, name, leaf, ring in self._spec_leaves(cache, max_seq):
+            tgt, _ = self._spec_slots(cache, leaf, pos0, k, ring, max_seq)
+            flat = self._spec_view(cache, leaf)
+            if "block" in cache:
+                got = flat[:, tgt]
+            else:
+                rows = torch.arange(tgt.shape[0], device=tgt.device)
+                got = flat[:, rows[:, None], tgt]
+            if out is None:
+                snap[(kind, name)] = got
+            else:
+                snap[(kind, name)].copy_(got)
+        return snap
+
+    def spec_restore(self, cache, snap, pos0: torch.Tensor,
+                     keep: torch.Tensor, max_seq: int):
+        """Roll back a speculative write window IN PLACE: target pos0 + j
+        of every KV leaf gets its snapshot value back for every j >=
+        keep[b] the decode wrote; j < keep[b] (the accepted writes) stay.
+        keep[b] = k restores nothing, 0 the whole window.  "pos" is the
+        caller's.  Returns the cache."""
+        k = next(iter(snap.values())).shape[2]
+        j = torch.arange(k, device=keep.device)[None, :]
+        roll = j >= keep.to(torch.int64)[:, None]
+        for kind, name, leaf, ring in self._spec_leaves(cache, max_seq):
+            tgt, written = self._spec_slots(cache, leaf, pos0, k, ring,
+                                            max_seq)
+            put = roll & written
+            flat = self._spec_view(cache, leaf)
+            sv = snap[(kind, name)]
+            if "block" in cache:
+                # dropped and kept targets write into the sink page
+                sink = flat.shape[1] - leaf.shape[-3] + j % leaf.shape[-3]
+                flat[:, torch.where(put, tgt, sink)] = sv
+            else:
+                rows = torch.arange(tgt.shape[0],
+                                    device=tgt.device)[:, None]
+                cur = flat[:, rows, tgt]
+                flat[:, rows, tgt] = torch.where(put[None, :, :, None, None],
+                                                 sv, cur)
+        return cache
 
     @torch.inference_mode()
     def decode_step(self, params, cache, tokens: torch.Tensor, lora=None,

@@ -16,9 +16,14 @@ expert bank (``expert_bank=``, placed once as ``lora``) or the per-user
 adapter slot bank (``adapter_slots=``) that an engine's
 ``AdapterCache`` owns and writes through ``write_adapter_slot``.
 The K-token macro step's per-lane state and body live in
-``serving/macro.py``; the deployment gives it ``fuse_mask`` (the fusion
+``serving/macro.py``, and the speculative burst chain's in
+``serving/spec.py``; the deployment gives them ``fuse_mask`` (the fusion
 on a device arrived mask), ``select_sample`` (the greedy argmax or the
 keyed draw through K7, keyed by ``sample_seed``) and ``fetch_traces``.
+A ``fault=`` model makes the cloud link lossy: ``fault_batched`` and
+``fault_request`` draw its (lost, outage) weather as ``lat_batched``
+and ``lat_request`` draw the arrivals; an all-zero model is the
+fault-free path (``fault`` None).
 A B=1 prefix prefill (``slm/llm_build_prefix``) builds a HISTORY whose
 whole pages a COW prefix writes into the pool once
 (``prefix_writer``); ``slm/llm_prefill_suffix`` prefills ragged
@@ -28,7 +33,7 @@ K/V into each row's own pages.  ``max_ctx`` > ``max_seq`` widens the
 paged context only: block tables and K2's reads cover ``max_ctx``
 positions, while the dense prefill buffer (and a dense lane) stays
 ``max_seq`` wide, and longer prompts stream through chunked prefill.
-Meshes and speculation are later slices.
+Meshes are a later slice.
 
 Without an LLM the deployment is SLM-only (``SoloEngine``); its SLM may
 be a dense model or a Mamba-1 SSM, whose recurrent state has no pages
@@ -61,7 +66,7 @@ from repro_torch.models.model import (LOCAL_KINDS, cache_kv,
                                       suffix_rows, to_pages)
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.adapters import AdapterCache
-from repro_torch.serving.latency import LatencyModel
+from repro_torch.serving.latency import FaultModel, LatencyModel
 
 
 def _map_tree(tree, fn):
@@ -94,11 +99,9 @@ class ServingDeployment:
                  timeout_ms: float = 200.0, max_seq: int = 96,
                  block_b: int = 4, page_size: int = 16,
                  max_ctx: Optional[int] = None, adapter_slots: int = 0,
-                 adapter_rank: Optional[int] = None, fault=None,
+                 adapter_rank: Optional[int] = None,
+                 fault: Optional[FaultModel] = None,
                  sample_seed: int = 0, device=None):
-        if fault is not None:
-            raise NotImplementedError("a fault model (fault injection): "
-                                      "later slice")
         self.device = resolve_device(device)
         # paged lanes gather exactly nb * page_size slots; a page-aligned
         # max_seq makes that extent the dense cache's
@@ -129,6 +132,14 @@ class ServingDeployment:
         self.adapter_rank = ((adapter_rank or slm.cfg.lora_rank_max)
                              if adapter_slots else 0)
         self.latency = latency or LatencyModel()
+        # an all-zero fault model is the fault-free path: no fault draws
+        # and no breaker state
+        self.fault = fault
+        if fault is not None and fault.loss_rate <= 0.0 \
+                and (fault.outage_period <= 0 or fault.outage_len <= 0):
+            self.fault = None
+        if self.fault is None:
+            self.fault_batched = self.fault_request = None
         self.timeout_ms = timeout_ms
         self.max_seq = max_seq
         self.block_b = block_b
@@ -473,6 +484,18 @@ class ServingDeployment:
         """The one host sync of a macro step: its stacked traces, copied
         to the host in one transfer."""
         return traces.cpu().numpy()
+
+    def fault_batched(self, rids, steps):
+        """One vectorised fault draw for a batch of rows: (lost (B,),
+        outage (B,)) bool numpy arrays.  Without a fault model this
+        entry point, and ``fault_request``, are None."""
+        return self.fault.faults_device(rids, steps)
+
+    def fault_request(self, rid: int, steps):
+        """A whole request's fault weather in one draw: (lost (n,),
+        outage (n,)) bool numpy arrays."""
+        steps = np.asarray(steps, np.int32)
+        return self.fault.faults_device(np.full_like(steps, rid), steps)
 
     def lat_request(self, rid: int, steps):
         """A whole request's network weather in one vectorised draw:

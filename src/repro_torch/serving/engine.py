@@ -18,11 +18,18 @@ Pipeline per request (paper Fig. 8):
 The port serves greedy and keyed sampled decoding (``greedy=False``:
 row i's token t is drawn from the fused distribution with key
 fold_in(fold_in(key(sample_seed), key id), t), the key id being the
-request's seed, else its rid, through K7) without fault injection.  The
-batched engine serves paged lanes with lazy or eager page reservation
-under pool budgets (rows park when their growth cannot be met, the
-youngest are evicted and re-admitted when a lane wedges), or dense
-lanes (``paged=False``, the parity oracle), through
+request's seed, else its rid, through K7), on a fault-injected link
+when the deployment has a ``FaultModel``: a lost reply or an outage
+falls back to the SLM like a late one and charges the full timeout, and
+a row whose circuit breaker tripped decodes SLM-only at the edge's cost
+(``health_stats``); the breaker's state is a host mirror per request
+(``_mirror_breaker``), replayed at every collect from the traces of the
+device's own recurrence.  ``deadline_ms`` cancels a request at the
+first token boundary where its simulated clock has reached it, on
+every path.  The batched engine serves paged lanes with lazy or eager
+page reservation under pool budgets (rows park when their growth cannot
+be met, the youngest are evicted and re-admitted when a lane wedges), or
+dense lanes (``paged=False``, the parity oracle), through
 the K-token macro step (``macro_k=K``, the default 8: one dispatch and
 one host sync per lane per K tokens, a CUDA graph replayed on the card,
 ``serving/macro.py``) or the per-token step (``macro_k=0``); its LoRA
@@ -32,8 +39,11 @@ request's shared ``prefix=`` is copy-on-write: the lane prefills the
 preamble once (B=1) and maps its whole pages into every sharing row,
 whose suffix alone is prefilled, through K3's history-offset mode on
 the card; a prompt wider than ``chunk_width`` streams through chunked
-prefill, up to the deployment's ``max_ctx``.  Faults, deadlines and
-speculation are later slices and raise ``NotImplementedError``.
+prefill, up to the deployment's ``max_ctx``.  With ``spec_k=k`` the
+cloud lane decodes speculatively: the SLM drafts k tokens, one chained
+LLM verify scores them, and the fused choices accept the longest
+agreeing prefix; rejected drafts roll back in place
+(``serving/spec.py``, one CUDA graph per lane on the card).
 
 Every engine takes a deployment (``deployment=``) or, as the reference's
 engines do, the models and deployment-level settings by keyword, from
@@ -54,12 +64,14 @@ from repro_torch.core.privacy import PrivacyDetector
 from repro_torch.core.router import Router
 from repro_torch.data import tokenizer as TOK
 from repro_torch.kernels.logit_fusion import ops as OPS
-from repro_torch.serving.latency import LatencyModel
 from repro_torch.models.attention import FREED_POS, check_row_positions
 from repro_torch.models.model import row_writer
+from repro_torch.serving import latency as LAT
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.deployment import ServingDeployment
+from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.macro import LaneMacro
+from repro_torch.serving.spec import LaneSpec
 
 # admission prompts are right-padded to a multiple of this many tokens,
 # as the reference pads them, so K3 sees the reference's prefill shapes
@@ -198,6 +210,12 @@ class HybridEngine:
         self.timeout_ms = deployment.timeout_ms
         self.max_seq = deployment.max_seq
         self.sample_seed = deployment.sample_seed
+        # injected cloud-link faults (None: the fault-free path) and the
+        # engine-wide degradation counters behind health_stats()
+        self.fault = deployment.fault
+        self._health = dict(losses=0, outage_steps=0, breaker_trips=0,
+                            breaker_recoveries=0, degraded_tokens=0,
+                            cancellations=0)
         self.adapters = (deployment.make_adapter_cache()
                          if deployment.adapter_slots else None)
         if self.bank is not None and router is None:
@@ -224,6 +242,43 @@ class HybridEngine:
         loads, evictions, refusals, resident and pinned slots.  Empty on
         engines without adapter slots."""
         return self.adapters.stats() if self.adapters is not None else {}
+
+    def health_stats(self) -> Dict[str, int]:
+        """Fault telemetry: injected losses and outage steps met by
+        cloud attempts, breaker trips and recoveries, tokens decoded
+        SLM-only under a tripped breaker, and deadline cancellations.
+        All zero on a fault-free engine."""
+        return dict(self._health)
+
+    def _fault_f32(self) -> Tuple[float, float]:
+        """(edge, fallback) latencies in float32, as the device's fault
+        path charges them: a degraded token costs the edge decode, a
+        failed cloud attempt the whole fallback wait."""
+        edge = float(np.float32(self.latency.edge_compute_ms))
+        return edge, max(edge, float(np.float32(self.timeout_ms)))
+
+    def _mirror_breaker(self, slot: "_Slot", lost: bool, step: int):
+        """Advance a slot's host breaker mirror by one attempted token
+        and count its outcome.  The mirror runs ``breaker_step`` on the
+        weather the device's recurrence read, so it equals the device's
+        state at every boundary.  Returns (degraded, raw_fail)."""
+        fault = self.fault
+        outage = fault.outage_at(step)
+        raw = bool(lost) or outage
+        (slot.bfails, slot.bcool, degraded, attempt, _fail, trip,
+         recover) = LAT.breaker_step(slot.bfails, slot.bcool, True, raw,
+                                     fault.breaker_n, fault.breaker_m)
+        h = self._health
+        if attempt:
+            h["losses"] += int(bool(lost))
+            h["outage_steps"] += int(outage)
+        h["breaker_trips"] += int(trip)
+        h["breaker_recoveries"] += int(recover)
+        h["degraded_tokens"] += int(degraded)
+        st = slot.stats
+        st.degraded_tokens += int(degraded)
+        st.cloud_lost += int(attempt and raw)
+        return degraded, raw
 
     def _release_adapter(self, s: "_Slot"):
         """Drop a finished request's adapter pin."""
@@ -255,7 +310,9 @@ class HybridEngine:
         raise ``adapters.UnknownAdapter``); otherwise a router-gated
         engine gates its bank with the prompt's ω.  ``deadline_ms``
         bounds the simulated decode clock: token t is emitted iff the
-        clock after token t-1 is still under it."""
+        clock after token t-1 is still under it.  The deployment's fault
+        weather applies to rid-keyed requests (the rid-less stream has
+        no counter to key it)."""
         dep = self.dep
         stats = GenStats()
         stats.private = self.detector.detect(prompt)
@@ -287,13 +344,19 @@ class HybridEngine:
 
         sl = s_logits[:, 0]
         ll = l_logits[:, 0] if use_cloud else None
-        lat_row = ok_row = None
+        lat_row = ok_row = lost_row = None
         if use_cloud and rid is not None:
             lat_row, ok_row = dep.lat_request(rid, np.arange(max_new_tokens))
+            if self.fault is not None:
+                lost_row, _ = dep.fault_request(rid,
+                                                np.arange(max_new_tokens))
+        slot = _Slot(rid or 0, max_new_tokens, greedy, stats)
+        edge32, fb32 = self._fault_f32()
         out_ids: List[int] = []
         for _ in range(max_new_tokens):
             if deadline_ms is not None and stats.clock_ms >= deadline_ms:
                 stats.cancelled = True
+                self._health["cancellations"] += 1
                 break
             step = len(out_ids)
             if use_cloud:
@@ -302,10 +365,19 @@ class HybridEngine:
                 else:        # rid-less path: stateful host stream
                     lat_ms, arrived = self.latency.token_latency_ms(
                         self.timeout_ms, rid=rid, step=step)
+                degraded = False
+                if lost_row is not None:
+                    degraded, raw = self._mirror_breaker(
+                        slot, bool(lost_row[step]), step)
+                    if degraded:
+                        lat_ms, arrived = edge32, False
+                    elif raw:
+                        lat_ms, arrived = fb32, False
                 p_out, w = dep.fuse(sl, ll, arrived)
                 stats.cloud_tokens += int(arrived)
                 stats.fallback_tokens += int(not arrived)
-                stats.cloud_calls += 1
+                # one round-trip a token; degraded tokens never dispatch
+                stats.cloud_calls += int(not degraded)
             else:
                 lat_ms = self.latency.edge_compute_ms
                 p_out = torch.softmax(sl.float(), dim=-1)
@@ -357,6 +429,15 @@ class _Slot:
     # pinned adapter slot, or None: released at completion, not at
     # eviction (a resumed request keeps it)
     aslot: Optional[int] = None
+    # the circuit breaker's host mirror (consecutive injected failures,
+    # degraded steps left), equal to the device's state at every
+    # boundary; it survives eviction
+    bfails: int = 0
+    bcool: int = 0
+    deadline_ms: Optional[float] = None   # simulated-clock deadline
+    # speculative lane: an evicted row re-prefilled to depth p on both
+    # models; its LLM goes back to p - 1 before its next burst
+    needs_spec_init: bool = False
 
 
 @dataclass
@@ -380,6 +461,7 @@ class _Job:
     aslot: Optional[int] = None      # pinned adapter slot, or None
     resume: Optional[_Slot] = None   # an evicted request's slot
     entry: Optional[dict] = None     # the lane's COW prefix entry, or None
+    deadline_ms: Optional[float] = None
 
 
 def _tokens(ids: List[int], device) -> torch.Tensor:
@@ -415,6 +497,10 @@ class _Lane:
         self.l_cache = None
         self.sl = None               # (B, V) current SLM logits
         self.ll = None               # (B, V) current LLM logits
+        # speculative cloud lane: (B,) the last emitted token of each
+        # row, the LLM's pending feed (the LLM runs one token behind)
+        self.lt = None
+        self._spec = use_cloud and bool(engine.spec_k)
         self.gates = None            # (B, E) gate rows, or None
         # host page bookkeeping (paged lanes only)
         self.pager_s = self.pager_l = None
@@ -427,7 +513,9 @@ class _Lane:
         self._evictq: List[_Slot] = []
         self._pending_done: List[Tuple[int, str, GenStats]] = []
         self._macro: Optional[LaneMacro] = None  # built at first dispatch
-        # (macro, lat, ok, live rows) of the macro step in flight
+        self._spec_chain: Optional[LaneSpec] = None
+        # what the collect of the step in flight needs (macro or burst
+        # chain, host weather, live rows)
         self._inflight = None
         # COW prefix registry: prefix text -> entry (or None when it is
         # structurally unshareable)
@@ -484,6 +572,8 @@ class _Lane:
             self.l_cache = cache(dep.llm, self.pager_l)
             self.ll = torch.zeros((b, vocab), dtype=torch.float32,
                                   device=dep.device)
+            self.lt = torch.zeros((b,), dtype=torch.int64,
+                                  device=dep.device)
         self.sl = torch.zeros((b, vocab), dtype=torch.float32,
                               device=dep.device)
         if n_experts is not None:
@@ -498,6 +588,9 @@ class _Lane:
         it was parked on)."""
         if j.resume is not None:
             j.resume.parked = False
+            # the re-prefill left the LLM at full depth: the burst
+            # protocol wants it one behind (``_spec_seed``)
+            j.resume.needs_spec_init = self._spec
             self.slots[j.slot] = j.resume
             return
         self.slots[j.slot] = _Slot(
@@ -505,7 +598,8 @@ class _Lane:
             GenStats(private=j.private, truncated=j.truncated,
                      admit_seq=j.seq),
             key_id=j.key_id, seq=j.seq, prompt_len=len(j.ids),
-            prompt_ids=list(j.ids), full_text=j.prompt, aslot=j.aslot)
+            prompt_ids=list(j.ids), full_text=j.prompt, aslot=j.aslot,
+            deadline_ms=j.deadline_ms)
 
     def _pad_group(self, ids: List[List[int]], width_cap: int):
         """Shared right-padding for an admission group: chunk-rounded
@@ -769,35 +863,108 @@ class _Lane:
             dep.insert_row(self.gates, g, [0], [j.slot])
         self._finish_admit(j)
 
+    # ---------------------------------------------------- deadline cancel
+    def _cancel_row(self, i: int, s: _Slot) -> Tuple[int, str, GenStats]:
+        """Cancel an occupied row whose simulated clock passed its
+        deadline: its partial text surfaces with ``cancelled`` set and
+        its adapter pin drops; the caller parks or releases the row."""
+        st = s.stats
+        st.cancelled = True
+        self.eng._health["cancellations"] += 1
+        self.eng._release_adapter(s)
+        self.slots[i] = None
+        return (s.rid, TOK.decode(s.out_ids), st)
+
+    def _cancel_expired(self) -> List[Tuple[int, str, GenStats]]:
+        """Boundary sweep: cancel every request past its deadline, the
+        occupied rows (pages released, dense rows parked) and the
+        evicted requests awaiting re-admission (no pages, only a
+        completion owed)."""
+        out: List[Tuple[int, str, GenStats]] = []
+        keep: List[_Slot] = []
+        for s in self._evictq:
+            if s.deadline_ms is not None \
+                    and s.stats.clock_ms >= s.deadline_ms:
+                s.stats.cancelled = True
+                self.eng._health["cancellations"] += 1
+                self.eng._release_adapter(s)
+                out.append((s.rid, TOK.decode(s.out_ids), s.stats))
+            else:
+                keep.append(s)
+        self._evictq = keep
+        freed: List[int] = []
+        for i, s in enumerate(self.slots):
+            if s is not None and s.deadline_ms is not None \
+                    and s.stats.clock_ms >= s.deadline_ms:
+                out.append(self._cancel_row(i, s))
+                freed.append(i)
+        if freed:
+            self._park_rows(freed)
+        return out
+
+    def _faulted(self, rows, lat, ok, lost, steps_of):
+        """Host fault weather of one token of ``rows``: each row's
+        breaker mirror advances on its loss draw (``lost[i]``) and the
+        outage at ``steps_of(i)``, a degraded row is charged the edge
+        decode and a failed attempt the fallback wait, in ``lat`` (a
+        copy is returned).  Returns (lat, arrived, degraded)."""
+        eng = self.eng
+        b = self.batch
+        lat = np.array(lat, copy=True)
+        occ = np.zeros((b,), bool)
+        occ[rows] = True
+        if eng.fault is None:
+            return lat, OPS.cloud_arrival_mask(ok, occ), np.zeros((b,),
+                                                                  bool)
+        degraded = np.zeros((b,), bool)
+        raws = np.zeros((b,), bool)
+        edge32, fb32 = eng._fault_f32()
+        for i in rows:
+            deg, raw = eng._mirror_breaker(self.slots[i], bool(lost[i]),
+                                           steps_of(i))
+            degraded[i], raws[i] = deg, raw
+            if deg:
+                lat[i] = edge32
+            elif raw:
+                lat[i] = fb32
+        return lat, OPS.cloud_arrival_mask(ok, occ, raws,
+                                           degraded=degraded), degraded
+
     # ------------------------------------------------------------- decode
     @torch.inference_mode()
     def step(self) -> List[Tuple[int, str, GenStats]]:
         """One fused decode step over every occupied row that is not
-        parked (the per-token path, ``macro_k=0``), after re-admitting
-        evicted requests and provisioning pages.  Returns the requests
-        that finished this step (forced completions included) as (rid,
-        text, stats)."""
+        parked (the per-token path, ``macro_k=0``), after cancelling
+        expired requests, re-admitting evicted ones and provisioning
+        pages.  Returns the requests that finished this step (cancelled
+        and forced completions included) as (rid, text, stats)."""
         eng = self.eng
         dep = eng.dep
+        done = self._cancel_expired()
         self._readmit_evicted()
-        done = self._provision(1)
+        done += self._provision(1)
         live = [i for i, s in enumerate(self.slots)
                 if s is not None and not s.parked]
         if not live:
             return done
         b = self.batch
-        occ = np.zeros((b,), bool)
         rids = np.zeros((b,), np.int32)
         keys = np.zeros((b,), np.int64)
         steps = np.zeros((b,), np.int32)
         for i in live:
             s = self.slots[i]
-            occ[i], rids[i], steps[i] = True, s.rid, len(s.out_ids)
+            rids[i], steps[i] = s.rid, len(s.out_ids)
             keys[i] = s.rid if s.key_id is None else s.key_id
+        degraded = np.zeros((b,), bool)
         if self.use_cloud:
-            # one vectorised counter-based draw for the whole batch
+            # one vectorised counter-based draw for the whole batch, and
+            # the fault draw; the breaker mirrors advance on the host,
+            # which holds the breaker's state on this path
             lat, ok = dep.lat_batched(rids, steps)
-            arrived = OPS.cloud_arrival_mask(ok, occ)
+            lost = (dep.fault_batched(rids, steps)[0]
+                    if eng.fault is not None else None)
+            lat, arrived, degraded = self._faulted(
+                live, lat, ok, lost, lambda i: int(steps[i]))
             probs, w = dep.fuse_batched(self.sl, self.ll, arrived)
         else:
             probs = dep.softmax_batched(self.sl)
@@ -818,7 +985,7 @@ class _Lane:
             if self.use_cloud:
                 st.cloud_tokens += int(arrived[i])
                 st.fallback_tokens += int(not arrived[i])
-                st.cloud_calls += 1
+                st.cloud_calls += int(not degraded[i])
                 st.push_latency(float(lat[i]))
             else:
                 st.push_latency(float(eng.latency.edge_compute_ms))
@@ -877,6 +1044,40 @@ class _Lane:
                              f"not {key}")
         return m
 
+    def _row_inputs(self) -> Dict[str, np.ndarray]:
+        """Per-row host inputs of a dispatch: rid, sampling key id,
+        steps so far, budget, greedy flag, done (empty and parked rows)
+        and the breaker mirrors."""
+        b = self.batch
+        out = dict(rids=np.zeros((b,), np.int32),
+                   keys=np.zeros((b,), np.int64),
+                   steps=np.zeros((b,), np.int32),
+                   maxn=np.zeros((b,), np.int32),
+                   greedy=np.ones((b,), bool), done=np.ones((b,), bool),
+                   bfails=np.zeros((b,), np.int32),
+                   bcool=np.zeros((b,), np.int32))
+        for i, s in enumerate(self.slots):
+            if s is None or s.parked:
+                continue
+            out["rids"][i], out["steps"][i] = s.rid, len(s.out_ids)
+            out["maxn"][i], out["greedy"][i] = s.max_new, s.greedy
+            out["keys"][i] = s.rid if s.key_id is None else s.key_id
+            out["done"][i] = False
+            out["bfails"][i], out["bcool"][i] = s.bfails, s.bcool
+        return out
+
+    def _check_positions(self, fed: np.ndarray, done: np.ndarray):
+        """Guard before a dispatch: the last slot each live row writes
+        and keeps (``fed`` writes on from its position) lies in its
+        cache, checked once as the per-token decode checks every
+        layer."""
+        for c in (self.s_cache, self.l_cache):
+            if c is not None:
+                check_row_positions(
+                    np.where(done, FREED_POS, c["pos_host"] + fed - 1),
+                    self.eng.max_ctx if self.eng.paged
+                    else self.eng.dep.max_seq)
+
     @torch.inference_mode()
     def macro_dispatch(self, k: int):
         """Decode the next k tokens of every occupied row in one macro
@@ -884,53 +1085,42 @@ class _Lane:
         replays the traces into the slots.  Between the two the host may
         admit into free rows (the scheduler's admission pipelining);
         rows freed in the macro give their pages back only at collect,
-        so no admission takes a page the step still writes.  Evicted
-        requests are re-admitted and pages provisioned first; rows
-        parked for pages enter the step done, keeping their pending
-        logits.  No-op when the lane is idle or a macro step is already
-        in flight."""
+        so no admission takes a page the step still writes.  Expired
+        requests are cancelled, evicted ones re-admitted and pages
+        provisioned first; rows parked for pages enter the step done,
+        keeping their pending logits.  No-op when the lane is idle or a
+        macro step is already in flight."""
         if self._inflight is not None:
             return
+        self._pending_done.extend(self._cancel_expired())
         self._readmit_evicted()
         self._pending_done.extend(self._provision(k))
         if not any(s is not None and not s.parked for s in self.slots):
             return
-        dep, b = self.eng.dep, self.batch
-        rids = np.zeros((b,), np.int32)
-        keys = np.zeros((b,), np.int64)
-        steps = np.zeros((b,), np.int32)
-        maxn = np.zeros((b,), np.int32)
-        greedy = np.ones((b,), bool)
-        done = np.ones((b,), bool)
-        for i, s in enumerate(self.slots):
-            if s is not None and not s.parked:
-                rids[i], steps[i], maxn[i] = s.rid, len(s.out_ids), s.max_new
-                keys[i] = s.rid if s.key_id is None else s.key_id
-                greedy[i] = s.greedy
-                done[i] = False
+        dep = self.eng.dep
+        r = self._row_inputs()
+        steps, maxn, greedy, done = (r["steps"], r["maxn"], r["greedy"],
+                                     r["done"])
         # the sampled graph only when a live row draws (the reference's
         # static ``sample`` flag)
         sample = bool((~greedy & ~done).any())
-        # the last slot each live row can write in the next k tokens
-        # (the last selected token is never fed), checked here once as
-        # the per-token decode checks its positions at every layer
-        fed = np.clip(np.minimum(k, maxn - steps - 1), 1, None)
-        for c in (self.s_cache, self.l_cache):
-            if c is not None:
-                check_row_positions(
-                    np.where(done, FREED_POS, c["pos_host"] + fed - 1),
-                    self.eng.max_ctx if self.eng.paged else dep.max_seq)
-        lat = ok = None
+        # the last selected token is never fed
+        self._check_positions(
+            np.clip(np.minimum(k, maxn - steps - 1), 1, None), done)
+        lat = ok = faults = None
         if self.use_cloud:
             # a row's step advances once per active iteration, so the
-            # (k, B) grid is the in-scan draw of every emitted token
+            # (k, B) grid is the in-graph weather of every emitted token
             grid = steps[None, :] + np.arange(k, dtype=np.int32)[:, None]
-            lat, ok = dep.lat_batched(np.broadcast_to(rids, grid.shape),
-                                      grid)
+            rids = np.broadcast_to(r["rids"], grid.shape)
+            lat, ok = dep.lat_batched(rids, grid)
+            if self.eng.fault is not None:
+                faults = dep.fault_batched(rids, grid) + (r["bfails"],
+                                                          r["bcool"])
         m = self.macro(k)
         m.prepare(sample)
         m.load(ok, steps, maxn, done, self._slot_ids(),
-               keys.astype(np.int32), greedy)
+               r["keys"].astype(np.int32), greedy, faults)
         m.run(sample)
         self._inflight = (m, lat, ok, ~done)
 
@@ -938,8 +1128,12 @@ class _Lane:
     def macro_collect(self) -> List[Tuple[int, str, GenStats]]:
         """The one host sync of the macro step in flight: fetch its
         traces and replay them into the slots' stats, as ``step`` would
-        have recorded them token by token.  Returns the requests that
-        finished, forced completions of the dispatch's provisioning
+        have recorded them token by token: on a faulted lane each
+        emitted token advances the row's breaker mirror on its traced
+        loss draw, and a row whose deadline passed mid-step is cancelled
+        there (the graph knows no deadlines; its row is parked and its
+        pages and adapter pin released).  Returns the requests that
+        finished, the dispatch's cancellations and forced completions
         first.  Rows admitted while it was in flight were done for the
         whole step (their traces are all inactive) and keep their host
         positions."""
@@ -948,25 +1142,42 @@ class _Lane:
             return pending
         m, lat, ok, live = self._inflight
         self._inflight = None
-        toks, w, emit = self.eng.dep.fetch_traces(m.traces)
-        emit = emit.astype(bool)
+        tr = self.eng.dep.fetch_traces(m.traces)
+        toks, w, emit = tr[0], tr[1], tr[2].astype(bool)
+        fault = m.fault
+        arrived, lost = ((tr[3].astype(bool), tr[4].astype(bool))
+                         if fault is not None else (ok, None))
         # the tail work of rows that finished early, which the step
         # still runs parked: no early exit, which would be a host sync
         m.parked_rows += int((live[None, :] & ~emit).sum())
         m.idle_iters += int((~emit.any(1)).sum())
         eng = self.eng
+        edge32, fb32 = eng._fault_f32()
         out: List[Tuple[int, str, GenStats]] = pending
         freed: List[int] = []
+        cancelled: List[int] = []
         for t in range(m.k):
             for i, s in enumerate(self.slots):
                 if s is None or not emit[t, i]:
                     continue
                 st = s.stats
+                if s.deadline_ms is not None \
+                        and st.clock_ms >= s.deadline_ms:
+                    # token t and the rest of the row's trace are
+                    # dropped: the per-token path's rule
+                    out.append(self._cancel_row(i, s))
+                    cancelled.append(i)
+                    continue
                 if self.use_cloud:
-                    st.cloud_tokens += int(ok[t, i])
-                    st.fallback_tokens += int(not ok[t, i])
-                    st.cloud_calls += 1
-                    st.push_latency(float(lat[t, i]))
+                    deg, lat_t = False, float(lat[t, i])
+                    if fault is not None:
+                        deg, raw = eng._mirror_breaker(s, lost[t, i],
+                                                       len(s.out_ids))
+                        lat_t = edge32 if deg else (fb32 if raw else lat_t)
+                    st.cloud_tokens += int(arrived[t, i])
+                    st.fallback_tokens += int(not arrived[t, i])
+                    st.cloud_calls += int(not deg)
+                    st.push_latency(lat_t)
                     st.fusion_w.append(float(w[t, i]))
                 else:
                     st.push_latency(float(eng.latency.edge_compute_ms))
@@ -980,21 +1191,263 @@ class _Lane:
                     self.slots[i] = None
                     freed.append(i)
         # the host mirror of the rows that decode on: one slot a token
+        self._advance_host_pos(live, freed + cancelled, emit.sum(0))
+        if freed or cancelled:
+            # parked in the step (cancelled rows were live there); now
+            # mirror that and return their pages
+            self._park_rows(freed + cancelled)
+        return out
+
+    def _advance_host_pos(self, live: np.ndarray, gone: List[int],
+                          n: np.ndarray):
+        """Advance the host position mirrors of the rows live at dispatch
+        that still decode by the (B,) ``n`` slots each wrote and kept."""
         on = live.copy()
-        on[freed] = False
+        on[gone] = False
         for c in (self.s_cache, self.l_cache):
             if c is not None:
-                c["pos_host"][on] += emit[:, on].sum(0)
-        if freed:
-            # parked in the step; now mirror that and return their pages
-            self._park_rows(freed)
-        return out
+                c["pos_host"][on] += n[on]
 
     def macro_step(self, k: int) -> List[Tuple[int, str, GenStats]]:
         """Dispatch and collect: k tokens of every occupied row with one
         host sync, equal to k calls of ``step``."""
         self.macro_dispatch(k)
         return self.macro_collect()
+
+    # ------------------------------------------------- speculative decode
+    def _spec_seed(self):
+        """Move freshly admitted and eviction-resumed rows onto the burst
+        protocol: the SLM at depth p = prompt_len + emitted with ``sl``
+        predicting the next emit, the LLM one behind at p - 1 with the
+        last emitted token pending in ``lt``.  A fresh row emits its
+        first token here as the per-token path does (the prefill logits
+        of both models are the baseline pair of emit 0, under the same
+        weather and breaker) and feeds it to the SLM only.  A resumed
+        row's re-prefill left both models at p: its LLM goes back to p -
+        1 and its last token is pended again; the next verify rewrites
+        slot p - 1 with the same (token, position) K/V."""
+        eng = self.eng
+        dep = eng.dep
+        live = [i for i, s in enumerate(self.slots)
+                if s is not None and not s.parked]
+        init = [i for i in live if self.slots[i].out_ids
+                and self.slots[i].needs_spec_init]
+        if init:
+            dep.set_row_pos(self.l_cache, init, [
+                self.slots[i].prompt_len + len(self.slots[i].out_ids) - 1
+                for i in init])
+            dep.insert_row(self.lt, to_device(np.asarray(
+                [self.slots[i].out_ids[-1] for i in init], np.int64),
+                dep.device), list(range(len(init))), init)
+            for i in init:
+                self.slots[i].needs_spec_init = False
+        fresh = [i for i in live if not self.slots[i].out_ids]
+        if not fresh:
+            return
+        b = self.batch
+        rids = np.zeros((b,), np.int32)
+        keys = np.zeros((b,), np.int64)
+        steps = np.zeros((b,), np.int32)
+        for i in fresh:
+            s = self.slots[i]
+            rids[i] = s.rid
+            keys[i] = s.rid if s.key_id is None else s.key_id
+        lat, ok = dep.lat_batched(rids, steps)
+        lost = (dep.fault_batched(rids, steps)[0]
+                if eng.fault is not None else None)
+        lat, arrived, degraded = self._faulted(fresh, lat, ok, lost,
+                                               lambda i: 0)
+        probs, w = dep.fuse_batched(self.sl, self.ll, arrived)
+        nxt = dep.argmax_batched(probs).cpu().numpy()
+        w_host = w.cpu().numpy()
+        drawn = None
+        if any(not self.slots[i].greedy for i in fresh):
+            drawn = dep.sample_batched(probs, keys, steps).cpu().numpy()
+        fed: List[int] = []
+        gone: List[int] = []
+        feed = np.zeros((b, 1), np.int64)
+        for i in fresh:
+            s = self.slots[i]
+            s.needs_spec_init = False
+            st = s.stats
+            if s.deadline_ms is not None and st.clock_ms >= s.deadline_ms:
+                self._pending_done.append(self._cancel_row(i, s))
+                gone.append(i)
+                continue
+            st.cloud_tokens += int(arrived[i])
+            st.fallback_tokens += int(not arrived[i])
+            st.cloud_calls += int(not degraded[i])
+            st.push_latency(float(lat[i]))
+            st.fusion_w.append(float(w_host[i]))
+            tok = int(nxt[i]) if s.greedy else int(drawn[i])
+            s.out_ids.append(tok)
+            st.tokens += 1
+            if tok == TOK.EOS or len(s.out_ids) >= s.max_new:
+                self._pending_done.append((s.rid, TOK.decode(s.out_ids),
+                                           st))
+                eng._release_adapter(s)
+                self.slots[i] = None
+                gone.append(i)
+            else:
+                feed[i, 0] = tok
+                fed.append(i)
+        if gone:
+            self._park_rows(gone)
+        if not fed:
+            return
+        # the seed tokens go to the SLM only: every other live row is
+        # parked for this one decode, and only the fed rows take its
+        # logits (in place: a burst graph reads the lane's tensors)
+        others = [(i, self.slots[i].prompt_len
+                   + len(self.slots[i].out_ids))
+                  for i in live if self.slots[i] is not None
+                  and i not in fed]
+        if others:
+            dep.set_row_pos(self.s_cache, [i for i, _ in others],
+                            [FREED_POS] * len(others))
+        s_logits, _ = dep.slm_decode(eng.slm_params, self.s_cache,
+                                     to_device(feed, dep.device), eng.lora,
+                                     self._decode_gates())
+        dep.insert_row(self.sl, s_logits[:, 0], fed, fed)
+        dep.insert_row(self.lt, to_device(feed[:, 0], dep.device), fed,
+                       fed)
+        if others:
+            dep.set_row_pos(self.s_cache, *zip(*others))
+
+    @torch.inference_mode()
+    def spec_chain(self, n_bursts: int, k: int) -> LaneSpec:
+        """The lane's speculative burst chain, built (and on CUDA
+        captured) at its first use; like ``macro``, its shape is fixed
+        for the lane's life."""
+        key = (n_bursts, k, self._slot_kernel())
+        if self._spec_chain is None:
+            self._spec_chain = LaneSpec(self, n_bursts, k, slot_ids=key[2])
+        c = self._spec_chain
+        built = (c.n_bursts, c.k, c.slot_ids is not None)
+        if built != key:
+            raise ValueError(f"the lane's burst chain was built for "
+                             f"(bursts, k, slot ids) {built}, not {key}")
+        return c
+
+    @torch.inference_mode()
+    def spec_dispatch(self, n_bursts: int, k: int):
+        """Dispatch ``n_bursts`` chained speculative bursts of k tokens
+        without a host sync (``spec_collect`` syncs once): expired
+        requests are cancelled, evicted ones re-admitted, pages
+        provisioned for every draft write and the seed token (n_bursts
+        * k + 1 positions) and fresh rows seeded (``_spec_seed``,
+        host-synchronous) first.  No-op when the lane is idle or a step
+        is already in flight."""
+        if self._inflight is not None:
+            return
+        dep = self.eng.dep
+        self._pending_done.extend(self._cancel_expired())
+        self._readmit_evicted()
+        self._pending_done.extend(self._provision(n_bursts * k + 1))
+        if self.active:
+            self._spec_seed()
+        if not any(s is not None and not s.parked for s in self.slots):
+            return
+        r = self._row_inputs()
+        steps, maxn, greedy, done = (r["steps"], r["maxn"], r["greedy"],
+                                     r["done"])
+        sample = bool((~greedy & ~done).any())
+        self._check_positions(
+            np.clip(np.minimum(n_bursts * k, maxn - steps - 1), 1, None),
+            done)
+        # the weather of every step a burst can start at
+        grid = steps[:, None] + np.arange(n_bursts * k + 1,
+                                          dtype=np.int32)[None, :]
+        rids = np.broadcast_to(r["rids"][:, None], grid.shape)
+        lat, ok = dep.lat_batched(rids, grid)
+        lost = outage = None
+        if self.eng.fault is not None:
+            lost, outage = dep.fault_batched(rids, grid)
+        c = self.spec_chain(n_bursts, k)
+        c.prepare(sample)
+        c.load(ok, lost, outage, steps, maxn, done, self._slot_ids(),
+               r["keys"].astype(np.int32), greedy,
+               (r["bfails"], r["bcool"]))
+        c.run(sample)
+        self._inflight = (c, lat, steps, ~done)
+
+    @torch.inference_mode()
+    def spec_collect(self) -> List[Tuple[int, str, GenStats]]:
+        """The one host sync of the burst chain in flight: fetch every
+        burst's traces and replay them into the slots in burst order.  A
+        burst's first token is charged its one cloud round-trip, the
+        accepted tokens behind it the edge decode; per burst and row one
+        breaker transition of the mirror, cloud_calls += 1 unless the
+        row ran degraded, spec_drafted += k and spec_accepted += the
+        accepted drafts.  Deadlines cancel as in ``macro_collect``."""
+        pending, self._pending_done = self._pending_done, []
+        if self._inflight is None:
+            return pending
+        c, lat, steps0, live = self._inflight
+        self._inflight = None
+        eng = self.eng
+        k = c.k
+        tr = eng.dep.fetch_traces(c.traces)
+        fault = eng.fault
+        edge32, fb32 = eng._fault_f32()
+        out: List[Tuple[int, str, GenStats]] = pending
+        freed: List[int] = []
+        cancelled: List[int] = []
+        emitted = np.zeros((self.batch,), np.int64)
+        for burst in tr:
+            sels, w = burst[:k], burst[k:2 * k]
+            n_emit = burst[2 * k].astype(np.int64)
+            c_sel = burst[2 * k + 1].astype(np.int64)
+            arrived = burst[2 * k + 2].astype(bool)
+            lost = burst[2 * k + 3].astype(bool)
+            emitted += n_emit
+            for i, s in enumerate(self.slots):
+                if s is None or not n_emit[i]:
+                    continue
+                st = s.stats
+                if s.deadline_ms is not None \
+                        and st.clock_ms >= s.deadline_ms:
+                    out.append(self._cancel_row(i, s))
+                    cancelled.append(i)
+                    continue
+                lat_b = float(lat[i, len(s.out_ids) - steps0[i]])
+                deg = False
+                if fault is not None:
+                    deg, raw = eng._mirror_breaker(s, lost[i],
+                                                   len(s.out_ids))
+                    lat_b = edge32 if deg else (fb32 if raw else lat_b)
+                st.spec_drafted += k
+                st.spec_accepted += int(min(n_emit[i], c_sel[i]))
+                st.cloud_calls += int(not deg)
+                if deg:
+                    # the burst's one degraded breaker step covers all
+                    # its tokens: pure SLM drafts at no cloud cost
+                    extra = int(n_emit[i]) - 1
+                    st.degraded_tokens += extra
+                    eng._health["degraded_tokens"] += extra
+                for t in range(int(n_emit[i])):
+                    if s.deadline_ms is not None \
+                            and st.clock_ms >= s.deadline_ms:
+                        out.append(self._cancel_row(i, s))
+                        cancelled.append(i)
+                        break
+                    st.cloud_tokens += int(arrived[i])
+                    st.fallback_tokens += int(not arrived[i])
+                    st.push_latency(lat_b if t == 0 else edge32)
+                    st.fusion_w.append(float(w[t, i]))
+                    tok = int(sels[t, i])
+                    s.out_ids.append(tok)
+                    st.tokens += 1
+                    if tok == TOK.EOS or len(s.out_ids) >= s.max_new:
+                        out.append((s.rid, TOK.decode(s.out_ids), st))
+                        eng._release_adapter(s)
+                        self.slots[i] = None
+                        freed.append(i)
+                        break
+        self._advance_host_pos(live, freed + cancelled, emitted)
+        if freed or cancelled:
+            self._park_rows(freed + cancelled)
+        return out
 
     def _park_rows(self, freed: List[int]):
         """Park freed rows at FREED_POS: the fixed-width batch still
@@ -1026,9 +1479,13 @@ class _Lane:
         if not updates:
             return
         idx, val = zip(*updates)
-        for c in (self.s_cache, self.l_cache):
-            if c is not None:
-                self.eng.dep.set_row_pos(c, idx, val)
+        self.eng.dep.set_row_pos(self.s_cache, idx, val)
+        if self.use_cloud:
+            if self._spec:
+                # an unparked row's LLM goes back one behind (p - 1);
+                # parking sentinels pass as they are
+                val = [v - 1 if v < FREED_POS else v for v in val]
+            self.eng.dep.set_row_pos(self.l_cache, idx, val)
 
     def _apply_growth(self, which: str, ups: List[Tuple[int, int, int]]):
         """ONE block-table scatter per model per boundary for all rows'
@@ -1215,8 +1672,12 @@ class BatchedHybridEngine(HybridEngine):
     max_seq) is the width of the dense prefill buffer: a wider prompt,
     up to the deployment's ``max_ctx``, streams through chunked prefill
     on paged lanes.  A dense lane cuts a prompt to max_seq - max_new - 1
-    tokens, a paged one to max_ctx - max_new - 1.  ``spec_k`` raises
-    ``NotImplementedError``."""
+    tokens, a paged one to max_ctx - max_new - 1.  ``spec_k=k`` > 0
+    decodes the cloud lane in speculative bursts of k tokens a cloud
+    round-trip (``serving/spec.py``): ceil(macro_k / k) bursts a
+    dispatch with one host sync, or one a step at ``macro_k=0``; k may
+    not exceed a ring window of either model.  A request's
+    ``deadline_ms`` bounds its simulated clock (``add_requests``)."""
 
     def __init__(self, slm=None, slm_params=None, llm=None, llm_params=None,
                  alignment_mlp=None, expert_bank=None,
@@ -1252,9 +1713,18 @@ class BatchedHybridEngine(HybridEngine):
                     f"models (got {lm.cfg.family})")
         if macro_k < 0:
             raise ValueError(f"macro_k={macro_k} must be >= 0")
-        if spec_k != 0:
-            raise NotImplementedError("speculative decode (spec_k): later "
-                                      "slice")
+        if spec_k < 0:
+            raise ValueError(f"spec_k={spec_k} must be >= 0")
+        # a burst's k draft slots must be distinct cache slots for its
+        # snapshot and rollback, so k is bounded by every ring window
+        for lm in (self.dep.slm, self.dep.llm) if spec_k else ():
+            loc = lm._ring_local_len(deployment.max_seq)
+            if loc and spec_k > loc:
+                raise ValueError(
+                    f"spec_k={spec_k} exceeds the {loc}-slot ring window "
+                    f"of {lm.cfg.name}: a draft burst would wrap the ring "
+                    "and its rollback snapshot would alias slots")
+        self.spec_k = spec_k
         ps = deployment.page_size
         self.chunk_width = chunk_width or deployment.max_seq
         if self.chunk_width % ps \
@@ -1315,14 +1785,16 @@ class BatchedHybridEngine(HybridEngine):
                     greedy: bool = True, rid: int = 0,
                     seed: Optional[int] = None,
                     prefix: Optional[str] = None,
-                    adapter_id: Optional[Any] = None) -> bool:
+                    adapter_id: Optional[Any] = None,
+                    deadline_ms: Optional[float] = None) -> bool:
         """Admit one request; False if it could not be admitted now (lane
         full, free pages short, an eviction pending or every adapter
         slot pinned).  A page
         demand beyond the total pool or an unknown adapter id is a hard
         reject, surfaced through ``pop_rejected``."""
         return self.add_requests([(prompt, max_new_tokens, greedy, rid,
-                                   seed, prefix, adapter_id)])[0]
+                                   seed, prefix, adapter_id,
+                                   deadline_ms)])[0]
 
     def _adapter_reject_msg(self, aid) -> str:
         if self.adapters is None:
@@ -1348,21 +1820,15 @@ class BatchedHybridEngine(HybridEngine):
     def add_requests(self, reqs: List[Tuple]) -> List[bool]:
         """Admit a burst of (prompt, max_new_tokens, greedy, rid[, seed
         [, prefix[, adapter_id[, deadline_ms]]]]) requests; adapter_id
-        pins a registered per-user adapter for the request's lifetime.
-        Requests landing in the same lane share ONE packed B>1 prefill.
-        Returns per-request admitted flags; soft-refused requests are
-        retried later, hard rejects land in ``pop_rejected``.  ``prefix``
-        is a shared preamble: the request serves prefix + prompt, with
-        the preamble's pages COW-shared where the paged gate allows."""
-        for prompt, max_new, greedy, rid, *rest in reqs:
-            if len(rest) > 3 and rest[3] is not None:
-                raise NotImplementedError(
-                    "deadline cancellation (deadline_ms=) on the batched "
-                    "engine: later slice")
-        return self._add_requests(reqs)
+        pins a registered per-user adapter for the request's lifetime,
+        deadline_ms bounds its simulated clock.  Requests landing in the
+        same lane share ONE packed B>1 prefill.  Returns per-request
+        admitted flags; soft-refused requests are retried later, hard
+        rejects land in ``pop_rejected``.  ``prefix`` is a shared
+        preamble: the request serves prefix + prompt, with the
+        preamble's pages COW-shared where the paged gate allows.
 
-    def _add_requests(self, reqs: List[Tuple]) -> List[bool]:
-        """Admission gate: a free SLOT and, on paged lanes, free PAGES
+        Admission gate: a free SLOT and, on paged lanes, free PAGES
         per model.  The lazy demand (prompt pages + one decode page,
         capped at the worst case) is reserved here; the hard-reject
         predicate is the worst case against TOTAL pool capacity.  A soft
@@ -1379,6 +1845,7 @@ class BatchedHybridEngine(HybridEngine):
             seed = rest[0] if rest else None
             prefix = rest[1] if len(rest) > 1 else None
             aid = rest[2] if len(rest) > 2 else None
+            deadline = rest[3] if len(rest) > 3 else None
             full = (prefix or "") + prompt
             private = self.detector.detect(full)
             lane = self.edge_lane if private else self.cloud_lane
@@ -1401,7 +1868,7 @@ class BatchedHybridEngine(HybridEngine):
                 jobs[private].append(_Job(
                     free[private].pop(0), full, max_new, greedy, rid,
                     private, seed, ids, None, None, truncated=truncated,
-                    aslot=aslot))
+                    aslot=aslot, deadline_ms=deadline))
                 flags[i] = True
                 continue
             alloc_len = min(len(ids) + max_new, self.max_ctx)
@@ -1462,7 +1929,7 @@ class BatchedHybridEngine(HybridEngine):
             jobs[private].append(_Job(
                 slot, full, max_new, greedy, rid, private, seed, ids,
                 rows_s, rows_l, seq=self._next_seq(), truncated=truncated,
-                aslot=aslot, entry=entry))
+                aslot=aslot, entry=entry, deadline_ms=deadline))
             flags[i] = True
         self.edge_lane.admit_many(jobs[True])
         self.cloud_lane.admit_many(jobs[False])
@@ -1533,23 +2000,43 @@ class BatchedHybridEngine(HybridEngine):
                     parked_rows=sum(m.parked_rows for m in ms),
                     idle_iters=sum(m.idle_iters for m in ms))
 
+    def spec_stats(self) -> Dict[str, float]:
+        """The cloud lane's speculative burst chain: bursts per dispatch,
+        graph replays (of the sampled graph too) and capture seconds on
+        CUDA.  Empty without speculation or before the first dispatch."""
+        c = self.cloud_lane._spec_chain
+        if c is None:
+            return {}
+        return dict(bursts=c.n_bursts, k=c.k, replays=c.replays,
+                    sample_replays=c.sample_replays, capture_s=c.capture_s)
+
     def dispatch_step(self):
-        """Dispatch both lanes' macro steps without syncing (a no-op on
-        the per-token path, ``macro_k=0``, which is host-synchronous).
-        Follow with admission work to overlap it with the decode in
-        flight, then ``collect_step()``."""
+        """Dispatch both lanes' macro steps (the cloud lane's burst chain
+        with ``spec_k``) without syncing (a no-op on the per-token path,
+        ``macro_k=0``, which is host-synchronous).  Follow with
+        admission work to overlap it with the decode in flight, then
+        ``collect_step()``."""
         if self.macro_k:
             self.edge_lane.macro_dispatch(self.macro_k)
-            self.cloud_lane.macro_dispatch(self.macro_k)
+            if self.spec_k:
+                self.cloud_lane.spec_dispatch(
+                    -(-self.macro_k // self.spec_k), self.spec_k)
+            else:
+                self.cloud_lane.macro_dispatch(self.macro_k)
 
     def collect_step(self) -> List[Tuple[int, str, GenStats]]:
-        """Sync and replay the macro steps in flight (with ``macro_k=0``,
-        run one per-token step of both lanes); returns the requests that
-        finished."""
+        """Sync and replay the steps in flight (with ``macro_k=0``, run
+        one per-token step of the edge lane and one burst of a
+        speculative cloud lane, or a per-token step); returns the
+        requests that finished."""
         if self.macro_k:
             return (self.edge_lane.macro_collect()
-                    + self.cloud_lane.macro_collect())
+                    + (self.cloud_lane.spec_collect() if self.spec_k
+                       else self.cloud_lane.macro_collect()))
         out = self.edge_lane.step()
+        if self.spec_k:
+            self.cloud_lane.spec_dispatch(1, self.spec_k)
+            return out + self.cloud_lane.spec_collect()
         return out + self.cloud_lane.step()
 
     def step(self) -> List[Tuple[int, str, GenStats]]:

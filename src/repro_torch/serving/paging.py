@@ -222,6 +222,20 @@ class LanePager:
         del row.owned[len(row.owned) - len(pids):]
         self.alloc.release(pids)
 
+    def rollback_to(self, slot: int, pos: int) -> List[int]:
+        """Speculative rollback of a row to the accepted depth ``pos``
+        (tokens [0, pos) kept): the pages grown for rejected drafts stay
+        mapped (the next accepted tokens fill them), so nothing is
+        freed; checks that the mapping still covers the accepted prefix
+        and returns the page ids mapped past it."""
+        row = self.rows[slot]
+        assert row is not None, f"rollback of empty slot {slot}"
+        need = pages_for(pos, self.page_size)
+        assert len(row.full) >= need, \
+            f"slot {slot}: mapping ({len(row.full)} pages) lost the " \
+            f"accepted prefix ({need} pages for pos {pos})"
+        return row.full[need:]
+
     def release(self, slot: int) -> None:
         """Return a drained row's pages to the free lists: its forks of
         shared prefix pages drop one reader and survive for the others."""

@@ -177,7 +177,8 @@ class ContinuousBatchScheduler:
 
     def _wedge_diagnostics(self, pending: List[Request]) -> str:
         """What a post-mortem needs when the loop stops making progress:
-        who waits, and lane and pool occupancy."""
+        who waits, lane and pool occupancy, and the fault and breaker
+        counters."""
         eng = self.engine
         lines = [f"pending rids: {[r.rid for r in pending]}",
                  f"active rows: {eng.active_count()}"]
@@ -193,6 +194,7 @@ class ContinuousBatchScheduler:
         lines.append(f"growth: {eng.growth_stats()}")
         if eng.adapter_stats():
             lines.append(f"adapters: {eng.adapter_stats()}")
+        lines.append(f"health: {eng.health_stats()}")
         return "; ".join(lines)
 
     def run(self) -> List[Response]:

@@ -27,7 +27,7 @@ from repro_torch.models.model import LM
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.deployment import ServingDeployment
 from repro_torch.serving.engine import BatchedHybridEngine, HybridEngine
-from repro_torch.serving.latency import LatencyModel
+from repro_torch.serving.latency import FaultModel, LatencyModel
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler,
                                            ResponseStatus)
 from _threads import one_thread  # noqa: F401
@@ -298,15 +298,24 @@ def test_unported_options_raise(pair):
                dict(macro_k=0, llm_pool_pages=4),
                dict(macro_k=0, local_pool_pages=4)):
         BatchedHybridEngine(deployment=dep, **kw)
+    # speculative decode is ported: spec_k constructs on paged and dense
+    # lanes; a negative one raises
     for kw in (dict(macro_k=0, spec_k=2),
                dict(macro_k=0, paged=False, spec_k=2)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            BatchedHybridEngine(deployment=dep, **kw)
+        assert BatchedHybridEngine(deployment=dep, **kw).spec_k == 2
+    with pytest.raises(ValueError, match="spec_k"):
+        BatchedHybridEngine(deployment=dep, macro_k=0, spec_k=-1)
     # chunked prefill is ported: a page-aligned chunk_width constructs
     BatchedHybridEngine(deployment=dep, macro_k=0, chunk_width=48)
     eng = BatchedHybridEngine(deployment=dep, batch_size=2, macro_k=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.add_requests([("hi", 2, True, 0, None, None, None, 50.0)])
+    # deadlines are ported: a request with one is admitted, and its
+    # first token (65 ms on the simulated clock) passes the 50 ms
+    done = []
+    assert eng.add_requests([("hi", 2, True, 0, None, None, None,
+                              50.0)]) == [True]
+    while eng.active_count():
+        done += eng.step()
+    assert [(st.tokens, st.cancelled) for _, _, st in done] == [(1, True)]
     # COW prefix sharing is ported: a prefix= request is served (this
     # preamble is under one page, so it is prefilled unshared)
     assert eng.add_requests([("hi", 2, True, 0, None, "pre ")]) == [True]
@@ -336,9 +345,15 @@ def test_unported_options_raise(pair):
     with pytest.raises(ValueError, match="max_ctx"):
         ServingDeployment(pair[1][0], pair[1][1], max_seq=48, max_ctx=32,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingDeployment(pair[1][0], pair[1][1], fault=object(),
-                          device="cpu")
+    # fault injection is ported: a fault model constructs, an all-zero
+    # one is the fault-free path
+    faulted = ServingDeployment(pair[1][0], pair[1][1],
+                                fault=FaultModel(loss_rate=0.5),
+                                device="cpu")
+    assert faulted.fault is not None and faulted.fault_batched is not None
+    clear = ServingDeployment(pair[1][0], pair[1][1], fault=FaultModel(),
+                              device="cpu")
+    assert clear.fault is None and clear.fault_batched is None
     # per-row decode against a dense cache is ported (dense lanes): a
     # live row past its rows still raises before any write
     slm, params = pair[1][0], pair[1][1]

@@ -818,16 +818,126 @@ def test_dense_lanes_equal_paged_on_the_card(cuda, pair, ring, k):
                                           pair == "gemma3" and not ring)
 
 
-def reduced_bf16_deployment(cuda, pair, ring=True):
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", ["2b", "gemma3"])
+def test_faulted_macro_graph_replay_equals_eager_body(cuda, pair):
+    """The macro step on a lossy link (loss 0.25, outage 3 of every 10
+    steps, breaker n 2 m 3): the breaker's update runs inside the cloud
+    lane's graph, and the graph's finished requests (fault accounting
+    included), traces and pending logits equal the eager body's."""
+    macro_graph_vs_eager(cuda, pair, fault=CHAOS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair,fault", [("2b", None), ("2b", "chaos"),
+                                        ("gemma3", None)])
+def test_spec_chain_graph_replay_equals_eager_body(cuda, pair, fault):
+    """The speculative burst chain (spec_k 2, macro_k 4: two bursts a
+    dispatch) replayed from the cloud lane's CUDA graph against the same
+    bursts run eagerly on the card: finished requests, traces, pending
+    logits, ``lt`` and the caches' positions bit-equal after every
+    dispatch, the same kernel launches (K2 (k + 1) x SLM + k x LLM
+    layers a burst), and the lane's tensors at fixed addresses."""
+    from repro_torch.serving.engine import BatchedHybridEngine
+
+    dep = reduced_bf16_deployment(cuda, pair,
+                                  fault=CHAOS if fault else None)
+    k, macro_k = 2, 4
+    graph, eager = (BatchedHybridEngine(deployment=dep, batch_size=4,
+                                        edge_batch_size=2, macro_k=macro_k,
+                                        spec_k=k) for _ in range(2))
+    reqs = [(p, n + 8, True, i)
+            for i, (p, n) in enumerate(zip(MACRO_PROMPTS, MACRO_BUDGETS))]
+    for eng in (graph, eager):
+        assert eng.add_requests(reqs) == [True] * len(reqs)
+    g, e = graph.cloud_lane, eager.cloud_lane
+    chain = e.spec_chain(2, k)
+    chain.run = lambda sample=False, c=chain: [c.body(t, sample)
+                                               for t in range(c.n_bursts)]
+    g.spec_chain(2, k)
+    per_burst = (k + 1) * dep.slm.cfg.num_layers \
+        + k * dep.llm.cfg.num_layers
+
+    def addresses():
+        return [t.data_ptr() for t in (g.sl, g.ll, g.lt, g.s_cache["pos"],
+                                       g.l_cache["pos"],
+                                       g._spec_chain.traces)]
+    ptrs = None
+    while graph.active_count() or eager.active_count():
+        got = []
+        for eng in (graph, eager):
+            K2.paged_decode_attention.launches = 0
+            out = eng.step()
+            torch.cuda.synchronize()
+            got.append(([(rid, text, st.tokens, st.latency_ms, st.fusion_w,
+                          st.degraded_tokens, st.spec_accepted)
+                         for rid, text, st in out],
+                        K2.paged_decode_attention.launches))
+        assert got[0] == got[1]
+        assert torch.equal(g._spec_chain.traces, e._spec_chain.traces)
+        for a, b in ((g.sl, e.sl), (g.lt, e.lt), (g.s_cache["pos"],
+                                                  e.s_cache["pos"]),
+                     (g.l_cache["pos"], e.l_cache["pos"])):
+            assert torch.equal(a, b)
+        ptrs = ptrs or addresses()
+        assert addresses() == ptrs
+    assert g._spec_chain.per_replay(K2.paged_decode_attention) \
+        == 2 * per_burst
+    assert g._spec_chain.replays >= 2 and e._spec_chain.replays == 0
+    if fault:
+        assert graph.health_stats() == eager.health_stats()
+        assert graph.health_stats()["breaker_trips"] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("macro_k", [0, 8])
+def test_spec_equals_per_token_on_the_card(cuda, macro_k):
+    """On the reduced 2b pair in bf16 (every request admitted in one
+    burst), spec_k 4 emits the spec_k = 0 run's token ids and counts at
+    the same macro_k, with fewer cloud calls."""
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    # calm weather: every reply arrives, so a burst's one draw equals
+    # the per-token draws it stands for
+    dep = reduced_bf16_deployment(cuda, "2b", latency=dict(
+        rtt_ms=50.0, jitter_ms=5.0, cloud_compute_ms=20.0, seed=7))
+    runs = []
+    decode, TOK.decode = TOK.decode, lambda ids: ",".join(map(str, ids))
+    try:
+        for spec_k in (0, 4):
+            sched = ContinuousBatchScheduler.from_deployment(
+                dep, batch_size=4, edge_batch_size=2, macro_k=macro_k,
+                spec_k=spec_k)
+            for p, n in zip(MACRO_PROMPTS, MACRO_BUDGETS):
+                sched.submit(p, n + 8)
+            res = sched.run()
+            runs.append(([(r.text, r.stats.tokens, r.stats.cloud_tokens)
+                          for r in res],
+                         sum(r.stats.cloud_calls for r in res)))
+    finally:
+        TOK.decode = decode
+    assert runs[1][0] == runs[0][0]
+    assert runs[1][1] < runs[0][1]
+
+
+CHAOS = dict(loss_rate=0.25, outage_period=10, outage_len=3, seed=3,
+             breaker_n=2, breaker_m=3)
+
+
+def reduced_bf16_deployment(cuda, pair, ring=True, fault=None,
+                            latency=None):
     """The reduced ``pair`` in bf16 on the card, max_seq 96, jittery
-    weather; the gemma3 SLM with or without ring caches."""
+    weather (or the LatencyModel fields ``latency``); the gemma3 SLM with
+    or without ring caches; ``fault`` the fields of a FaultModel, or
+    None."""
     import dataclasses
 
     from repro_torch.configs.floe_pair import needs_ring_cache, pair_configs
     from repro_torch.core import fusion as FUS
     from repro_torch.models.model import LM
     from repro_torch.serving.deployment import ServingDeployment
-    from repro_torch.serving.latency import LatencyModel
+    from repro_torch.serving.latency import FaultModel, LatencyModel
 
     scfg, lcfg = (dataclasses.replace(c, dtype="bfloat16")
                   for c in pair_configs(pair))
@@ -836,15 +946,16 @@ def reduced_bf16_deployment(cuda, pair, ring=True):
     return ServingDeployment(
         slm, slm.init(0), llm, llm.init(1),
         FUS.init_alignment(2, scfg.vocab_size, device=cuda),
-        latency=LatencyModel(rtt_ms=160, jitter_ms=40.0,
-                             cloud_compute_ms=20, seed=7),
-        max_seq=96, device=cuda)
+        latency=LatencyModel(**(latency or dict(
+            rtt_ms=160, jitter_ms=40.0, cloud_compute_ms=20, seed=7))),
+        max_seq=96, fault=FaultModel(**fault) if fault else None,
+        device=cuda)
 
 
-def macro_graph_vs_eager(cuda, pair, sampled=False):
+def macro_graph_vs_eager(cuda, pair, sampled=False, fault=None):
     from repro_torch.serving.engine import BatchedHybridEngine
 
-    dep = reduced_bf16_deployment(cuda, pair)
+    dep = reduced_bf16_deployment(cuda, pair, fault=fault)
     scfg, lcfg = dep.slm.cfg, dep.llm.cfg
     k = 4
     graph, eager = (BatchedHybridEngine(deployment=dep, batch_size=4,
@@ -900,6 +1011,9 @@ def macro_graph_vs_eager(cuda, pair, sampled=False):
     st = graph.macro_stats()
     assert st["macros"] == 2 and st["replays"] >= 3
     assert eager.macro_stats()["replays"] == 0
+    if fault:
+        assert graph.health_stats() == eager.health_stats()
+        assert graph.cloud_lane._macro.traces.shape[0] == 5
     if sampled:
         cloud = graph.cloud_lane._macro
         assert set(cloud.graphs) == {False, True}

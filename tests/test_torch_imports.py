@@ -110,11 +110,15 @@ def test_serve_sample_on_cpu(capsys):
 
 def test_serve_refuses_later_slice_flags(capsys):
     import re
-    for argv in (["--local", "--spec-k", "4"],
-                 ["--local", "--batch", "4", "--deadline-ms", "50"]):
+    for argv in (["--local", "--mesh-devices", "8"],
+                 ["--local", "--batch", "4", "--rules", "fsdp"]):
         with pytest.raises(SystemExit):
             serve.main(argv)
         assert "later slice" in capsys.readouterr().err
+    # --spec-k is ported, on the batched engine only
+    with pytest.raises(SystemExit):
+        serve.main(["--local", "--device", "cpu", "--spec-k", "4"])
+    assert "--spec-k requires --batch" in capsys.readouterr().err
     # --max-ctx and --chunk-width are ported: the demo prompts fit the
     # dense row, so the batched run prints the default run's lines
     def lines(argv):
