@@ -6,8 +6,8 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 
 Phases, in order; any failure exits non-zero before the result lines:
   1. device   the card's name and power limit;
-  2. build    every CUDA kernel of the serving paths, from ``csrc/``, one
-              ``nvcc`` per source, all started together;
+  2. build    every CUDA kernel of the serving and training paths, from
+              ``csrc/``, one ``nvcc`` per source, all started together;
   3. kernels  each kernel (K1 fusion, K2 paged decode attention, K3
               prefill flash attention, K4 slot-gather LoRA delta, K5
               gated multi-LoRA delta, K6 Mamba-1 selective scan) against
@@ -30,7 +30,14 @@ Phases, in order; any failure exits non-zero before the result lines:
               Pallas original) at B = 1 and 8, V = 256,000, near-flat
               and peaked rows under a mixed greedy mask: ids and
               perturbed scores equal to its numpy plain version's bit
-              for bit;
+              for bit; K8 (attention backward) and K9 (LoRA-delta
+              backward), no Pallas originals, against autograd of K3's
+              and K5's plain versions: K8 at (4, 40), (8, 48) and (1,
+              2048) of the 2b SLM's H 8 / KV 1 / head_dim 256 on the
+              model's layout (K3's LSE output against the plain
+              log-sum-exp, K3's output unchanged by it), K9 at T = 160
+              on the six targets (E = 1) and at mlp_in and mlp_out with
+              E = 4 soft gates; two calls return the same bits;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
@@ -177,10 +184,26 @@ Phases, in order; any failure exits non-zero before the result lines:
               K2 at n_bursts x ((k + 1) x 18 + k x 28) and K1 at n_bursts
               x k; at K 8 on the faulted link (a breaker trip); one
               profiled dispatch; serve_gemma3_spec (spec_k 4, K 8, ring
-              launches) at the end of phase 10.
+              launches) at the end of phase 10;
+  17. federate  federated fine-tuning of the full-width floe-slm-2b
+              (the pair's SLM, bf16): (a) one client step (B x S = 4 x
+              40, a rank-16 adapter drawn with the reference's threefry
+              tree) through K3/K8 and K5/K9 against the same step with
+              the plain versions on the card: loss and every LoRA leaf's
+              gradient within FED_LOSS_RTOL / FED_GRAD_RTOL, step ms,
+              peak memory, K3 and K8 once and K5 and K9 six times a
+              layer; (b) run_simulation on FED_SIM (5 clients, one
+              round): history, wall time, dropped clients, each training
+              client's first-batch loss before and after its steps (it
+              must fall); (c) one DP client round (clip 1.0, noise 0.5),
+              timed with its host noise draw apart; (d) the published
+              expert bank and router serving serve_batched's 20 requests
+              through the batched engine at macro_k 8: every request
+              served, tokens/s.
 The kernels phase also holds K3's history-offset mode (K3_OFFSET_SHAPES)
 and K2 over (8, 256) block tables against their plain versions.
-Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line and,
+Then it prints the ``federate:`` summary, the ``{"kernels": [...]}``
+line (K1-K9), the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
 import contextlib
@@ -250,6 +273,39 @@ EVICTED_W_TOL = 1e-5
 # adapter must be exact zeros.
 LORA_ROW_RTOL = 1e-5
 LORA_E, LORA_R = 4, 16
+# K8: per gradient (dq, dk, dv), max|out - ref| / max|ref| against
+# autograd of K3's plain version: P and dS rounded to bf16 before the
+# products that take them (the plain version keeps f32), plus the bf16
+# rounding of each gradient; the LSE against the plain log-sum-exp in
+# absolute terms (f32 sums in another order over |scores| of a few
+# units).
+K8_RTOL = 2 ** -6
+K8_LSE_TOL = 1e-4
+# K9: dA and dB, max|out - ref| / max|ref|: f32 sums of up to 32,768
+# products in another order; dx also rounds to bf16 (one ulp is 2**-8 of
+# a value).
+K9_RTOL = 1e-5
+K9_DX_RTOL = 2 ** -7
+# federate: a client step's batch and length (B x S = 160 tokens), and
+# the simulation: tests/test_federated.py's SimConfig at full width with
+# five clients and seed 1, where (replayed on the host: Algorithm 1 on
+# the full-width LUT, the fleet's loads, the batches) the two
+# jetson-orin-nx clients train at rank 64 and one jetson-orin-nano at
+# rank 16, the other orin-nano (load past 0.37) and the jetson-nano drop,
+# and every training client's batches carry answer tokens (at seed 3
+# client 3's carry none: its loss is 0 and cannot fall)
+FED_BATCH, FED_SEQ = 4, 40
+FED_SIM = dict(num_clients=5, examples_per_client=32, rounds=1,
+               local_steps=5, seq_len=40, batch_size=4, alpha=0.05, seed=1)
+# federate (a): the kernel step against the plain step on the card, both
+# bf16 through 18 layers: the loss relative, each LoRA leaf's gradient
+# as max|diff| / max|ref|.  K3/K8 round P and dS to bf16 where the
+# plain attention keeps f32 (2**-8 of a value), and the difference
+# travels through 18 bf16 layers of activations both ways: an H100 run
+# read 0.40% (o's A) to 1.30% (mlp_in's B), and the limit sits at twice
+# the larger.
+FED_LOSS_RTOL = 1e-3
+FED_GRAD_RTOL = 2.5e-2
 # (k, n) of the SLM's LoRA targets: q and o, k and v, mlp_in, mlp_out
 LORA_SHAPES = [(2048, 2048), (2048, 256), (2048, 32768), (16384, 2048)]
 K4_SLOTS = [0, 1, 2, 3, -1, 0, 2, -1]
@@ -296,8 +352,12 @@ SSM_LONG_TOKENS = 1536
 # max_seq of serve_ssm: page-aligned, with room for the long prompt and
 # 16 new tokens (cap = max_seq - 16 - 1)
 SSM_MAX_SEQ = 1568
-# quiet time on each side of a profiled block (see ``profiled``)
-PROFILE_MARGIN_S = 0.1
+# quiet time before and after a profiled block; a side is widened x4
+# for the rest of the run each time a window loses its edge there;
+# windows taken per block at most (see ``profiled`` and ``retaken``)
+PROFILE_MARGINS_S = {"leading": 0.1, "trailing": 0.1}
+PROFILE_MARGIN_MAX_S = 6.4
+PROFILE_TRIES = 4
 # serve_sampled: odd requests of serve_batched's traffic draw with seed
 # SAMPLED_SEED + i
 SAMPLED_SEED = 2000
@@ -1387,10 +1447,13 @@ def phase_cli():
 
 
 def all_kernels():
-    """Every kernel wrapper of the port, K1-K7."""
+    """Every kernel wrapper of the port, K1-K9."""
+    from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.logit_fusion import sample as K7
+    from repro_torch.kernels.moe_lora import kernel as KL
     from repro_torch.kernels.ssm_scan import kernel as K6
-    return lora_kernels() + (K6.ssm_scan, K7.sample_fused)
+    return lora_kernels() + (K6.ssm_scan, K7.sample_fused,
+                             K3.flash_attention_bwd, KL.moe_lora_delta_bwd)
 
 
 def phase_serve_ssm(torch):
@@ -1494,7 +1557,8 @@ def phase_serve_ssm(torch):
             or not h_rel <= LOGITS_TOL:
         raise SystemExit("serve_ssm: the prefill disagrees with the plain "
                          "scan")
-    traced = trace_solo(torch, eng, SSM_LONG_PROMPT)
+    traced = retaken("trace_solo",
+                     lambda: trace_solo(torch, eng, SSM_LONG_PROMPT))
     return launches, dict(wall_s=wall, tokens=tokens, peak_gib=peak,
                           prefill_long_ms=prefill_ms[-1],
                           decode_steps_per_s=calls["slm_decode"] / decode_s,
@@ -1611,7 +1675,7 @@ def phase_serve(torch, dep):
         if logits.shape != (1, 1, 256_000) or \
                 not torch.isfinite(logits).all():
             raise SystemExit(f"{lm.cfg.name}: bad prefill logits")
-    trace(torch, sched.engine)
+    retaken("trace", lambda: trace(torch, sched.engine))
     return launches
 
 
@@ -1694,7 +1758,7 @@ def phase_serve_batched(torch, dep):
                          f"times for {layer_steps} decode layer-steps")
     if eng.resident_kv_bytes() != 0:
         raise SystemExit("pages leaked after the run")
-    trace_batched(torch, eng)
+    retaken("trace_batched", lambda: trace_batched(torch, eng), eng)
     return launches, res, groups.of_rid
 
 
@@ -2713,7 +2777,8 @@ def phase_serve_spec(torch, dep, f_dep, base):
         out[f"serve_spec{'_k0' if not mk else ''}"], eng, _, _ = spec_run(
             torch, dep, SPEC_K, mk, *base[mk])
         if mk == 8:
-            profile_spec_burst(torch, eng)
+            retaken("serve_spec", lambda: profile_spec_burst(torch, eng),
+                    eng)
         del eng
         gc.collect()
     out["serve_spec_faults"], eng, res, h = spec_run(
@@ -3047,7 +3112,7 @@ def serve_adapters_macro(torch, ad_dep, users, per_token, k=8):
     if bad:
         raise SystemExit(f"{tag}: requests {bad} admitted in the same "
                          "group differ from the per-token K4 run")
-    profile_lora_boundary(torch, eng, tag)
+    retaken(tag, lambda: profile_lora_boundary(torch, eng, tag), eng)
     return dict(ids=ids, launches=launches, calls=calls, wall=wall,
                 peak=peak)
 
@@ -3213,7 +3278,7 @@ def phase_serve_gemma3(torch, dep):
     if bad:
         raise SystemExit(f"serve_gemma3_batched: requests {bad} admitted in "
                          "the same group differ from the K = 0 run")
-    trace_batched(torch, eng8)
+    retaken("trace_batched", lambda: trace_batched(torch, eng8), eng8)
     del eng8
     gc.collect()
     dense = serve_gemma3_dense(torch, g_dep, res8)
@@ -3500,6 +3565,407 @@ def k7_inputs(torch, g, b, v=256_000):
     return probs, greedy, keys, steps
 
 
+def k8_case(torch, g, b, h, kvh, s, d=256):
+    """K3 forward with its LSE, then K8, against autograd of K3's plain
+    version on the same bf16 (B, H, S, D) views of (B, S, H, D) tensors
+    (the model's layout); K3's output must not change with the LSE on,
+    two K8 calls must return the same bits.  Timed beside K8's plain
+    version and autograd through SDPA (enable_gqa)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K3
+    q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=g)
+               .bfloat16().transpose(1, 2) for n in (h, kvh, kvh))
+    do = torch.randn(b, s, h, d, device="cuda",
+                     generator=g).bfloat16().transpose(1, 2)
+    out, lse = K3.flash_attention(q, k, v, return_lse=True)
+    plain_out = K3.flash_attention(q, k, v)
+    grads = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    again = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain_out):
+        raise SystemExit("K3: the LSE output changed the attention output")
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        raise SystemExit("K8: two calls on the same inputs differ")
+    lse_ref = K3.attention_lse_plain(q, k)
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(K3.flash_attention_plain(qr, kr, vr),
+                              (qr, kr, vr), do)
+    rel = [((x.float() - y.float()).abs().max()
+            / y.float().abs().max()).item() for x, y in zip(grads, ref)]
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=kvh != h)
+
+    def lib():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                   retain_graph=True)
+    # five products a visible (query, key) pair and head (S, dP, dV, dQ,
+    # dK), 2 d operations each; q, o, dO read and dq written, k, v read
+    # and dk, dv written, the LSE read
+    pairs = b * h * s * (s + 1) // 2
+    nbytes = 2 * (4 * b * h * s * d + 4 * b * kvh * s * d) + 4 * b * h * s
+    bms, by = bound(nbytes, 10 * d * pairs, BF16_FLOP_PER_S)
+    iters = 20 if s > 512 else 100
+    case = dict(
+        shape=dict(B=b, H=h, KVH=kvh, S=s, D=d,
+                   layout="(B, S, H, D) views"), dtype="bfloat16",
+        max_abs_err=max((x.float() - y.float()).abs().max().item()
+                        for x, y in zip(grads, ref)),
+        max_rel_err=max(rel), rel_err_dq_dk_dv=rel,
+        lse_max_abs_err=(lse - lse_ref).abs().max().item(),
+        ms=time_ms(torch, lambda: K3.flash_attention_bwd(
+            q, k, v, out, do, lse), iters),
+        plain_ms=time_ms(torch, lambda: K3.flash_attention_bwd_plain(
+            q, k, v, out, do, lse), max(3, iters // 10)),
+        library_ms=time_ms(torch, lib, iters),
+        forward_lse_ms=time_ms(torch, lambda: K3.flash_attention(
+            q, k, v, return_lse=True), iters),
+        forward_ms=time_ms(torch, lambda: K3.flash_attention(q, k, v),
+                           iters),
+        bound_ms=bms, bound_by=by)
+    print(f"K8 flash_attention_bwd: {case}")
+    return case
+
+
+def k9_case(torch, g, t, k, n, e, groups):
+    """K9 against autograd of K5's plain version at (T, k, n), E experts,
+    r = LORA_R, ``groups`` gate rows of random soft gates (ones when E =
+    1, as a client step's (1,) gate); two calls must return the same
+    bits.  Timed beside K9's plain version and autograd through the
+    einsums."""
+    from repro_torch.kernels.moe_lora import kernel as KL
+    r = LORA_R
+    x = torch.randn(t, k, device="cuda", generator=g).bfloat16()
+    a = torch.randn(e, r, k, device="cuda", generator=g) / math.sqrt(k)
+    bm = torch.randn(e, n, r, device="cuda", generator=g) * 0.1
+    gates = torch.ones(groups, e, device="cuda") if e == 1 else \
+        torch.softmax(torch.randn(groups, e, device="cuda", generator=g), -1)
+    dy = torch.randn(t, n, device="cuda", generator=g)
+    rpg = t // groups
+    got = KL.moe_lora_delta_bwd(x, a, bm, gates, dy, rpg)
+    again = KL.moe_lora_delta_bwd(x, a, bm, gates, dy, rpg)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, w) for u, w in zip(got, again)):
+        raise SystemExit("K9: two calls on the same inputs differ")
+    xs, as_, bs = (z.detach().clone().requires_grad_(True)
+                   for z in (x, a, bm))
+    lib_out = KL.moe_lora_delta_plain(xs, as_, bs, gates, rpg)
+    ref = torch.autograd.grad(lib_out, (xs, as_, bs), dy, retain_graph=True)
+    rel = [((u.float() - w.float()).abs().max()
+            / w.float().abs().max()).item() for u, w in zip(got, ref)]
+
+    def lib():
+        return torch.autograd.grad(lib_out, (xs, as_, bs), dy,
+                                   retain_graph=True)
+    nbytes = 2 * (2 * t * k) + 4 * (2 * e * r * (k + n) + t * n) \
+        + 4 * groups * e
+    bms, by = bound(nbytes, 2 * t * e * r * (3 * k + 2 * n), F32_FLOP_PER_S)
+    iters = 50
+    case = dict(
+        shape=dict(T=t, k=k, n=n, E=e, r=r, gate_rows=groups),
+        dtype="x bf16, bank/dy f32",
+        max_abs_err=max((u.float() - w.float()).abs().max().item()
+                        for u, w in zip(got, ref)),
+        max_rel_err=max(rel), rel_err_dx_da_db=rel,
+        ms=time_ms(torch, lambda: KL.moe_lora_delta_bwd(
+            x, a, bm, gates, dy, rpg), iters),
+        plain_ms=time_ms(torch, lambda: KL.moe_lora_delta_bwd_plain(
+            x, a, bm, gates, dy, rpg), iters // 5),
+        library_ms=time_ms(torch, lib, iters // 5),
+        bound_ms=bms, bound_by=by)
+    print(f"K9 moe_lora_delta_bwd: {case}")
+    return case
+
+
+def phase_train_kernels(torch):
+    """K8 and K9 (no Pallas originals: the backward kernels of a client
+    step) against autograd of the forward kernels' plain versions on the
+    card: K8 at the client steps' shapes (B x S = 4 x 40, the chip
+    phase, and 8 x 48, SimConfig's default) and at (1, 2048), the 2b
+    SLM's H 8 / KV 1 / head_dim 256; K9 at T = 160 on the six (k, n) of
+    the SLM's targets with E = 1 (a client step) and at mlp_in and
+    mlp_out with E = 4 soft gates over 4 gate rows."""
+    g = torch.Generator(device="cuda").manual_seed(25)
+    k8 = [k8_case(torch, g, b, 8, 1, s) for b, s in ((4, 40), (8, 48),
+                                                    (1, 2048))]
+    shapes = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
+              (2048, 32768), (16384, 2048)]
+    k9 = [k9_case(torch, g, 160, k, n, 1, 1) for k, n in shapes] + \
+        [k9_case(torch, g, 160, k, n, 4, 4) for k, n in shapes[4:]]
+    bad = [c for c in k8 if not (c["max_rel_err"] <= K8_RTOL
+                                 and c["lse_max_abs_err"] <= K8_LSE_TOL)] + \
+        [c for c in k9 if not (c["rel_err_dx_da_db"][0] <= K9_DX_RTOL
+                               and max(c["rel_err_dx_da_db"][1:])
+                               <= K9_RTOL)]
+    if bad:
+        raise SystemExit(f"K8/K9 disagree with autograd of their plain "
+                         f"versions: {bad}")
+    return k8, k9
+
+
+def train_counts():
+    """Launch counts of the training kernels: K3 and K5 forward, K8 and
+    K9 backward."""
+    k1, k2, k3, k4, k5 = lora_kernels()
+    k8, k9 = all_kernels()[-2:]
+    return {fn.__name__: fn.launches for fn in (k3, k5, k8, k9)}
+
+
+def fed_batch(torch, seed, device):
+    """A client-step batch of FED_BATCH mixed-task examples at FED_SEQ
+    tokens, on ``device``."""
+    from repro_torch.data import pipeline as PIPE
+    from repro_torch.data.tasks import TASKS, make_mixed_dataset
+    return PIPE.to_torch(PIPE.make_batch(
+        make_mixed_dataset(list(TASKS), FED_BATCH, seed), FED_SEQ), device)
+
+
+def fed_client_step(torch, lm, params):
+    """(a) One client step of floe-slm-2b at full width two ways: through
+    K3/K8 and K5/K9, and with the plain versions called on the same CUDA
+    tensors (``flash_attention_train`` and ``moe_lora_delta_train``
+    swapped for K3's and K5's plain versions, whose backward is
+    autograd's).  A rank-16 adapter drawn with the reference's threefry
+    tree (its host time is printed), B ~ N(0, 0.02^2) so that every A
+    and B leaf takes a gradient.  The loss within FED_LOSS_RTOL, every
+    leaf's gradient within FED_GRAD_RTOL of its max; the kernel step's
+    ms (gradients and one AdamW update), peak memory, and a
+    torch.profiler breakdown of one more step."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.moe_lora import kernel as KL
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+
+    t0 = time.perf_counter()
+    adapter = LORA.init_adapter_keyed(lm, prng.key(0), rank=16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=lm.device).manual_seed(250)
+    for leaf in adapter["layers"].values():
+        leaf["B"].normal_(0.0, 0.02, generator=g)
+    body = LORA.bank_for_model(LORA.single_expert_bank(adapter))
+    batch = fed_batch(torch, 25, lm.device)
+    gates = torch.ones(1, device=lm.device)
+    opt = OPT.adamw(OPT.constant_schedule(5e-3))
+
+    def step():
+        loss, grads = TS.value_and_grad(
+            lambda b: TS.lora_loss_fn(lm, params, b, batch, gates), body)
+        new, _ = opt.update(grads, opt.init(body), body)
+        return loss, grads, new
+
+    step()                                      # warm-up
+    reset_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, _ = step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kernel_counts = train_counts()
+    n_layers = lm.cfg.num_layers
+    want = {"flash_attention": n_layers, "moe_lora_delta": 6 * n_layers,
+            "flash_attention_bwd": n_layers,
+            "moe_lora_delta_bwd": 6 * n_layers}
+    if kernel_counts != want:
+        raise SystemExit(f"federate (a): launches {kernel_counts}, "
+                         f"expected {want}")
+    def profiled_step():
+        with profiled(torch) as prof:
+            step()
+        return prof
+    rows = profile_rows(torch, retaken("federate (a)", profiled_step))
+    busy = sum(r[0] for r in rows)
+    print(f"federate (a) profiled step: device busy {busy:.2f} ms = "
+          f"{100 * busy / step_ms:.1f}% of the untraced {step_ms:.2f} ms; "
+          f"{sum(r[1] for r in rows)} kernel launches")
+    for ms, n, key in rows[:12]:
+        print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
+    swapped = (L.moe_lora_delta_train, ATT.flash_attention_train)
+    L.moe_lora_delta_train = KL.moe_lora_delta_plain
+    ATT.flash_attention_train = K3.flash_attention_plain
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_loss, p_grads, _ = step()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_counts = train_counts()
+    finally:
+        L.moe_lora_delta_train, ATT.flash_attention_train = swapped
+    if any(plain_counts.values()):
+        raise SystemExit(f"federate (a): the plain step launched "
+                         f"{plain_counts}")
+    loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+    leaf_rel = {}
+    for (stack, st) in sorted(grads.items()):
+        for tgt in sorted(st):
+            for ab in ("A", "B"):
+                x, y = st[tgt][ab], p_grads[stack][tgt][ab]
+                leaf_rel[f"{tgt}.{ab}"] = ((x - y).abs().max()
+                                           / y.abs().max()).item()
+    out = dict(loss=float(loss), plain_loss=float(p_loss),
+               loss_rel_err=loss_rel, grad_rel_err=leaf_rel,
+               step_ms=step_ms, plain_step_ms=plain_ms, peak_gib=peak,
+               busy_ms=busy, top_kernels=[(r[0], r[1], r[2][:60])
+                                          for r in rows[:6]],
+               launches=kernel_counts, adapter_init_s=init_s,
+               adapter_params=LORA.count_params(adapter),
+               tokens=int(batch["tokens"].numel()))
+    print(f"federate (a) client step: {out}")
+    if not (loss_rel <= FED_LOSS_RTOL
+            and max(leaf_rel.values()) <= FED_GRAD_RTOL):
+        raise SystemExit("federate (a): the kernel step disagrees with the "
+                         "plain step")
+    return out
+
+
+def phase_federate(torch, dep):
+    """Federated fine-tuning of the full-width floe-slm-2b on the card (the
+    serving deployment's SLM and parameters): (a) ``fed_client_step``;
+    (b) ``run_simulation`` on FED_SIM (5 clients, 32 examples each, one
+    round of 5 local steps at seq 40, batch 4): the history, the wall
+    time, each training client's loss on its first batch before (the
+    initial adapter's B is zero, so the frozen base's) and after its
+    steps, which must fall, K8/K9 launched 18 x 5 a training client and
+    layer kind; (c) one DP client round (clip 1.0, noise 0.5, one local
+    step: 19 M host normals), timed, the draw apart; (d) the published
+    expert bank and router serving serve_batched's 20 requests through
+    the batched engine at macro_k 8 on the router path (run once to
+    capture the graphs, then counted): every request served, K5 and no
+    K4 in the decode layers, tokens/s.  Returns the (b) launch counts and
+    a summary."""
+    from repro_torch.core import dp as DPM
+    from repro_torch.core import rank_select as RS
+    from repro_torch.data import pipeline as PIPE
+    from repro_torch.federated import simulation as SIM
+    from repro_torch.federated.client import LocalTrainer
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+    from repro_torch.training import train_step as TS
+    from repro_torch.core import lora as LORA
+
+    lm, params = dep.slm, dep.slm_params
+    step = fed_client_step(torch, lm, params)
+
+    sim = SIM.SimConfig(**FED_SIM)
+    fleet = SIM.make_fleet(sim)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = SIM.run_simulation(lm, params, sim, fleet)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    counts = train_counts()
+    hist = res.server.state.history[-1]
+    ups = res.updates_per_round[0]
+    n_layers = lm.cfg.num_layers
+    want = len(ups) * sim.local_steps * n_layers
+    print(f"federate (b) run_simulation: {sim_s:.2f} s; history {hist}; "
+          f"dropped {res.dropped_per_round}; launches {counts}")
+    if len(ups) < 2 or counts["flash_attention_bwd"] != want \
+            or counts["moe_lora_delta_bwd"] != 6 * want:
+        raise SystemExit(f"federate (b): {len(ups)} clients trained, "
+                         f"launches {counts}, K8 expected {want}")
+    trainer = LocalTrainer(lm, sim.seq_len, sim.batch_size, sim.lr,
+                           sim.local_steps)
+    gates = torch.ones(1, device=lm.device)
+    clients = []
+    with torch.no_grad():
+        for u in ups:
+            client = fleet[u.cid]
+            batch = PIPE.to_torch(next(trainer.batches(
+                client, sim.seed * 100)), lm.device)
+            before = float(TS.masked_cross_entropy(
+                lm.train_logits(params, batch)[0], batch["targets"],
+                batch["mask"]))
+            after = float(TS.lora_loss_fn(
+                lm, params, LORA.single_expert_bank(u.adapter), batch,
+                gates))
+            clients.append(dict(cid=u.cid, device=client.device.name,
+                                load=client.background_load, rank=u.rank,
+                                loss_before=before, loss_after=after,
+                                last_step_loss=u.local_loss))
+    for c in clients:
+        print(f"federate (b) client {c}")
+    if not all(c["loss_after"] < c["loss_before"] for c in clients):
+        raise SystemExit("federate (b): a client's loss did not fall")
+
+    spent = []
+    privatize = DPM.privatize
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = privatize(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+    DPM.privatize = timed
+    try:
+        dp_trainer = LocalTrainer(lm, sim.seq_len, sim.batch_size, sim.lr,
+                                  1, dp_clip=1.0, dp_noise=0.5)
+        lut = RS.build_lut(lm.cfg, tokens_per_step=sim.seq_len
+                           * sim.batch_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp_up = dp_trainer.run_round(fleet[ups[0].cid], params,
+                                     res.server.state.global_adapter, lut,
+                                     sim.deadline, round_seed=1)
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+    finally:
+        DPM.privatize = privatize
+    if dp_up is None or not math.isfinite(dp_up.local_loss):
+        raise SystemExit("federate (c): the DP round failed")
+    dp = dict(round_s=dp_s, privatize_s=sum(spent), steps=len(spent),
+              noise_values=LORA.count_params(dp_up.adapter),
+              loss=dp_up.local_loss)
+    print(f"federate (c) DP round: {dp}")
+
+    bank = res.server.expert_bank()
+    router = res.server.router()
+    r_dep = ServingDeployment(dep.slm, dep.slm_params, dep.llm,
+                              dep.llm_params, dep.mlp, expert_bank=bank,
+                              max_seq=dep.max_seq, device=dep.device)
+    sched = ContinuousBatchScheduler.from_deployment(
+        r_dep, batch_size=8, macro_k=8, lazy_pages=True, router=router)
+    for p, n in BATCHED_REQUESTS:
+        sched.submit(p, max_new_tokens=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TokenIds():
+        sched.run()
+    first_s = time.perf_counter() - t0
+    eng = sched.engine
+    sched = ContinuousBatchScheduler(eng)
+    for p, n in BATCHED_REQUESTS:
+        sched.submit(p, max_new_tokens=n)
+    served, wall, launches, calls, peak = run_counted(
+        torch, sched, r_dep, ("slm_prefill_packed", "slm_decode"))
+    print_batched("federate (d) published bank", served, wall, launches,
+                  calls, peak, macro_k=8)
+    check_batched_responses("federate (d)", eng, served, BATCHED_REQUESTS)
+    if len(served) != len(BATCHED_REQUESTS) \
+            or launches["moe_lora_delta"] <= 0 \
+            or launches["moe_lora_delta_slots"] != 0:
+        raise SystemExit(f"federate (d): launches {launches}")
+    summary = dict(step=step, sim_s=sim_s, history=hist,
+                   dropped=res.dropped_per_round, clients=clients, dp=dp,
+                   experts=len(res.server.state.experts),
+                   router=[m.name for m in router.experts],
+                   serve_first_s=first_s,
+                   serve_tokens_per_s=RATES["federate (d) published bank"])
+    del eng, sched, r_dep
+    return counts, launches, summary
+
+
 def phase_k7(torch):
     """K7 against its plain version at serve_sampled's shapes, B = 1 and
     8, V = 256,000, two seeds (one past 2**32): ids and perturbed scores
@@ -3648,7 +4114,8 @@ def phase_serve_sampled(torch, dep, greedy_res):
         if eng.resident_kv_bytes() != 0:
             raise SystemExit(f"{tag}: pages leaked")
         if k:
-            trace_batched(torch, eng, sampled=True)
+            retaken("trace_batched",
+                    lambda: trace_batched(torch, eng, sampled=True), eng)
         out[k], runs[k] = launches, (res, groups)
     (res0, g0), (res8, g8) = runs[0], runs[8]
     match = [g0[r.rid] == g8[r.rid] for r in res8]
@@ -3771,30 +4238,70 @@ def phase_flat_keys(torch, dep, tag, n_req, budget):
             for p, o in out.items()}
 
 
+class ProfileLost(Exception):
+    """A profiled window lost one of the two marker kernels at its
+    edges, so its device records cannot be read as complete."""
+
+
+def retaken(what, fn, eng=None):
+    """``fn()``, taken again, after draining ``eng``, while a profiled
+    window in it loses an edge (``ProfileLost``), at most PROFILE_TRIES
+    times.  A window that keeps both markers is read, and its checks
+    hold their exact counts."""
+    for _ in range(PROFILE_TRIES):
+        try:
+            return fn()
+        except ProfileLost as lost:
+            print(f"{what}: {lost}; taken again at margins "
+                  f"{PROFILE_MARGINS_S} s")
+            while eng is not None and eng.active_count():
+                eng.step()
+    raise SystemExit(f"{what}: {PROFILE_TRIES} profiled windows in a row "
+                     "lost an edge")
+
+
 @contextlib.contextmanager
 def profiled(torch):
-    """torch.profiler over the block, CPU and CUDA, with a margin on each
-    side.  The profiler keeps a device record only if its span, on the
-    host's clock, lies inside the window, and on the H100 it has dropped
-    the first ~45 ms of a block six minutes into a run of this script,
-    with 20 ms of quiet before the block (a sampled boundary then held
-    30 of its 32 K7 kernels), so an exact kernel count read from the
-    profile would be short.  The window opens with a few spin kernels
-    (``torch.cuda._sleep``, left out of ``profile_rows``) and
-    PROFILE_MARGIN_S of quiet, and closes PROFILE_MARGIN_S after the block's
-    last kernel has ended."""
+    """torch.profiler over the block, CPU and CUDA, between two marker
+    kernels (``torch.cuda._sleep``, left out of ``profile_rows``), each
+    alone on the card, with PROFILE_MARGINS_S of quiet before and after.
+    The profiler keeps a device record only if its span, as stamped,
+    lies inside the window on the host's clock, and on the H100 the
+    stamps of device records have run early of the host by ~0.1 s six
+    minutes into a run of this script (the sampled K = 8 boundary then
+    held 30 of its 32 K7 kernels) and by over 1.6 s in another run.  A
+    window whose first or last device record is not a marker lost that
+    edge: ``ProfileLost`` is raised and that side's margin widened x4
+    for every later window (``retaken`` takes the block again), up to
+    PROFILE_MARGIN_MAX_S."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    margins = dict(PROFILE_MARGINS_S)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            torch.cuda._sleep(1000)
+        time.sleep(margins["leading"])
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        time.sleep(PROFILE_MARGIN_S)
         yield prof
         torch.cuda.synchronize()
-        time.sleep(PROFILE_MARGIN_S)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(margins["trailing"])
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    marked = ["spin_kernel" in e.name for e in ev]
+    lost = [side for side, i in (("leading", 0), ("trailing", -1))
+            if len(ev) < 2 or not marked[i]]
+    if lost:
+        for side in lost:
+            PROFILE_MARGINS_S[side] = min(PROFILE_MARGIN_MAX_S, max(
+                PROFILE_MARGINS_S[side], 4 * margins[side]))
+        raise ProfileLost(f"the profiled window at margins {margins} s "
+                          f"kept {sum(marked)} of its 2 edge "
+                          f"markers and lost its {' and '.join(lost)} edge")
 
 
 def profile_edges(torch, prof, n: int = 8) -> str:
@@ -3829,7 +4336,7 @@ def kernel_offsets(prof, name: str):
 def profile_rows(torch, prof):
     """Device-kernel rows (ms, count, name) of a profile, largest first:
     an operator's row repeats its kernels' time, so only kernels, and
-    not the margin's spin kernels (``profiled``)."""
+    not the edge markers (spin kernels, ``profiled``)."""
     from torch.autograd import DeviceType
     return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
@@ -4025,6 +4532,7 @@ def main() -> int:
     k4_cases, k5_cases = phase_lora(torch)
     k6_cases = phase_k6(torch, len(TOK.encode(DEMO_PROMPTS[0] + " ")))
     k7_cases = phase_k7(torch)
+    k8_cases, k9_cases = phase_train_kernels(torch)
     phase_check(torch)
     phase_cli()
     ssm_launches, ssm_run = phase_serve_ssm(torch)
@@ -4039,7 +4547,7 @@ def main() -> int:
         torch, dep, k0_res, k0_groups)
     # the main path is the engine's default, the K = 8 macro step
     launches = macro_launches[8]
-    trace_batched(torch, eng8)
+    retaken("trace_batched", lambda: trace_batched(torch, eng8), eng8)
     del eng8
     sampled = phase_serve_sampled(torch, dep, k0_res)
     flat = phase_flat_keys(torch, dep, "flat_keys", 8, 8)
@@ -4059,6 +4567,8 @@ def main() -> int:
     spec_paths = phase_serve_spec(torch, dep, f_dep, {
         0: (k0_res, k0_groups), 8: (k8_res, k8_groups)})
     del f_dep
+    gc.collect()
+    fed_counts, fed_serve, fed = phase_federate(torch, dep)
     paths = {"serve": seq_launches, "serve_batched": launches,
              "serve_batched_k0": k0_launches,
              "serve_batched_k1": macro_launches[1],
@@ -4073,7 +4583,8 @@ def main() -> int:
              "serve_pool_pressure": pressure[8],
              "serve_pool_pressure_k0": pressure[0], **flat,
              **gemma3_paths, **prefix, **long_paths, **fault_paths,
-             **spec_paths}
+             **spec_paths, "federate": fed_counts,
+             "federate_serve": fed_serve}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}
@@ -4194,6 +4705,30 @@ def main() -> int:
         shape=k7["shape"], ms=k7["ms"], graph_ms=k7["graph_ms"],
         plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
         bound_by=k7["bound_by"], library_ms=None, cases=k7_cases))
+    # K8 and K9 (no Pallas originals): launches on the federate
+    # simulation (b); K8 at the chip phase's client step (4 x 40), K9 at
+    # its mlp_in (T = 160, k 2,048, n 32,768, E 1)
+    for fn_name, source, replaces, cases, main_case, note in (
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/models/attention.py:82", k8_cases, k8_cases[0],
+             "no pl.pallas_call: the reference differentiates its jnp "
+             "chunked_causal_attention with jax.value_and_grad"),
+            ("moe_lora_delta_bwd", "moe_lora_bwd.cu",
+             "src/repro/models/layers.py:182", k9_cases, k9_cases[4],
+             "no pl.pallas_call: the reference differentiates its einsum "
+             "lora_delta (src/repro/models/layers.py:182-196)")):
+        kernels.append(dict(
+            name=fn_name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=replaces, note=note, launches=fed_counts[fn_name],
+            launches_by_path=by_path[fn_name],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            max_rel_err=max(c["max_rel_err"] for c in cases),
+            shape=main_case["shape"], ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], cases=cases))
+    print(f"federate: {json.dumps(fed)}")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

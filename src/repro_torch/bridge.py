@@ -15,6 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import tree as T
+
 
 def _tensor(a, device, dtype) -> torch.Tensor:
     a = np.asarray(a)
@@ -30,19 +32,15 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 def from_numpy(tree: Any, device="cpu", dtype=None) -> Any:
     """Nested dict of numpy arrays -> nested dict of tensors on
     ``device`` (cast to ``dtype`` when given)."""
-    if isinstance(tree, dict):
-        return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
-    return _tensor(tree, device, dtype)
+    return T.map_tree(lambda a: _tensor(a, device, dtype), tree)
 
 
 def to_numpy(tree: Any) -> Any:
     """Nested dict of tensors -> nested dict of numpy arrays on the host
     (bfloat16 widened to float32)."""
-    if isinstance(tree, dict):
-        return {k: to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        t = tree.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.numpy()
-    return tree
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            t = x.detach().cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return x
+    return T.map_tree(leaf, tree)

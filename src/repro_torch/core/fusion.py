@@ -1,12 +1,14 @@
 """Logit-level LLM-SLM alignment — paper Sec. IV-C (Eq. 14-15) and the
-Sec. IV-D timeout fallback; the port of ``repro/core/fusion.py``
-(inference half).
+Sec. IV-D timeout fallback; the port of ``repro/core/fusion.py``.
 
 A small MLP maps the two concatenated next-token distributions to a
 fusion weight w in [0, 1] (Eq. 14); the output distribution is
 w * P_SLM + (1 - w) * P_LLM (Eq. 15), with w forced to 1 when the cloud
 logits miss the budget.  ``fused_distribution_kernel`` sends Eq. 15
-through K1 (``kernels/logit_fusion``).
+through K1 (``kernels/logit_fusion``).  ``train_alignment`` fits the
+MLP by SGD on ``alignment_loss`` (the reference's ``fusion.py:94-121``),
+with autograd through the plain ``fused_distribution``, as the
+reference differentiates its jnp one: K1 has no backward.
 """
 from __future__ import annotations
 
@@ -86,3 +88,36 @@ def fused_distribution_kernel(mlp, slm_logits, llm_logits,
     p = fused_probs_masked(slm_logits, llm_logits, w, arrived,
                            block_b=block_b)
     return p, torch.where(arrived, w, torch.ones_like(w))
+
+
+def alignment_loss(mlp, slm_logits, llm_logits, targets) -> torch.Tensor:
+    """Mean negative log-probability of the reference next tokens
+    ``targets`` (B,) under the fused distribution (distillation-style)."""
+    p, _ = fused_distribution(mlp, slm_logits, llm_logits)
+    logp = torch.log(torch.clamp(p, min=1e-9))
+    nll = -torch.gather(logp, -1, targets[:, None].long())[:, 0]
+    return nll.mean()
+
+
+def train_alignment(mlp, batches, lr: float = 1e-2, steps: int = 200):
+    """SGD on ``alignment_loss``; batches: iterable of (slm_logits,
+    llm_logits, targets), cycled once exhausted.  Returns (mlp, losses)."""
+    losses = []
+    it = iter(batches)
+    cached = []
+    mlp = {k: v.detach() for k, v in mlp.items()}
+    for i in range(steps):
+        try:
+            b = next(it)
+            cached.append(b)
+        except StopIteration:
+            b = cached[i % len(cached)]
+        names = sorted(mlp)
+        leaves = [mlp[k].requires_grad_(True) for k in names]
+        with torch.enable_grad():
+            loss = alignment_loss(dict(zip(names, leaves)), *b)
+            grads = torch.autograd.grad(loss, leaves)
+        mlp = {k: (p - lr * g).detach()
+               for k, p, g in zip(names, leaves, grads)}
+        losses.append(float(loss.detach()))
+    return mlp, losses

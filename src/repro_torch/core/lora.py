@@ -17,10 +17,17 @@ its slot with a one-hot gate row (``slot_gates``) or, on the slot
 kernel's decode path, an integer slot id.  ``write_slot`` writes one
 adapter into a slot IN PLACE (the reference returns an updated copy).
 
+The federated side (Sec. III-B/C): ``init_adapter_keyed`` draws an
+adapter with the reference's threefry split tree from a ``core/prng``
+key, bit for bit the reference's ``init_adapter`` (``init_adapter``
+keeps a ``torch.Generator`` draw for the serving callers);
+``rank_mask`` is the compression operator Q_r as an (E, r_max) mask;
+``single_expert_bank`` wraps a client's adapter as an E = 1 bank;
+``average_adapters`` is Eq. 4/5; ``adapter_vector`` the fine-tuning
+dynamics half of the aggregator's encoder E(φ).
+
 Adapters and banks are nested dicts of tensors in the reference's
-layout, so ``bridge.py`` carries them across leaf for leaf.  The
-adaptive-rank helpers (``rank_mask``, ``average_adapters``,
-``adapter_vector``, ``count_params``) belong to the federated slice.
+layout, so ``bridge.py`` carries them across leaf for leaf.
 """
 from __future__ import annotations
 
@@ -29,6 +36,9 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core import prng
+from repro_torch.core import tree as T
 
 
 def init_adapter(model, seed: int, rank: int, r_max: Optional[int] = None,
@@ -55,21 +65,52 @@ def init_adapter(model, seed: int, rank: int, r_max: Optional[int] = None,
     return out
 
 
+def init_adapter_keyed(model, key: prng.Key, rank: int,
+                       r_max: Optional[int] = None, dtype=torch.float32,
+                       device=None) -> Dict[str, Any]:
+    """``init_adapter`` drawn as the reference draws it: ``key`` (a
+    ``core/prng`` key) split over the sorted stacks, each stack's key
+    over its sorted targets, A = normal(key, (*dims, r_max, d_in)) ·
+    sqrt(2 / d_in) with rows at or past ``rank`` zeroed, B zero.  The
+    normals are threefry's on the host (``core/prng.py``), bit for bit
+    the reference's, then copied to ``device`` (default: the model's)."""
+    r_max = r_max or model.cfg.lora_rank_max
+    device = torch.device(device) if device is not None else model.device
+    layout = model.lora_layout()
+    mask = (np.arange(r_max) < rank).astype(np.float32)[:, None]
+    out: Dict[str, Any] = {"_rank": torch.tensor(rank, dtype=torch.int32)}
+    keys = prng.split(key, max(1, len(layout)))
+    for i, (stack, (dims, targets)) in enumerate(sorted(layout.items())):
+        tks = prng.split(prng.key_at(keys, i), max(1, len(targets)))
+        st = {}
+        for j, (tgt, (din, dout)) in enumerate(sorted(targets.items())):
+            a = prng.normal(prng.key_at(tks, j), dims + (r_max, din))
+            a = (a * np.float32(math.sqrt(2.0 / din))) * mask
+            st[tgt] = {"A": torch.from_numpy(a).to(device, dtype),
+                       "B": torch.zeros(dims + (dout, r_max), dtype=dtype,
+                                        device=device)}
+        out[stack] = st
+    return out
+
+
+def rank_mask(ranks: Sequence[int], r_max: int, device=None) -> torch.Tensor:
+    """(E, r_max) 0/1 float32 mask — expert j uses only its first
+    ranks[j] ranks (the compression operator Q_r of Theorem 1)."""
+    m = torch.zeros((len(ranks), r_max), dtype=torch.float32, device=device)
+    for j, r in enumerate(ranks):
+        m[j, : int(r)] = 1.0
+    return m
+
+
 def _body(tree: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in tree.items() if not k.startswith("_")}
-
-
-def _map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 def stack_adapters(adapters: List[Dict[str, Any]]) -> Dict[str, Any]:
     """E adapters -> a bank, the expert axis inserted after the stack
     dims: A (*dims, r, din) -> (*dims, E, r, din), B likewise."""
-    bank = _map(lambda *ls: torch.stack(ls, dim=ls[0].dim() - 2),
-                *[_body(a) for a in adapters])
+    bank = T.map_tree(lambda *ls: torch.stack(ls, dim=ls[0].dim() - 2),
+                      *[_body(a) for a in adapters])
     bank["_ranks"] = torch.stack([torch.as_tensor(a["_rank"],
                                                   dtype=torch.int32)
                                   for a in adapters])
@@ -83,9 +124,15 @@ def bank_for_model(bank: Dict[str, Any]) -> Dict[str, Any]:
 
 def adapter_of(bank: Dict[str, Any], j: int) -> Dict[str, Any]:
     """Expert j of a bank, its expert axis removed (views, not copies)."""
-    out = _map(lambda t: t.select(t.dim() - 3, j), bank_for_model(bank))
+    out = T.map_tree(lambda t: t.select(t.dim() - 3, j),
+                     bank_for_model(bank))
     out["_rank"] = bank["_ranks"][j]
     return out
+
+
+def single_expert_bank(adapter: Dict[str, Any]) -> Dict[str, Any]:
+    """Wrap one adapter as an E = 1 bank (for local client training)."""
+    return stack_adapters([adapter])
 
 
 def empty_bank(model, num_slots: int, r_max: Optional[int] = None,
@@ -118,7 +165,7 @@ def write_slot(bank: Dict[str, Any], adapter: Dict[str, Any],
                              f"fit a bank slot {tuple(dst.shape)}")
         dst.copy_(leaf)
 
-    _map(wr, bank_for_model(bank), _body(adapter))
+    T.map_tree(wr, bank_for_model(bank), _body(adapter))
     bank["_ranks"][int(slot)].fill_(int(adapter["_rank"]))
     return bank
 
@@ -132,3 +179,70 @@ def slot_gates(slots: Sequence[Optional[int]], num_slots: int) -> np.ndarray:
         if s is not None and int(s) >= 0:
             rows[i, int(s)] = 1.0
     return rows
+
+
+def adapter_vector(adapter: Dict[str, Any], dim: int = 64,
+                   seed: int = 0) -> np.ndarray:
+    """Fixed random projection of the flattened adapter -> R^dim, the
+    reference's numpy computation on the same leaves in the same order.
+
+    Part of the domain-conditioned encoder E(φ) (Sec. III-C): captures the
+    *fine-tuning dynamics* component; aggregator.py concatenates it with
+    the task-data embedding (the *adaptation semantics* component)."""
+    return adapter_vectors([adapter], dim, seed)[0]
+
+
+def adapter_vectors(adapters: List[Dict[str, Any]], dim: int = 64,
+                    seed: int = 0) -> List[np.ndarray]:
+    """``adapter_vector`` of each adapter (all of one layout), the random
+    projection drawn once for all of them: each chunk of the projection
+    is applied to every adapter's chunk by the same product as for one
+    adapter alone, so each vector is the reference's bit for bit.  At the
+    2b SLM's width the projection is 1.2 G normals from numpy's legacy
+    generator, most of a server round's host time."""
+    flats = []
+    for adapter in adapters:
+        leaves = [x.detach().float().cpu().numpy().ravel()
+                  for x in T.leaves(_body(adapter))]
+        flats.append(np.concatenate(leaves) if leaves
+                     else np.zeros(1, np.float32))
+    if len({f.size for f in flats}) > 1:
+        raise ValueError("adapter_vectors: adapters of different sizes")
+    rng = np.random.RandomState(seed)
+    # chunked projection to keep memory bounded
+    outs = [np.zeros(dim, np.float32) for _ in flats]
+    chunk = 1 << 16
+    for i in range(0, flats[0].size, chunk):
+        n = min(chunk, flats[0].size - i)
+        proj = rng.standard_normal((n, dim)).astype(np.float32)
+        for out, flat in zip(outs, flats):
+            out += flat[i:i + chunk] @ proj
+    return [out / np.linalg.norm(out) if np.linalg.norm(out) > 0 else out
+            for out in outs]
+
+
+def average_adapters(adapters: List[Dict[str, Any]],
+                     weights: Optional[Sequence[float]] = None
+                     ) -> Dict[str, Any]:
+    """Eq. 4 (uniform) / Eq. 5 (weighted) parameter averaging: the
+    reference's f32 sum w_0 x_0 + w_1 x_1 + ... in the same order, the
+    weights normalised in float64; ``_rank`` is the largest rank."""
+    if weights is None:
+        weights = [1.0 / len(adapters)] * len(adapters)
+    w = np.asarray(weights, np.float64)
+    w = w / w.sum()
+
+    def avg(*xs):
+        acc = None
+        for wi, x in zip(w, xs):
+            term = x * float(wi)
+            acc = term if acc is None else acc + term
+        return acc
+    out = T.map_tree(avg, *[_body(a) for a in adapters])
+    out["_rank"] = torch.tensor(max(int(a["_rank"]) for a in adapters),
+                                dtype=torch.int32)
+    return out
+
+
+def count_params(adapter: Dict[str, Any]) -> int:
+    return sum(int(x.numel()) for x in T.leaves(_body(adapter)))

@@ -14,6 +14,9 @@ default):
   32-bit seed, (0, seed).
 * ``fold_in(key, d)``: ``threefry2x32(key, (0, uint32(d)))``, both output
   words forming the new key.
+* ``split(key, n)``: key j of the n is ``threefry2x32(key, (0, j))`` (the
+  partitionable split counts over a 2x32 iota), which is
+  ``fold_in(key, j)``.
 * scalar random bits: ``threefry2x32(key, (0, 0))``, the two output
   words xor-ed (the partitionable iota of shape () is zero).
 * random bits over a shape (``jax.random.bits``, the threefry PRNG's
@@ -25,7 +28,8 @@ default):
   minus 1, scaled into [lo, hi) and clamped at lo.
 * ``gumbel`` (``jax.random._gumbel``, mode "low", the default):
   ``-log(-log(u))`` with u uniform on [tiny, 1), both logs XLA's.
-* ``normal``: ``sqrt(2) * erf_inv(u)`` with u uniform on
+* ``normal`` (scalar, or over a shape): ``sqrt(2) * erf_inv(u)`` with u
+  uniform on
   (nextafter(-1, 0), 1), ``erf_inv`` being XLA's single-precision
   polynomial (M. Giles, "Approximating the erfinv function").
 
@@ -83,6 +87,17 @@ def fold_in(k: Key, data) -> Key:
     reinterpreted as uint32, as JAX does)."""
     d = np.asarray(data).astype(np.int64).astype(np.uint32)
     return threefry2x32(k[0], k[1], np.zeros_like(d), d)
+
+
+def split(k: Key, n: int = 2) -> Key:
+    """``jax.random.split(k, n)`` of one key: the n keys as two (n,)
+    word arrays; key j is ``(out[0][j], out[1][j])``."""
+    return fold_in(k, np.arange(n, dtype=np.int64))
+
+
+def key_at(keys: Key, j: int) -> Key:
+    """Key j of a ``split``."""
+    return keys[0][j], keys[1][j]
 
 
 def bits32(k: Key) -> np.ndarray:
@@ -234,14 +249,18 @@ def erf_inv(x: np.ndarray) -> np.ndarray:
     return np.where(np.abs(x) == _F32(1.0), edge, out).astype(_F32)
 
 
-def _erf_inv_uniform(k: Key) -> np.ndarray:
+def _erf_inv_uniform(k: Key, shape=None) -> np.ndarray:
     lo = np.nextafter(_F32(-1.0), _F32(0.0), dtype=_F32)
-    return erf_inv(uniform(k, lo, _F32(1.0)))
+    u = uniform(k, lo, _F32(1.0)) if shape is None \
+        else uniform_array(k, shape, lo, _F32(1.0))
+    return erf_inv(u)
 
 
-def normal(k: Key) -> np.ndarray:
-    """Scalar ``jax.random.normal(k)`` (float32) per key."""
-    return (_F32(np.sqrt(2)) * _erf_inv_uniform(k)).astype(_F32)
+def normal(k: Key, shape=None) -> np.ndarray:
+    """``jax.random.normal(k)`` (float32): a scalar per key, or with
+    ``shape`` ``jax.random.normal(k, shape)`` for each key (shaped as
+    ``random_bits``)."""
+    return (_F32(np.sqrt(2)) * _erf_inv_uniform(k, shape)).astype(_F32)
 
 
 def normal_affine(k: Key, scale, offset) -> np.ndarray:

@@ -58,6 +58,10 @@
 //    registers and the producer 24.
 //  - Epilogue: O / max(l, 1e-30) to bf16, written swizzled into the
 //    warpgroup's Q tile and stored by TMA, which clips rows past S.
+//    With a non-null LSE pointer (a training forward) each live row's
+//    natural-log log-sum-exp, (m + log2 l) ln 2, is written to lse (B, H,
+//    S) f32 for the backward (K8, csrc/flash_attention_bwd.cu); with it
+//    null, as on every serving path, nothing else changes.
 //  - Longest first: blockIdx runs over the query tiles from the last
 //    (most visible KV tiles under the causal mask) to the first, heads
 //    and batch fastest, so GQA heads sharing a KV head run together.
@@ -366,8 +370,8 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tv,
                        __grid_constant__ const CUtensorMap thk,
                        __grid_constant__ const CUtensorMap thv,
-                       __grid_constant__ const CUtensorMap to, int batch,
-                       int heads, int kv_heads, int seq, int hist,
+                       __grid_constant__ const CUtensorMap to, float* lse,
+                       int batch, int heads, int kv_heads, int seq, int hist,
                        int causal, int window, float scale_log2) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -515,6 +519,15 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         inv[r] = 1.f / fmaxf(l[r], 1e-30f);
       }
+      if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + warp * 16 + lane / 4 + 8 * r;
+          if (row < seq)
+            lse[(static_cast<long long>(b) * heads + h) * seq + row] =
+                (m[r] + log2f(l[r])) * 0.6931471805599453f;
+        }
+      }
       named_sync(1 + wg);  // every warp is done reading its Q tile
 #pragma unroll
       for (int i = 0; i < D / 2; i += 2) {
@@ -584,7 +597,8 @@ bool encode(CUtensorMap* map, const void* ptr, int seq, int heads,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* hk,
-           const void* hv, void* out, const long long* st, int batch,
+           const void* hv, void* out, float* lse, const long long* st,
+           int batch,
            int heads, int kv_heads, int seq, int hist, int causal,
            int window, float scale, cudaStream_t stream) {
   if (encoder() == nullptr)
@@ -610,7 +624,8 @@ int launch(const void* q, const void* k, const void* v, const void* hk,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (seq + 2 * kRows - 1) / (2 * kRows);
   flash_attention_kernel<D><<<n_qt * heads * batch, kThreads, smem, stream>>>(
-      tq, tk, tv, thk, thv, to, batch, heads, kv_heads, seq, hist, causal,
+      tq, tk, tv, thk, thv, to, lse, batch, heads, kv_heads, seq, hist,
+      causal,
       window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -623,10 +638,11 @@ int launch(const void* q, const void* k, const void* v, const void* hk,
 // (S, heads, batch) of q, k, v, out, hk and hv in turn, each a multiple
 // of 8 (16 bytes; those of the history only when hist > 0), the pointers
 // 16-byte aligned.  head_dim 256 is the 2b pair at full width, 32 its reduced
-// configs.  Returns 0 or a cudaError_t.
+// configs.  lse, when not null, receives each row's natural-log
+// log-sum-exp as (B, H, S) f32.  Returns 0 or a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* hk,
-                                    const void* hv, void* out,
+                                    const void* hv, void* out, float* lse,
                                     const long long* strides, int batch,
                                     int heads, int kv_heads, int seq,
                                     int hist, int head_dim,
@@ -640,11 +656,11 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, hk, hv, out, strides, batch, heads,
+      return launch<32>(q, k, v, hk, hv, out, lse, strides, batch, heads,
                         kv_heads, seq, hist, causal, window, scale,
                         stream);
     case 256:
-      return launch<256>(q, k, v, hk, hv, out, strides, batch, heads,
+      return launch<256>(q, k, v, hk, hv, out, lse, strides, batch, heads,
                          kv_heads, seq, hist, causal, window, scale,
                          stream);
     default:

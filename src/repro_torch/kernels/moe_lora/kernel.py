@@ -26,6 +26,13 @@ admission prefill (T >= 64) K5 runs two register-tiled f32 GEMMs and
 skips an expert whose gate is exactly 0 in a tile of rows that share
 one gate row, which leaves the result bit-identical to a bank without
 that expert.
+
+Training (``moe_lora_delta_train``, the ``MoeLoraDeltaFn`` autograd
+function): K5 forward, K9 backward (``moe_lora_delta_bwd``,
+``csrc/moe_lora_bwd.cu``, no Pallas original: the reference
+differentiates its einsum ``lora_delta``, ``repro/models/layers.py:
+182-196``), giving dx in x's dtype and dA, dB in f32; the gates take no
+gradient.  K4 has no backward.
 """
 from __future__ import annotations
 
@@ -46,6 +53,20 @@ def moe_lora_delta_plain(x, a, b, gates, rows_per_gate: int = 1):
     g = gates.float().repeat_interleave(rows_per_gate, dim=0)
     u = torch.einsum("tk,erk->ter", x.float(), a.float()) * g[:, :, None]
     return torch.einsum("ter,enr->tn", u, b.float())
+
+
+def moe_lora_delta_bwd_plain(x, a, b, gates, dy, rows_per_gate: int = 1):
+    """K9's function in plain PyTorch, float32: with u~ = g (x A^T) and
+    v~ = g (dy B), dB = sum_t dy u~^T, dA = sum_t v~ x^T, dx = sum_j v~_j
+    A_j.  Returns (dx in x's dtype, dA, dB)."""
+    g = gates.float().repeat_interleave(rows_per_gate, dim=0)[:, :, None]
+    xf, af, bf, dyf = x.float(), a.float(), b.float(), dy.float()
+    ut = torch.einsum("tk,erk->ter", xf, af) * g
+    vt = torch.einsum("tn,enr->ter", dyf, bf) * g
+    db = torch.einsum("tn,ter->enr", dyf, ut)
+    da = torch.einsum("ter,tk->erk", vt, xf)
+    dx = torch.einsum("ter,erk->tk", vt, af)
+    return dx.to(x.dtype), da, db
 
 
 def moe_lora_delta_slots_plain(x, a, b, slots, rows_per_slot: int = 1):
@@ -69,6 +90,17 @@ def _lib():
     lib.moe_lora_delta_scratch.restype = ctypes.c_longlong
     lib.moe_lora_delta_slots_scratch.argtypes = (ctypes.c_int,) * 3
     lib.moe_lora_delta_slots_scratch.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _bwd_lib():
+    lib = build.load("moe_lora_bwd")
+    lib.moe_lora_delta_bwd_f32.argtypes = (ctypes.c_void_p,) * 9 + (
+        ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+    lib.moe_lora_delta_bwd_f32.restype = ctypes.c_int
+    lib.moe_lora_delta_bwd_scratch.argtypes = (ctypes.c_int,) * 5
+    lib.moe_lora_delta_bwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -198,3 +230,80 @@ def moe_lora_delta_slots(x, a, b, slots, rows_per_slot: int = 1):
 
 moe_lora_delta.launches = 0
 moe_lora_delta_slots.launches = 0
+
+
+def moe_lora_delta_bwd(x, a, b, gates, dy, rows_per_gate: int = 1):
+    """K9: the gradients (dx, dA, dB) of K5's function for dy = dL/dout
+    (T, n) f32.  On CUDA it launches the kernel of ``csrc/moe_lora_bwd.cu``
+    (K5's contract: x bf16, an f32 bank and gates, E * r <= 384, r % 4
+    == 0; every input contiguous) or raises; on the CPU it runs
+    ``moe_lora_delta_bwd_plain``."""
+    t, k, n, r, e = _static("moe_lora_delta_bwd", x.shape, a.shape, b.shape,
+                            gates.shape, gates.dtype, _GATE_DTYPES,
+                            rows_per_gate)
+    _check_selector(False, gates.shape, e)
+    if dy.shape != (t, n):
+        raise ValueError(f"moe_lora_delta_bwd: dy {tuple(dy.shape)} must be "
+                         f"({t}, {n})")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"moe_lora_delta_bwd: unsupported device "
+                             f"{x.device}")
+        return moe_lora_delta_bwd_plain(x, a, b, gates, dy, rows_per_gate)
+    if x.dtype != torch.bfloat16 or any(
+            z.dtype != torch.float32 for z in (a, b, gates, dy)):
+        raise TypeError("moe_lora_delta_bwd: the CUDA kernel takes x bf16 "
+                        "and an f32 bank, gates and dy")
+    if e * r > _MAX_BANK or r % 4:
+        raise ValueError(f"moe_lora_delta_bwd: E * r = {e * r} must be <= "
+                         f"{_MAX_BANK} and r = {r} a multiple of 4")
+    ts = (x, a, b, gates, dy)
+    if any(z.device != x.device for z in ts) \
+            or not all(z.is_contiguous() for z in ts):
+        raise ValueError("moe_lora_delta_bwd: inputs must be contiguous on "
+                         "one device")
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.moe_lora_delta_bwd_scratch(t, k, n, r, e),
+                          dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    da = torch.empty_like(a)
+    db = torch.empty_like(b)
+    rc = lib.moe_lora_delta_bwd_f32(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), gates.data_ptr(),
+        dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(), da.data_ptr(),
+        db.data_ptr(), t, k, n, r, e, rows_per_gate,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "moe_lora_delta_bwd")
+    moe_lora_delta_bwd.launches += 1
+    return dx, da, db
+
+
+class MoeLoraDeltaFn(torch.autograd.Function):
+    """The gated multi-LoRA delta with a gradient for x, A and B: K5
+    forward, K9 backward."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, gates, rows_per_gate):
+        ctx.save_for_backward(x, a, b, gates)
+        ctx.rows_per_gate = rows_per_gate
+        return moe_lora_delta(x, a, b, gates, rows_per_gate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, b, gates = ctx.saved_tensors
+        dx, da, db = moe_lora_delta_bwd(x, a, b, gates, dy.contiguous(),
+                                        ctx.rows_per_gate)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, da if need[1] else None,
+                db if need[2] else None, None, None)
+
+
+def moe_lora_delta_train(x, a, b, gates, rows_per_gate: int = 1):
+    """K5's function, differentiable in x, A and B through K5 and K9.
+    Gates that require a gradient raise: the router's gates are fixed."""
+    if gates.requires_grad:
+        raise ValueError("moe_lora_delta_train: the gates take no gradient")
+    return MoeLoraDeltaFn.apply(x, a, b, gates, rows_per_gate)
+
+
+moe_lora_delta_bwd.launches = 0

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's redesigned kernels of one checkout at the serving
-shapes, so that two checkouts can be compared on one card in turns.
+and training shapes, so that two checkouts can be compared on one card
+in turns.
 
     python3 src/repro_torch/kernels/time_kernels.py [--src DIR]
-        [--label NAME] [--kernels k1,k2,k3,k4,k5,k5adm,k6] [--profile]
+        [--label NAME] [--kernels k1,k2,k3,k4,k5,k5adm,k6,k9] [--profile]
 
 ``--src`` is the ``src`` directory of the checkout to time (this
 script's own checkout by default); its ``repro_torch`` is imported and
@@ -30,7 +31,10 @@ picks the groups (all by default):
   k6     K6 Mamba-1 selective scan at S = 1,536 and 27, falcon-mamba-7b's
          d_inner 8,192 and N 16, bf16 x, B and C strided slices of an
          x_proj-like (1, S, 288) output (``ssm_inputs``, which
-         chip_smoke.py uses too).
+         chip_smoke.py uses too);
+  k9     K9 LoRA-delta backward at T = 160 (a client step's 4 x 40
+         tokens) over the same shapes, E = 1 with a ones gate (a client
+         step) and E = 4 with soft gates on 4 gate rows.
 
 Every input is made on the card from fixed seeds, so two checkouts time
 the same tensors.  Prints one JSON line: the card's name and power
@@ -42,7 +46,8 @@ CUDA graph: device time and launch gaps), its error against the plain
 version and whether a second call returns the same bits.  ``--profile``
 adds, per case, the device time of each CUDA kernel the call launches
 (``torch.profiler``), which splits K1's stats and write passes, K2's
-split and combine passes and K4/K5's down and up passes.  Compare
+split and combine passes, K4/K5's down and up passes and K9's proj,
+gate, outer and dx passes.  Compare
 two checkouts as A, B, B, A in one call.  Needs a CUDA card; exits 2
 without one.
 """
@@ -63,7 +68,8 @@ FREED_POS = 1 << 30
 NO_PAGE = 1 << 20
 K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
-GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6")
+GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6", "k9")
+TRAIN_ROWS = 160
 K1_ARRIVED = [True, False, True, False] * 2
 SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
 
@@ -353,6 +359,30 @@ def time_k5adm(torch, profile):
     return out
 
 
+def time_k9(torch, profile):
+    from repro_torch.kernels.moe_lora import kernel as KL
+    out = []
+    for e in (1, 4):
+        for k, n in LORA_SHAPES:
+            g, x, a, b = lora_bank(torch, TRAIN_ROWS, k, n, k + n)
+            a, b = a[:e].contiguous(), b[:e].contiguous()
+            gates = torch.ones(1, 1, device="cuda") if e == 1 else \
+                torch.softmax(torch.randn(4, 4, device="cuda", generator=g),
+                              -1)
+            rpg = TRAIN_ROWS // gates.shape[0]
+            dy = torch.randn(TRAIN_ROWS, n, device="cuda", generator=g)
+            res, info = case(torch, lambda: KL.moe_lora_delta_bwd(
+                x, a, b, gates, dy, rpg), 50, profile, T=TRAIN_ROWS, k=k,
+                n=n, E=e)
+            ref = KL.moe_lora_delta_bwd_plain(x, a, b, gates, dy, rpg)
+            info["rel_err_dx_da_db"] = [
+                ((u.float() - w.float()).abs().max()
+                 / w.float().abs().max()).item() for u, w in zip(res, ref)]
+            out.append(info)
+            print(f"K9 {info}", file=sys.stderr)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
@@ -377,14 +407,15 @@ def main() -> int:
         check=True).stdout.strip()
     sources = {"k1": "fuse_logits", "k2": "paged_attention",
                "k3": "flash_attention", "k4": "moe_lora", "k5": "moe_lora",
-               "k5adm": "moe_lora", "k6": "ssm_scan"}
+               "k5adm": "moe_lora", "k6": "ssm_scan", "k9": "moe_lora_bwd"}
     report = build.build_all(sorted({sources[g] for g in groups}))
     ptxas = {name: [ln.strip() for ln in r["ptxas"].splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]
              for name, r in report.items()}
     res = dict(label=args.label, src=args.src, card=card, ptxas=ptxas)
     timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4,
-              "k5": time_k5, "k5adm": time_k5adm, "k6": time_k6}
+              "k5": time_k5, "k5adm": time_k5adm, "k6": time_k6,
+              "k9": time_k9}
     for name in groups:
         res[name] = timers[name](torch, args.profile)
     print(json.dumps(res))

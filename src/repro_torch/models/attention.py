@@ -31,6 +31,13 @@ attention (``decode_attention``, ``ring_decode_attention``) is plain
 PyTorch on both, as the reference computes it outside any Pallas
 kernel.
 
+``train`` mode (the reference's ``attention.py:323-326``) attends
+causally over the whole sequence and returns no cache.  On CUDA with a
+gradient it runs K3 and K8 through ``flash_attention_train``; without
+one, K3; on the CPU the plain ``chunked_causal_attention`` under
+autograd.  A windowed layer that needs a gradient raises (the gemma3
+SLM's training is a later slice).
+
 Decode writes the new token's K/V into the cache IN PLACE (the
 reference returns an updated copy).  torch has neither
 ``mode="drop"`` nor ``mode="clip"``, so the writes the reference drops
@@ -49,7 +56,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention, flash_attention_train)
 from repro_torch.kernels.paged_attention.kernel import (
     PAGE_SIZE, paged_decode_attention)
 from repro_torch.models import layers as L
@@ -289,6 +297,8 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
 
     ``is_global``: False on a local layer of a mixed layout, which
     takes the local rope theta and attends over a window.
+    train: ``positions`` (S,) tensor; causal attention over the whole
+    sequence, returns (y, None).
     prefill: ``positions`` (S,) tensor; returns (y, (k, v)) with the
     fresh (B, S, KV, hd) keys and values.  A ``cache`` of {"k", "v":
     (1 or B, P, KV, hd)} is a prefix HISTORY at positions 0..P-1: the
@@ -327,7 +337,7 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
 
     row_pos = positions if mode == "decode" and isinstance(
         positions, torch.Tensor) and positions.dim() == 1 else None
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         rope_pos = positions
     elif row_pos is not None:
         rope_pos = row_pos[:, None]
@@ -339,7 +349,26 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
     k = L.rope(k, rope_pos, theta)
     window = layer_window(cfg, is_global)
 
-    if mode == "prefill" and cache is not None:
+    if mode == "train":
+        if x.device.type == "cuda":
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            if torch.is_grad_enabled() and (q.requires_grad
+                                            or k.requires_grad
+                                            or v.requires_grad):
+                if window:
+                    raise NotImplementedError(
+                        "windowed attention with a gradient: the gemma3 "
+                        "SLM's training is a later slice")
+                out = flash_attention_train(qt, kt, vt).transpose(1, 2)
+            else:
+                out = flash_attention(qt, kt, vt, causal=True,
+                                      window=window).transpose(1, 2)
+        else:
+            out = chunked_causal_attention(q, k, v, positions, positions,
+                                           window)
+        new_kv = None
+    elif mode == "prefill" and cache is not None:
         # against a history: causality makes the history's K/V what a
         # full-prompt prefill computes there, so these rows attend as a
         # one-shot prefill would at the same positions

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_lora.kernel import (moe_lora_delta,
-                                                 moe_lora_delta_slots)
+                                                 moe_lora_delta_slots,
+                                                 moe_lora_delta_train)
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -57,16 +58,32 @@ def lora_delta(lora, x: torch.Tensor, gates) -> torch.Tensor:
     expert at weight 1, the reference's ungated sum) — all through K5
     ``moe_lora_delta`` — or a 1-D INTEGER tensor of per-row adapter
     slots (negative = no adapter) through K4 ``moe_lora_delta_slots``,
-    the slot kernel's decode path.  A bank with a ``rank_mask`` leaf
-    (adaptive-rank compression) belongs to the federated slice."""
-    if "rank_mask" in lora:
-        raise NotImplementedError("rank-masked LoRA banks (rank_mask): the "
-                                  "federated slice")
+    the slot kernel's decode path.
+
+    A ``rank_mask`` leaf (E, r) (adaptive-rank compression Q_r) multiplies
+    A's rank rows before the launch, so a masked rank's (A m) x is an
+    exact 0, as the reference's u * m is, on either kernel.
+
+    With a gradient (autograd on, and x, A or B requiring one): on CUDA
+    K5 runs inside ``moe_lora_delta_train`` (backward K9); on the CPU the
+    plain version runs under autograd.  Gates that require a gradient,
+    and integer slots (K4 has no backward), raise."""
     a, b = lora["A"], lora["B"]
+    if "rank_mask" in lora:
+        m = lora["rank_mask"]
+        if tuple(m.shape) != tuple(a.shape[:2]):
+            raise ValueError(f"rank_mask {tuple(m.shape)} does not fit the "
+                             f"bank's (E, r) = {tuple(a.shape[:2])}")
+        a = a * m.to(a)[:, :, None]
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or a.requires_grad or b.requires_grad)
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).contiguous()
     if gates is not None and gates.dim() == 1 \
             and not gates.is_floating_point():
+        if needs_grad:
+            raise NotImplementedError("integer-slot LoRA (K4) has no "
+                                      "backward: train with float gates")
         delta = moe_lora_delta_slots(xf, a, b, gates.to(torch.int32),
                                      xf.shape[0] // gates.shape[0])
     else:
@@ -74,8 +91,11 @@ def lora_delta(lora, x: torch.Tensor, gates) -> torch.Tensor:
             gates = torch.ones((1, a.shape[0]), device=x.device)
         elif gates.dim() == 1:
             gates = gates[None]
-        delta = moe_lora_delta(xf, a, b, gates.float(),
-                               xf.shape[0] // gates.shape[0])
+        if gates.requires_grad:
+            raise ValueError("lora_delta: the gates take no gradient")
+        fn = moe_lora_delta_train if needs_grad and x.is_cuda \
+            else moe_lora_delta
+        delta = fn(xf, a, b, gates.float(), xf.shape[0] // gates.shape[0])
     return delta.reshape(*lead, b.shape[1])
 
 
@@ -121,11 +141,40 @@ def embed(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _MatmulF32(torch.autograd.Function):
+    """x (T, k) bf16 @ w (k, n) bf16 -> f32 on CUDA with a gradient for x
+    (``torch.mm``'s ``out_dtype`` form has none): dx = dy w^T in f32, the
+    reference's transpose of its f32-preferring dot, rounded to x's
+    dtype.  w's rows are cast to f32 a block at a time, so no f32 copy
+    of a (V, d) embedding is held whole."""
+
+    _BLOCK = 1 << 15
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (w,) = ctx.saved_tensors
+        dx = None
+        for lo in range(0, w.shape[1], _MatmulF32._BLOCK):
+            hi = min(lo + _MatmulF32._BLOCK, w.shape[1])
+            part = torch.mm(dy[:, lo:hi], w[:, lo:hi].float().t())
+            dx = part if dx is None else dx + part
+        return dx.to(torch.bfloat16), None
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., k) @ w (k, n) with float32 accumulation and output."""
     if x.dtype == torch.bfloat16 and x.is_cuda:
         lead = x.shape[:-1]
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and x.requires_grad:
+            y = _MatmulF32.apply(x2, w)
+        else:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
         return y.reshape(*lead, w.shape[-1])
     return torch.matmul(x.float(), w.float())
 

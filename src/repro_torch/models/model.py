@@ -66,6 +66,12 @@ write the reference drops goes to the pool's sink page, or on a dense
 lane rewrites the current value of a slot no other write of the call
 touches.  Neither copies from the host, so both run inside a CUDA graph.
 
+``train_logits`` is the full-sequence causal forward of training (the
+reference's ``model.py:650-665``) for the plain dense layout: it runs
+outside ``torch.inference_mode`` (which the serving entry points keep),
+so gradients reach a LoRA bank (or the parameters) through K3/K8 and
+K5/K9 on CUDA and through the plain versions on the CPU.
+
 The MoE, MLA, hybrid (zamba2), audio and vision layouts, the
 all-sliding layout, qkv biases and untied embeddings of a dense model
 are later slices.
@@ -79,6 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, to_device
+from repro_torch.core import tree as T
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -298,7 +305,7 @@ class LM:
                                      device=self.device) * std)
             return out
 
-        return _map_specs(self.param_shapes(), make)
+        return T.map_tree(make, self.param_shapes())
 
     def lora_layout(self) -> Dict[str, Any]:
         """{stack: (stack dims, {target: (d_in, d_out)})} — the contract
@@ -358,23 +365,52 @@ class LM:
                         (nl, batch, cfg.d_inner, cfg.ssm_state),
                         dtype=torch.float32, device=self.device),
                     "pos": 0}
-        cache = _map_tree(self.kv_shapes(batch, max_seq),
-                          lambda shape: torch.zeros(shape, dtype=self.dtype,
-                                                    device=self.device))
+        cache = T.map_tree(lambda shape: torch.zeros(
+            shape, dtype=self.dtype, device=self.device),
+            self.kv_shapes(batch, max_seq))
         cache["pos"] = 0
         return cache
 
     # ---------------------------------------------------------- entry points
     @staticmethod
     def _layer(params, site: LayerSite):
-        return _map_tree(params[site.stack], lambda t: t[site.idx])
+        return T.map_tree(lambda t: t[site.idx], params[site.stack])
 
     @staticmethod
     def _lora_layer(lora, site: LayerSite):
         """The layer's slice of a LoRA bank tree ({stack: {target: {"A",
         "B"}}}), as the reference's layer scans slice it."""
-        return None if lora is None else _map_tree(lora[site.lora],
-                                                   lambda t: t[site.idx])
+        return None if lora is None else T.map_tree(lambda t: t[site.idx],
+                                                    lora[site.lora])
+
+    def train_logits(self, params, batch, lora=None, gates=None):
+        """Full-sequence causal logits of ``batch["tokens"]`` (B, S):
+        (logits (B, S, V) float32, aux loss 0.0) — the plain dense
+        layout only.  ``lora``/``gates`` as ``layers.lora_delta`` takes
+        them; each leaf of a bank is split into its layers once
+        (``unbind``), so the backward stacks the layers' gradients into
+        the leaf once."""
+        cfg = self.cfg
+        if cfg.family != "dense" or self._layout()[0] != "plain":
+            raise NotImplementedError(
+                f"train_logits of {cfg.name}: the plain dense layout only "
+                "(the grouped gemma3 layout and the SSM family train in a "
+                "later slice)")
+        tokens = batch["tokens"]
+        x = L.embed(cfg, params["embed"], tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        layers = None if lora is None else T.map_tree(
+            lambda t: t.unbind(0), lora["layers"])
+        for site in self.layer_sites():
+            i = site.idx[0]
+            l_i = None if layers is None else T.map_tree(
+                lambda ts: ts[i], layers)
+            x, _ = dense_layer(cfg, self._layer(params, site), x,
+                               positions=positions, mode="train", cache=None,
+                               lora=l_i, gates=gates)
+        x = L.norm(cfg, params["ln_f"], x)
+        return L.unembed(cfg, params["embed"], x), \
+            torch.zeros((), device=x.device)
 
     @torch.inference_mode()
     def prefill(self, params, tokens: torch.Tensor, max_seq: int,
@@ -479,9 +515,9 @@ class LM:
         """An uninitialised K/V tree shaped as the dense cache's, every
         leaf (..., batch, n, KV, hd) linear over n positions (no
         rings)."""
-        return _map_tree(self.kv_shapes(batch, n, rings=False),
-                         lambda shape: torch.empty(shape, dtype=self.dtype,
-                                                   device=self.device))
+        return T.map_tree(lambda shape: torch.empty(
+            shape, dtype=self.dtype, device=self.device),
+            self.kv_shapes(batch, n, rings=False))
 
     def init_history(self, n: int) -> Dict[str, Any]:
         """An empty history of ``n`` positions: ``linear_kv(1, n)`` with
@@ -926,14 +962,3 @@ def _place(dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.copy_(torch.roll(src[:, s - w:], (s - w) % w, dims=1))
 
 
-def _map_tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _map_specs(tree, fn):
-    """Map a spec tree in the reference's leaf order (sorted keys)."""
-    if isinstance(tree, dict):
-        return {k: _map_specs(tree[k], fn) for k in sorted(tree)}
-    return fn(tree)

@@ -58,6 +58,7 @@ import torch
 from repro_torch import resolve_device, to_device
 from repro_torch.core import fusion as FUS
 from repro_torch.core import lora as LORA
+from repro_torch.core import tree as T
 from repro_torch.kernels.logit_fusion import ops as OPS
 from repro_torch.models.attention import FREED_POS, identity_tables
 from repro_torch.models.model import (LOCAL_KINDS, cache_kv,
@@ -67,20 +68,6 @@ from repro_torch.models.model import (LOCAL_KINDS, cache_kv,
 from repro_torch.serving import paging as PAG
 from repro_torch.serving.adapters import AdapterCache
 from repro_torch.serving.latency import FaultModel, LatencyModel
-
-
-def _map_tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 class ServingDeployment:
@@ -120,13 +107,13 @@ class ServingDeployment:
                                  f"deployment on {self.device}")
         self.slm, self.llm = slm, llm
         place = lambda t: t.to(self.device)
-        self.slm_params = _map_tree(slm_params, place)
-        self.llm_params = (_map_tree(llm_params, place)
+        self.slm_params = T.map_tree(place, slm_params)
+        self.llm_params = (T.map_tree(place, llm_params)
                            if llm_params is not None else None)
-        self.mlp = (_map_tree(alignment_mlp, place)
+        self.mlp = (T.map_tree(place, alignment_mlp)
                     if alignment_mlp is not None else None)
         self.bank = expert_bank
-        self.lora = (_map_tree(LORA.bank_for_model(expert_bank), place)
+        self.lora = (T.map_tree(place, LORA.bank_for_model(expert_bank))
                      if expert_bank is not None else None)
         self.adapter_slots = adapter_slots
         self.adapter_rank = ((adapter_rank or slm.cfg.lora_rank_max)
@@ -250,7 +237,7 @@ class ServingDeployment:
     def lane_kv_bytes(self, lm, batch: int) -> int:
         """Bytes of a dense lane cache's K/V leaves."""
         return sum(int(np.prod(shape)) * lm.dtype.itemsize
-                   for shape in _leaves(lm.kv_shapes(batch, self.max_seq)))
+                   for shape in T.leaves(lm.kv_shapes(batch, self.max_seq)))
 
     # ------------------------------------------------------ paged lanes
     def _is_local(self, shape) -> bool:
@@ -267,7 +254,7 @@ class ServingDeployment:
         cfg, ps = lm.cfg, self.page_size
         # K and V leaves of every layer, per pool
         leaves = {False: 0, True: 0}
-        for leaf in _leaves(lm.kv_shapes(1, self.max_seq)):
+        for leaf in T.leaves(lm.kv_shapes(1, self.max_seq)):
             leaves[self._is_local(leaf)] += int(np.prod(leaf[:-4]))
         local_len = lm._ring_local_len(self.max_seq)
 
@@ -299,7 +286,7 @@ class ServingDeployment:
             n = local_pages if self._is_local(shape) else pages
             return torch.zeros(shape[:-4] + (n + 1, ps) + shape[-2:],
                                dtype=lm.dtype, device=dev)
-        cache = _map_tree(lm.kv_shapes(1, self.max_seq), pool)
+        cache = T.map_tree(pool, lm.kv_shapes(1, self.max_seq))
         cache.update(
             pos=torch.full((batch,), FREED_POS, dtype=torch.int32,
                            device=dev),

@@ -1022,3 +1022,129 @@ def macro_graph_vs_eager(cuda, pair, sampled=False, fault=None):
             == graph.edge_lane._macro.replays
         assert cloud.per_replay(K7.sample_fused, sample=True) == k
         assert cloud.per_replay(K7.sample_fused) == 0
+
+
+def rel(out, ref):
+    """max|out - ref| / max|ref| over the tensor."""
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,s,d", [(4, 8, 1, 40, 256),
+                                         (8, 8, 1, 48, 256),
+                                         (1, 8, 1, 2048, 256),
+                                         (2, 4, 2, 77, 32)])
+def test_flash_attention_bwd_matches_autograd_of_plain(cuda, b, h, kvh, s,
+                                                       d):
+    """K3's LSE output and K8 on (B, H, S, D) views of (B, S, H, D)
+    tensors against autograd of K3's plain version (2**-6 of each
+    gradient's max: P and dS rounded to bf16, then the gradient); the
+    output unchanged by the LSE; two K8 calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(b, s, n, d, device=cuda, generator=g).bfloat16()
+               .transpose(1, 2) for n in (h, kvh, kvh))
+    do = torch.randn(b, h, s, d, device=cuda, generator=g).bfloat16()
+    out, lse = K3.flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(out, K3.flash_attention(q, k, v))
+    assert (lse - K3.attention_lse_plain(q, k)).abs().max() <= 1e-4
+    before = K3.flash_attention_bwd.launches
+    got = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    again = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert K3.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(K3.flash_attention_plain(qr, kr, vr),
+                              (qr, kr, vr), do)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape and rel(x, y) <= 2 ** -6
+
+
+@pytest.mark.gpu
+def test_flash_attention_train_takes_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 40, n, 256, device=cuda, generator=g)
+               .bfloat16().transpose(1, 2).requires_grad_(True)
+               for n in (8, 1, 1))
+    before = (K3.flash_attention.launches, K3.flash_attention_bwd.launches)
+    K3.flash_attention_train(q, k, v).float().square().sum().backward()
+    assert (K3.flash_attention.launches, K3.flash_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,e,groups", [(2048, 2048, 1, 1),
+                                          (2048, 256, 1, 1),
+                                          (2048, 32768, 1, 1),
+                                          (16384, 2048, 1, 1),
+                                          (2048, 32768, 4, 4),
+                                          (16384, 2048, 4, 4)])
+def test_moe_lora_delta_bwd_matches_autograd_of_plain(cuda, k, n, e,
+                                                      groups):
+    """K9 against autograd of K5's plain version at T = 160: dA and dB
+    within 1e-5 of their max (f32 sums in another order), dx within 2**-7
+    (it rounds to bf16); two calls give the same bits; the training
+    wrapper launches K5 forward and K9 backward once each."""
+    g = torch.Generator(device=cuda).manual_seed(k + n + e)
+    t = 160
+    x, a, b = lora_case(cuda, g, t, k, n, e=e)
+    gates = torch.softmax(torch.randn(groups, e, device=cuda, generator=g),
+                          -1)
+    dy = torch.randn(t, n, device=cuda, generator=g)
+    got = KL.moe_lora_delta_bwd(x, a, b, gates, dy, t // groups)
+    again = KL.moe_lora_delta_bwd(x, a, b, gates, dy, t // groups)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(got, again))
+    xs, as_, bs = (z.detach().clone().requires_grad_(True) for z in (x, a, b))
+    ref = torch.autograd.grad(KL.moe_lora_delta_plain(
+        xs, as_, bs, gates, t // groups), (xs, as_, bs), dy)
+    assert rel(got[0], ref[0]) <= 2 ** -7
+    assert max(rel(got[1], ref[1]), rel(got[2], ref[2])) <= 1e-5
+    before = (KL.moe_lora_delta.launches, KL.moe_lora_delta_bwd.launches)
+    y = KL.moe_lora_delta_train(xs, as_, bs, gates, t // groups)
+    torch.autograd.grad(y, (xs, as_, bs), dy)
+    assert (KL.moe_lora_delta.launches, KL.moe_lora_delta_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,k,n,e,r,groups", [(37, 136, 200, 3, 8, 1),
+                                              (36, 72, 520, 3, 12, 3),
+                                              (24, 2048, 256, 24, 16, 2),
+                                              (160, 2048, 2048, 10, 16, 4),
+                                              (5, 8, 4, 1, 4, 5)])
+def test_moe_lora_delta_bwd_ragged_shapes(cuda, t, k, n, e, r, groups):
+    """K9 where T is no multiple of a tile, E r leaves threads idle or
+    spans two column groups (384), and m ends inside a chunk: within the
+    limits above of autograd of K5's plain version; r % 4 != 0 raises."""
+    g = torch.Generator(device=cuda).manual_seed(t + k + n + e + r)
+    x, a, b = lora_case(cuda, g, t, k, n, e=e, r=r)
+    gates = torch.softmax(torch.randn(groups, e, device=cuda, generator=g),
+                          -1)
+    dy = torch.randn(t, n, device=cuda, generator=g)
+    got = KL.moe_lora_delta_bwd(x, a, b, gates, dy, t // groups)
+    xs, as_, bs = (z.detach().clone().requires_grad_(True) for z in (x, a, b))
+    ref = torch.autograd.grad(KL.moe_lora_delta_plain(
+        xs, as_, bs, gates, t // groups), (xs, as_, bs), dy)
+    assert rel(got[0], ref[0]) <= 2 ** -7
+    assert max(rel(got[1], ref[1]), rel(got[2], ref[2])) <= 1e-5
+    with pytest.raises(ValueError):
+        KL.moe_lora_delta_bwd(x, a[:, :r - 2].contiguous(),
+                              b[..., :r - 2].contiguous(), gates, dy,
+                              t // groups)
+
+
+@pytest.mark.gpu
+def test_training_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros(8, 64, device=cuda)                 # f32: not bf16
+    a = torch.zeros(1, 4, 64, device=cuda)
+    b = torch.zeros(1, 32, 4, device=cuda)
+    with pytest.raises(TypeError):
+        KL.moe_lora_delta_bwd(x, a, b, torch.ones(1, 1, device=cuda),
+                              torch.zeros(8, 32, device=cuda), 8)
+    q = torch.zeros(1, 2, 8, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # head_dim 48
+        K3.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q,
+                               torch.zeros(1, 2, 8, device=cuda))

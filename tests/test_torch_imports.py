@@ -35,6 +35,32 @@ def test_import_all_submodules_leaves_jax_out():
     assert out.returncode == 0, out.stderr
 
 
+FEDERATED_MODULES = (
+    "repro_torch.core.aggregator", "repro_torch.core.dp",
+    "repro_torch.core.rank_select", "repro_torch.core.tree",
+    "repro_torch.data.partition", "repro_torch.data.pipeline",
+    "repro_torch.data.tasks", "repro_torch.federated.client",
+    "repro_torch.federated.server", "repro_torch.federated.simulation",
+    "repro_torch.training.checkpoint", "repro_torch.training.optimizer",
+    "repro_torch.training.train_step", "repro_torch.launch.train")
+
+
+def test_federated_modules_stand_alone():
+    """The federated slice's modules (the reference's numpy-only ones
+    copied, not imported) load without JAX or the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FEDERATED_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
+        " or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))

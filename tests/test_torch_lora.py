@@ -207,11 +207,16 @@ def test_mlp_matches_reference(kind):
 
 
 def test_rank_mask_leaf_raises():
+    """A rank_mask leaf is applied (``test_torch_train.py`` holds it to
+    the reference); one that does not fit the bank's (E, r) raises."""
     rng = np.random.default_rng(8)
     lora = bridge.from_numpy(_lora_leaf(rng, 2, 4, 16, 8))
-    lora["rank_mask"] = torch.ones(2, 4)
-    with pytest.raises(NotImplementedError, match="federated"):
+    lora["rank_mask"] = torch.ones(2, 3)
+    with pytest.raises(ValueError, match="rank_mask"):
         L.lora_delta(lora, torch.zeros(1, 16), torch.ones(1, 2))
+    lora["rank_mask"] = torch.ones(2, 4)
+    assert L.lora_delta(lora, torch.zeros(1, 16), torch.ones(1, 2)).shape \
+        == (1, 8)
 
 
 # ---------------------------------------------------------------- core/lora
