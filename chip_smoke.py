@@ -36,8 +36,17 @@ Phases, in order; any failure exits non-zero before the result lines:
               2048) of the 2b SLM's H 8 / KV 1 / head_dim 256 on the
               model's layout (K3's LSE output against the plain
               log-sum-exp, K3's output unchanged by it), K9 at T = 160
-              on the six targets (E = 1) and at mlp_in and mlp_out with
-              E = 4 soft gates; two calls return the same bits;
+              on the six targets (E = 1), at mlp_in and mlp_out with
+              E = 4 soft gates and on falcon-mamba's four targets (E =
+              1, K5's forward beside it); K8's windowed mode at the gemma3 SLM's
+              H 4 / KV 1, window 512, (1, 2048) and (8, 640), against
+              autograd of K3's windowed plain version (library: SDPA's
+              backward under the window's boolean mask; bound over the
+              visible pairs); K10 (selective-scan backward, no Pallas
+              original) at di 8,192, N 16, (B, S) = (4, 40), (2, 256),
+              (1, 1536) against its plain backward per gradient (bound:
+              bytes or its ex2 floor), K6 with its chunk-state output
+              bit-equal to K6 without; two calls return the same bits;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
@@ -50,7 +59,11 @@ Phases, in order; any failure exits non-zero before the result lines:
               engine, paged decode of a ragged batch, the batched engine
               at macro_k 0 and 8, SLM logits under adapter slots); then
               the reduced falcon-mamba the same way (prefill through K6,
-              four decode steps);
+              four decode steps), and its SLM logits under a 3-expert
+              bank on ssm_in/x/dt/out with adapter-slot rows then slot
+              ids (K5, K4) and with router gates (K5), against the same
+              run in bf16 on the CPU (bf16 alone parts from f32 by more
+              than LOGITS_TOL under the bank; printed);
   5. cli      ``python -m repro_torch.launch.serve --local`` as a user
               runs it on the card (the reduced pair, bf16), sequential,
               ``--batch 4 --macro-k 0``, ``--batch 4`` (the default
@@ -67,8 +80,21 @@ Phases, in order; any failure exits non-zero before the result lines:
               prefill, no other kernel); the full-width prefill (logits
               and every layer's scan state) through K6 against the plain
               scan; then a torch.profiler
-              breakdown of the long request; the model is freed before
-              the pair's phases;
+              breakdown of the long request; then, on the same model:
+              (a) a LoRA client step (B x S = 4 x 40, rank 16, the
+              reference's threefry adapter) through K6/K10 and K5/K9
+              against the same step with the plain versions on the
+              card (loss and every leaf's gradient within
+              FED_SSM_LOSS_RTOL / FED_SSM_GRAD_RTOL, ssm_dt's held to
+              an f32 plain step; a step with only K5/K9 plain within
+              FED_SSM_SCAN_RTOL of the plain one), step ms, busy share,
+              peak memory, K6 and K10 64 and K5 and K9 256 launches),
+              (b) a kernel-only step at 1 x 256 (two 128-token chunks),
+              (c) SoloEngine with four users' adapters over 4 slots
+              (K5 at prefill, K4 at decode) and with a router-gated
+              4-expert bank, the demo prompts at 16 tokens, K4 / K5 at
+              4 x 64 a decode / prefill layer pass, ids moved by the
+              adapters; the model is freed before the pair's phases;
   6. serve    the full-width 2b pair (floe-slm-2b + floe-llm-7b, bf16,
               random weights from a seed) through ServingDeployment and
               Scheduler.from_deployment: the four demo prompts of the
@@ -199,11 +225,18 @@ Phases, in order; any failure exits non-zero before the result lines:
               timed with its host noise draw apart; (d) the published
               expert bank and router serving serve_batched's 20 requests
               through the batched engine at macro_k 8: every request
-              served, tokens/s.
+              served, tokens/s; (e) the full-width floe-slm-gemma3 beside
+              the same LLM: client steps at 4 x 40 and 1 x 1,024 (past
+              the window of 512) against the plain step on the card (K3
+              and K8 once a layer, windowed on its 22 local layers),
+              run_simulation on FED_SIM (all five clients train; losses
+              fall), and the published bank served by the gemma3 pair's
+              batched engine at macro_k 8 on eight requests.
 The kernels phase also holds K3's history-offset mode (K3_OFFSET_SHAPES)
 and K2 over (8, 256) block tables against their plain versions.
 Then it prints the ``federate:`` summary, the ``{"kernels": [...]}``
-line (K1-K9), the nvidia-smi line and,
+line (K1-K10, K3's offset and K8's windowed modes as entries of their
+own), the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
 import contextlib
@@ -286,6 +319,50 @@ K8_LSE_TOL = 1e-4
 # a value).
 K9_RTOL = 1e-5
 K9_DX_RTOL = 2 ** -7
+# K8's windowed mode at the gemma3 SLM's H 4 / KV 1 / head_dim 256 and
+# window 512: one long row and a batch of client-step rows, past the
+# window both; limits K8_RTOL and K8_LSE_TOL as in the causal mode
+K8W_SHAPES = [(1, 2048), (8, 640)]
+GEMMA3_WINDOW = 512
+# K10: per gradient, max|out - ref| / max|ref| against its plain version:
+# d(dt) and dA are f32 sums in another order (read 2.2e-7 and 1.7e-6 at
+# most on an H100); dx, dB and dC round their f32 sums to bf16 once (one
+# ulp is 2**-8 of a value; read 1.2e-3 at most)
+K10_F32_RTOL = 1e-5
+K10_BF16_RTOL = 2 ** -7
+K10_SHAPES = [(4, 40), (2, 256), (1, 1536)]
+# serve_ssm (a) and (b): client steps of falcon-mamba-7b, B x S, (a)
+# against the plain step on the card, (b) two 128-token chunks
+SSM_FED_STEP = (4, 40)
+# federate (e): the gemma3 SLM's long client step, past its window of 512
+FED_GEMMA3_LONG_STEP = (1, 1024)
+SSM_FED_LONG_STEP = (1, 256)
+# serve_ssm (a): the kernel step against the plain step, both bf16
+# through 64 Mamba-1 layers: the loss relative, each LoRA leaf's gradient
+# as max|diff| / max|ref|.  An H100 run read 2.6e-5 on the loss and
+# 0.69–1.11% on ssm_in, ssm_x and ssm_out, so the limits are the 2b
+# step's (over twice the larger).  ssm_dt's gradient is ~1e-6 of the
+# others' (max 8.3e-12 and 3.3e-11 at random init) and lies 4.5% (A) and
+# 19.6% (B) from the plain step's: bf16 activations an ulp apart, fed
+# through 64 layers, are more than that gradient resolves.  The split,
+# from a third step with only K5/K9 plain (K6/K10 kept): the LoRA
+# kernels move it (the third step lies as far from the kernel step as
+# the plain step does, on every leaf), the scan kernels hardly.  So the
+# scan's share, that third step against the plain one, is held on
+# every leaf to FED_SSM_SCAN_RTOL (read 2.9e-4 at most, on ssm_dt's B;
+# ssm_in and ssm_out ~1e-7); the LoRA kernels' at ssm_dt's shapes per
+# kernel (K5 and K9 at SSM_LORA_SHAPES, kernels phase); and
+# ssm_dt's gradient, printed against the plain step, is held to an f32
+# plain step: the kernel step's distance from it within
+# FED_SSM_F32_RATIO times the bf16 plain step's (read 1.07 and 1.21:
+# 4.0% against 3.7%, 20.0% against 16.6%)
+FED_SSM_LOSS_RTOL = 1e-3
+FED_SSM_GRAD_RTOL = 2.5e-2
+FED_SSM_SCAN_RTOL = 1e-3
+FED_SSM_F32_RATIO = 1.5
+SSM_BF16_BOUND_LEAVES = ("ssm_dt.A", "ssm_dt.B")
+# falcon-mamba-7b's LoRA targets (k, n): ssm_in, ssm_x, ssm_dt, ssm_out
+SSM_LORA_SHAPES = [(4096, 16384), (8192, 288), (256, 8192), (8192, 4096)]
 # federate: a client step's batch and length (B x S = 160 tokens), and
 # the simulation: tests/test_federated.py's SimConfig at full width with
 # five clients and seed 1, where (replayed on the host: Algorithm 1 on
@@ -358,6 +435,12 @@ SSM_MAX_SEQ = 1568
 PROFILE_MARGINS_S = {"leading": 0.1, "trailing": 0.1}
 PROFILE_MARGIN_MAX_S = 6.4
 PROFILE_TRIES = 4
+# padding before a window's leading marker: spin kernels of ~0.25 ms
+# each (50 ms and 200 device records in all) that the window may lose
+# in its stead; a spin record shorter than PROFILE_MARKER_MAX_US is a
+# marker
+PROFILE_PAD = (200, 500_000)
+PROFILE_MARKER_MAX_US = 50.0
 # serve_sampled: odd requests of serve_batched's traffic draw with seed
 # SAMPLED_SEED + i
 SAMPLED_SEED = 2000
@@ -998,7 +1081,7 @@ def phase_k6(torch, short_len: int):
 def check_ssm(torch):
     """Reduced falcon-mamba: bf16 on the card (prefill through K6) vs f32
     on the CPU (the plain scan), prefill + 4 decode steps of a SoloEngine
-    deployment."""
+    deployment; then the same under LoRA (``check_ssm_lora``)."""
     from repro_torch import bridge
     from repro_torch.configs import get_config
     from repro_torch.data import tokenizer as TOK
@@ -1009,7 +1092,7 @@ def check_ssm(torch):
 
     cfg = get_config("falcon-mamba-7b").reduced()          # float32
     base = bridge.to_numpy(LM(cfg, device="cpu").init(3))
-    logits, before = {}, K6.ssm_scan.launches
+    logits, before, deps = {}, K6.ssm_scan.launches, {}
     # bf16 on the CPU too: the share of the card's error that bf16 itself
     # makes through the plain path
     runs = (("cpu", "float32"), ("cpu", "bfloat16"), ("cuda", "bfloat16"))
@@ -1018,6 +1101,7 @@ def check_ssm(torch):
         dep = ServingDeployment(lm, bridge.from_numpy(
             base, device=dev, dtype=getattr(torch, dtype)), max_seq=96,
             device=dev)
+        deps[dev, dtype] = dep
         toks = dep.tokens(TOK.encode("translate to french: water -> "))
         lg, cache = dep.slm_prefill(dep.slm_params, toks)
         steps = [lg]
@@ -1039,6 +1123,76 @@ def check_ssm(torch):
           f"{K6.ssm_scan.launches - before}")
     if not rel <= LOGITS_TOL or K6.ssm_scan.launches - before != 2 * 2:
         raise SystemExit("reduced falcon-mamba check failed")
+    check_ssm_lora(torch, deps)
+
+
+def check_ssm_lora(torch, deps):
+    """The reduced falcon-mamba with a 3-expert bank on its four SSM
+    projections: SLM prefill + 4 decode steps of a batch of three under
+    one-hot adapter-slot rows then slot ids, and under soft router gates,
+    bf16 on the card (K5 at prefill, K5 on gate rows or K4 on slot ids
+    at decode) against bf16 on the CPU (the plain versions in the same
+    dtype) within LOGITS_TOL.  Against f32 on the CPU both bf16 runs
+    read bf16's own error, printed beside it: it passes LOGITS_TOL on
+    this reduced model under the bank (1.16e-2 for the CPU's bf16 path
+    alone, 9.1e-3 without the bank), so f32 cannot isolate the
+    kernels here."""
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.core import lora as LORA
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.moe_lora import kernel as KL
+
+    cpu = deps["cpu", "float32"]
+    # B ~ N(0, 0.1^2) at rank 4, as check_lora draws it
+    ads = [bridge.to_numpy(a) for a in random_adapters(
+        torch, cpu.slm, 3, 0.1, 71, "cpu")]
+    bank = bridge.to_numpy(LORA.stack_adapters(
+        [bridge.from_numpy(a) for a in ads]))
+    router = check_router(3)
+    prompts = ["translate to french: water ->", "math: compute 12 plus 7 =",
+               "explain how rainbows form when sunlight passes through rain"]
+    ids = [TOK.encode(p + " ")[:24] for p in prompts]
+    toks = [[t[i % len(t)] for i in range(24)] for t in ids]
+    k4, k5 = KL.moe_lora_delta_slots.launches, KL.moe_lora_delta.launches
+    worst = 0.0
+    for name, g_pre, g_dec in (
+            ("adapters", LORA.slot_gates([2, None, 0], 3),
+             np.asarray([2, -1, 0], np.int32)),
+            ("router", router.gate_weights_batch(prompts), None)):
+        logits = {}
+        for key, dep in deps.items():
+            lm, params, at = dep.slm, dep.slm_params, dep.device
+            lora = bridge.from_numpy(LORA.bank_for_model(bank), device=at)
+            gp = torch.as_tensor(np.ascontiguousarray(g_pre), device=at)
+            gd = gp if g_dec is None else torch.as_tensor(g_dec, device=at)
+            lg, cache = lm.prefill(params, torch.as_tensor(toks, device=at),
+                                   dep.max_seq, lora, gp)
+            steps = [lg]
+            for t in (40, 41, 42, 43):
+                lg, cache = lm.decode_step(params, cache, torch.full(
+                    (3, 1), t, dtype=torch.int64, device=at), lora, gd)
+                steps.append(lg)
+            logits[key] = torch.cat(steps, 1).float().cpu()
+
+        def rel_to(a, b):
+            ref = logits[b]
+            return ((logits[a] - ref).abs().max() / ref.abs().max()).item()
+        card = ("cuda", "bfloat16")
+        rel = rel_to(card, ("cpu", "bfloat16"))
+        print(f"check ssm lora {name}: SLM prefill (B=3) + 4 decode steps "
+              f"with a 3-expert bank on ssm_in/x/dt/out, bf16 card vs bf16 "
+              f"cpu, max|diff|/max|ref| = {rel:.3e}; against f32 cpu: card "
+              f"{rel_to(card, ('cpu', 'float32')):.3e}, bf16 cpu "
+              f"{rel_to(('cpu', 'bfloat16'), ('cpu', 'float32')):.3e}")
+        worst = max(worst, rel)
+    # two prefills (8 layer-target passes each, K5) and 8 decode steps:
+    # four with slot ids (K4), four with router gates (K5)
+    got = (KL.moe_lora_delta_slots.launches - k4,
+           KL.moe_lora_delta.launches - k5)
+    print(f"check ssm lora: K4, K5 launches {got}")
+    if not worst <= LOGITS_TOL or got != (4 * 8, 2 * 8 + 4 * 8):
+        raise SystemExit("reduced falcon-mamba LoRA check failed")
 
 
 def phase_check(torch):
@@ -1447,20 +1601,26 @@ def phase_cli():
 
 
 def all_kernels():
-    """Every kernel wrapper of the port, K1-K9."""
+    """Every kernel wrapper of the port, K1-K10."""
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.logit_fusion import sample as K7
     from repro_torch.kernels.moe_lora import kernel as KL
     from repro_torch.kernels.ssm_scan import kernel as K6
     return lora_kernels() + (K6.ssm_scan, K7.sample_fused,
-                             K3.flash_attention_bwd, KL.moe_lora_delta_bwd)
+                             K3.flash_attention_bwd, KL.moe_lora_delta_bwd,
+                             K6.ssm_scan_bwd)
 
 
 def phase_serve_ssm(torch):
     """SLM-only serving of the full-width falcon-mamba-7b: SoloEngine over
     an SLM-only ServingDeployment, the four demo prompts and the
     1,536-token one, 16 greedy tokens each.  Every prefill runs K6 once
-    per layer; no other kernel of the port is on this path."""
+    per layer; no other kernel of the port is on this path.  Then, on
+    the same resident model: (a) a LoRA client step at SSM_FED_STEP
+    against the plain step on the card and (b) a kernel-only one at
+    SSM_FED_LONG_STEP (``fed_client_step``: K6 and K10 once, K5 and K9
+    four times a layer); (c) ``serve_ssm_lora``.  Returns the serving
+    launches, a summary and {"a", "b", path: launches} of the rest."""
     from repro_torch.configs import get_config
     from repro_torch.data import tokenizer as TOK
     from repro_torch.kernels.ssm_scan import kernel as K6
@@ -1559,10 +1719,97 @@ def phase_serve_ssm(torch):
                          "scan")
     traced = retaken("trace_solo",
                      lambda: trace_solo(torch, eng, SSM_LONG_PROMPT))
+    del eng
+    t0 = time.perf_counter()
+    adapter = threefry_adapter(torch, lm)
+    train = {"a": fed_client_step(torch, lm, dep.slm_params,
+                                  "serve_ssm (a)", *SSM_FED_STEP,
+                                  (FED_SSM_LOSS_RTOL, FED_SSM_GRAD_RTOL),
+                                  scan_rtol=FED_SSM_SCAN_RTOL,
+                                  bf16_bound=SSM_BF16_BOUND_LEAVES,
+                                  adapter=adapter),
+             "b": fed_client_step(torch, lm, dep.slm_params,
+                                  "serve_ssm (b)", *SSM_FED_LONG_STEP,
+                                  None, adapter=adapter)}
+    del adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    train.update(serve_ssm_lora(torch, dep, ids[:len(DEMO_PROMPTS)]))
+    print(f"serve_ssm (a)-(c): {time.perf_counter() - t0:.1f} s")
     return launches, dict(wall_s=wall, tokens=tokens, peak_gib=peak,
                           prefill_long_ms=prefill_ms[-1],
                           decode_steps_per_s=calls["slm_decode"] / decode_s,
-                          **traced)
+                          **traced), train
+
+
+def serve_ssm_lora(torch, dep, plain_ids):
+    """serve_ssm (c): SoloEngine on the full-width falcon-mamba-7b with
+    four users' adapters (random B, rank 16) over 4 slots (K5 gate rows
+    at prefill, K4 slot ids at decode), then with a router-gated
+    4-expert bank (K5 at both): the four demo prompts, 16 greedy tokens
+    each, one user a prompt.  K4 and
+    K5 launch 4 x 64 times (four targets a layer) per decode or prefill
+    layer pass as the path says; the adapters move some request off the
+    adapter-free ids (``plain_ids``).  Returns {path: launches}."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import SoloEngine
+
+    lm, params = dep.slm, dep.slm_params
+    ads = random_adapters(torch, lm, 4, LORA_B_SCALE, 90, lm.device)
+    per_pass = sum(len(t) * math.prod(d)
+                   for d, t in lm.lora_layout().values())
+    runs = {}
+    for path in ("serve_ssm_adapters", "serve_ssm_router"):
+        if path == "serve_ssm_adapters":
+            l_dep = ServingDeployment(lm, params, max_seq=dep.max_seq,
+                                      adapter_slots=4, device=dep.device)
+            eng = SoloEngine(deployment=l_dep)
+            for j, a in enumerate(ads):
+                eng.adapters.register(f"user{j}", a)
+            aids = [f"user{j}" for j in range(len(DEMO_PROMPTS))]
+        else:
+            l_dep = ServingDeployment(lm, params, max_seq=dep.max_seq,
+                                      expert_bank=LORA.stack_adapters(ads),
+                                      device=dep.device)
+            eng = SoloEngine(deployment=l_dep, router=check_router(4))
+            aids = [None] * len(DEMO_PROMPTS)
+        calls = counted(l_dep, ("slm_prefill", "slm_decode"))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with TokenIds():
+            outs = [eng.generate(p, 16, adapter_id=a)
+                    for p, a in zip(DEMO_PROMPTS, aids)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in all_kernels()}
+        uncounted(l_dep, calls)
+        ids = [[int(i) for i in o.split(",") if i] for o in outs]
+        moved = sum(a != b for a, b in zip(ids, plain_ids))
+        tokens = sum(len(i) for i in ids)
+        print(f"{path}: {tokens} tokens in {wall:.3f} s = "
+              f"{tokens / wall:.2f} tokens/s; {calls}; launches "
+              f"{launches}; {moved} of {len(ids)} requests moved off the "
+              f"adapter-free ids; ids {ids}")
+        slots = path == "serve_ssm_adapters"
+        want = {"moe_lora_delta_slots":
+                per_pass * calls["slm_decode"] if slots else 0,
+                "moe_lora_delta": per_pass * (
+                    calls["slm_prefill"] + (0 if slots else
+                                            calls["slm_decode"])),
+                "ssm_scan": lm.cfg.num_layers * calls["slm_prefill"]}
+        got = {k: launches[k] for k in want}
+        if got != want or not moved \
+                or any(not 0 < len(i) <= 16 for i in ids):
+            raise SystemExit(f"{path}: launches {got}, expected {want}; "
+                             f"{moved} requests moved; ids {ids}")
+        if slots:
+            print(f"{path}: adapter stats {eng.adapter_stats()}")
+        runs[path] = dict(launches, wall_s=wall, tokens=tokens, moved=moved)
+        del eng, l_dep
+    return runs
 
 
 def _leaves(tree):
@@ -2920,14 +3167,16 @@ def lora_kernels():
 
 
 def reset_counts():
-    """Every kernel count of the serving paths to 0, the per-mode ones
-    (K2 in ring and in full-length window mode, K3 windowed and in its
-    history-offset mode) included."""
+    """Every kernel count of the serving and training paths to 0, the
+    per-mode ones (K2 in ring and in full-length window mode, K3 and K8
+    windowed, K3 in its history-offset mode) included."""
+    from repro_torch.kernels.flash_attention import kernel as K3
     for fn in all_kernels():
         fn.launches = 0
     k2, k3 = lora_kernels()[1:3]
     k2.ring_launches = k2.window_launches = k3.windowed_launches = 0
     k3.offset_launches = 0
+    K3.flash_attention_bwd.windowed_launches = 0
 
 
 def mode_counts():
@@ -3630,8 +3879,9 @@ def k8_case(torch, g, b, h, kvh, s, d=256):
 def k9_case(torch, g, t, k, n, e, groups):
     """K9 against autograd of K5's plain version at (T, k, n), E experts,
     r = LORA_R, ``groups`` gate rows of random soft gates (ones when E =
-    1, as a client step's (1,) gate); two calls must return the same
-    bits.  Timed beside K9's plain version and autograd through the
+    1, as a client step's (1,) gate), and K5's forward on the same
+    inputs against its plain version per row; two calls must return the
+    same bits.  Timed beside K9's plain version and autograd through the
     einsums."""
     from repro_torch.kernels.moe_lora import kernel as KL
     r = LORA_R
@@ -3653,6 +3903,8 @@ def k9_case(torch, g, t, k, n, e, groups):
     ref = torch.autograd.grad(lib_out, (xs, as_, bs), dy, retain_graph=True)
     rel = [((u.float() - w.float()).abs().max()
             / w.float().abs().max()).item() for u, w in zip(got, ref)]
+    fwd_rel = row_rel_err(KL.moe_lora_delta(x, a, bm, gates, rpg),
+                          lib_out.detach())
 
     def lib():
         return torch.autograd.grad(lib_out, (xs, as_, bs), dy,
@@ -3667,6 +3919,7 @@ def k9_case(torch, g, t, k, n, e, groups):
         max_abs_err=max((u.float() - w.float()).abs().max().item()
                         for u, w in zip(got, ref)),
         max_rel_err=max(rel), rel_err_dx_da_db=rel,
+        k5_forward_row_rel_err=fwd_rel,
         ms=time_ms(torch, lambda: KL.moe_lora_delta_bwd(
             x, a, bm, gates, dy, rpg), iters),
         plain_ms=time_ms(torch, lambda: KL.moe_lora_delta_bwd_plain(
@@ -3678,77 +3931,264 @@ def k9_case(torch, g, t, k, n, e, groups):
 
 
 def phase_train_kernels(torch):
-    """K8 and K9 (no Pallas originals: the backward kernels of a client
-    step) against autograd of the forward kernels' plain versions on the
+    """K8, K9 and K10 (no Pallas originals: the backward kernels of a
+    client step) against the forward kernels' plain versions on the
     card: K8 at the client steps' shapes (B x S = 4 x 40, the chip
     phase, and 8 x 48, SimConfig's default) and at (1, 2048), the 2b
     SLM's H 8 / KV 1 / head_dim 256; K9 at T = 160 on the six (k, n) of
     the SLM's targets with E = 1 (a client step) and at mlp_in and
-    mlp_out with E = 4 soft gates over 4 gate rows."""
+    mlp_out with E = 4 soft gates over 4 gate rows, and at E = 1 on
+    falcon-mamba's four targets (SSM_LORA_SHAPES), K5's forward beside
+    it; K8's windowed mode at K8W_SHAPES (``k8w_case``); K10 at
+    K10_SHAPES (``k10_case``)."""
     g = torch.Generator(device="cuda").manual_seed(25)
     k8 = [k8_case(torch, g, b, 8, 1, s) for b, s in ((4, 40), (8, 48),
                                                     (1, 2048))]
     shapes = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
               (2048, 32768), (16384, 2048)]
     k9 = [k9_case(torch, g, 160, k, n, 1, 1) for k, n in shapes] + \
-        [k9_case(torch, g, 160, k, n, 4, 4) for k, n in shapes[4:]]
-    bad = [c for c in k8 if not (c["max_rel_err"] <= K8_RTOL
-                                 and c["lse_max_abs_err"] <= K8_LSE_TOL)] + \
+        [k9_case(torch, g, 160, k, n, 4, 4) for k, n in shapes[4:]] + \
+        [k9_case(torch, g, 160, k, n, 1, 1) for k, n in SSM_LORA_SHAPES]
+    t0 = time.perf_counter()
+    k8w = [k8w_case(torch, g, b, s) for b, s in K8W_SHAPES]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_mhz()
+    k10 = [k10_case(torch, g, b, s, sms, mhz) for b, s in K10_SHAPES]
+    print(f"kernels K8 windowed and K10: {time.perf_counter() - t0:.1f} s")
+    bad = [c for c in k8 + k8w
+           if not (c["max_rel_err"] <= K8_RTOL
+                   and c["lse_max_abs_err"] <= K8_LSE_TOL)] + \
         [c for c in k9 if not (c["rel_err_dx_da_db"][0] <= K9_DX_RTOL
                                and max(c["rel_err_dx_da_db"][1:])
-                               <= K9_RTOL)]
+                               <= K9_RTOL
+                               and c["k5_forward_row_rel_err"]
+                               <= LORA_ROW_RTOL)] + \
+        [c for c in k10
+         if not (max(c["rel_err_ddt_dx_db_dc_da"][i] for i in (0, 4))
+                 <= K10_F32_RTOL
+                 and max(c["rel_err_ddt_dx_db_dc_da"][1:4])
+                 <= K10_BF16_RTOL)]
     if bad:
-        raise SystemExit(f"K8/K9 disagree with autograd of their plain "
-                         f"versions: {bad}")
-    return k8, k9
+        raise SystemExit(f"K8/K9/K10 disagree with their plain versions: "
+                         f"{bad}")
+    return k8, k9, k8w, k10
+
+
+def k8w_case(torch, g, b, s, h=4, kvh=1, d=256, window=GEMMA3_WINDOW):
+    """K3 windowed with its LSE, then K8 windowed, against autograd of
+    K3's windowed plain version on bf16 (B, H, S, D) views of (B, S, H,
+    D) tensors; K3's output unchanged by the LSE, two K8 calls the same
+    bits.  Timed beside K8's plain version and autograd through SDPA
+    under the window's boolean mask; the bound counts only the (query,
+    key) pairs the window leaves visible."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.time_kernels import k8w_inputs
+    q, k, v, do = k8w_inputs(torch, g, b, s, h, kvh, d)
+    out, lse = K3.flash_attention(q, k, v, window=window, return_lse=True)
+    plain_out = K3.flash_attention(q, k, v, window=window)
+    grads = K3.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    again = K3.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain_out):
+        raise SystemExit("K3 windowed: the LSE output changed the output")
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        raise SystemExit("K8 windowed: two calls on the same inputs differ")
+    lse_ref = K3.attention_lse_plain(q, k, window=window)
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(K3.flash_attention_plain(qr, kr, vr,
+                                                       window=window),
+                              (qr, kr, vr), do)
+    rel = [((x.float() - y.float()).abs().max()
+            / y.float().abs().max()).item() for x, y in zip(grads, ref)]
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    mask = K3.attention_mask(s, True, window, q.device)
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             enable_gqa=kvh != h)
+
+    def lib():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                   retain_graph=True)
+    pairs = b * h * sum(min(i + 1, window) for i in range(s))
+    nbytes = 2 * (4 * b * h * s * d + 4 * b * kvh * s * d) + 4 * b * h * s
+    bms, by = bound(nbytes, 10 * d * pairs, BF16_FLOP_PER_S)
+    iters = 20 if s > 1024 else 50
+    case = dict(
+        shape=dict(B=b, H=h, KVH=kvh, S=s, D=d, window=window,
+                   layout="(B, S, H, D) views"), dtype="bfloat16",
+        visible_pairs=pairs,
+        max_abs_err=max((x.float() - y.float()).abs().max().item()
+                        for x, y in zip(grads, ref)),
+        max_rel_err=max(rel), rel_err_dq_dk_dv=rel,
+        lse_max_abs_err=(lse - lse_ref).abs().max().item(),
+        ms=time_ms(torch, lambda: K3.flash_attention_bwd(
+            q, k, v, out, do, lse, window=window), iters),
+        plain_ms=time_ms(torch, lambda: K3.flash_attention_bwd_plain(
+            q, k, v, out, do, lse, window=window), 3),
+        library_ms=time_ms(torch, lib, iters),
+        forward_lse_ms=time_ms(torch, lambda: K3.flash_attention(
+            q, k, v, window=window, return_lse=True), iters),
+        bound_ms=bms, bound_by=by)
+    print(f"K8 flash_attention_bwd (windowed): {case}")
+    return case
+
+
+def k10_case(torch, g, b, s, sms, mhz):
+    """K10 at falcon-mamba's d_inner 8,192 and N 16 on ``b`` rows of S
+    steps (``ssm_inputs``: B and C strided, bf16), from K6's chunk
+    states, against its plain version per gradient (K10_F32_RTOL on
+    d(dt) and dA, K10_BF16_RTOL on dx, dB, dC); K6 with its chunk-state
+    output must equal K6 without it bit for bit, two K10 calls the same
+    bits.  Bound: the larger of the bytes (dt, x, dy, the chunk states,
+    B, C and A read once, d(dt), dx, dB, dC and dA written once) over
+    3.35 TB/s and the exponentials' floor (one a state-step, as K6's:
+    a_t = exp(dt A) serves both h_{t-1} -> h_t and a_t g_t; this design
+    spends two, recomputing the chunk, which the bound does not count),
+    at 16 a clock per SM; no PyTorch call computes it.  Beside it K6's ms with and without its chunk
+    states."""
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    from repro_torch.kernels.time_kernels import ssm_inputs
+    dt, x, bm, cm, a = ssm_inputs(torch, g, s, b)
+    dy = torch.randn(b, s, SSM_DI, device="cuda", generator=g).bfloat16()
+    y0, h0 = K6.ssm_scan(dt, x, bm, cm, a)
+    y1, h1, hc = K6.ssm_scan(dt, x, bm, cm, a, chunk_states=True)
+    got = K6.ssm_scan_bwd(dt, x, bm, cm, a, dy, hc)
+    again = K6.ssm_scan_bwd(dt, x, bm, cm, a, dy, hc)
+    torch.cuda.synchronize()
+    if not (torch.equal(y0, y1) and torch.equal(h0, h1)):
+        raise SystemExit("K6: its chunk-state output changed y or h_final")
+    if not all(torch.equal(u, w) for u, w in zip(got, again)):
+        raise SystemExit("K10: two calls on the same inputs differ")
+    ref = K6.ssm_scan_bwd_plain(dt, x, bm, cm, a, dy)
+    rel = [((u.float() - w.float()).abs().max()
+            / w.float().abs().max()).item() for u, w in zip(got, ref)]
+    steps = b * s * SSM_DI
+    nbytes = steps * (4 + 2 + 2 + 4 + 2) \
+        + hc.numel() * 4 + 4 * b * s * SSM_N * 2 + 2 * SSM_DI * SSM_N * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ex2_ms = steps * SSM_N / (16 * sms * mhz * 1e6) * 1e3
+    case = dict(
+        shape=dict(B=b, S=s, di=SSM_DI, N=SSM_N, chunk=K6.CHUNK_STATE,
+                   bc="strided slices of (B, S, 288)"),
+        dtype="dt/A/d(dt)/dA f32, x/B/C/dy/dx/dB/dC bf16",
+        max_abs_err=max((u.float() - w.float()).abs().max().item()
+                        for u, w in zip(got, ref)),
+        max_rel_err=max(rel), rel_err_ddt_dx_db_dc_da=rel,
+        ms=time_ms(torch, lambda: K6.ssm_scan_bwd(dt, x, bm, cm, a, dy, hc),
+                   20 if s > 512 else 50),
+        plain_ms=time_ms(torch, lambda: K6.ssm_scan_bwd_plain(
+            dt, x, bm, cm, a, dy), 2),
+        library_ms=None,
+        bound_ms=max(bytes_ms, ex2_ms),
+        bound_by="operations" if ex2_ms > bytes_ms else "bytes",
+        bytes_ms=bytes_ms, ex2_floor_ms=ex2_ms, sms=sms, sm_mhz=mhz,
+        k6_ms=time_ms(torch, lambda: K6.ssm_scan(dt, x, bm, cm, a), 50),
+        k6_chunk_states_ms=time_ms(torch, lambda: K6.ssm_scan(
+            dt, x, bm, cm, a, chunk_states=True), 50))
+    print(f"K10 ssm_scan_bwd: {case}")
+    return case
 
 
 def train_counts():
     """Launch counts of the training kernels: K3 and K5 forward, K8 and
-    K9 backward."""
-    k1, k2, k3, k4, k5 = lora_kernels()
-    k8, k9 = all_kernels()[-2:]
-    return {fn.__name__: fn.launches for fn in (k3, k5, k8, k9)}
+    K9 backward, K6 and K10 (the SSM's scan and its backward), and K3's
+    and K8's windowed launches."""
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.moe_lora import kernel as KL
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    out = {fn.__name__: fn.launches
+           for fn in (K3.flash_attention, KL.moe_lora_delta,
+                      K3.flash_attention_bwd, KL.moe_lora_delta_bwd,
+                      K6.ssm_scan, K6.ssm_scan_bwd)}
+    out["flash_attention_windowed"] = K3.flash_attention.windowed_launches
+    out["flash_attention_bwd_windowed"] = \
+        K3.flash_attention_bwd.windowed_launches
+    return out
 
 
-def fed_batch(torch, seed, device):
-    """A client-step batch of FED_BATCH mixed-task examples at FED_SEQ
-    tokens, on ``device``."""
+def step_counts(lm):
+    """``train_counts`` of one client step of ``lm``: K5 and K9 once a
+    LoRA target of every layer; K3 and K8 once an attention layer
+    (windowed on the local layers), or K6 and K10 once a Mamba-1
+    layer."""
+    n = lm.cfg.num_layers
+    targets = sum(len(t) * math.prod(dims)
+                  for dims, t in lm.lora_layout().values())
+    attn = 0 if lm.cfg.family == "ssm" else n
+    local = 0 if lm.cfg.family == "ssm" else sum(
+        not st.is_global for st in lm.layer_sites())
+    return {"flash_attention": attn, "moe_lora_delta": targets,
+            "flash_attention_bwd": attn, "moe_lora_delta_bwd": targets,
+            "ssm_scan": n - attn, "ssm_scan_bwd": n - attn,
+            "flash_attention_windowed": local,
+            "flash_attention_bwd_windowed": local}
+
+
+def fed_batch(torch, seed, device, b=FED_BATCH, s=FED_SEQ):
+    """A client-step batch of ``b`` mixed-task examples at ``s`` tokens,
+    on ``device``."""
     from repro_torch.data import pipeline as PIPE
     from repro_torch.data.tasks import TASKS, make_mixed_dataset
     return PIPE.to_torch(PIPE.make_batch(
-        make_mixed_dataset(list(TASKS), FED_BATCH, seed), FED_SEQ), device)
+        make_mixed_dataset(list(TASKS), b, seed), s), device)
 
 
-def fed_client_step(torch, lm, params):
-    """(a) One client step of floe-slm-2b at full width two ways: through
-    K3/K8 and K5/K9, and with the plain versions called on the same CUDA
-    tensors (``flash_attention_train`` and ``moe_lora_delta_train``
-    swapped for K3's and K5's plain versions, whose backward is
-    autograd's).  A rank-16 adapter drawn with the reference's threefry
-    tree (its host time is printed), B ~ N(0, 0.02^2) so that every A
-    and B leaf takes a gradient.  The loss within FED_LOSS_RTOL, every
-    leaf's gradient within FED_GRAD_RTOL of its max; the kernel step's
-    ms (gradients and one AdamW update), peak memory, and a
-    torch.profiler breakdown of one more step."""
+def threefry_adapter(torch, lm):
+    """(a rank-16 adapter of ``lm`` drawn with the reference's threefry
+    tree from key 0, the host seconds it took)."""
     from repro_torch.core import lora as LORA
     from repro_torch.core import prng
-    from repro_torch.kernels.flash_attention import kernel as K3
-    from repro_torch.kernels.moe_lora import kernel as KL
-    from repro_torch.models import attention as ATT
-    from repro_torch.models import layers as L
-    from repro_torch.training import optimizer as OPT
-    from repro_torch.training import train_step as TS
-
     t0 = time.perf_counter()
     adapter = LORA.init_adapter_keyed(lm, prng.key(0), rank=16)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return adapter, time.perf_counter() - t0
+
+
+def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
+                    s=FED_SEQ, limits=(FED_LOSS_RTOL, FED_GRAD_RTOL),
+                    scan_rtol=None, bf16_bound=(), adapter=None,
+                    profile=True):
+    """One client step at full width (B x S = ``b`` x ``s``) two ways:
+    through the kernels (K3/K8 or K6/K10, and K5/K9), and with the plain
+    versions called on the same CUDA tensors (``flash_attention_train``,
+    ``ssm_scan_train`` and ``moe_lora_delta_train`` swapped for K3's,
+    K6's and K5's plain versions: autograd's backward, or for the scan
+    the plain backward).  A rank-16 adapter drawn with the reference's
+    threefry tree (its host time is printed), B ~ N(0, 0.02^2) so that
+    every A and B leaf takes a gradient (``adapter``: one drawn so
+    before, ``threefry_adapter``'s pair).  The launches must be
+    ``step_counts``; the loss within ``limits[0]``, every leaf's gradient
+    within ``limits[1]`` of its max; the kernel step's ms (gradients and
+    one AdamW update), peak memory, and a torch.profiler breakdown of one
+    more step with the device's busy share (unless not ``profile``: a
+    profiled window costs its leading margin of quiet, up to 6.4 s).
+    ``limits`` None: the kernel step alone (a finite loss, the
+    launches).  With ``scan_rtol`` a third step swaps only the LoRA
+    kernels (K5/K9) for their plain versions and keeps the others
+    (K6/K10): its gradients must lie within ``scan_rtol`` of the plain
+    step's (the scan kernels' share); the kernel step's distance from
+    it (the LoRA kernels' share) is printed.  The ``bf16_bound`` leaves
+    (a gradient bf16 cannot resolve) are printed against the plain step
+    and held to a float32 plain step instead: the kernel step within
+    FED_SSM_F32_RATIO times the bf16 plain step's distance from it."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.core import tree as T
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.moe_lora import kernel as KL
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_step as TS
+
+    adapter, init_s = adapter or threefry_adapter(torch, lm)
     g = torch.Generator(device=lm.device).manual_seed(250)
-    for leaf in adapter["layers"].values():
-        leaf["B"].normal_(0.0, 0.02, generator=g)
+    for stack in (v for k, v in adapter.items() if not k.startswith("_")):
+        for leaf in stack.values():
+            leaf["B"].normal_(0.0, 0.02, generator=g)
     body = LORA.bank_for_model(LORA.single_expert_bank(adapter))
-    batch = fed_batch(torch, 25, lm.device)
+    batch = fed_batch(torch, 25, lm.device, b, s)
     gates = torch.ones(1, device=lm.device)
     opt = OPT.adamw(OPT.constant_schedule(5e-3))
 
@@ -3769,27 +4209,37 @@ def fed_client_step(torch, lm, params):
     step_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
     kernel_counts = train_counts()
-    n_layers = lm.cfg.num_layers
-    want = {"flash_attention": n_layers, "moe_lora_delta": 6 * n_layers,
-            "flash_attention_bwd": n_layers,
-            "moe_lora_delta_bwd": 6 * n_layers}
+    want = step_counts(lm)
     if kernel_counts != want:
-        raise SystemExit(f"federate (a): launches {kernel_counts}, "
-                         f"expected {want}")
+        raise SystemExit(f"{tag}: launches {kernel_counts}, expected {want}")
+    out = dict(shape=dict(B=b, S=s), loss=float(loss), step_ms=step_ms,
+               peak_gib=peak, launches=kernel_counts, adapter_init_s=init_s,
+               adapter_params=LORA.count_params(adapter),
+               tokens=int(batch["tokens"].numel()))
+    if limits is None:
+        print(f"{tag} client step: {out}")
+        if not math.isfinite(out["loss"]):
+            raise SystemExit(f"{tag}: the loss is not finite")
+        return out
+
     def profiled_step():
         with profiled(torch) as prof:
             step()
         return prof
-    rows = profile_rows(torch, retaken("federate (a)", profiled_step))
+    rows = profile_rows(torch, retaken(tag, profiled_step)) if profile \
+        else []
     busy = sum(r[0] for r in rows)
-    print(f"federate (a) profiled step: device busy {busy:.2f} ms = "
-          f"{100 * busy / step_ms:.1f}% of the untraced {step_ms:.2f} ms; "
-          f"{sum(r[1] for r in rows)} kernel launches")
+    if profile:
+        print(f"{tag} profiled step: device busy {busy:.2f} ms = "
+              f"{100 * busy / step_ms:.1f}% of the untraced {step_ms:.2f} "
+              f"ms; {sum(r[1] for r in rows)} kernel launches")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
-    swapped = (L.moe_lora_delta_train, ATT.flash_attention_train)
+    swapped = (L.moe_lora_delta_train, ATT.flash_attention_train,
+               SSM.ssm_scan_train)
     L.moe_lora_delta_train = KL.moe_lora_delta_plain
     ATT.flash_attention_train = K3.flash_attention_plain
+    SSM.ssm_scan_train = K6.ssm_scan_train_plain
     try:
         reset_counts()
         torch.cuda.synchronize()
@@ -3798,33 +4248,195 @@ def fed_client_step(torch, lm, params):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         plain_counts = train_counts()
+        if bf16_bound:
+            f_params = T.map_tree(lambda t: t.float(), params)
+            _, f_grads = TS.value_and_grad(
+                lambda b: TS.lora_loss_fn(lm, f_params, b, batch, gates),
+                body)
+            del f_params
     finally:
-        L.moe_lora_delta_train, ATT.flash_attention_train = swapped
+        (L.moe_lora_delta_train, ATT.flash_attention_train,
+         SSM.ssm_scan_train) = swapped
     if any(plain_counts.values()):
-        raise SystemExit(f"federate (a): the plain step launched "
-                         f"{plain_counts}")
+        raise SystemExit(f"{tag}: the plain step launched {plain_counts}")
+    if scan_rtol is not None:
+        L.moe_lora_delta_train = KL.moe_lora_delta_plain
+        try:
+            reset_counts()
+            _, l_grads, _ = step()
+            lora_counts = train_counts()
+        finally:
+            L.moe_lora_delta_train = swapped[0]
+        want_l = dict(want, moe_lora_delta=0, moe_lora_delta_bwd=0)
+        if lora_counts != want_l:
+            raise SystemExit(f"{tag}: the plain-LoRA step launched "
+                             f"{lora_counts}, expected {want_l}")
     loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
-    leaf_rel = {}
+    leaf_rel, lora_rel, scan_rel, f32 = {}, {}, {}, {}
+
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max()).item()
     for (stack, st) in sorted(grads.items()):
         for tgt in sorted(st):
             for ab in ("A", "B"):
                 x, y = st[tgt][ab], p_grads[stack][tgt][ab]
-                leaf_rel[f"{tgt}.{ab}"] = ((x - y).abs().max()
-                                           / y.abs().max()).item()
-    out = dict(loss=float(loss), plain_loss=float(p_loss),
-               loss_rel_err=loss_rel, grad_rel_err=leaf_rel,
-               step_ms=step_ms, plain_step_ms=plain_ms, peak_gib=peak,
-               busy_ms=busy, top_kernels=[(r[0], r[1], r[2][:60])
-                                          for r in rows[:6]],
-               launches=kernel_counts, adapter_init_s=init_s,
-               adapter_params=LORA.count_params(adapter),
-               tokens=int(batch["tokens"].numel()))
-    print(f"federate (a) client step: {out}")
-    if not (loss_rel <= FED_LOSS_RTOL
-            and max(leaf_rel.values()) <= FED_GRAD_RTOL):
-        raise SystemExit("federate (a): the kernel step disagrees with the "
-                         "plain step")
+                name = f"{tgt}.{ab}" if stack == "layers" \
+                    else f"{stack}.{tgt}.{ab}"
+                if not y.numel():       # a grouped layout's empty tail
+                    continue
+                leaf_rel[name] = rel(x, y)
+                if scan_rtol is not None:
+                    lx = l_grads[stack][tgt][ab]
+                    lora_rel[name], scan_rel[name] = rel(x, lx), rel(lx, y)
+                if name in bf16_bound:
+                    f = f_grads[stack][tgt][ab]
+                    f32[name] = dict(kernel_to_plain=leaf_rel.pop(name),
+                                     kernel_to_f32=rel(x, f),
+                                     plain_to_f32=rel(y, f),
+                                     max_abs=y.abs().max().item())
+    out.update(plain_loss=float(p_loss), loss_rel_err=loss_rel,
+               grad_rel_err=leaf_rel, plain_step_ms=plain_ms)
+    if scan_rtol is not None:
+        out.update(lora_kernels_share=lora_rel, scan_kernels_share=scan_rel)
+    if f32:
+        out["bf16_bound_leaves"] = f32
+    if profile:
+        out.update(busy_ms=busy, busy_share=busy / step_ms,
+                   top_kernels=[(r[0], r[1], r[2][:60]) for r in rows[:6]])
+    print(f"{tag} client step: {out}")
+    if sorted(f32) != sorted(bf16_bound):
+        raise SystemExit(f"{tag}: no gradient for {bf16_bound}")
+    bad = [n for n, r in leaf_rel.items() if not r <= limits[1]] + \
+        [f"{n}: scan kernels' share" for n, r in scan_rel.items()
+         if not r <= scan_rtol] + \
+        [f"{n} against f32" for n, r in f32.items()
+         if not r["kernel_to_f32"] <= FED_SSM_F32_RATIO * r["plain_to_f32"]]
+    if not loss_rel <= limits[0] or bad:
+        raise SystemExit(f"{tag}: the kernel step disagrees with the "
+                         f"plain step: {bad}")
     return out
+
+
+def client_losses(torch, lm, params, sim, fleet, ups, tag):
+    """Each training client's loss on its first batch of the round before
+    (the frozen base's: the initial adapter's B is zero) and after its
+    steps, which must fall."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.data import pipeline as PIPE
+    from repro_torch.federated.client import LocalTrainer
+    from repro_torch.training import train_step as TS
+
+    trainer = LocalTrainer(lm, sim.seq_len, sim.batch_size, sim.lr,
+                           sim.local_steps)
+    gates = torch.ones(1, device=lm.device)
+    clients = []
+    with torch.no_grad():
+        for u in ups:
+            client = fleet[u.cid]
+            batch = PIPE.to_torch(next(trainer.batches(
+                client, sim.seed * 100)), lm.device)
+            before = float(TS.masked_cross_entropy(
+                lm.train_logits(params, batch)[0], batch["targets"],
+                batch["mask"]))
+            after = float(TS.lora_loss_fn(
+                lm, params, LORA.single_expert_bank(u.adapter), batch,
+                gates))
+            clients.append(dict(cid=u.cid, device=client.device.name,
+                                load=client.background_load, rank=u.rank,
+                                loss_before=before, loss_after=after,
+                                last_step_loss=u.local_loss))
+    for c in clients:
+        print(f"{tag} client {c}")
+    if not all(c["loss_after"] < c["loss_before"] for c in clients):
+        raise SystemExit(f"{tag}: a client's loss did not fall")
+    return clients
+
+
+def federate_gemma3(torch, dep):
+    """federate (e): the full-width floe-slm-gemma3 (built as serve_gemma3
+    builds it, beside the 2b deployment's LLM and alignment MLP): a
+    client step at 4 x 40 and one at 1 x 1,024, where the window of 512
+    bites, each against the plain step on the card (K3 and K8 once a
+    layer, windowed on the 22 local layers; K5 and K9 six times a
+    layer); ``run_simulation`` on FED_SIM, one round: the history, the
+    wall time, the launches (``step_counts`` a local step of a training
+    client) and each training client's first-batch loss falling; then
+    the published bank and its router serving eight of serve_batched's
+    requests through the gemma3 pair's batched engine at macro_k 8 (run
+    once to capture the graphs, then counted): every request served, K5
+    and no K4.  Returns the simulation's launches, the serving launches
+    and a summary."""
+    from repro_torch.federated import simulation as SIM
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    t_start = time.perf_counter()
+    g_dep = gemma3_deployment(torch, dep)
+    lm, params = g_dep.slm, g_dep.slm_params
+    adapter = threefry_adapter(torch, lm)
+    # the long step's profile stands for both (a window costs its quiet)
+    steps = {f"{b}x{s}": fed_client_step(torch, lm, params,
+                                         f"federate (e) {b} x {s}", b, s,
+                                         adapter=adapter,
+                                         profile=(b, s) != (FED_BATCH,
+                                                            FED_SEQ))
+             for b, s in ((FED_BATCH, FED_SEQ), FED_GEMMA3_LONG_STEP)}
+    del adapter
+    sim = SIM.SimConfig(**FED_SIM)
+    fleet = SIM.make_fleet(sim)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = SIM.run_simulation(lm, params, sim, fleet)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    counts = train_counts()
+    hist = res.server.state.history[-1]
+    ups = res.updates_per_round[0]
+    per_step = step_counts(lm)
+    want = {k: n * len(ups) * sim.local_steps for k, n in per_step.items()}
+    print(f"federate (e) run_simulation: {sim_s:.2f} s; history {hist}; "
+          f"dropped {res.dropped_per_round}; launches {counts}")
+    if not ups or counts != want:
+        raise SystemExit(f"federate (e): {len(ups)} clients trained, "
+                         f"launches {counts}, expected {want}")
+    clients = client_losses(torch, lm, params, sim, fleet, ups,
+                            "federate (e)")
+    bank = res.server.expert_bank()
+    router = res.server.router()
+    r_dep = ServingDeployment(lm, params, dep.llm, dep.llm_params, dep.mlp,
+                              expert_bank=bank, max_seq=g_dep.max_seq,
+                              page_size=16)
+    requests = BATCHED_REQUESTS[:8]
+    sched = ContinuousBatchScheduler.from_deployment(
+        r_dep, batch_size=8, macro_k=8, lazy_pages=True, router=router)
+    for p, n in requests:
+        sched.submit(p, max_new_tokens=n)
+    with TokenIds():
+        sched.run()
+    eng = sched.engine
+    sched = ContinuousBatchScheduler(eng)
+    for p, n in requests:
+        sched.submit(p, max_new_tokens=n)
+    served, wall, launches, calls, peak = run_counted(
+        torch, sched, r_dep, ("slm_prefill_packed", "slm_decode"))
+    print_batched("federate (e) published bank on the gemma3 pair", served,
+                  wall, launches, calls, peak, macro_k=8)
+    check_batched_responses("federate (e)", eng, served, requests,
+                            n_private=2)
+    if len(served) != len(requests) or launches["moe_lora_delta"] <= 0 \
+            or launches["moe_lora_delta_slots"] != 0:
+        raise SystemExit(f"federate (e): launches {launches}")
+    summary = dict(steps=steps, sim_s=sim_s, history=hist,
+                   dropped=res.dropped_per_round, clients=clients,
+                   experts=len(res.server.state.experts),
+                   serve_tokens_per_s=RATES[
+                       "federate (e) published bank on the gemma3 pair"],
+                   wall_s=time.perf_counter() - t_start)
+    print(f"federate (e): {time.perf_counter() - t_start:.1f} s")
+    del eng, sched, r_dep, g_dep
+    gc.collect()
+    return counts, launches, summary
 
 
 def phase_federate(torch, dep):
@@ -3840,16 +4452,15 @@ def phase_federate(torch, dep):
     expert bank and router serving serve_batched's 20 requests through
     the batched engine at macro_k 8 on the router path (run once to
     capture the graphs, then counted): every request served, K5 and no
-    K4 in the decode layers, tokens/s.  Returns the (b) launch counts and
-    a summary."""
+    K4 in the decode layers, tokens/s; (e) ``federate_gemma3``.  Returns
+    the (b) launch counts, (d)'s, a summary, and (e)'s simulation and
+    serving launches."""
     from repro_torch.core import dp as DPM
     from repro_torch.core import rank_select as RS
-    from repro_torch.data import pipeline as PIPE
     from repro_torch.federated import simulation as SIM
     from repro_torch.federated.client import LocalTrainer
     from repro_torch.serving.deployment import ServingDeployment
     from repro_torch.serving.scheduler import ContinuousBatchScheduler
-    from repro_torch.training import train_step as TS
     from repro_torch.core import lora as LORA
 
     lm, params = dep.slm, dep.slm_params
@@ -3874,29 +4485,8 @@ def phase_federate(torch, dep):
             or counts["moe_lora_delta_bwd"] != 6 * want:
         raise SystemExit(f"federate (b): {len(ups)} clients trained, "
                          f"launches {counts}, K8 expected {want}")
-    trainer = LocalTrainer(lm, sim.seq_len, sim.batch_size, sim.lr,
-                           sim.local_steps)
-    gates = torch.ones(1, device=lm.device)
-    clients = []
-    with torch.no_grad():
-        for u in ups:
-            client = fleet[u.cid]
-            batch = PIPE.to_torch(next(trainer.batches(
-                client, sim.seed * 100)), lm.device)
-            before = float(TS.masked_cross_entropy(
-                lm.train_logits(params, batch)[0], batch["targets"],
-                batch["mask"]))
-            after = float(TS.lora_loss_fn(
-                lm, params, LORA.single_expert_bank(u.adapter), batch,
-                gates))
-            clients.append(dict(cid=u.cid, device=client.device.name,
-                                load=client.background_load, rank=u.rank,
-                                loss_before=before, loss_after=after,
-                                last_step_loss=u.local_loss))
-    for c in clients:
-        print(f"federate (b) client {c}")
-    if not all(c["loss_after"] < c["loss_before"] for c in clients):
-        raise SystemExit("federate (b): a client's loss did not fall")
+    clients = client_losses(torch, lm, params, sim, fleet, ups,
+                            "federate (b)")
 
     spent = []
     privatize = DPM.privatize
@@ -3963,7 +4553,9 @@ def phase_federate(torch, dep):
                    serve_first_s=first_s,
                    serve_tokens_per_s=RATES["federate (d) published bank"])
     del eng, sched, r_dep
-    return counts, launches, summary
+    gc.collect()
+    g_counts, g_launches, summary["gemma3"] = federate_gemma3(torch, dep)
+    return counts, launches, summary, g_counts, g_launches
 
 
 def phase_k7(torch):
@@ -4265,15 +4857,17 @@ def profiled(torch):
     """torch.profiler over the block, CPU and CUDA, between two marker
     kernels (``torch.cuda._sleep``, left out of ``profile_rows``), each
     alone on the card, with PROFILE_MARGINS_S of quiet before and after.
-    The profiler keeps a device record only if its span, as stamped,
-    lies inside the window on the host's clock, and on the H100 the
-    stamps of device records have run early of the host by ~0.1 s six
-    minutes into a run of this script (the sampled K = 8 boundary then
-    held 30 of its 32 K7 kernels) and by over 1.6 s in another run.  A
-    window whose first or last device record is not a marker lost that
-    edge: ``ProfileLost`` is raised and that side's margin widened x4
-    for every later window (``retaken`` takes the block again), up to
-    PROFILE_MARGIN_MAX_S."""
+    On the H100 a window has lost the device records of its first
+    milliseconds (the sampled K = 8 boundary once held 30 of its 32 K7
+    kernels), and windows have lost their leading marker at leading
+    margins of 0.1, 0.4 and 1.6 s alike, their kept records starting a
+    few milliseconds into the block; so PROFILE_PAD spin kernels open
+    the window before the marker, for it to lose instead.  A window
+    whose records before the block's first are not spins ending with a
+    marker, or whose last record is not a marker, lost that edge: ``ProfileLost`` is raised (with the first
+    kept record's offset from the first launch) and that side's margin
+    widened x4 for every later window (``retaken`` takes the block
+    again), up to PROFILE_MARGIN_MAX_S."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4282,6 +4876,8 @@ def profiled(torch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(margins["leading"])
+        for _ in range(PROFILE_PAD[0]):
+            torch.cuda._sleep(PROFILE_PAD[1])
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         yield prof
@@ -4292,16 +4888,32 @@ def profiled(torch):
     ev = sorted((e for e in prof.events()
                  if e.device_type == DeviceType.CUDA),
                 key=lambda e: e.time_range.start)
-    marked = ["spin_kernel" in e.name for e in ev]
-    lost = [side for side, i in (("leading", 0), ("trailing", -1))
-            if len(ev) < 2 or not marked[i]]
+    spin = ["spin_kernel" in e.name for e in ev]
+    marker = [m and e.time_range.elapsed_us() < PROFILE_MARKER_MAX_US
+              for m, e in zip(spin, ev)]
+    first = spin.index(False) if False in spin else len(ev)
+    if first == len(ev):        # no device record of the block
+        edges = (sum(marker) >= 2, bool(marker) and marker[-1])
+    else:
+        edges = (first > 0 and marker[first - 1], marker[-1])
+    lost = [side for side, ok in zip(("leading", "trailing"), edges)
+            if not ok]
     if lost:
         for side in lost:
             PROFILE_MARGINS_S[side] = min(PROFILE_MARGIN_MAX_S, max(
                 PROFILE_MARGINS_S[side], 4 * margins[side]))
+        launches = [e.time_range.start for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and e.name.startswith(("cudaLaunchKernel",
+                                           "cuLaunchKernel"))]
+        seen = (f"; its first device record {ev[0].name[:32]} "
+                f"{(ev[0].time_range.start - min(launches)) / 1e3:.3f} ms "
+                f"after its first launch" if ev and launches else "")
         raise ProfileLost(f"the profiled window at margins {margins} s "
-                          f"kept {sum(marked)} of its 2 edge "
-                          f"markers and lost its {' and '.join(lost)} edge")
+                          f"kept {sum(marker)} edge markers and "
+                          f"{sum(spin) - sum(marker)} of {PROFILE_PAD[0]} "
+                          f"padding records and lost its "
+                          f"{' and '.join(lost)} edge{seen}")
 
 
 def profile_edges(torch, prof, n: int = 8) -> str:
@@ -4517,6 +5129,12 @@ def main() -> int:
           f"nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
+    t_run = time.perf_counter()
+
+    def clock(phase):
+        """The run's clock after ``phase``: where its time goes."""
+        print(f"clock: {phase} done at {time.perf_counter() - t_run:.1f} s")
+
     t0 = time.perf_counter()
     report = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(report)}")
@@ -4532,16 +5150,22 @@ def main() -> int:
     k4_cases, k5_cases = phase_lora(torch)
     k6_cases = phase_k6(torch, len(TOK.encode(DEMO_PROMPTS[0] + " ")))
     k7_cases = phase_k7(torch)
-    k8_cases, k9_cases = phase_train_kernels(torch)
+    k8_cases, k9_cases, k8w_cases, k10_cases = phase_train_kernels(torch)
+    clock("kernels")
     phase_check(torch)
+    clock("check")
     phase_cli()
-    ssm_launches, ssm_run = phase_serve_ssm(torch)
+    clock("cli")
+    ssm_launches, ssm_run, ssm_train = phase_serve_ssm(torch)
+    clock("serve_ssm")
     # the 7B SSM is freed before the pair is built and read
     gc.collect()
     torch.cuda.empty_cache()
     dep = full_pair(torch)
     seq_launches = phase_serve(torch, dep)
+    clock("serve")
     k0_launches, k0_res, k0_groups = phase_serve_batched(torch, dep)
+    clock("serve_batched")
     plain_ids = [r.text for r in k0_res]
     macro_launches, eng8, k8_res, k8_groups = phase_serve_macro(
         torch, dep, k0_res, k0_groups)
@@ -4549,26 +5173,40 @@ def main() -> int:
     launches = macro_launches[8]
     retaken("trace_batched", lambda: trace_batched(torch, eng8), eng8)
     del eng8
+    clock("serve_macro")
     sampled = phase_serve_sampled(torch, dep, k0_res)
+    clock("serve_sampled")
     flat = phase_flat_keys(torch, dep, "flat_keys", 8, 8)
+    clock("flat_keys")
     ad_runs = phase_serve_adapters(torch, dep, plain_ids)
+    clock("serve_adapters")
     router_run = phase_serve_router(torch, dep, plain_ids)
+    clock("serve_router")
     gemma3_paths = phase_serve_gemma3(torch, dep)
+    clock("serve_gemma3")
     # dense lanes and pool pressure on the 2b pair last, after every
     # profiled boundary
     gc.collect()
     dense = phase_serve_dense(torch, dep, {0: k0_res, 8: k8_res})
+    clock("serve_dense")
     pressure = phase_serve_pool_pressure(torch, dep)
+    clock("serve_pool_pressure")
     gc.collect()
     prefix = phase_serve_prefix(torch, dep)
+    clock("serve_prefix")
     long_paths = phase_serve_long(torch, dep)
+    clock("serve_long")
     gc.collect()
     fault_paths, f_dep = phase_serve_faults(torch, dep)
+    clock("serve_faults")
     spec_paths = phase_serve_spec(torch, dep, f_dep, {
         0: (k0_res, k0_groups), 8: (k8_res, k8_groups)})
     del f_dep
+    clock("serve_spec")
     gc.collect()
-    fed_counts, fed_serve, fed = phase_federate(torch, dep)
+    fed_counts, fed_serve, fed, g_fed_counts, g_fed_serve = \
+        phase_federate(torch, dep)
+    clock("federate")
     paths = {"serve": seq_launches, "serve_batched": launches,
              "serve_batched_k0": k0_launches,
              "serve_batched_k1": macro_launches[1],
@@ -4584,7 +5222,13 @@ def main() -> int:
              "serve_pool_pressure_k0": pressure[0], **flat,
              **gemma3_paths, **prefix, **long_paths, **fault_paths,
              **spec_paths, "federate": fed_counts,
-             "federate_serve": fed_serve}
+             "federate_serve": fed_serve,
+             "serve_ssm_train": ssm_train["a"]["launches"],
+             "serve_ssm_train_long": ssm_train["b"]["launches"],
+             "serve_ssm_adapters": ssm_train["serve_ssm_adapters"],
+             "serve_ssm_router": ssm_train["serve_ssm_router"],
+             "federate_gemma3": g_fed_counts,
+             "federate_gemma3_serve": g_fed_serve}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
                              for path, got in paths.items()}
                for fn in all_kernels()}
@@ -4688,7 +5332,10 @@ def main() -> int:
         graph_ms=k6["graph_ms"],
         plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
         bound_by=k6["bound_by"], library_ms=None, cases=k6_cases,
-        serve_ssm=ssm_run))
+        serve_ssm=ssm_run,
+        chunk_states=[dict(shape=c["shape"], ms=c["k6_ms"],
+                           chunk_states_ms=c["k6_chunk_states_ms"])
+                      for c in k10_cases]))
     # K7 at B = 8 (the lane); launches on serve_sampled at K = 8
     k7 = k7_cases[-1]
     kernels.append(dict(
@@ -4728,6 +5375,39 @@ def main() -> int:
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], cases=cases))
+    # K8's windowed mode (gemma3's local layers) at (1, 2048); launches on
+    # the gemma3 simulation, federate (e).  K10 at serve_ssm (a)'s client
+    # step (4 x 40); launches there
+    k8w, k10 = k8w_cases[0], k10_cases[0]
+    kernels.append(dict(
+        name="flash_attention_bwd_windowed", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:82",
+        note="K8's sliding-window mode; no pl.pallas_call: the reference "
+             "differentiates its jnp chunked_causal_attention(window=)",
+        launches=g_fed_counts["flash_attention_bwd_windowed"],
+        launches_by_path=mode_by_path(paths, "flash_attention_bwd_windowed"),
+        max_abs_err=max(c["max_abs_err"] for c in k8w_cases),
+        max_rel_err=max(c["max_rel_err"] for c in k8w_cases),
+        rel_tol=K8_RTOL, shape=k8w["shape"], ms=k8w["ms"],
+        plain_ms=k8w["plain_ms"], bound_ms=k8w["bound_ms"],
+        bound_by=k8w["bound_by"], library_ms=k8w["library_ms"],
+        cases=k8w_cases))
+    kernels.append(dict(
+        name="ssm_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        replaces="src/repro/models/ssm.py:81",
+        note="no pl.pallas_call: the reference differentiates its jnp "
+             "chunked scan _mamba1_inner with jax.value_and_grad",
+        launches=ssm_train["a"]["launches"]["ssm_scan_bwd"],
+        launches_by_path=by_path["ssm_scan_bwd"],
+        max_abs_err=max(c["max_abs_err"] for c in k10_cases),
+        max_rel_err=max(c["max_rel_err"] for c in k10_cases),
+        rel_tol={"d_dt": K10_F32_RTOL, "dA": K10_F32_RTOL,
+                 "dx_dB_dC": K10_BF16_RTOL},
+        shape=k10["shape"], ms=k10["ms"], plain_ms=k10["plain_ms"],
+        bound_ms=k10["bound_ms"], bound_by=k10["bound_by"],
+        library_ms=None, cases=k10_cases))
     print(f"federate: {json.dumps(fed)}")
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -256,11 +256,31 @@ def _erf_inv_uniform(k: Key, shape=None) -> np.ndarray:
     return erf_inv(u)
 
 
+# values of one key's large draw computed at a time: the element-wise
+# steps (threefry, erf_inv's float64 fused steps) then run on arrays that
+# stay in the CPU's caches; each value is the same whatever the chunk
+_CHUNK = 1 << 16
+
+
 def normal(k: Key, shape=None) -> np.ndarray:
     """``jax.random.normal(k)`` (float32): a scalar per key, or with
     ``shape`` ``jax.random.normal(k, shape)`` for each key (shaped as
-    ``random_bits``)."""
-    return (_F32(np.sqrt(2)) * _erf_inv_uniform(k, shape)).astype(_F32)
+    ``random_bits``).  One key's draw of more than _CHUNK values is
+    computed a chunk of counters at a time."""
+    n = 0 if shape is None else int(np.prod(shape))
+    if np.ndim(k[0]) or n <= _CHUNK:
+        return (_F32(np.sqrt(2)) * _erf_inv_uniform(k, shape)).astype(_F32)
+    if n >= 2 ** 32:
+        raise ValueError("random_bits: at most 2**32 - 1 values a key")
+    lo = np.nextafter(_F32(-1.0), _F32(0.0), dtype=_F32)
+    k1, k2 = np.uint32(k[0]), np.uint32(k[1])
+    out = np.empty(n, _F32)
+    for i in range(0, n, _CHUNK):
+        j = np.arange(i, min(n, i + _CHUNK), dtype=np.uint32)
+        b1, b2 = threefry2x32(k1, k2, np.zeros_like(j), j)
+        u = _bits_to_uniform(b1 ^ b2, lo, _F32(1.0))
+        out[i:i + j.size] = (_F32(np.sqrt(2)) * erf_inv(u)).astype(_F32)
+    return out.reshape(tuple(int(d) for d in np.atleast_1d(shape)))
 
 
 def normal_affine(k: Key, scale, offset) -> np.ndarray:

@@ -13,27 +13,37 @@
 //   dP = dO v^T,  D_i = sum_d dO_i o_i,  dS = P * (dP - D_i)
 //   dQ = dS k * scale,  dK = sum over the group's heads of dS^T q * scale
 // q (B, H, S, D), k/v (B, KVH, S, D), query head h reading KV head
-// h / (H / KVH).
+// h / (H / KVH).  The mask is K3's: key k_pos visible from query q_pos
+// iff k_pos <= q_pos (causal) and, with a window w > 0, k_pos > q_pos - w
+// (the reference's chunked_causal_attention, models/attention.py:82-120,
+// which gemma3's sliding-window layers train through).
 //
 // Bound on the H100: the least work is 10 * D products-and-adds per
 // visible (query, key, head) pair, bf16 on the tensor cores; at B = 1,
 // H = 8, KVH = 1, S = 2048, D = 256 that is about 43 GFLOP (44 us at the
 // 989 TFLOP/s dense peak) against about 42 MB of q/k/v/o/dO/dq/dk/dv
 // traffic (13 us at 3.35 TB/s): bound by operations.  At a client step
-// (B = 4, S = 40) it is bound by launch latency.
+// (B = 4, S = 40) it is bound by launch latency.  With a window only the
+// visible pairs count: S * w - w (w - 1) / 2 of them a head past the
+// window, so gemma3's window of 512 at S = 2,048 needs 44% of the causal
+// work.
 //
 // Design (simple first; wgmma and TMA are later work):
 //  - Three or four launches on the caller's stream: D_i = rowsum(dO * o)
 //    (one warp a row); dK/dV with one CTA per (b, KV head, 32-key tile,
 //    part of the group's heads) that loops over its heads and the query
-//    tiles of 64 rows that can see its keys, accumulating dK and dV in
+//    tiles of 64 rows that can see its keys (with a window, only the
+//    tiles that reach back to them), accumulating dK and dV in
 //    WMMA fragments (registers); when the heads are split over several
 //    CTAs (so that about two CTAs an SM run: at B = 1, S = 2,048 the
 //    64 key tiles alone would leave half the card idle), each writes
 //    its f32 part and a fourth launch adds the parts in order; dQ with
 //    one CTA per (b, head, 64-row query tile) that loops over the key
-//    tiles up to the causal edge.  Every sum runs in a fixed order: no
-//    atomics, and two calls on the same inputs return the same bits.
+//    tiles from the window's edge to the causal edge.  Tiles wholly
+//    outside the window are skipped, not masked, as K3 skips them; the
+//    diagonal and window-edge tiles apply the element mask.  Every sum
+//    runs in a fixed order: no atomics, and two calls on the same
+//    inputs return the same bits.
 //  - Tiles are staged in shared memory with plain 16-byte loads (rows
 //    past S zero-filled), rows padded by 8 bf16 against bank conflicts:
 //    q, dO (64 x D), k, v (32 x D), the 64 x 32 S and dP in f32 and P
@@ -78,7 +88,7 @@ struct Args {
   bf16* dk;
   bf16* dv;
   Str sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  int batch, heads, kv_heads, seq, causal, splits;
+  int batch, heads, kv_heads, seq, causal, window, splits;
   float scale;
 };
 
@@ -170,11 +180,11 @@ __device__ void product_nt(float* c, const bf16* a, const bf16* bm) {
 }
 
 // P and dS of one (64 query, 32 key) tile from S and dP in shared memory:
-// query rows q0.., keys k0..; rows or keys at or past seq, and keys past
-// the causal edge, give exact zeros.
+// query rows q0.., keys k0..; rows or keys at or past seq, keys past the
+// causal edge and keys at or before q_pos - window give exact zeros.
 template <int D>
 __device__ void softmax_grad_tile(unsigned char* sm, int q0, int k0, int seq,
-                                  int causal, float scale_log2) {
+                                  int causal, int window, float scale_log2) {
   using C = Cfg<D>;
   const float* s = reinterpret_cast<const float*>(sm + C::kS);
   const float* dp = reinterpret_cast<const float*>(sm + C::kDP);
@@ -185,7 +195,8 @@ __device__ void softmax_grad_tile(unsigned char* sm, int q0, int k0, int seq,
   for (int e = threadIdx.x; e < kBQ * kBK; e += kThreads) {
     const int j = e / kBK, i = e % kBK;
     const int qp = q0 + j, kp = k0 + i;
-    const bool ok = qp < seq && kp < seq && (!causal || kp <= qp);
+    const bool ok = qp < seq && kp < seq && (!causal || kp <= qp) &&
+                    (window <= 0 || kp > qp - window);
     const float pv = ok ? exp2f(s[j * C::kLdF + i] * scale_log2 - lse[j]) : 0.f;
     const float dsv = pv * (dp[j * C::kLdF + i] - di[j]);
     p[j * C::kLdP + i] = __float2bfloat16(pv);
@@ -274,11 +285,16 @@ attn_bwd_dkdv(Args a) {
     wmma::fill_fragment(dk[f], 0.f);
     wmma::fill_fragment(dv[f], 0.f);
   }
+  // query tiles that can see a key of [k0, k0 + kBK): from the causal
+  // edge to the last query within the window of the tile's last key
   const int qt_begin = a.causal ? k0 / kBQ : 0;
   const int n_qt = (a.seq + kBQ - 1) / kBQ;
+  const int qt_end =
+      a.window > 0 ? min(n_qt, (k0 + kBK - 1 + a.window - 1) / kBQ + 1)
+                   : n_qt;
   for (int g = g_begin; g < g_end; ++g) {
     const int h = kvh * group + g;
-    for (int qt = qt_begin; qt < n_qt; ++qt) {
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kBQ;
       load_tile<D, kBQ>(qs, a.q, a.sq, b, h, q0, a.seq);
       load_tile<D, kBQ>(dos, a.dout, a.sdo, b, h, q0, a.seq);
@@ -287,7 +303,8 @@ attn_bwd_dkdv(Args a) {
       product_nt<D>(sf, qs, ks);    // S = q k^T
       product_nt<D>(dpf, dos, vs);  // dP = dO v^T
       __syncthreads();
-      softmax_grad_tile<D>(sm, q0, k0, a.seq, a.causal, scale_log2);
+      softmax_grad_tile<D>(sm, q0, k0, a.seq, a.causal, a.window,
+                           scale_log2);
       __syncthreads();
       // dV += P^T dO and dK += dS^T q: A is the transpose of a row-major
       // 64 x 32 tile (col-major), B a row-major 64 x D tile
@@ -426,15 +443,19 @@ attn_bwd_dq(Args a) {
   FragC dq[C::kPerWarpQ];
 #pragma unroll
   for (int f = 0; f < C::kPerWarpQ; ++f) wmma::fill_fragment(dq[f], 0.f);
+  // key tiles any row of the tile sees: from the window's edge of its
+  // first row to the causal edge of its last
   const int kv_end = a.causal ? min(a.seq, q0 + kBQ) : a.seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  const int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) / kBK * kBK
+                                    : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     load_tile<D, kBK>(ks, a.k, a.sk, b, kvh, k0, a.seq);
     load_tile<D, kBK>(vs, a.v, a.sv, b, kvh, k0, a.seq);
     __syncthreads();
     product_nt<D>(sf, qs, ks);
     product_nt<D>(dpf, dos, vs);
     __syncthreads();
-    softmax_grad_tile<D>(sm, q0, k0, a.seq, a.causal, scale_log2);
+    softmax_grad_tile<D>(sm, q0, k0, a.seq, a.causal, a.window, scale_log2);
     __syncthreads();
     // dQ += dS k: A row-major 64 x 32, B row-major 32 x D
 #pragma unroll
@@ -513,7 +534,8 @@ int launch(const Args& a, cudaStream_t stream) {
 // q, o, dout, dq (B, H, S, D); k, v, dk, dv (B, KVH, S, D): bf16 with a
 // unit stride over D; strides[24] holds the element strides over (batch,
 // head, position) of q, k, v, o, dout, dq, dk, dv in turn, each a
-// multiple of 8, the pointers 16-byte aligned.  lse (B, H, S) f32 is the
+// multiple of 8, the pointers 16-byte aligned; window 0 (none) or the
+// sliding window w > 0 of K3's mask.  lse (B, H, S) f32 is the
 // forward's natural-log row log-sum-exp (K3's LSE output); di is (B, H,
 // S) f32 scratch followed by flash_attention_bwd_scratch's floats for
 // the dK/dV parts.  head_dim 256 (the 2b SLM) or 32 (its reduced
@@ -522,8 +544,10 @@ extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* di, void* dq, void* dk,
     void* dv, const long long* strides, int batch, int heads, int kv_heads,
-    int seq, int head_dim, int causal, float scale, cudaStream_t stream) {
+    int seq, int head_dim, int causal, int window, float scale,
+    cudaStream_t stream) {
   if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
+      window < 0 ||
       (head_dim != 32 && head_dim != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 24; ++i)
@@ -550,6 +574,7 @@ extern "C" int flash_attention_bwd_bf16(
   a.kv_heads = kv_heads;
   a.seq = seq;
   a.causal = causal;
+  a.window = window;
   a.scale = scale;
   switch (head_dim) {
     case 32:

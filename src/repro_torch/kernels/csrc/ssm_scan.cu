@@ -49,6 +49,13 @@
 //  - Rows past S are zeros: dt = 0 makes the decay exactly 1 and the
 //    input 0, so a step over them leaves h as it is and the scan runs
 //    whole groups of N / 4 steps.
+//  - Chunk states (optional, for the backward K10, csrc/ssm_scan_bwd.cu):
+//    with hc not null, the state entering every chunk of `chunk` steps,
+//    h_{cC - 1} (zeros for c = 0), is written to hc (Bt, ceil(S / C), di,
+//    N) f32 as the scan reaches step cC, from the registers that carry
+//    it, at the start of a staged chunk (C is a multiple of kSteps).  With
+//    hc null, as on every serving path, nothing else changes: y and
+//    h_final are the same bits either way.
 //  - No atomics and a fixed order of every sum: a call repeats bit for
 //    bit.
 #include <cuda_bf16.h>
@@ -158,8 +165,8 @@ __global__ void __launch_bounds__(kThreads, 3) ssm_scan_kernel(
     const float* __restrict__ dt, const T* __restrict__ x,
     const T* __restrict__ bm, const T* __restrict__ cm,
     const float* __restrict__ a, T* __restrict__ y,
-    float* __restrict__ h_out, int S, int di, long long b_sb, long long b_ss,
-    long long c_sb, long long c_ss) {
+    float* __restrict__ h_out, float* __restrict__ hc, int chunk, int S,
+    int di, long long b_sb, long long b_ss, long long c_sb, long long c_ss) {
   constexpr int G = N / kStates;              // lanes a channel
   constexpr int kCh = kThreads / G;           // channels a CTA
   constexpr int kSteps = chunk_rows<T, N>();
@@ -259,6 +266,12 @@ __global__ void __launch_bounds__(kThreads, 3) ssm_scan_kernel(
   cp_async_commit();
   for (int k = 0; k < chunks; ++k) {
     const int buf = k & 1, t0 = k * kSteps;
+    if (hc != nullptr && t0 % chunk == 0 && d < di) {
+      const int n_c = (S + chunk - 1) / chunk;
+      *reinterpret_cast<float4*>(
+          hc + ((static_cast<size_t>(bi) * n_c + t0 / chunk) * di + d) * N +
+          q * kStates) = make_float4(h[0], h[1], h[2], h[3]);
+    }
     // buffer buf ^ 1 was last read by chunk k - 1's scan, before the
     // barrier that ended it
     if (k + 1 < chunks) stage(buf ^ 1, t0 + kSteps);
@@ -302,11 +315,14 @@ bool aligned16(const void* p) {
 
 template <typename T, int N>
 int launch_n(const void* dt, const void* x, const void* bm, const void* cm,
-             const void* a, void* y, void* h, int batch, int S, int di,
-             long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-             cudaStream_t stream) {
+             const void* a, void* y, void* h, void* hc, int chunk, int batch,
+             int S, int di, long long b_sb, long long b_ss, long long c_sb,
+             long long c_ss, cudaStream_t stream) {
   constexpr int kCh = kThreads / (N / kStates);
   constexpr long long kPerT = 16 / sizeof(T);
+  if (hc != nullptr &&
+      (chunk <= 0 || chunk % chunk_rows<T, N>() != 0 || !aligned16(hc)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = di % 8 == 0 && aligned16(dt) && aligned16(x) &&
                    aligned16(y) && aligned16(bm) && aligned16(cm) &&
                    b_sb % kPerT == 0 && b_ss % kPerT == 0 &&
@@ -318,24 +334,25 @@ int launch_n(const void* dt, const void* x, const void* bm, const void* cm,
       static_cast<const float*>(dt), static_cast<const T*>(x),
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const float*>(a), static_cast<T*>(y),
-      static_cast<float*>(h), S, di, b_sb, b_ss, c_sb, c_ss);
+      static_cast<float*>(h), static_cast<float*>(hc), chunk, S, di, b_sb,
+      b_ss, c_sb, c_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* dt, const void* x, const void* bm, const void* cm,
-           const void* a, void* y, void* h, int batch, int S, int di, int N,
-           long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-           cudaStream_t stream) {
+           const void* a, void* y, void* h, void* hc, int chunk, int batch,
+           int S, int di, int N, long long b_sb, long long b_ss,
+           long long c_sb, long long c_ss, cudaStream_t stream) {
   if (batch <= 0 || batch > 65535 || S <= 0 || di <= 0 || !aligned16(h))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (N) {     // falcon-mamba-7b's state size and its reduced one
     case 8:
-      return launch_n<T, 8>(dt, x, bm, cm, a, y, h, batch, S, di, b_sb, b_ss,
-                            c_sb, c_ss, stream);
+      return launch_n<T, 8>(dt, x, bm, cm, a, y, h, hc, chunk, batch, S, di,
+                            b_sb, b_ss, c_sb, c_ss, stream);
     case 16:
-      return launch_n<T, 16>(dt, x, bm, cm, a, y, h, batch, S, di, b_sb,
-                             b_ss, c_sb, c_ss, stream);
+      return launch_n<T, 16>(dt, x, bm, cm, a, y, h, hc, chunk, batch, S, di,
+                             b_sb, b_ss, c_sb, c_ss, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -346,23 +363,26 @@ int launch(const void* dt, const void* x, const void* bm, const void* cm,
 // dt (batch, S, di) f32 and x (batch, S, di) contiguous; B and C element
 // [b, t, n] at b * b_sb + t * b_ss + n (likewise c_*); a (di, N) f32
 // contiguous; y (batch, S, di) and h (batch, di, N) f32 written, h 16-byte
-// aligned.  N in {8, 16}; any S >= 1 and di >= 1.  Returns 0 or a
-// cudaError_t.
+// aligned.  hc, when not null, receives the chunk states (batch,
+// ceil(S / chunk), di, N) f32 (16-byte aligned; chunk a multiple of 64).
+// N in {8, 16}; any S >= 1 and di >= 1.  Returns 0 or a cudaError_t.
 extern "C" int ssm_scan_f32(const void* dt, const void* x, const void* bm,
                             const void* cm, const void* a, void* y, void* h,
-                            int batch, int S, int di, int N, long long b_sb,
-                            long long b_ss, long long c_sb, long long c_ss,
+                            void* hc, int chunk, int batch, int S, int di,
+                            int N, long long b_sb, long long b_ss,
+                            long long c_sb, long long c_ss,
                             cudaStream_t stream) {
-  return launch<float>(dt, x, bm, cm, a, y, h, batch, S, di, N, b_sb, b_ss,
-                       c_sb, c_ss, stream);
+  return launch<float>(dt, x, bm, cm, a, y, h, hc, chunk, batch, S, di, N,
+                       b_sb, b_ss, c_sb, c_ss, stream);
 }
 
 // As ssm_scan_f32 with x, B, C and y in bf16.
 extern "C" int ssm_scan_bf16(const void* dt, const void* x, const void* bm,
                              const void* cm, const void* a, void* y, void* h,
-                             int batch, int S, int di, int N, long long b_sb,
-                             long long b_ss, long long c_sb, long long c_ss,
+                             void* hc, int chunk, int batch, int S, int di,
+                             int N, long long b_sb, long long b_ss,
+                             long long c_sb, long long c_ss,
                              cudaStream_t stream) {
-  return launch<bf16bits>(dt, x, bm, cm, a, y, h, batch, S, di, N, b_sb,
-                          b_ss, c_sb, c_ss, stream);
+  return launch<bf16bits>(dt, x, bm, cm, a, y, h, hc, chunk, batch, S, di,
+                          N, b_sb, b_ss, c_sb, c_ss, stream);
 }

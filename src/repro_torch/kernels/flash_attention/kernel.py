@@ -33,8 +33,10 @@ natural-log log-sum-exp, (B, H, S) f32, written through the kernel's
 optional LSE pointer; serving calls pass it null and keep their bits),
 the backward is K8 (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``,
 no Pallas original: the reference differentiates its jnp
-``chunked_causal_attention``, ``repro/models/attention.py:82``), causal
-and without a window or a history.  K8 reads q, k, v, o and dO in the
+``chunked_causal_attention``, ``repro/models/attention.py:82``), causal,
+with or without a sliding window (gemma3's local layers: key j visible
+from query i iff i - window < j <= i, K3's mask), without a history.
+K8 reads q, k, v, o and dO in the
 layouts K3 takes and returns dq, dk, dv as (B, H, S, D) views of (B, S,
 H, D) memory; a dO in another layout is made contiguous first.
 """
@@ -53,7 +55,7 @@ NEG_INF = -2.0 ** 30
 HEAD_DIMS = (32, 256)
 _CTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (
     ctypes.c_float, ctypes.c_void_p)
-_BWD_CTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 6 + (
+_BWD_CTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (
     ctypes.c_float, ctypes.c_void_p)
 
 
@@ -108,9 +110,10 @@ def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
     return torch.logsumexp(scores, dim=-1)
 
 
-def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True):
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                              window: int = 0):
     """K8's function in plain PyTorch, in f32: P = exp(q k^T scale - lse)
-    under the mask, dV = P^T dO and dK = dS^T q scale summed over each KV
+    under the mask (causal, and with a ``window`` the sliding window), dV = P^T dO and dK = dS^T q scale summed over each KV
     head's group of query heads, dQ = dS k scale, dS = P (dO v^T - D),
     D = rowsum(dO o).  Returns (dq, dk, dv) in the inputs' dtype."""
     b, h, s, d = q.shape
@@ -120,7 +123,7 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True):
     qf, dof, of = q.float(), do.float(), o.float()
     kk = k.repeat_interleave(g, dim=1).float()
     vv = v.repeat_interleave(g, dim=1).float()
-    mask = attention_mask(s, causal, 0, q.device)
+    mask = attention_mask(s, causal, window, q.device)
     scores = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
     p = torch.where(mask, torch.exp(scores - lse[..., None]),
                     torch.zeros_like(scores))
@@ -277,10 +280,12 @@ def _strides_bhs(t: torch.Tensor) -> list:
     return [sb, sh, ss]
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
-    """K8: the gradients (dq, dk, dv) of causal GQA attention from q (B,
-    H, S, D), k/v (B, KVH, S, D), the forward output o, its gradient do
-    and the forward's row LSE (B, H, S) f32.  On CUDA it launches the
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int = 0):
+    """K8: the gradients (dq, dk, dv) of causal GQA attention, within a
+    sliding ``window`` when it is > 0, from q (B, H, S, D), k/v (B, KVH,
+    S, D), the forward output o, its gradient do and the forward's row
+    LSE (B, H, S) f32 (K3's, with the same window).  On CUDA it launches the
     kernel of ``csrc/flash_attention_bwd.cu`` (bf16, head_dim 32 or 256)
     or raises; on the CPU it runs ``flash_attention_bwd_plain``."""
     check_layout(q, k, v)
@@ -290,7 +295,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
                          f"{tuple(do.shape)} and lse {tuple(lse.shape)} must "
                          f"match q {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
@@ -323,34 +329,39 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), (ctypes.c_longlong * 24)(*strides),
-        b, h, kvh, s, d, int(causal), 1.0 / math.sqrt(d),
+        b, h, kvh, s, d, int(causal), int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.windowed_launches += bool(window)
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Causal GQA attention with a gradient: K3 forward (saving its row
-    LSE), K8 backward."""
+    """Causal GQA attention, within a sliding window when ``window`` >
+    0, with a gradient: K3 forward (saving its row LSE), K8 backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    def forward(ctx, q, k, v, window):
+        out, lse = flash_attention(q, k, v, causal=True, window=window,
+                                   return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+        return flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                   window=ctx.window) + (None,)
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of a training forward: q (B, H, S, D), k/v (B,
-    KVH, S, D) -> (B, H, S, D), differentiable through K3 and K8."""
-    return FlashAttentionFn.apply(q, k, v)
+                          v: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Causal attention of a training forward, windowed when ``window``
+    > 0: q (B, H, S, D), k/v (B, KVH, S, D) -> (B, H, S, D),
+    differentiable through K3 and K8."""
+    return FlashAttentionFn.apply(q, k, v, window)
 
 
 # launches of the kernel, and of those the windowed ones (window > 0) and
@@ -359,3 +370,4 @@ flash_attention.launches = 0
 flash_attention.windowed_launches = 0
 flash_attention.offset_launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.windowed_launches = 0

@@ -4,7 +4,8 @@ and training shapes, so that two checkouts can be compared on one card
 in turns.
 
     python3 src/repro_torch/kernels/time_kernels.py [--src DIR]
-        [--label NAME] [--kernels k1,k2,k3,k4,k5,k5adm,k6,k9] [--profile]
+        [--label NAME] [--kernels k1,k2,k3,k4,k5,k5adm,k6,k9,k8w,k10]
+        [--profile]
 
 ``--src`` is the ``src`` directory of the checkout to time (this
 script's own checkout by default); its ``repro_torch`` is imported and
@@ -34,7 +35,15 @@ picks the groups (all by default):
          chip_smoke.py uses too);
   k9     K9 LoRA-delta backward at T = 160 (a client step's 4 x 40
          tokens) over the same shapes, E = 1 with a ones gate (a client
-         step) and E = 4 with soft gates on 4 gate rows.
+         step) and E = 4 with soft gates on 4 gate rows;
+  k8w    K8 attention backward in its windowed mode at the gemma3 SLM's
+         H 4 / KV 1 / head_dim 256, window 512, (B, S) = (1, 2,048) and
+         (8, 640), on (B, H, S, D) views of (B, S, H, D) tensors, its
+         LSE from K3 windowed;
+  k10    K10 selective-scan backward at falcon-mamba's d_inner 8,192 and
+         N 16, (B, S) = (4, 40), (2, 256) and (1, 1,536), from K6's
+         chunk states (``ssm_inputs``), dA included; beside each, K6
+         with and without its chunk-state output.
 
 Every input is made on the card from fixed seeds, so two checkouts time
 the same tensors.  Prints one JSON line: the card's name and power
@@ -68,7 +77,10 @@ FREED_POS = 1 << 30
 NO_PAGE = 1 << 20
 K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
-GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6", "k9")
+GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6", "k9", "k8w", "k10")
+K8W_SHAPES = [(1, 2048), (8, 640)]
+GEMMA3_WINDOW = 512
+K10_SHAPES = [(4, 40), (2, 256), (1, 1536)]
 TRAIN_ROWS = 160
 K1_ARRIVED = [True, False, True, False] * 2
 SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
@@ -199,16 +211,17 @@ def time_k1(torch, profile):
     return out
 
 
-def ssm_inputs(torch, g, s):
-    """One falcon-mamba prefill scan's inputs on the card, as
-    chip_smoke.py checks them too: dt a softplus (f32), x bf16, B and C
-    bf16 column slices of an x_proj-like output (1, S, dt_rank + 2 N) as
-    the model hands them over, A = -exp(A_log) (f32)."""
+def ssm_inputs(torch, g, s, b=1):
+    """One falcon-mamba prefill scan's inputs on the card (``b`` rows of
+    S steps), as chip_smoke.py checks them too: dt a softplus (f32), x
+    bf16, B and C bf16 column slices of an x_proj-like output (b, S,
+    dt_rank + 2 N) as the model hands them over, A = -exp(A_log)
+    (f32)."""
     dev = torch.device("cuda")
     dt = torch.nn.functional.softplus(
-        torch.randn(1, s, SSM_DI, device=dev, generator=g) - 1.0)
-    x = torch.randn(1, s, SSM_DI, device=dev, generator=g).bfloat16()
-    xdbc = torch.randn(1, s, SSM_DT_RANK + 2 * SSM_N, device=dev,
+        torch.randn(b, s, SSM_DI, device=dev, generator=g) - 1.0)
+    x = torch.randn(b, s, SSM_DI, device=dev, generator=g).bfloat16()
+    xdbc = torch.randn(b, s, SSM_DT_RANK + 2 * SSM_N, device=dev,
                        generator=g).bfloat16()
     bm = xdbc[..., SSM_DT_RANK:SSM_DT_RANK + SSM_N]
     cm = xdbc[..., SSM_DT_RANK + SSM_N:]
@@ -383,6 +396,62 @@ def time_k9(torch, profile):
     return out
 
 
+def k8w_inputs(torch, g, b, s, h=4, kvh=1, d=256):
+    """K8's windowed inputs: bf16 q, k, v, dO as (B, N, S, D) views of
+    (B, S, N, D) tensors (the model's layout)."""
+    q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=g)
+               .bfloat16().transpose(1, 2) for n in (h, kvh, kvh))
+    do = torch.randn(b, s, h, d, device="cuda",
+                     generator=g).bfloat16().transpose(1, 2)
+    return q, k, v, do
+
+
+def time_k8w(torch, profile):
+    from repro_torch.kernels.flash_attention import kernel as K3
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(8)
+    w = GEMMA3_WINDOW
+    for b, s in K8W_SHAPES:
+        q, k, v, do = k8w_inputs(torch, g, b, s)
+        o, lse = K3.flash_attention(q, k, v, window=w, return_lse=True)
+        res, info = case(torch, lambda: K3.flash_attention_bwd(
+            q, k, v, o, do, lse, window=w), 20 if s > 1024 else 50,
+            profile, B=b, S=s, H=4, KVH=1, D=256, window=w)
+        ref = K3.flash_attention_bwd_plain(q, k, v, o, do, lse, window=w)
+        info["rel_err_dq_dk_dv"] = [
+            ((x.float() - y.float()).abs().max()
+             / y.float().abs().max()).item() for x, y in zip(res, ref)]
+        out.append(info)
+        print(f"K8 windowed {info}", file=sys.stderr)
+    return out
+
+
+def time_k10(torch, profile):
+    from repro_torch.kernels.ssm_scan import kernel as K6
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for b, s in K10_SHAPES:
+        dt, x, bm, cm, a = ssm_inputs(torch, g, s, b)
+        dy = torch.randn(b, s, SSM_DI, device="cuda",
+                         generator=g).bfloat16()
+        _, _, hc = K6.ssm_scan(dt, x, bm, cm, a, chunk_states=True)
+        res, info = case(torch, lambda: K6.ssm_scan_bwd(
+            dt, x, bm, cm, a, dy, hc), 20 if s > 512 else 50, profile,
+            B=b, S=s, di=SSM_DI, N=SSM_N)
+        ref = K6.ssm_scan_bwd_plain(dt, x, bm, cm, a, dy)
+        info["rel_err_ddt_dx_db_dc_da"] = [
+            ((u.float() - w.float()).abs().max()
+             / w.float().abs().max()).item() for u, w in zip(res, ref)]
+        info["k6_ms"] = time_ms(torch, lambda: K6.ssm_scan(
+            dt, x, bm, cm, a), 50)
+        info["k6_chunk_states_ms"] = time_ms(torch, lambda: K6.ssm_scan(
+            dt, x, bm, cm, a, chunk_states=True), 50)
+        out.append(info)
+        print(f"K10 {info}", file=sys.stderr)
+        del dt, x, bm, cm, a, dy, hc, res, ref
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
@@ -407,15 +476,19 @@ def main() -> int:
         check=True).stdout.strip()
     sources = {"k1": "fuse_logits", "k2": "paged_attention",
                "k3": "flash_attention", "k4": "moe_lora", "k5": "moe_lora",
-               "k5adm": "moe_lora", "k6": "ssm_scan", "k9": "moe_lora_bwd"}
-    report = build.build_all(sorted({sources[g] for g in groups}))
+               "k5adm": "moe_lora", "k6": "ssm_scan", "k9": "moe_lora_bwd",
+               "k8w": "flash_attention_bwd", "k10": "ssm_scan_bwd"}
+    needs = {"k8w": ("flash_attention",), "k10": ("ssm_scan",)}
+    report = build.build_all(sorted(
+        {sources[g] for g in groups}
+        | {n for g in groups for n in needs.get(g, ())}))
     ptxas = {name: [ln.strip() for ln in r["ptxas"].splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]
              for name, r in report.items()}
     res = dict(label=args.label, src=args.src, card=card, ptxas=ptxas)
     timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4,
               "k5": time_k5, "k5adm": time_k5adm, "k6": time_k6,
-              "k9": time_k9}
+              "k9": time_k9, "k8w": time_k8w, "k10": time_k10}
     for name in groups:
         res[name] = timers[name](torch, args.profile)
     print(json.dumps(res))

@@ -3,8 +3,12 @@
     python -m repro_torch.launch.train --local [--device cpu]
 
 ``--local`` runs end-to-end federated fine-tuning (``run_simulation``) on
-the reduced config of ``--arch`` and prints the reference's per-round
-lines: on the card unless ``--device cpu``.  Without ``--local`` the
+the reduced config of ``--arch`` (the dense floe-slm-2b, the grouped
+floe-slm-gemma3 or the Mamba-1 falcon-mamba-7b) and prints the
+reference's per-round lines: on the card unless ``--device cpu``.  The
+parameters are the reference launcher's, ``lm.init(jax.random.key(0))``
+bit for bit (``LM.init_keyed``), so on the CPU the lines are the
+reference's within float32 rounding.  Without ``--local`` the
 reference lowers the train step onto a production mesh; that mode is
 Queue 1 item 10 (multi-GPU placement) of the port and raises here.
 """
@@ -33,7 +37,7 @@ def main(argv=None):
     from repro_torch.models.model import LM
     cfg = get_config(args.arch).reduced()
     lm = LM(cfg, device=args.device)
-    params = lm.init(0)
+    params = lm.init_keyed(0)
     sim = SimConfig(num_clients=args.clients, rounds=args.rounds)
     res = run_simulation(lm, params, sim)
     for i, h in enumerate(res.server.state.history):

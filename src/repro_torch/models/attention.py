@@ -32,11 +32,11 @@ PyTorch on both, as the reference computes it outside any Pallas
 kernel.
 
 ``train`` mode (the reference's ``attention.py:323-326``) attends
-causally over the whole sequence and returns no cache.  On CUDA with a
-gradient it runs K3 and K8 through ``flash_attention_train``; without
-one, K3; on the CPU the plain ``chunked_causal_attention`` under
-autograd.  A windowed layer that needs a gradient raises (the gemma3
-SLM's training is a later slice).
+causally over the whole sequence (a window layer within its sliding
+window) and returns no cache.  On CUDA with a gradient it runs K3 and
+K8 through ``flash_attention_train``, windowed on gemma3's local
+layers; without one, K3; on the CPU the plain
+``chunked_causal_attention`` under autograd.
 
 Decode writes the new token's K/V into the cache IN PLACE (the
 reference returns an updated copy).  torch has neither
@@ -356,11 +356,8 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
             if torch.is_grad_enabled() and (q.requires_grad
                                             or k.requires_grad
                                             or v.requires_grad):
-                if window:
-                    raise NotImplementedError(
-                        "windowed attention with a gradient: the gemma3 "
-                        "SLM's training is a later slice")
-                out = flash_attention_train(qt, kt, vt).transpose(1, 2)
+                out = flash_attention_train(qt, kt, vt,
+                                            window=window).transpose(1, 2)
             else:
                 out = flash_attention(qt, kt, vt, causal=True,
                                       window=window).transpose(1, 2)

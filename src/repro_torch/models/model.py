@@ -34,15 +34,15 @@ returns an updated copy, which the port saves):
   with the device.
 
 The SSM family keeps one cache form: {"conv": (L, B, k-1, d_inner) in
-the model dtype, "h": (L, B, d_inner, N) float32, "pos": int}; its
-prefill scan runs K6 (``models/ssm.py``).
+the model dtype, "h": (L, B, d_inner, N) float32, "pos": int, or (B,)
+per-row lengths after a packed prefill}; its prefill scan runs K6
+(``models/ssm.py``).
 
 Every entry point takes an optional merged-LoRA bank (``lora``, the
 ``core/lora.py`` tree without metadata: {stack: {target: {"A"
 (*dims, E, r, d_in), "B" (*dims, E, d_out, r)}}} over the stacks of
 ``lora_layout``) and its ``gates``; a layer reads its slice of every
-leaf, as the reference's layer scans do.  LoRA on the SSM projections
-is a later slice.
+leaf, as the reference's layer scans do.
 
 The prefix history API of the dense family (the reference's
 ``model.py:952-1100``): ``build_prefix`` prefills a shared preamble once
@@ -67,10 +67,12 @@ lane rewrites the current value of a slot no other write of the call
 touches.  Neither copies from the host, so both run inside a CUDA graph.
 
 ``train_logits`` is the full-sequence causal forward of training (the
-reference's ``model.py:650-665``) for the plain dense layout: it runs
-outside ``torch.inference_mode`` (which the serving entry points keep),
-so gradients reach a LoRA bank (or the parameters) through K3/K8 and
-K5/K9 on CUDA and through the plain versions on the CPU.
+reference's ``model.py:650-665``) for every ported layout: the plain
+and grouped dense layouts (gemma3's local layers within their window)
+and the Mamba-1 SSM family.  It runs outside ``torch.inference_mode``
+(which the serving entry points keep), so gradients reach a LoRA bank
+(or the parameters) through K3/K8, K6/K10 and K5/K9 on CUDA and through
+the plain versions on the CPU.
 
 The MoE, MLA, hybrid (zamba2), audio and vision layouts, the
 all-sliding layout, qkv biases and untied embeddings of a dense model
@@ -142,12 +144,12 @@ def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
                      gates), kv
 
 
-def ssm_layer(cfg, p, x, *, mode, cache, lora=None):
+def ssm_layer(cfg, p, x, *, mode, cache, lora=None, gates=None):
     """Pre-norm Mamba-1 block with a residual.  Returns (x, {"conv",
-    "h"})."""
+    "h"}, or None in train mode)."""
     h = L.norm(cfg, p["ln"], x)
     y, state = SSM.mamba1_block(cfg, p["ssm"], h, cache=cache, mode=mode,
-                                lora=lora)
+                                lora=lora, gates=gates)
     return x + y, state
 
 
@@ -307,17 +309,49 @@ class LM:
 
         return T.map_tree(make, self.param_shapes())
 
+    def init_keyed(self, seed: int) -> Dict[str, Any]:
+        """The reference's ``lm.init(jax.random.key(seed))`` bit for bit
+        (``repro/models/layers.py:54``): the key split into one key a
+        leaf in sorted order, each leaf ``jax.random.normal`` times its
+        law's std (the embedding's scale, or scale / sqrt(fan-in)),
+        ones or zeros, cast to the model's dtype.  The normals are
+        threefry's on the host (``core/prng.py``), so this is for the
+        reduced configs (the launcher's), not a full-width model."""
+        from repro_torch.core import prng
+        specs = self.param_shapes()
+        leaves = T.leaves(specs)
+        keys = prng.split(prng.key(seed), max(1, len(leaves)))
+
+        def make(j, spec):
+            shape, init, scale = spec
+            if init in ("ones", "zeros"):
+                fill = np.ones if init == "ones" else np.zeros
+                arr = fill(shape, np.float32)
+            else:
+                std = scale if init == "embed" else \
+                    scale / math.sqrt(max(1, math.prod(shape[:-1])))
+                arr = prng.normal(prng.key_at(keys, j), shape) \
+                    * np.float32(std)
+            return torch.from_numpy(arr).to(self.device, self.dtype)
+
+        return T.unflatten(specs, [make(j, spec)
+                                   for j, spec in enumerate(leaves)])
+
     def lora_layout(self) -> Dict[str, Any]:
         """{stack: (stack dims, {target: (d_in, d_out)})} — the contract
         between ``core/lora.py`` adapter trees and the per-layer LoRA
         slices the entry points take (the reference's ``lora_layout``
-        for the dense layouts: the grouped one's global layers are its
-        "special" stack)."""
+        for the dense layouts, whose grouped one's global layers are its
+        "special" stack, and for Mamba-1: in_proj, x_proj, dt_proj and
+        out_proj as ssm_in, ssm_x, ssm_dt and ssm_out)."""
         cfg = self.cfg
         if cfg.family == "ssm":
-            raise NotImplementedError(
-                f"{cfg.name}: LoRA on the SSM projections (ssm_in, ssm_x, "
-                "ssm_dt, ssm_out): later slice")
+            di, n = cfg.d_inner, cfg.ssm_state
+            return {"layers": ((cfg.num_layers,), {
+                "ssm_in": (cfg.d_model, 2 * di),
+                "ssm_x": (di, cfg.dt_rank + 2 * n),
+                "ssm_dt": (cfg.dt_rank, di),
+                "ssm_out": (di, cfg.d_model)})}
         d, f = cfg.d_model, cfg.d_ff
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
@@ -385,29 +419,38 @@ class LM:
 
     def train_logits(self, params, batch, lora=None, gates=None):
         """Full-sequence causal logits of ``batch["tokens"]`` (B, S):
-        (logits (B, S, V) float32, aux loss 0.0) — the plain dense
-        layout only.  ``lora``/``gates`` as ``layers.lora_delta`` takes
-        them; each leaf of a bank is split into its layers once
-        (``unbind``), so the backward stacks the layers' gradients into
-        the leaf once."""
+        (logits (B, S, V) float32, aux loss 0.0), the reference's
+        ``_run_stack`` in train mode (``model.py:568-611`` for the
+        grouped layout: each layer with its window, theta and qk-norm).
+        ``lora``/``gates`` as ``layers.lora_delta`` takes them; each leaf
+        of a bank stack is split into its layers once (``unbind`` over
+        the flattened stack dims), so the backward stacks the layers'
+        gradients into the leaf once.  An SSM sequence keeps the
+        128-token chunk rule (``models/ssm.py``)."""
         cfg = self.cfg
-        if cfg.family != "dense" or self._layout()[0] != "plain":
-            raise NotImplementedError(
-                f"train_logits of {cfg.name}: the plain dense layout only "
-                "(the grouped gemma3 layout and the SSM family train in a "
-                "later slice)")
         tokens = batch["tokens"]
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        layers = None if lora is None else T.map_tree(
-            lambda t: t.unbind(0), lora["layers"])
+        layout = self.lora_layout()
+        split = {}
+        if lora is not None:
+            for stack, (dims, _) in layout.items():
+                split[stack] = T.map_tree(
+                    lambda t, n=len(dims): t.flatten(0, n - 1).unbind(0),
+                    lora[stack])
         for site in self.layer_sites():
-            i = site.idx[0]
-            l_i = None if layers is None else T.map_tree(
-                lambda ts: ts[i], layers)
-            x, _ = dense_layer(cfg, self._layer(params, site), x,
-                               positions=positions, mode="train", cache=None,
-                               lora=l_i, gates=gates)
+            l_i = None
+            if lora is not None:
+                j = int(np.ravel_multi_index(site.idx, layout[site.lora][0]))
+                l_i = T.map_tree(lambda ts: ts[j], split[site.lora])
+            p_i = self._layer(params, site)
+            if cfg.family == "ssm":
+                x, _ = ssm_layer(cfg, p_i, x, mode="train", cache=None,
+                                 lora=l_i, gates=gates)
+                continue
+            x, _ = dense_layer(cfg, p_i, x, positions=positions,
+                               mode="train", cache=None, lora=l_i,
+                               gates=gates, is_global=site.is_global)
         x = L.norm(cfg, params["ln_f"], x)
         return L.unembed(cfg, params["embed"], x), \
             torch.zeros((), device=x.device)
@@ -437,7 +480,7 @@ class LM:
                                                                    site)
             if cfg.family == "ssm":
                 x, state = ssm_layer(cfg, p_i, x, mode="prefill",
-                                     cache=None, lora=l_i)
+                                     cache=None, lora=l_i, gates=gates)
                 cache["conv"][site.addr] = state["conv"]
                 cache["h"][site.addr] = state["h"]
                 continue
@@ -470,11 +513,15 @@ class LM:
         logits (B, 1, V) float32.  Without ``write_kv`` it returns
         (logits, cache): a dense max_seq cache with per-row "pos" =
         ``lengths``, each row placed as ``packed_rows`` places it (the
-        reference's ``_pad_cache(lengths=)``)."""
+        reference's ``_pad_cache(lengths=)``).
+
+        The SSM family returns (logits, cache) and takes no ``write_kv``:
+        its scan runs over the whole padded width, so every row's conv
+        and scan state is the state after Lpad positions, padding
+        included, with "pos" = ``lengths`` (the reference's behaviour,
+        ``model.py:686-718``: its ``_pad_cache`` keeps the prefill's
+        state of every row).  Lpad follows the 128-token chunk rule."""
         cfg = self.cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(f"packed prefill of the {cfg.family} "
-                                      "family: later slice")
         b, s = tokens.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
@@ -484,14 +531,28 @@ class LM:
             raise ValueError(f"lengths {lengths.tolist()} do not fit "
                              f"(B={b}, Lpad={s})")
         cache = None
-        if write_kv is None:
+        if cfg.family == "ssm":
+            if write_kv is not None:
+                raise ValueError("packed prefill of an SSM: its recurrent "
+                                 "state has no K/V to write (no write_kv)")
+            cache = self.init_cache(b, max_seq)
+        elif write_kv is None:
             cache = self.init_cache(b, max_seq)
             write_kv = row_writer(cache, range(b), range(b), lengths)
+        if cache is not None:
             cache["pos"] = to_device(lengths.astype(np.int32),
                                      tokens.device)
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(s, device=tokens.device)
         for site in self.layer_sites():
+            if cfg.family == "ssm":
+                x, state = ssm_layer(cfg, self._layer(params, site), x,
+                                     mode="prefill", cache=None,
+                                     lora=self._lora_layer(lora, site),
+                                     gates=gates)
+                cache["conv"][site.addr] = state["conv"]
+                cache["h"][site.addr] = state["h"]
+                continue
             x, (k, v) = dense_layer(cfg, self._layer(params, site), x,
                                     positions=positions, mode="prefill",
                                     cache=None,
@@ -811,7 +872,7 @@ class LM:
             if cfg.family == "ssm":
                 i = site.addr
                 x, state = ssm_layer(
-                    cfg, p_i, x, mode="decode", lora=l_i,
+                    cfg, p_i, x, mode="decode", lora=l_i, gates=gates,
                     cache={"conv": cache["conv"][i], "h": cache["h"][i]})
                 cache["conv"][i] = state["conv"]
                 cache["h"][i] = state["h"]

@@ -5,14 +5,24 @@ Prefill runs the selective scan through K6 (``kernels/ssm_scan``: the
 CUDA kernel on a CUDA tensor, its plain step-by-step version on a CPU
 tensor); decode is the O(1) single-step recurrence against (conv
 state, ssm state) in plain torch ops, as the reference writes it in jnp
-outside any kernel.
+outside any kernel.  Train mode is the prefill's scan with a gradient:
+K6 forward and K10 backward (``ssm_scan_train``), and no state.
+
+LoRA on the four projections, as the reference puts it
+(``repro/models/ssm.py:111-150``): ``ssm_in`` on ``in_proj``, ``ssm_x``
+on ``x_proj``, ``ssm_dt`` on ``dt_proj`` (its bias added before the
+delta, as ``layers.linear`` adds it) and ``ssm_out`` on ``out_proj``,
+each through ``layers.lora_delta`` (K5/K9 for float gates, K4 for
+integer slots at decode).  dt_proj's input is a column slice of
+x_proj's output, which ``lora_delta`` copies once into a contiguous
+(T, dt_rank) operand for K4/K5/K9.
 
 The reference's prefill scan is chunked (``_mamba1_inner``: chunk 128)
 and asserts s % min(128, s) == 0, so it serves prompts of at most 128
-tokens or a multiple of 128.  The port keeps that rule and refuses the
-other lengths with a ``ValueError``, although K6 takes any length.
-Mamba-2 (the zamba2 hybrid) and LoRA on the SSM projections are later
-slices.
+tokens or a multiple of 128, and trains on such sequences.  The port
+keeps that rule in prefill and train mode and refuses the other lengths
+with a ``ValueError``, although K6 and K10 take any length.  Mamba-2
+(the zamba2 hybrid) is a later slice.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan.kernel import ssm_scan
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan, ssm_scan_train
 from repro_torch.models import layers as L
 
 # the reference's mamba1_block default chunk
@@ -68,29 +78,32 @@ def check_prefill_length(s: int, chunk: int = CHUNK) -> None:
 
 def mamba1_block(cfg, p, x: torch.Tensor, *,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
-                 mode: str = "prefill", lora=None
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One Mamba-1 block in ``prefill`` or ``decode`` mode (S = 1 against
-    ``cache`` {"conv" (B, k-1, di), "h" (B, di, N) float32}).  Returns
-    (out (B, S, d), {"conv", "h"}) — the state after the last position."""
-    if lora:
-        raise NotImplementedError("LoRA on the SSM projections (ssm_in, "
-                                  "ssm_x, ssm_dt, ssm_out): later slice")
-    if mode not in ("prefill", "decode"):
+                 mode: str = "prefill", lora=None, gates=None
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One Mamba-1 block in ``prefill``, ``train`` or ``decode`` mode (S =
+    1 against ``cache`` {"conv" (B, k-1, di), "h" (B, di, N) float32}).
+    ``lora`` is this layer's {"ssm_in", "ssm_x", "ssm_dt", "ssm_out":
+    {"A", "B"}} bank slice (any target may be missing) and ``gates`` its
+    gates, as ``layers.lora_delta`` takes them.  Returns (out (B, S, d),
+    {"conv", "h"}, the state after the last position; None in train
+    mode)."""
+    if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mamba1_block: mode {mode!r}")
     dtr, n = cfg.dt_rank, cfg.ssm_state
-    if mode == "prefill":
+    get = (lora or {}).get
+    if mode != "decode":
         check_prefill_length(x.shape[1])
 
-    xz = L.linear(p["in_proj"], x)
+    xz = L.linear(p["in_proj"], x, get("ssm_in"), gates)
     xin, z = torch.chunk(xz, 2, dim=-1)
     conv_state = cache["conv"] if mode == "decode" else None
     xin, new_conv = causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
     xin = F.silu(xin)
 
-    xdbc = L.linear(p["x_proj"], xin)
+    xdbc = L.linear(p["x_proj"], xin, get("ssm_x"), gates)
     dt_r, bm, cm = torch.split(xdbc, [dtr, n, n], dim=-1)
-    dt = softplus(L.linear(p["dt_proj"], dt_r).float())
+    dt = softplus(L.linear(p["dt_proj"], dt_r, get("ssm_dt"),
+                           gates).float())
     a = -torch.exp(p["A_log"].float())                     # (di, N)
 
     if mode == "decode":
@@ -99,12 +112,15 @@ def mamba1_block(cfg, p, x: torch.Tensor, *,
             * bm[:, 0, None, :].float()
         h = cache["h"].float() * da + dbx
         y = torch.einsum("bdn,bn->bd", h, cm[:, 0].float())[:, None]
+    elif mode == "train":
+        y, h = ssm_scan_train(dt, xin, bm, cm, a), None
     else:
         y, h = ssm_scan(dt, xin, bm, cm, a)
 
     y = y.to(x.dtype) + xin * p["D"].to(x.dtype)
     y = y * F.silu(z)
-    return L.linear(p["out_proj"], y), {"conv": new_conv, "h": h}
+    out = L.linear(p["out_proj"], y, get("ssm_out"), gates)
+    return out, None if h is None else {"conv": new_conv, "h": h}
 
 
 def mamba2_block(cfg, p, x, **kw):

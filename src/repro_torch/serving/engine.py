@@ -2057,8 +2057,10 @@ class SoloEngine:
     paper's SLM-only baseline, and the way an SSM such as falcon-mamba
     is served: no Floe pair shares its vocabulary).  ``router`` gates
     the deployment's expert bank; a deployment with ``adapter_slots``
-    gives the engine its own ``AdapterCache``.  LoRA is served for the
-    dense family only (an SSM model refuses a bank)."""
+    gives the engine its own ``AdapterCache``: a request's one-hot gate
+    row takes K5 at prefill and its slot id K4 at decode.  Both families
+    serve LoRA: the dense one on its attention and MLP projections,
+    Mamba-1 on its four SSM projections."""
 
     def __init__(self, lm=None, params=None, expert_bank=None,
                  router: Optional[Router] = None, max_seq: int = 96,
@@ -2121,6 +2123,8 @@ class SoloEngine:
         self.last_truncated = len(raw) > cap
         logits, cache = dep.slm_prefill(self.params, dep.tokens(raw[:cap]),
                                         lora, gates)
+        if aslot is not None:
+            gates = to_device(np.asarray([aslot], np.int32), dep.device)
         out: List[int] = []
         for _ in range(max_new_tokens):
             nxt = int(torch.argmax(logits[0, 0]))

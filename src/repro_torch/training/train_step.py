@@ -46,12 +46,16 @@ def lora_loss_fn(lm, params, bank, batch, gates=None,
 
 def value_and_grad(loss_fn, tree):
     """(loss, grads): ``loss_fn`` of fresh leaves of ``tree`` that
-    require a gradient, and its gradient as a tree shaped as ``tree``."""
+    require a gradient, and its gradient as a tree shaped as ``tree``.
+    A leaf the loss does not reach (the grouped layout's empty tail
+    stack) gets a zero gradient, as ``jax.value_and_grad`` gives it."""
     leaves = [x.detach().requires_grad_(True) for x in T.leaves(tree)]
     with torch.enable_grad():
         loss = loss_fn(T.unflatten(tree, leaves))
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), T.unflatten(tree, list(grads))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return loss.detach(), T.unflatten(tree, grads)
 
 
 def make_lora_train_step(lm, opt, aux_weight: float = 0.01,

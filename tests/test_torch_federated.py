@@ -222,11 +222,26 @@ def test_fedavg_and_local_only_match_reference(models):
 
 
 def test_train_launcher_runs_on_cpu(capsys):
+    """``--local --device cpu`` prints the reference launcher's history
+    (its parameters are the reference's ``lm.init(jax.random.key(0))``):
+    clients, clusters, ranks and dropped equal, the loss and silhouette
+    within LOSS_TOL."""
     from repro_torch.launch import train
     res = train.main(["--local", "--device", "cpu", "--rounds", "1",
                       "--clients", "3"])
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("round 0: {'clients': ")
-    assert out[-1].startswith("experts: ") and res.server.state.experts
+    jlm = JLM(get_config("floe-slm-2b").reduced(), remat=False)
+    jres = JSIM.run_simulation(jlm, jlm.init(jax.random.key(0)),
+                               JSIM.SimConfig(num_clients=3, rounds=1))
+    h, jh = res.server.state.history[0], jres.server.state.history[0]
+    assert out[0] == f"round 0: {h}"
+    assert out[-1] == (f"experts: {h['clusters']}, dropped: "
+                       f"{res.dropped_per_round}")
+    assert res.server.state.experts
+    assert res.dropped_per_round == jres.dropped_per_round
+    for k in ("clients", "clusters", "mean_rank"):
+        assert h[k] == jh[k]
+    for k in ("mean_loss", "silhouette"):
+        np.testing.assert_allclose(h[k], jh[k], rtol=LOSS_TOL)
     with pytest.raises(NotImplementedError, match="item 10"):
         train.main([])

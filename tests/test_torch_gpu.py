@@ -25,7 +25,10 @@ to K4's output bit for bit.  K6: y per (batch, position) row,
 max|out - ref| / max|ref| over d_inner, 2**-7 in bf16 (the kernel and
 the plain version round their f32 y to bf16 separately, one ulp at
 most) and 1e-5 in f32; h_final 1e-5 of its max (f32 recurrences whose
-updates round once more in the plain version).  K7: ids and perturbed
+updates round once more in the plain version); its chunk states the
+same.  K8 (causal and windowed) 2**-6 of each gradient's max; K10 1e-5
+on its f32 gradients (d(dt), dA) and 2**-7 on its bf16 ones (dx, dB,
+dC; 1e-5 in f32).  K7: ids and perturbed
 scores equal to the plain version's bit for bit (the kernel computes
 the plain version's integer and float steps, each rounded the same
 way)."""
@@ -644,6 +647,74 @@ def test_ssm_scan_full_width_repeats(cuda, b, s):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,di,n,dtype", [
+    (4, 40, 8192, 16, torch.bfloat16),
+    (1, 1536, 8192, 16, torch.bfloat16),
+    (2, 203, 520, 8, torch.float32),
+])
+def test_ssm_scan_chunk_states(cuda, b, s, di, n, dtype):
+    """K6 with its chunk-state output: y and h_final the same bits as
+    without it, the states entering each 64-step chunk within 1e-5 of the
+    plain scan's (zeros for the first)."""
+    g = torch.Generator(device=cuda).manual_seed(s + 1)
+    case = ssm_case(cuda, g, b, s, di, n, dtype)
+    y, h = K6.ssm_scan(*case)
+    y2, h2, hc = K6.ssm_scan(*case, chunk_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    _, _, rhc = K6.ssm_scan_plain(*case, chunk_states=True)
+    assert hc.shape == rhc.shape == (b, -(-s // 64), di, n)
+    assert not hc[:, 0].any()
+    if s > 64:                  # states past the first chunk
+        assert ((hc - rhc).abs().max() / rhc.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,di,n,dtype", [
+    (4, 40, 8192, 16, torch.bfloat16),     # a client step
+    (2, 256, 8192, 16, torch.bfloat16),    # two 128-token chunks
+    (1, 1536, 8192, 16, torch.bfloat16),
+    (2, 203, 520, 8, torch.float32),       # ragged di and S, reduced N
+])
+def test_ssm_scan_bwd_matches_plain(cuda, b, s, di, n, dtype):
+    """K10 from K6's chunk states against its plain version: d(dt) and
+    dA (f32) within 1e-5 of their max (f32 sums in another order); dx, dB
+    and dC within 2**-7 in bf16 (each rounds its f32 sum to bf16 once,
+    one ulp at most) and 1e-5 in f32; two calls give the same bits; with
+    no dA wanted the rest is unchanged."""
+    g = torch.Generator(device=cuda).manual_seed(s + n)
+    case = ssm_case(cuda, g, b, s, di, n, dtype)
+    dy = torch.randn(b, s, di, device=cuda, generator=g).to(dtype)
+    _, _, hc = K6.ssm_scan(*case, chunk_states=True)
+    before = K6.ssm_scan_bwd.launches
+    got = K6.ssm_scan_bwd(*case, dy, hc)
+    again = K6.ssm_scan_bwd(*case, dy, hc)
+    no_da = K6.ssm_scan_bwd(*case, dy, hc, need_da=False)
+    torch.cuda.synchronize()
+    assert K6.ssm_scan_bwd.launches == before + 3
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert no_da[4] is None
+    assert all(torch.equal(x, y) for x, y in zip(got[:4], no_da[:4]))
+    ref = K6.ssm_scan_bwd_plain(*case, dy)
+    low = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for x, y, tol in zip(got, ref, (1e-5, low, low, low, 1e-5)):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert rel(x, y) <= tol
+
+
+@pytest.mark.gpu
+def test_ssm_scan_train_takes_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    case = [t.detach().clone().requires_grad_(True)
+            for t in ssm_case(cuda, g, 2, 128, 8192, 16, torch.bfloat16)]
+    before = (K6.ssm_scan.launches, K6.ssm_scan_bwd.launches)
+    K6.ssm_scan_train(*case).float().square().sum().backward()
+    assert (K6.ssm_scan.launches, K6.ssm_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in case)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("di,dt_rank,x_offset,dtype", [
     (37, 5, 0, torch.bfloat16),        # di % 8 != 0, B/C unaligned
     (8192, 256, 1, torch.bfloat16),    # x 2 bytes off 16-byte alignment
@@ -1071,6 +1142,55 @@ def test_flash_attention_train_takes_the_kernels(cuda):
     K3.flash_attention_train(q, k, v).float().square().sum().backward()
     assert (K3.flash_attention.launches, K3.flash_attention_bwd.launches) \
         == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,s,d,window", [(1, 4, 1, 2048, 256, 512),
+                                                (8, 4, 1, 640, 256, 512),
+                                                (3, 4, 1, 40, 256, 512),
+                                                (2, 4, 2, 77, 32, 16)])
+def test_flash_attention_bwd_windowed_matches_autograd_of_plain(
+        cuda, b, h, kvh, s, d, window):
+    """K8's windowed mode (gemma3's local layers: H 4, KV 1, window 512)
+    from K3's windowed LSE against autograd of K3's windowed plain
+    version, 2**-6 of each gradient's max as in the causal mode; two
+    calls give the same bits; the windowed launches are counted."""
+    g = torch.Generator(device=cuda).manual_seed(s + window)
+    q, k, v = (torch.randn(b, s, n, d, device=cuda, generator=g).bfloat16()
+               .transpose(1, 2) for n in (h, kvh, kvh))
+    do = torch.randn(b, h, s, d, device=cuda, generator=g).bfloat16()
+    out, lse = K3.flash_attention(q, k, v, window=window, return_lse=True)
+    assert torch.equal(out, K3.flash_attention(q, k, v, window=window))
+    assert (lse - K3.attention_lse_plain(q, k, window=window)
+            ).abs().max() <= 1e-4
+    before = K3.flash_attention_bwd.windowed_launches
+    got = K3.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    again = K3.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert K3.flash_attention_bwd.windowed_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(K3.flash_attention_plain(qr, kr, vr,
+                                                       window=window),
+                              (qr, kr, vr), do)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape and rel(x, y) <= 2 ** -6
+
+
+@pytest.mark.gpu
+def test_flash_attention_train_windowed_takes_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(2, 600, n, 256, device=cuda, generator=g)
+               .bfloat16().transpose(1, 2).requires_grad_(True)
+               for n in (4, 1, 1))
+    before = (K3.flash_attention.windowed_launches,
+              K3.flash_attention_bwd.windowed_launches)
+    K3.flash_attention_train(q, k, v, window=512).float().square().sum(
+    ).backward()
+    assert (K3.flash_attention.windowed_launches,
+            K3.flash_attention_bwd.windowed_launches) == \
+        (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 

@@ -9,7 +9,7 @@ falcon-mamba (Mamba-1).
 * ``last_truncated`` as ``test_growth.py`` checks it.
 * Per-user adapters and router gates on the dense SLM (K5 plain), as
   ``test_adapters.py`` checks them: equal outputs, ``adapter_stats()``,
-  unknown adapters raise.  An SSM refuses LoRA (a later slice).
+  unknown adapters raise; per-user adapters on the SSM too.
 * The construction errors of ``HybridEngine`` and
   ``BatchedHybridEngine`` on SLM-only and SSM deployments.
 """
@@ -149,10 +149,21 @@ def test_solo_router_matches_reference():
 
 
 def test_solo_ssm_refuses_lora():
-    _, _, lm, tp = _model("falcon-mamba-7b", 0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        SoloEngine(deployment=ServingDeployment(
-            lm, tp, max_seq=48, adapter_slots=2, device="cpu"))
+    """An SSM serves per-user adapters on its four SSM projections, as
+    the dense SLM does: token for token the reference's
+    (``test_torch_train_ssm.py`` also holds the slot kernel's path and a
+    router-gated bank)."""
+    model = _model("falcon-mamba-7b", 0)
+    jeng, teng = _solos(model, 48, adapter_slots=2)
+    ad = _adapter(model[0], 3)
+    jeng.adapters.register("u0", jax.tree.map(jnp.asarray, ad))
+    teng.adapters.register("u0", bridge.from_numpy(ad))
+    out = {}
+    for aid in ("u0", None):
+        out[aid] = jeng.generate(PROMPTS[1], 6, adapter_id=aid)
+        assert teng.generate(PROMPTS[1], 6, adapter_id=aid) == out[aid]
+    assert out["u0"] != out[None]            # the adapter is at work
+    assert teng.adapter_stats() == jeng.adapter_stats()
 
 
 def test_solo_ssm_prompt_lengths_follow_the_chunk_rule():

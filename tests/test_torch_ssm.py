@@ -195,9 +195,19 @@ def test_mamba1_block_prefill_and_decode(mamba):
         np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
         np.testing.assert_allclose(c["h"].numpy(), np.asarray(jc["h"]),
                                    **TOL)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        SSM.mamba1_block(cfg, tp, torch.from_numpy(x), mode="prefill",
-                         lora={"ssm_in": {}})
+    # LoRA on the SSM projections: an ssm_in delta alone, as the
+    # reference applies it
+    rng = np.random.default_rng(4)
+    lora = {"ssm_in": {
+        "A": (rng.standard_normal((1, 2, cfg.d_model))
+              / np.sqrt(cfg.d_model)).astype(np.float32),
+        "B": (0.3 * rng.standard_normal((1, 2 * cfg.d_inner, 2))).astype(
+            np.float32)}}
+    jy, _ = JSSM.mamba1_block(cfg, jp, jnp.asarray(x), mode="prefill",
+                              lora=jax.tree.map(jnp.asarray, lora))
+    y, _ = SSM.mamba1_block(cfg, tp, torch.from_numpy(x), mode="prefill",
+                            lora=bridge.from_numpy(lora))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
 
 
 def rel(a, ref):

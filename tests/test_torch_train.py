@@ -105,6 +105,21 @@ def _trained_adapter(jlm, seed, rank=4, scale=0.3):
     return ad
 
 
+@pytest.mark.parametrize("arch", ["floe-slm-2b", "floe-slm-gemma3",
+                                  "falcon-mamba-7b"])
+def test_init_keyed_equals_reference_init_bit_for_bit(arch):
+    """``LM.init_keyed(seed)`` is the reference's ``lm.init(jax.random.
+    key(seed))`` leaf for leaf, bit for bit, on the reduced configs."""
+    from repro_torch.configs import get_config as tget
+    want = jax.device_get(JLM(get_config(arch).reduced(),
+                              remat=False).init(jax.random.key(3)))
+    got = LM(tget(arch).reduced(), device="cpu").init_keyed(3)
+    g, w = T.leaves(got), jax.tree.leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 # ------------------------------------------------------------------ data
 @pytest.mark.parametrize("seed", [0, 5])
 def test_batches_equal_the_reference_bit_for_bit(seed):
@@ -173,7 +188,8 @@ def test_split_and_array_normal_bit_exact(seed):
     k1, k2 = jax.random.split(jax.random.key(seed))
     for j, jk in enumerate((k1, k2)):
         tk = prng.key_at(prng.split(prng.key(seed)), j)
-        for shape in ((7,), (3, 5, 4), (2, 1, 64, 33)):
+        # the last draw takes three of prng's chunks and a part one
+        for shape in ((7,), (3, 5, 4), (2, 1, 64, 33), (3 * 1024 + 1, 64)):
             np.testing.assert_array_equal(
                 prng.normal(tk, shape),
                 np.asarray(jax.random.normal(jk, shape, jnp.float32)))
@@ -245,10 +261,18 @@ def test_train_logits_match_reference(models):
 
 
 def test_train_logits_refuse_the_grouped_layout():
+    """The grouped gemma3 layout trains: its train_logits at S 24, past
+    the reduced window of 16, equal the reference's
+    (``test_torch_train_gemma3.py`` holds its gradients)."""
     from repro_torch.configs import get_config as tget
+    jlm = JLM(get_config("floe-slm-gemma3").reduced(), remat=False)
+    jparams = jlm.init(jax.random.key(1))
     lm = LM(tget("floe-slm-gemma3").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.train_logits(lm.init(0), {"tokens": torch.zeros(1, 4).long()})
+    tokens = np.asarray(_batch(5)["tokens"])
+    want, _ = jlm.train_logits(jparams, {"tokens": jnp.asarray(tokens)})
+    got, _ = lm.train_logits(bridge.from_numpy(jax.device_get(jparams)),
+                             {"tokens": torch.from_numpy(tokens).long()})
+    _close(got, want, LOSS_TOL)
 
 
 def _bank_pair(jlm, seed, ranks=None):
