@@ -26,7 +26,10 @@ Phases, in order; any failure exits non-zero before the result lines:
               and K6 on the same inputs must return the same bits; K3
               also on (B, H, S, D)
               views of (B, S, H, D) tensors, K5 also at the admission
-              burst under one-hot gate rows; K7 (keyed sampling, no
+              burst under one-hot gate rows; K4 and K5 at zamba2-7b's
+              five LoRA shapes as its serving runs give them (T = 1 at
+              decode, a demo prompt's S rows under one soft or one-hot
+              gate row at prefill); K7 (keyed sampling, no
               Pallas original) at B = 1 and 8, V = 256,000, near-flat
               and peaked rows under a mixed greedy mask: ids and
               perturbed scores equal to its numpy plain version's bit
@@ -47,6 +50,13 @@ Phases, in order; any failure exits non-zero before the result lines:
               (1, 1536) against its plain backward per gradient (bound:
               bytes or its ex2 floor), K6 with its chunk-state output
               bit-equal to K6 without; two calls return the same bits;
+              K11 (the SSD scan, no Pallas original) at zamba2-7b's 112
+              heads of 64, N 64, S 1,536 and a demo prompt's, x, B and C
+              strided slices of a conv-like output, against the
+              reference's chunk loop (``ssd_scan_plain``), and K3 at
+              head_dim 112 (H = KV = 32, window 4,096, equal to causal
+              bit for bit) at the same S, both also replayed from a CUDA
+              graph, two calls bit-equal;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
@@ -94,7 +104,21 @@ Phases, in order; any failure exits non-zero before the result lines:
               (K5 at prefill, K4 at decode) and with a router-gated
               4-expert bank, the demo prompts at 16 tokens, K4 / K5 at
               4 x 64 a decode / prefill layer pass, ids moved by the
-              adapters; the model is freed before the pair's phases;
+              adapters; the model is freed before the next phase;
+  5c. serve_zamba2  the full-width zamba2-7b (Mamba-2 backbone: 13
+              groups of 5 Mamba-2 layers each under one shared attention
+              block, then 3 Mamba-2 layers; ~16.2 B parameters, bf16,
+              random weights from a seed) through SoloEngine: the four
+              demo prompts and the 1,536-token one, 16 greedy tokens
+              each, K11 = 68 and K3 = 13 launches a prefill and no other
+              kernel; one prefill through K11 against the plain scan
+              (logits and every layer's final SSD state); a
+              teacher-forced decode step against a prefill one token
+              longer (LOGITS_TOL, or FORCED_RATIO times the same
+              comparison through the plain versions, which is itself
+              held to FORCED_CEIL); a profile of the
+              long request; serve_ssm (c)'s slots and router runs on
+              it; the model is freed before the pair's phases;
   6. serve    the full-width 2b pair (floe-slm-2b + floe-llm-7b, bf16,
               random weights from a seed) through ServingDeployment and
               Scheduler.from_deployment: the four demo prompts of the
@@ -235,8 +259,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 The kernels phase also holds K3's history-offset mode (K3_OFFSET_SHAPES)
 and K2 over (8, 256) block tables against their plain versions.
 Then it prints the ``federate:`` summary, the ``{"kernels": [...]}``
-line (K1-K10, K3's offset and K8's windowed modes as entries of their
-own), the nvidia-smi line and,
+line (K1-K11, K3's offset and head_dim 112 modes and K8's windowed mode
+as entries of their own), the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
 import contextlib
@@ -386,6 +410,11 @@ FED_GRAD_RTOL = 2.5e-2
 # (k, n) of the SLM's LoRA targets: q and o, k and v, mlp_in, mlp_out
 LORA_SHAPES = [(2048, 2048), (2048, 256), (2048, 32768), (16384, 2048)]
 K4_SLOTS = [0, 1, 2, 3, -1, 0, 2, -1]
+# zamba2-7b's LoRA targets (k, n): ssm_in (n = 2 d_inner + 2 N + 112
+# heads = 16 x 911), ssm_out, mlp_in, mlp_out, and the shared block's q,
+# k, v and o
+ZAMBA2_LORA_SHAPES = [(3584, 14576), (7168, 3584), (3584, 28672),
+                      (14336, 3584), (3584, 3584)]
 # K6: y per (batch, position) row, max|out - ref| / max|ref| over d_inner:
 # the kernel and the plain version round their f32 y to bf16 apart (one
 # ulp, 2**-8 of a value and at most 2**-7 of a row's max); h_final
@@ -395,6 +424,30 @@ K6_ROW_RTOL = 2 ** -7
 K6_H_RTOL = 1e-5
 # serve_ssm: falcon-mamba-7b's d_inner, state size and dt_rank
 SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
+# K11 (the SSD scan, no Pallas original): y per (batch, position, head)
+# row, max|out - ref| / max|ref| over P.  The kernel runs the f32
+# recurrence step by step, the plain version the reference's chunk form
+# (exponentials of cumulative log-decay differences over up to 256
+# steps); a CPU model of the two in f32 parts by 1.4e-5 a row at S
+# 1,536, and an H100 run read 3.8e-5.  h_final against 1e-5 of its max
+# (read 2.6e-6)
+K11_ROW_RTOL = 1e-4
+K11_H_RTOL = 1e-5
+# serve_zamba2: the seed of its random weights.  Its teacher-forced
+# decode step (n - 1 tokens prefilled, then one decode step, against a
+# prefill of n) is held to LOGITS_TOL, or, past it, to FORCED_RATIO times
+# the same comparison made with K11 and K3 swapped for their plain
+# versions: decode multiplies a single row through cuBLAS's GEMV kernels
+# where prefill runs GEMMs over the prompt, so bf16 outputs round apart
+# by an ulp here and there and travel through 81 layers.  An H100 run
+# read 1.19e-2 through the kernels; on the CPU, where GEMM and GEMV round
+# alike, the reduced zamba2 in bf16 reads 0 for the same comparison and
+# parts from f32 by 3.0e-2 (81 layers) in both.  The plain versions'
+# comparison (read 1.14e-2) is itself held to FORCED_CEIL, so that a
+# fault in the decode path, which both comparisons share, fails
+FORCED_RATIO = 1.5
+FORCED_CEIL = 2 * LOGITS_TOL
+ZAMBA2_SEED = 27
 # the router's four domains, each a few public samples (Eq. 9)
 # serve_adapters: six users and adapter-free rows over the 20 requests
 ADAPTER_OF = [None if i % 4 == 3 else f"user{i % 6}" for i in range(20)]
@@ -915,6 +968,23 @@ def lora_case(torch, which, fn, plain, lib, args, live, nbytes, flops,
     return out, case
 
 
+def lora_lib5(x, a, b, gates, rows_per_gate=1):
+    """K5's library time: two einsums."""
+    import torch
+    u = torch.einsum("tk,erk->ter", x.float(), a)
+    return torch.einsum("ter,enr->tn", u * gates.repeat_interleave(
+        rows_per_gate, 0)[:, :, None], b)
+
+
+def lora_lib4(x, a, b, sl):
+    """K4's library time: two batched products over the rows' slots."""
+    import torch
+    idx = sl.long().clamp(min=0)
+    u = torch.bmm(a.index_select(0, idx),
+                  x.float()[:, :, None])                   # (T, r, 1)
+    return torch.bmm(b.index_select(0, idx), u)[:, :, 0]
+
+
 def phase_lora(torch):
     """K4 and K5 against their plain versions at the serving shapes: the
     four (k, n) projection shapes of the 2b SLM at the decode lane batch
@@ -938,24 +1008,14 @@ def phase_lora(torch):
     live4 = [i for i, s in enumerate(K4_SLOTS) if s >= 0]
     live5 = [i for i in range(8) if i != 5]
 
-    def lib5(x, a, b, gates, rows_per_gate=1):
-        u = torch.einsum("tk,erk->ter", x.float(), a)
-        return torch.einsum("ter,enr->tn", u * gates.repeat_interleave(
-            rows_per_gate, 0)[:, :, None], b)
-
-    def lib4(x, a, b, sl):
-        idx = sl.long().clamp(min=0)
-        u = torch.bmm(a.index_select(0, idx),
-                      x.float()[:, :, None])               # (T, r, 1)
-        return torch.bmm(b.index_select(0, idx), u)[:, :, 0]
-
     k4_cases, k5_cases = [], []
     for k, n in LORA_SHAPES:
         x, a, b = lora_inputs(torch, g, 8, k, n)
         used = len({s for s in K4_SLOTS if s >= 0})
         out4, c4 = lora_case(
             torch, f"K4 moe_lora_delta_slots k={k} n={n}",
-            KL.moe_lora_delta_slots, KL.moe_lora_delta_slots_plain, lib4,
+            KL.moe_lora_delta_slots, KL.moe_lora_delta_slots_plain,
+            lora_lib4,
             (x, a, b, slots), live4,
             8 * k * 2 + used * LORA_R * (k + n) * 4 + 8 * 4 + 8 * n * 4,
             2 * len(live4) * LORA_R * (k + n), 200,
@@ -971,7 +1031,8 @@ def phase_lora(torch):
                    + 8 * LORA_E * 4 + 8 * n * 4)
         _, c5 = lora_case(
             torch, f"K5 moe_lora_delta k={k} n={n}", KL.moe_lora_delta,
-            KL.moe_lora_delta_plain, lib5, (x, a, b, soft), live5, nbytes5,
+            KL.moe_lora_delta_plain, lora_lib5, (x, a, b, soft), live5,
+            nbytes5,
             2 * 8 * LORA_E * LORA_R * (k + n), 200,
             dict(T=8, k=k, n=n, E=LORA_E, r=LORA_R, gates="soft, one "
                  "one-hot row, one zero row"), graph=True)
@@ -986,7 +1047,8 @@ def phase_lora(torch):
             torch, f"K5 moe_lora_delta admission k={k} n={n}",
             lambda *z: KL.moe_lora_delta(*z, rows_per_gate=s),
             lambda *z: KL.moe_lora_delta_plain(*z, rows_per_gate=s),
-            lambda *z: lib5(*z, rows_per_gate=s), (x, a, b, gates),
+            lambda *z: lora_lib5(*z, rows_per_gate=s),
+            (x, a, b, gates),
             list(range(t)),
             t * k * 2 + LORA_E * LORA_R * (k + n) * 4 + 8 * LORA_E * 4
             + t * n * 4, 2 * t * LORA_E * LORA_R * (k + n), 5,
@@ -1010,7 +1072,8 @@ def phase_lora(torch):
             torch, f"K5 moe_lora_delta admission one-hot k={k} n={n}",
             lambda *z: KL.moe_lora_delta(*z, rows_per_gate=s),
             lambda *z: KL.moe_lora_delta_plain(*z, rows_per_gate=s),
-            lambda *z: lib5(*z, rows_per_gate=s), (x, a, b, hot_gates),
+            lambda *z: lora_lib5(*z, rows_per_gate=s),
+            (x, a, b, hot_gates),
             live,
             t * k * 2 + used * LORA_R * (k + n) * 4 + 8 * LORA_E * 4
             + t * n * 4, 2 * len(live) * LORA_R * (k + n), 5,
@@ -1023,6 +1086,70 @@ def phase_lora(torch):
            if not c["max_rel_err"] <= LORA_ROW_RTOL]
     if bad:
         raise SystemExit(f"K4/K5 disagree with their plain versions: {bad}")
+    return k4_cases, k5_cases
+
+
+def phase_lora_zamba2(torch, short_len: int):
+    """K4 and K5 against their plain versions at serve_zamba2's LoRA
+    shapes (ZAMBA2_LORA_SHAPES), as its slots and router runs give them:
+    K4 at decode (T = 1, one user's slot), K5 at decode (T = 1, one soft
+    gate row) — and K5 on that slot's one-hot gates, which must equal K4
+    bit for bit — then K5 at a demo prompt's prefill (T = S, one gate row
+    over its S rows), soft (the router) and one-hot (a user's slot)."""
+    from repro_torch.kernels.moe_lora import kernel as KL
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    slot = torch.tensor([2], dtype=torch.int32, device=dev)
+    hot = torch.eye(LORA_E, device=dev)[2:3]
+    soft = torch.rand(1, LORA_E, device=dev, generator=g)
+    s = short_len
+    k4_cases, k5_cases = [], []
+    for k, n in ZAMBA2_LORA_SHAPES:
+        one = LORA_R * (k + n) * 4                      # one expert's A, B
+        x, a, b = lora_inputs(torch, g, 1, k, n)
+        out4, c4 = lora_case(
+            torch, f"K4 moe_lora_delta_slots zamba2 decode k={k} n={n}",
+            KL.moe_lora_delta_slots, KL.moe_lora_delta_slots_plain,
+            lora_lib4, (x, a, b, slot),
+            [0], k * 2 + one + 4 + n * 4, 2 * LORA_R * (k + n), 200,
+            dict(T=1, k=k, n=n, E=LORA_E, r=LORA_R, slots=[2]), graph=True)
+        k4_cases.append(c4)
+        hot_out = KL.moe_lora_delta(x, a, b, hot)
+        torch.cuda.synchronize()
+        if not torch.equal(hot_out, out4):
+            raise SystemExit(f"K5 on one-hot gates differs from K4 at "
+                             f"zamba2's k={k} n={n}")
+        _, c5 = lora_case(
+            torch, f"K5 moe_lora_delta zamba2 decode k={k} n={n}",
+            KL.moe_lora_delta, KL.moe_lora_delta_plain, lora_lib5,
+            (x, a, b, soft), [0],
+            k * 2 + LORA_E * one + LORA_E * 4 + n * 4,
+            2 * LORA_E * LORA_R * (k + n), 200,
+            dict(T=1, k=k, n=n, E=LORA_E, r=LORA_R, gates="soft"),
+            graph=True)
+        k5_cases.append(c5)
+        x = torch.randn(s, k, device=dev, generator=g).bfloat16()
+        for gates, used, kind in ((soft, LORA_E, "soft"),
+                                  (hot, 1, "one-hot")):
+            _, c5 = lora_case(
+                torch, f"K5 moe_lora_delta zamba2 prefill {kind} k={k} "
+                f"n={n}",
+                lambda *z: KL.moe_lora_delta(*z, rows_per_gate=s),
+                lambda *z: KL.moe_lora_delta_plain(*z, rows_per_gate=s),
+                lambda *z: lora_lib5(*z, rows_per_gate=s),
+                (x, a, b, gates), list(range(s)),
+                s * k * 2 + used * one + LORA_E * 4 + s * n * 4,
+                2 * s * used * LORA_R * (k + n), 50,
+                dict(T=s, rows_per_gate=s, k=k, n=n, E=LORA_E, r=LORA_R,
+                     gates=kind))
+            k5_cases.append(c5)
+        del x, a, b
+    bad = [c for c in k4_cases + k5_cases
+           if not c["max_rel_err"] <= LORA_ROW_RTOL]
+    if bad:
+        raise SystemExit(f"K4/K5 disagree with their plain versions at "
+                         f"zamba2's shapes: {bad}")
     return k4_cases, k5_cases
 
 
@@ -1075,6 +1202,111 @@ def phase_k6(torch, short_len: int):
                                     and c["h_rel_err"] <= K6_H_RTOL)]
     if bad:
         raise SystemExit(f"K6 disagrees with its plain version: {bad}")
+    return cases
+
+
+def phase_k11(torch, short_len: int):
+    """K11 against its plain version (the reference's chunk loop) at
+    serve_zamba2's shapes: the 1,536-token prefill and a short demo
+    prompt's, 112 heads of 64 channels, N 64, one group, x, B and C bf16
+    strided column slices of a conv-like (1, S, 7,296) output
+    (``time_kernels.ssd_inputs``); two calls must return the same bits.
+    Bound: bytes (x, B, C, dt and a read once, y and h_final written)
+    against 3 FMAs a state-step in f32."""
+    from repro_torch.kernels.ssd_scan import kernel as K11
+    from repro_torch.kernels.time_kernels import (SSD_H, SSD_N, SSD_P,
+                                                  ssd_inputs)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for s in (SSM_LONG_TOKENS, short_len):
+        args = ssd_inputs(torch, g, s)
+        y, h = K11.ssd_scan(*args)
+        y2, h2 = K11.ssd_scan(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise SystemExit("K11: two calls on the same inputs differ")
+        if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+            raise SystemExit("K11 wrote a non-finite value")
+        ry, rh = K11.ssd_scan_plain(*args)
+        steps = s * SSD_H * SSD_P * SSD_N
+        nbytes = (s * SSD_H * SSD_P * (2 + 4) + 2 * s * SSD_N * 2
+                  + s * SSD_H * 4 + SSD_H * 4 + SSD_H * SSD_P * SSD_N * 4)
+        bms, by = bound(nbytes, 6 * steps, F32_FLOP_PER_S)
+        cases.append(dict(
+            shape=dict(B=1, S=s, H=SSD_H, P=SSD_P, N=SSD_N, G=1,
+                       layout="x, B, C strided slices of (1, S, 7296)"),
+            dtype="x/B/C bf16, dt/a/y/h_final f32", state_steps=steps,
+            max_abs_err=(y - ry).abs().max().item(),
+            max_rel_err=row_rel_err(y, ry),
+            h_rel_err=((h - rh).abs().max() / rh.abs().max()).item(),
+            ms=time_ms(torch, lambda: K11.ssd_scan(*args), 50),
+            graph_ms=graph_ms(torch, lambda: K11.ssd_scan(*args)),
+            plain_ms=time_ms(torch, lambda: K11.ssd_scan_plain(*args),
+                             5 if s > 512 else 20),
+            library_ms=None, bound_ms=bms, bound_by=by))
+        print(f"K11 ssd_scan: {cases[-1]}")
+        del args, y, h, y2, h2, ry, rh
+    bad = [c for c in cases if not (c["max_rel_err"] <= K11_ROW_RTOL
+                                    and c["h_rel_err"] <= K11_H_RTOL)]
+    if bad:
+        raise SystemExit(f"K11 disagrees with its plain version: {bad}")
+    return cases
+
+
+def phase_k3_d112(torch, short_len: int):
+    """K3 at zamba2-7b's shared attention block: B = 1, H = KV = 32,
+    head_dim 112, its window of 4,096 (longer than the prompt, so the
+    causal mask) at the long prompt's and a demo prompt's S, on (B, H,
+    S, D) views of (B, S, H, D) tensors, as the block hands them over.
+    The windowed call must equal the causal one bit for bit, and a second
+    call the first.  Library: SDPA, causal (the same function here)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.time_kernels import (Z_HD, Z_HEADS, Z_WINDOW,
+                                                  k3d112_inputs)
+
+    g = torch.Generator(device="cuda").manual_seed(112)
+    cases = []
+    for s in (SSM_LONG_TOKENS, short_len):
+        q, k, v = k3d112_inputs(torch, g, s)
+        out = K3.flash_attention(q, k, v, window=Z_WINDOW)
+        again = K3.flash_attention(q, k, v, window=Z_WINDOW)
+        causal = K3.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again) and torch.equal(out, causal)):
+            raise SystemExit("K3 at head_dim 112: two calls, or the window "
+                             "and causal modes, differ")
+        ref = K3.flash_attention_plain(q, k, v, window=Z_WINDOW)
+
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        visible = s * (s + 1) // 2
+        nbytes = 2 * 4 * Z_HEADS * s * Z_HD
+        bms, by = bound(nbytes, 4 * Z_HD * Z_HEADS * visible,
+                        BF16_FLOP_PER_S)
+        iters = 20 if s > 512 else 200
+        cases.append(dict(
+            shape=dict(B=1, H=Z_HEADS, KVH=Z_HEADS, S=s, D=Z_HD,
+                       window=Z_WINDOW, layout="(B, S, H, D) views"),
+            dtype="bfloat16",
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            max_rel_err=row_rel_err(out, ref),
+            ms=time_ms(torch, lambda: K3.flash_attention(
+                q, k, v, window=Z_WINDOW), iters),
+            graph_ms=graph_ms(torch, lambda: K3.flash_attention(
+                q, k, v, window=Z_WINDOW)),
+            plain_ms=time_ms(torch, lambda: K3.flash_attention_plain(
+                q, k, v, window=Z_WINDOW), max(5, iters // 10)),
+            library_ms=time_ms(torch, lib, iters),
+            library_max_rel_err=row_rel_err(lib(), ref),
+            bound_ms=bms, bound_by=by))
+        print(f"K3 flash_attention (head_dim 112): {cases[-1]}")
+        del q, k, v, out, again, causal, ref
+    bad = [c for c in cases if not c["max_rel_err"] <= K3_ROW_RTOL]
+    if bad:
+        raise SystemExit(f"K3 at head_dim 112 disagrees with its plain "
+                         f"version: {bad}")
     return cases
 
 
@@ -1601,14 +1833,15 @@ def phase_cli():
 
 
 def all_kernels():
-    """Every kernel wrapper of the port, K1-K10."""
+    """Every kernel wrapper of the port, K1-K11."""
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.logit_fusion import sample as K7
     from repro_torch.kernels.moe_lora import kernel as KL
+    from repro_torch.kernels.ssd_scan import kernel as K11
     from repro_torch.kernels.ssm_scan import kernel as K6
     return lora_kernels() + (K6.ssm_scan, K7.sample_fused,
                              K3.flash_attention_bwd, KL.moe_lora_delta_bwd,
-                             K6.ssm_scan_bwd)
+                             K6.ssm_scan_bwd, K11.ssd_scan)
 
 
 def phase_serve_ssm(torch):
@@ -1742,15 +1975,17 @@ def phase_serve_ssm(torch):
                           **traced), train
 
 
-def serve_ssm_lora(torch, dep, plain_ids):
+def serve_ssm_lora(torch, dep, plain_ids, tag="serve_ssm", scans=None):
     """serve_ssm (c): SoloEngine on the full-width falcon-mamba-7b with
     four users' adapters (random B, rank 16) over 4 slots (K5 gate rows
     at prefill, K4 slot ids at decode), then with a router-gated
     4-expert bank (K5 at both): the four demo prompts, 16 greedy tokens
     each, one user a prompt.  K4 and
     K5 launch 4 x 64 times (four targets a layer) per decode or prefill
-    layer pass as the path says; the adapters move some request off the
-    adapter-free ids (``plain_ids``).  Returns {path: launches}."""
+    layer pass as the path says; the adapters move every request off the
+    adapter-free ids (``plain_ids``).  serve_zamba2 runs the same on
+    zamba2-7b (``tag``; ``scans``: each prefill kernel's launches a
+    prefill, K6's 64 by default).  Returns {path: launches}."""
     from repro_torch.core import lora as LORA
     from repro_torch.launch.serve import DEMO_PROMPTS
     from repro_torch.serving.deployment import ServingDeployment
@@ -1761,8 +1996,10 @@ def serve_ssm_lora(torch, dep, plain_ids):
     per_pass = sum(len(t) * math.prod(d)
                    for d, t in lm.lora_layout().values())
     runs = {}
-    for path in ("serve_ssm_adapters", "serve_ssm_router"):
-        if path == "serve_ssm_adapters":
+    scans = scans or {"ssm_scan": lm.cfg.num_layers}
+    for path in (f"{tag}_adapters", f"{tag}_router"):
+        slots = path == f"{tag}_adapters"
+        if slots:
             l_dep = ServingDeployment(lm, params, max_seq=dep.max_seq,
                                       adapter_slots=4, device=dep.device)
             eng = SoloEngine(deployment=l_dep)
@@ -1793,15 +2030,14 @@ def serve_ssm_lora(torch, dep, plain_ids):
               f"{tokens / wall:.2f} tokens/s; {calls}; launches "
               f"{launches}; {moved} of {len(ids)} requests moved off the "
               f"adapter-free ids; ids {ids}")
-        slots = path == "serve_ssm_adapters"
         want = {"moe_lora_delta_slots":
                 per_pass * calls["slm_decode"] if slots else 0,
                 "moe_lora_delta": per_pass * (
                     calls["slm_prefill"] + (0 if slots else
                                             calls["slm_decode"])),
-                "ssm_scan": lm.cfg.num_layers * calls["slm_prefill"]}
+                **{k: n * calls["slm_prefill"] for k, n in scans.items()}}
         got = {k: launches[k] for k in want}
-        if got != want or not moved \
+        if got != want or moved < len(ids) \
                 or any(not 0 < len(i) <= 16 for i in ids):
             raise SystemExit(f"{path}: launches {got}, expected {want}; "
                              f"{moved} requests moved; ids {ids}")
@@ -1812,6 +2048,171 @@ def serve_ssm_lora(torch, dep, plain_ids):
     return runs
 
 
+def phase_serve_zamba2(torch):
+    """SLM-only serving of the full-width zamba2-7b (13 groups of 5
+    Mamba-2 layers under one shared attention block, then 3 Mamba-2
+    layers; bf16, random weights from ZAMBA2_SEED): SoloEngine over an
+    SLM-only ServingDeployment, the four demo prompts and the 1,536-token
+    one, 16 greedy tokens each.  Every prefill runs K11 once per Mamba-2
+    layer (68) and K3 once per group (13, the shared block, windowed at
+    4,096); decode is plain torch, so no other kernel is on the path.
+    Then: one prefill through K11 against the same prefill through the
+    plain scan (logits and every layer's final SSD state); a
+    teacher-forced decode step against a prefill one token longer; a
+    profile of the long request; and ``serve_ssm_lora``'s slots and
+    router runs on this model.  Returns the serving launches, a summary
+    and {path: launches} of the LoRA runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.ssd_scan import kernel as K11
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import SoloEngine
+
+    cfg = get_config("zamba2-7b")
+    prompts = list(DEMO_PROMPTS) + [SSM_LONG_PROMPT]
+    lens = [len(TOK.encode(p + " ")) for p in prompts]
+    if lens[-1] != SSM_LONG_TOKENS or max(lens[:-1]) > 256:
+        raise SystemExit(f"serve_zamba2: prompt lengths {lens}")
+    t0 = time.perf_counter()
+    lm = LM(cfg)
+    dep = ServingDeployment(lm, lm.init(ZAMBA2_SEED), max_seq=SSM_MAX_SEQ)
+    torch.cuda.synchronize()
+    _, n_groups, g, tail = lm._layout()
+    n_ssm = n_groups * (g - 1) + tail
+    n_params = sum(t.numel() for t in _leaves(dep.slm_params))
+    print(f"serve_zamba2: {cfg.name} ({cfg.num_layers} layers: {n_groups} "
+          f"groups of {g - 1} Mamba-2 layers and the shared block, a tail "
+          f"of {tail}; d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"{cfg.ssm_nheads} SSD heads of {cfg.ssm_head_dim}, N "
+          f"{cfg.ssm_state}, attention {cfg.num_heads} x {cfg.head_dim}, "
+          f"vocab {cfg.vocab_size}, {n_params} parameters) initialised on "
+          f"the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    eng = SoloEngine(deployment=dep)
+    prefill_ms = []
+    calls = counted(dep, ("slm_prefill", "slm_decode"))
+    timed = dep.slm_prefill
+
+    def prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = timed(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    dep.slm_prefill = prefill
+    gc.collect()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TokenIds():
+        outs = [eng.generate(p, 16) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    launches.update(mode_counts())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    uncounted(dep, calls)
+
+    ids = [[int(i) for i in o.split(",") if i] for o in outs]
+    for n, (p, got) in enumerate(zip(lens, ids)):
+        print(f"[{n}] prompt {p} tokens, prefill {prefill_ms[n]:.2f} ms, "
+              f"ids={got}")
+    tokens = sum(len(i) for i in ids)
+    decode_s = wall - sum(prefill_ms) / 1e3
+    print(f"serve_zamba2: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.2f} tokens/s (5 requests, one at a time, prefill "
+          f"included); decode {calls['slm_decode']} steps in "
+          f"{decode_s:.3f} s = {calls['slm_decode'] / decode_s:.2f} steps/s; "
+          f"prefill of the {SSM_LONG_TOKENS}-token prompt "
+          f"{prefill_ms[-1]:.2f} ms; peak memory {peak:.2f} GiB; launches "
+          f"{launches}")
+    pre = calls["slm_prefill"]
+    want = {"ssd_scan": n_ssm * pre, "flash_attention": n_groups * pre,
+            "flash_attention_windowed": n_groups * pre}
+    if any(not 0 < len(i) <= 16 for i in ids) or pre != 5:
+        raise SystemExit(f"serve_zamba2: bad output {ids}")
+    if any(launches[k] != n for k, n in want.items()) or any(
+            n for k, n in launches.items() if k not in want):
+        raise SystemExit(f"serve_zamba2: K11 must launch {n_ssm} and K3 "
+                         f"{n_groups} times a prefill and nothing else: "
+                         f"{launches}")
+    # one full-width prefill through K11 against the same prefill through
+    # the plain scan: the logits and every Mamba-2 layer's final SSD state
+    # (the cache's "h", f32); 1e-2 for both, a layer's bf16 output may
+    # round apart by an ulp and feed the next layer
+    toks = dep.tokens(TOK.encode(DEMO_PROMPTS[0] + " "))
+    logits, cache = dep.slm_prefill(dep.slm_params, toks)
+    scan, SSM.ssd_scan = SSM.ssd_scan, K11.ssd_scan_plain
+    try:
+        ref, ref_cache = dep.slm_prefill(dep.slm_params, toks)
+    finally:
+        SSM.ssd_scan = scan
+
+    def states(c):
+        return torch.cat([c[k]["h"].flatten(0, -5).flatten(1)
+                          for k in ("inner", "tail")])
+    h, rh = states(cache), states(ref_cache)
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    h_rel = ((h - rh).abs().amax(1) / rh.abs().amax(1)).max().item()
+    # teacher forcing: a prefill of n - 1 tokens and one decode step
+    # against a prefill of all n (K3 and K11 against the plain decode),
+    # then the same with both prefills through the plain versions
+    forced = TOK.encode(DEMO_PROMPTS[1] + " ")
+
+    def teacher_forced():
+        full, _ = dep.slm_prefill(dep.slm_params, dep.tokens(forced))
+        _, c = dep.slm_prefill(dep.slm_params, dep.tokens(forced[:-1]))
+        step, _ = dep.slm_decode(dep.slm_params, c, dep.tokens(forced[-1:]))
+        return ((step - full).abs().max() / full.abs().max()).item()
+    tf_rel = teacher_forced()
+    scan, attn = SSM.ssd_scan, ATT.flash_attention
+    SSM.ssd_scan = K11.ssd_scan_plain
+    ATT.flash_attention = K3.flash_attention_plain
+    try:
+        tf_plain = teacher_forced()
+    finally:
+        SSM.ssd_scan, ATT.flash_attention = scan, attn
+    print(f"serve_zamba2: full-width prefill of a {toks.shape[1]}-token "
+          f"prompt, K11 vs the plain scan: logits max|diff|/max|ref| = "
+          f"{rel:.3e}; final SSD states of {h.shape[0]} layers, worst "
+          f"layer's max|diff|/max|ref| = {h_rel:.3e}; teacher-forced decode "
+          f"of token {len(forced)} vs a {len(forced)}-token prefill: "
+          f"{tf_rel:.3e} (through the plain versions {tf_plain:.3e})")
+    if logits.shape != (1, 1, cfg.vocab_size) or h.shape[0] != n_ssm \
+            or not torch.isfinite(logits).all() \
+            or not rel <= LOGITS_TOL or not h_rel <= LOGITS_TOL \
+            or not (tf_rel <= LOGITS_TOL
+                    or (tf_rel <= FORCED_RATIO * tf_plain
+                        and tf_plain <= FORCED_CEIL)):
+        raise SystemExit("serve_zamba2: the prefill disagrees with the "
+                         "plain scan, or decode with prefill")
+    del cache, ref_cache, h, rh
+    traced = retaken("trace_solo", lambda: trace_solo(
+        torch, eng, SSM_LONG_PROMPT,
+        {"k11": "ssd_scan", "k3": "flash_attention"}))
+    del eng
+    gc.collect()
+    t0 = time.perf_counter()
+    lora = serve_ssm_lora(torch, dep, ids[:len(DEMO_PROMPTS)],
+                          "serve_zamba2",
+                          {"ssd_scan": n_ssm, "flash_attention": n_groups})
+    print(f"serve_zamba2 adapters and router: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches, dict(wall_s=wall, tokens=tokens, peak_gib=peak,
+                          params=n_params, prefill_long_ms=prefill_ms[-1],
+                          decode_steps_per_s=calls["slm_decode"] / decode_s,
+                          logits_rel=rel, h_rel=h_rel, forced_rel=tf_rel,
+                          forced_plain_rel=tf_plain,
+                          **traced), lora
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1820,9 +2221,12 @@ def _leaves(tree):
         yield tree
 
 
-def trace_solo(torch, eng, prompt):
+def trace_solo(torch, eng, prompt, names=None):
     """Device time by kernel and the device's busy share over one
-    SoloEngine request (16 tokens), from ``torch.profiler``."""
+    SoloEngine request (16 tokens), from ``torch.profiler`` (device
+    records only, ``profiled(cpu=False)``); ``names``
+    maps a tag to a kernel-name substring to count apart (K6 by
+    default)."""
     def one():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1831,21 +2235,23 @@ def trace_solo(torch, eng, prompt):
         return (time.perf_counter() - t0) * 1e3
 
     wall_ms = one()
-    with profiled(torch) as prof:
+    with profiled(torch, cpu=False) as prof:
         traced_ms = one()
     rows = profile_rows(torch, prof)
     busy = sum(r[0] for r in rows)
-    k6 = [r for r in rows if "ssm_scan" in r[2]]
+    out = dict(trace_busy_ms=busy, trace_wall_ms=wall_ms)
+    for tag, sub in (names or {"k6": "ssm_scan"}).items():
+        mine = [r for r in rows if sub in r[2]]
+        out[f"trace_{tag}_ms"] = sum(r[0] for r in mine)
+        out[f"trace_{tag}_launches"] = sum(r[1] for r in mine)
     print(f"trace_solo: one request of 16 tokens on a "
           f"{len(prompt) + 2}-token prompt: {wall_ms:.2f} ms untraced, "
           f"{traced_ms:.2f} ms traced; device busy {busy:.2f} ms = "
-          f"{100 * busy / wall_ms:.1f}% of the untraced wall; K6 "
-          f"{sum(r[0] for r in k6):.3f} ms over {sum(r[1] for r in k6)} "
-          f"launches; {sum(r[1] for r in rows)} kernel launches")
+          f"{100 * busy / wall_ms:.1f}% of the untraced wall; "
+          f"{sum(r[1] for r in rows)} kernel launches; {out}")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
-    return dict(trace_k6_ms=sum(r[0] for r in k6),
-                trace_k6_launches=sum(r[1] for r in k6), trace_busy_ms=busy)
+    return out
 
 
 def full_pair(torch):
@@ -4853,8 +5259,10 @@ def retaken(what, fn, eng=None):
 
 
 @contextlib.contextmanager
-def profiled(torch):
-    """torch.profiler over the block, CPU and CUDA, between two marker
+def profiled(torch, cpu: bool = True):
+    """torch.profiler over the block, CPU (unless ``cpu`` is False: the
+    device's kernels and the runtime's launch calls only, which a window
+    of ~100,000 kernels reads in a fraction of the time) and CUDA, between two marker
     kernels (``torch.cuda._sleep``, left out of ``profile_rows``), each
     alone on the card, with PROFILE_MARGINS_S of quiet before and after.
     On the H100 a window has lost the device records of its first
@@ -4873,8 +5281,8 @@ def profiled(torch):
 
     margins = dict(PROFILE_MARGINS_S)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         time.sleep(margins["leading"])
         for _ in range(PROFILE_PAD[0]):
             torch.cuda._sleep(PROFILE_PAD[1])
@@ -5148,7 +5556,13 @@ def main() -> int:
     k3_offset_cases = phase_k3_offset(torch)
     k2_cases = phase_k2(torch)
     k4_cases, k5_cases = phase_lora(torch)
-    k6_cases = phase_k6(torch, len(TOK.encode(DEMO_PROMPTS[0] + " ")))
+    short_len = len(TOK.encode(DEMO_PROMPTS[0] + " "))
+    z4_cases, z5_cases = phase_lora_zamba2(torch, short_len)
+    k4_cases += z4_cases
+    k5_cases += z5_cases
+    k6_cases = phase_k6(torch, short_len)
+    k11_cases = phase_k11(torch, short_len)
+    k3d_cases = phase_k3_d112(torch, short_len)
     k7_cases = phase_k7(torch)
     k8_cases, k9_cases, k8w_cases, k10_cases = phase_train_kernels(torch)
     clock("kernels")
@@ -5158,7 +5572,11 @@ def main() -> int:
     clock("cli")
     ssm_launches, ssm_run, ssm_train = phase_serve_ssm(torch)
     clock("serve_ssm")
-    # the 7B SSM is freed before the pair is built and read
+    # each model is freed before the next is built
+    gc.collect()
+    torch.cuda.empty_cache()
+    z_launches, z_run, z_lora = phase_serve_zamba2(torch)
+    clock("serve_zamba2")
     gc.collect()
     torch.cuda.empty_cache()
     dep = full_pair(torch)
@@ -5227,6 +5645,7 @@ def main() -> int:
              "serve_ssm_train_long": ssm_train["b"]["launches"],
              "serve_ssm_adapters": ssm_train["serve_ssm_adapters"],
              "serve_ssm_router": ssm_train["serve_ssm_router"],
+             "serve_zamba2": z_launches, **z_lora,
              "federate_gemma3": g_fed_counts,
              "federate_gemma3_serve": g_fed_serve}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
@@ -5408,6 +5827,41 @@ def main() -> int:
         shape=k10["shape"], ms=k10["ms"], plain_ms=k10["plain_ms"],
         bound_ms=k10["bound_ms"], bound_by=k10["bound_by"],
         library_ms=None, cases=k10_cases))
+    # K11 at the 1,536-token prefill, K3 at head_dim 112 there; launches
+    # from serve_zamba2
+    k11, k3d = k11_cases[0], k3d_cases[0]
+    kernels.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/models/ssm.py:171",
+        note="no pl.pallas_call: the reference computes the SSD chunk scan "
+             "in jnp (_ssd_chunk, src/repro/models/ssm.py:171-189, driven "
+             "at :228-240)",
+        launches=z_launches["ssd_scan"],
+        launches_by_path=by_path["ssd_scan"],
+        max_abs_err=max(c["max_abs_err"] for c in k11_cases),
+        max_rel_err=max(c["max_rel_err"] for c in k11_cases),
+        rel_tol=K11_ROW_RTOL,
+        h_rel_err=max(c["h_rel_err"] for c in k11_cases),
+        h_rel_tol=K11_H_RTOL, shape=k11["shape"], ms=k11["ms"],
+        graph_ms=k11["graph_ms"], plain_ms=k11["plain_ms"],
+        bound_ms=k11["bound_ms"], bound_by=k11["bound_by"],
+        library_ms=None, cases=k11_cases, serve_zamba2=z_run))
+    kernels.append(dict(
+        name="flash_attention_d112", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:80",
+        note="K3 at zamba2-7b's head_dim 112 (its shared attention block, "
+             "window 4,096)",
+        launches=z_launches["flash_attention"],
+        launches_by_path={p: n for p, n in by_path["flash_attention"].items()
+                          if p.startswith("serve_zamba2")},
+        max_abs_err=max(c["max_abs_err"] for c in k3d_cases),
+        max_rel_err=max(c["max_rel_err"] for c in k3d_cases),
+        rel_tol=K3_ROW_RTOL, shape=k3d["shape"], ms=k3d["ms"],
+        graph_ms=k3d["graph_ms"], plain_ms=k3d["plain_ms"],
+        bound_ms=k3d["bound_ms"], bound_by=k3d["bound_by"],
+        library_ms=k3d["library_ms"], cases=k3d_cases))
     print(f"federate: {json.dumps(fed)}")
     print(json.dumps({"kernels": kernels}))
     print(smi())

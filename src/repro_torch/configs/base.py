@@ -95,6 +95,10 @@ class ModelConfig:
         return -(-self.d_model // 16)
 
     @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_version == 2 else 0
+
+    @property
     def attn_free(self) -> bool:
         return self.family == "ssm"
 

@@ -199,7 +199,8 @@ def adapter_vectors(adapters: List[Dict[str, Any]], dim: int = 64,
     is applied to every adapter's chunk by the same product as for one
     adapter alone, so each vector is the reference's bit for bit.  At the
     2b SLM's width the projection is 1.2 G normals from numpy's legacy
-    generator, most of a server round's host time."""
+    generator (4.8 GB in f32), drawn once a process and then reused
+    (``_projection_chunks``)."""
     flats = []
     for adapter in adapters:
         leaves = [x.detach().float().cpu().numpy().ravel()
@@ -208,17 +209,37 @@ def adapter_vectors(adapters: List[Dict[str, Any]], dim: int = 64,
                      else np.zeros(1, np.float32))
     if len({f.size for f in flats}) > 1:
         raise ValueError("adapter_vectors: adapters of different sizes")
-    rng = np.random.RandomState(seed)
-    # chunked projection to keep memory bounded
     outs = [np.zeros(dim, np.float32) for _ in flats]
-    chunk = 1 << 16
-    for i in range(0, flats[0].size, chunk):
-        n = min(chunk, flats[0].size - i)
-        proj = rng.standard_normal((n, dim)).astype(np.float32)
+    for i, proj in enumerate(_projection_chunks(seed, dim, flats[0].size)):
+        lo = i * _PROJ_CHUNK
         for out, flat in zip(outs, flats):
-            out += flat[i:i + chunk] @ proj
+            out += flat[lo:lo + _PROJ_CHUNK] @ proj
     return [out / np.linalg.norm(out) if np.linalg.norm(out) > 0 else out
             for out in outs]
+
+
+# E(φ)'s projection, drawn in chunks of _PROJ_CHUNK rows and kept for the
+# process's life per (seed, dim): it is fixed, and redrawing it cost a
+# server most of a round's host time.  The legacy generator's stream is
+# one sequence whatever the adapter's size (every chunk draws an even
+# count, so no cached Gaussian crosses a chunk's edge), so a longer
+# adapter extends the cached rows and a shorter one reads their first
+# rows: each product is the one a fresh ``RandomState(seed)`` gives.
+_PROJ_CHUNK = 1 << 16
+_PROJECTIONS: Dict[Any, Any] = {}
+
+
+def _projection_chunks(seed: int, dim: int, n: int):
+    """The f32 projection rows [0, n) of (seed, dim), as chunks of
+    _PROJ_CHUNK rows (the last one cut to fit), drawn on first use."""
+    rng, chunks = _PROJECTIONS.setdefault(
+        (seed, dim), (np.random.RandomState(seed), []))
+    for i in range(0, n, _PROJ_CHUNK):
+        j = i // _PROJ_CHUNK
+        if j == len(chunks):
+            chunks.append(rng.standard_normal(
+                (_PROJ_CHUNK, dim)).astype(np.float32))
+        yield chunks[j][:min(_PROJ_CHUNK, n - i)]
 
 
 def average_adapters(adapters: List[Dict[str, Any]],

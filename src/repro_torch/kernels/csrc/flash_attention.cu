@@ -36,6 +36,9 @@
 //  - Shared memory (D = 256): Q 2 x 64 x 256 bf16 (64 KB, loaded once),
 //    K and V in a 2-stage ring of 64 x 256 bf16 tiles (128 KB), five
 //    mbarriers: 192 KB of the 227 KB a block may use, one CTA per SM.
+//    At D = 112 (zamba2's shared block) every tile is padded to 128
+//    columns of 64 (96 KB in all): TMA zero-fills the entries past 112,
+//    Q K^T runs 7 k-steps of 16 and P V wgmma.m64n128k16.
 //    Tiles arrive by TMA (4-D tensor maps over (D, S, H, B) built per
 //    call from the tensors' strides, so strided views are read in place)
 //    in the 128-byte swizzle (64-byte at D = 32), as columns of 64 (32)
@@ -67,8 +70,8 @@
 //    and batch fastest, so GQA heads sharing a KV head run together.
 // Registers and shared memory (ptxas, sm_90a, nvcc 12.9): 168 registers
 // a thread at launch (the cap of 384 threads), 0 bytes of spills, at D =
-// 256 and D = 32; 197,672 B of dynamic shared memory at D = 256, 25,640
-// B at D = 32 (1,024 of it alignment slack).
+// 256, 112 and 32; 197,672 B of dynamic shared memory at D = 256, 99,368
+// B at D = 112, 25,640 B at D = 32 (1,024 of it alignment slack).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,9 +92,13 @@ template <int D>
 struct Cfg {
   static constexpr int kSwz = D * 2 >= 128 ? 128 : D * 2;  // bytes a row
   static constexpr int kCW = kSwz / 2;       // head-dim entries a column
-  static constexpr int kCols = D / kCW;
+  static constexpr int kCols = (D + kCW - 1) / kCW;
+  // head_dim padded to whole columns (128 at D = 112): TMA zero-fills the
+  // entries past D, so they add nothing to Q K^T and give zero columns
+  // of P V, which the output's TMA store clips
+  static constexpr int kDP = kCols * kCW;
   static constexpr int kColBytes = kRows * kSwz;
-  static constexpr int kTileBytes = kRows * D * 2;
+  static constexpr int kTileBytes = kRows * kDP * 2;
   static constexpr uint64_t kLayout = kSwz == 128 ? 1 : 2;  // wgmma swizzle
   static constexpr CUtensorMapSwizzle kTmaSwz =
       kSwz == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -100,7 +107,7 @@ struct Cfg {
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
-  static_assert(D % kCW == 0 && kCW % 16 == 0, "head_dim");
+  static_assert(D % 16 == 0 && kCW % 16 == 0, "head_dim");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -274,6 +281,28 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) B (16 x 128); B
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 32, f32) += A (64 x 16, bf16 in registers) B (16 x 32); B
 // MN-major in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -293,11 +322,17 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// O += P V at D = 256 and D = 32, picked by the accumulator's size.
+// O += P V at D = 256, 112 (padded to 128) and 32, picked by the
+// accumulator's size.
 __device__ __forceinline__ void wgmma_pv(float (&o)[128],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   wgmma_rs_n256(o, a, db);
+}
+__device__ __forceinline__ void wgmma_pv(float (&o)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n128(o, a, db);
 }
 __device__ __forceinline__ void wgmma_pv(float (&o)[16],
                                          const uint32_t (&a)[4],
@@ -455,9 +490,9 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
     const int q_pos = a0 + warp * 16 + lane / 4;
     const uint32_t sq = base + C::kQ + wg * C::kTileBytes;
     constexpr uint32_t kSbo = 8 * C::kSwz;   // between groups of 8 rows
-    float o[D / 2];
+    float o[C::kDP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < C::kDP / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     if (live) mbar_wait(bar_q, 0);
     for (int i = 0; i < n_tiles; ++i) {
@@ -494,11 +529,11 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
                           k0 + kRows > limit;
         const int k_pos = k0 + 2 * (lane % 4);
         if (edge)
-          softmax_tile<D / 2, true>(s, o, m, l, pa, q_pos, k_pos, limit,
-                                    causal, window, scale_log2);
+          softmax_tile<C::kDP / 2, true>(s, o, m, l, pa, q_pos, k_pos,
+                                         limit, causal, window, scale_log2);
         else
-          softmax_tile<D / 2, false>(s, o, m, l, pa, q_pos, k_pos, limit,
-                                     causal, window, scale_log2);
+          softmax_tile<C::kDP / 2, false>(s, o, m, l, pa, q_pos, k_pos,
+                                          limit, causal, window, scale_log2);
         pin(o);
         wg_fence();
 #pragma unroll
@@ -530,7 +565,7 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap tq,
       }
       named_sync(1 + wg);  // every warp is done reading its Q tile
 #pragma unroll
-      for (int i = 0; i < D / 2; i += 2) {
+      for (int i = 0; i < C::kDP / 2; i += 2) {
         const int row = warp * 16 + lane / 4 + ((i & 2) ? 8 : 0);
         const int col = (i / 4) * 8 + 2 * (lane % 4);
         uint32_t off = row * C::kSwz + (col % C::kCW) * 2;
@@ -574,7 +609,9 @@ EncodeTiled encoder() {
 
 // A 4-D map over (D, S, heads, batch) of a bf16 tensor whose element
 // strides over S, heads and batch are st[0], st[1], st[2]; boxes of one
-// column (kCW entries) by 64 rows, swizzled for wgmma.
+// column (kCW entries) by 64 rows, swizzled for wgmma.  At D = 112 the
+// second column's box reaches past D: TMA fills entries 112..127 with
+// zeros on a load and leaves them out of a store.
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int seq, int heads,
             int batch, const long long* st) {
@@ -637,8 +674,8 @@ int launch(const void* q, const void* k, const void* v, const void* hk,
 // with a unit stride over D; strides[18] holds the element strides over
 // (S, heads, batch) of q, k, v, out, hk and hv in turn, each a multiple
 // of 8 (16 bytes; those of the history only when hist > 0), the pointers
-// 16-byte aligned.  head_dim 256 is the 2b pair at full width, 32 its reduced
-// configs.  lse, when not null, receives each row's natural-log
+// 16-byte aligned.  head_dim 256 is the 2b pair at full width, 112
+// zamba2-7b's shared attention block, 32 their reduced configs.  lse, when not null, receives each row's natural-log
 // log-sum-exp as (B, H, S) f32.  Returns 0 or a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* hk,
@@ -659,6 +696,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       return launch<32>(q, k, v, hk, hv, out, lse, strides, batch, heads,
                         kv_heads, seq, hist, causal, window, scale,
                         stream);
+    case 112:
+      return launch<112>(q, k, v, hk, hv, out, lse, strides, batch, heads,
+                         kv_heads, seq, hist, causal, window, scale,
+                         stream);
     case 256:
       return launch<256>(q, k, v, hk, hv, out, lse, strides, batch, heads,
                          kv_heads, seq, hist, causal, window, scale,

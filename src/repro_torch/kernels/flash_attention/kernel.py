@@ -8,7 +8,8 @@ q (B, H, S, D), k/v (B, KVH, S, D) -> (B, H, S, D), query head h reading
 KV head h // (H // KVH), masked scores at NEG_INF = -2**30.  Unlike the
 Pallas kernel, S need not be a multiple of a block: a prefill is exactly
 as long as its prompt.  The CUDA kernel takes bfloat16 and head_dim 256
-(the 2b pair at full width) or 32 (its reduced configs).
+(the 2b pair at full width), 112 (zamba2-7b's shared attention block,
+forward only) or 32 (their reduced configs).
 
 History-offset mode (``hist_k``/``hist_v`` of P positions): the queries
 sit at absolute positions P + i and attend over the P history positions
@@ -52,7 +53,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
-HEAD_DIMS = (32, 256)
+HEAD_DIMS = (32, 112, 256)
+# K8's head dims: zamba2's 112 trains in a later slice
+BWD_HEAD_DIMS = (32, 256)
 _CTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (
     ctypes.c_float, ctypes.c_void_p)
 _BWD_CTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (
@@ -302,9 +305,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                          f"{q.device}")
     b, h, s, d = q.shape
     kvh = k.shape[1]
-    if d not in HEAD_DIMS:
+    if d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
+                         f"{BWD_HEAD_DIMS}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, do)) \
             or lse.dtype != torch.float32:
         raise TypeError("flash_attention_bwd: the CUDA kernel takes "

@@ -4,7 +4,8 @@ and training shapes, so that two checkouts can be compared on one card
 in turns.
 
     python3 src/repro_torch/kernels/time_kernels.py [--src DIR]
-        [--label NAME] [--kernels k1,k2,k3,k4,k5,k5adm,k6,k9,k8w,k10]
+        [--label NAME]
+        [--kernels k1,k2,k3,k4,k5,k5adm,k6,k9,k8w,k10,k11,k3d112]
         [--profile]
 
 ``--src`` is the ``src`` directory of the checkout to time (this
@@ -43,7 +44,14 @@ picks the groups (all by default):
   k10    K10 selective-scan backward at falcon-mamba's d_inner 8,192 and
          N 16, (B, S) = (4, 40), (2, 256) and (1, 1,536), from K6's
          chunk states (``ssm_inputs``), dA included; beside each, K6
-         with and without its chunk-state output.
+         with and without its chunk-state output;
+  k11    K11 SSD scan at zamba2-7b's width (112 heads of 64, N 64, one
+         group), S = 1,536 and 27, x, B and C bf16 column slices of a
+         conv-like (1, S, 7,296) output (``ssd_inputs``, which
+         chip_smoke.py uses too);
+  k3d112 K3 at zamba2-7b's shared block, H = KV = 32, head_dim 112, B =
+         1, S = 1,536 and 27, causal and with its 4,096 window, on (B, H,
+         S, D) views of (B, S, H, D) tensors.
 
 Every input is made on the card from fixed seeds, so two checkouts time
 the same tensors.  Prints one JSON line: the card's name and power
@@ -77,13 +85,18 @@ FREED_POS = 1 << 30
 NO_PAGE = 1 << 20
 K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
-GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6", "k9", "k8w", "k10")
+GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6", "k9", "k8w", "k10",
+          "k11", "k3d112")
 K8W_SHAPES = [(1, 2048), (8, 640)]
 GEMMA3_WINDOW = 512
 K10_SHAPES = [(4, 40), (2, 256), (1, 1536)]
 TRAIN_ROWS = 160
 K1_ARRIVED = [True, False, True, False] * 2
 SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
+# zamba2-7b: SSD heads, head dim, state; shared block heads, head dim
+SSD_H, SSD_P, SSD_N = 112, 64, 64
+Z_HEADS, Z_HD, Z_WINDOW = 32, 112, 4096
+SSD_SHAPES = (1536, 27)
 
 
 def time_ms(torch, fn, iters):
@@ -245,6 +258,68 @@ def time_k6(torch, profile):
         out.append(info)
         print(f"K6 {info}", file=sys.stderr)
         del args
+    return out
+
+
+def ssd_inputs(torch, g, s, b=1):
+    """One zamba2 prefill SSD scan's inputs on the card, as chip_smoke.py
+    checks them too: x (b, S, 112, 64), B and C (b, S, 1, 64) bf16 column
+    slices of a conv-like (b, S, 7,296) output as the model hands them
+    over (silu of normals), dt a softplus (f32), a = -exp(.) (f32)."""
+    dev = torch.device("cuda")
+    di = SSD_H * SSD_P
+    conv = torch.nn.functional.silu(torch.randn(
+        b, s, di + 2 * SSD_N, device=dev, generator=g)).bfloat16()
+    x = conv[..., :di].unflatten(-1, (SSD_H, SSD_P))
+    bm = conv[..., di:di + SSD_N].unflatten(-1, (1, SSD_N))
+    cm = conv[..., di + SSD_N:].unflatten(-1, (1, SSD_N))
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, SSD_H, device=dev, generator=g) - 1.0)
+    a = -torch.exp(0.5 * torch.randn(SSD_H, device=dev, generator=g))
+    return x, bm, cm, dt, a
+
+
+def time_k11(torch, profile):
+    from repro_torch.kernels.ssd_scan import kernel as K11
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for s in SSD_SHAPES:
+        args = ssd_inputs(torch, g, s)
+        (y, h), info = case(torch, lambda: K11.ssd_scan(*args),
+                            50 if s > 512 else 200, profile, graph=True,
+                            S=s)
+        ry, rh = K11.ssd_scan_plain(*args)
+        info.update(row_rel_err=row_rel_err(y, ry),
+                    h_rel_err=((h - rh).abs().max() / rh.abs().max()).item())
+        out.append(info)
+        print(f"K11 {info}", file=sys.stderr)
+        del args
+    return out
+
+
+def k3d112_inputs(torch, g, s, b=1):
+    """q, k, v (b, 32, S, 112) bf16 as (B, H, S, D) views of (B, S, H, D)
+    projections, as zamba2's shared block hands them to K3."""
+    return tuple(torch.randn(b, s, Z_HEADS, Z_HD, device="cuda",
+                             generator=g).bfloat16().transpose(1, 2)
+                 for _ in range(3))
+
+
+def time_k3d112(torch, profile):
+    from repro_torch.kernels.flash_attention import kernel as K3
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(112)
+    for s in SSD_SHAPES:
+        q, k, v = k3d112_inputs(torch, g, s)
+        for window in (0, Z_WINDOW):
+            res, info = case(torch, lambda: K3.flash_attention(
+                q, k, v, window=window), 50 if s > 512 else 200, profile,
+                S=s, window=window)
+            info["row_rel_err"] = row_rel_err(res, K3.flash_attention_plain(
+                q, k, v, window=window))
+            out.append(info)
+            print(f"K3 d112 {info}", file=sys.stderr)
+        del q, k, v
     return out
 
 
@@ -477,7 +552,8 @@ def main() -> int:
     sources = {"k1": "fuse_logits", "k2": "paged_attention",
                "k3": "flash_attention", "k4": "moe_lora", "k5": "moe_lora",
                "k5adm": "moe_lora", "k6": "ssm_scan", "k9": "moe_lora_bwd",
-               "k8w": "flash_attention_bwd", "k10": "ssm_scan_bwd"}
+               "k8w": "flash_attention_bwd", "k10": "ssm_scan_bwd",
+               "k11": "ssd_scan", "k3d112": "flash_attention"}
     needs = {"k8w": ("flash_attention",), "k10": ("ssm_scan",)}
     report = build.build_all(sorted(
         {sources[g] for g in groups}
@@ -488,7 +564,8 @@ def main() -> int:
     res = dict(label=args.label, src=args.src, card=card, ptxas=ptxas)
     timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4,
               "k5": time_k5, "k5adm": time_k5adm, "k6": time_k6,
-              "k9": time_k9, "k8w": time_k8w, "k10": time_k10}
+              "k9": time_k9, "k8w": time_k8w, "k10": time_k10,
+              "k11": time_k11, "k3d112": time_k3d112}
     for name in groups:
         res[name] = timers[name](torch, args.profile)
     print(json.dumps(res))

@@ -345,8 +345,9 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="prefill",
         rope_pos = torch.tensor(positions, device=x.device)
     theta = cfg.rope_theta_global if (is_global and cfg.rope_theta_global) \
         else cfg.rope_theta
-    q = L.rope(q, rope_pos, theta)
-    k = L.rope(k, rope_pos, theta)
+    angles = L.rope_angles(rope_pos, hd, theta, x.device)
+    q = L.rope_turn(q, angles)
+    k = L.rope_turn(k, angles)
     window = layer_window(cfg, is_global)
 
     if mode == "train":

@@ -102,16 +102,28 @@ def lora_delta(lora, x: torch.Tensor, gates) -> torch.Tensor:
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
     """x: (..., S, H, hd); positions broadcastable to (..., S)."""
-    hd = x.shape[-1]
+    return rope_turn(x, rope_angles(positions, x.shape[-1], theta,
+                                    x.device))
+
+
+def rope_angles(positions: torch.Tensor, hd: int, theta: float,
+                device: torch.device):
+    """(cos, sin) of rope's angles at ``positions`` (broadcastable to
+    (..., S)), each (..., S, 1, hd // 2) f32: computed once, they turn
+    attention's q and k alike (``rope_turn``)."""
     half = hd // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
     # torch.full, not torch.tensor: a fill on the device, where a copy
     # from pageable host memory could not be captured in a CUDA graph
     freq = torch.pow(torch.full((), theta, dtype=torch.float32,
-                                device=x.device), exps)
+                                device=device), exps)
     ang = positions[..., None].float() * freq              # (..., S, half)
-    sin = torch.sin(ang)[..., None, :]                     # (..., S, 1, half)
-    cos = torch.cos(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rope_turn(x: torch.Tensor, angles) -> torch.Tensor:
+    """x: (..., S, H, hd) turned by ``rope_angles``' (cos, sin)."""
+    cos, sin = angles
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

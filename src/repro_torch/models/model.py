@@ -38,6 +38,26 @@ the model dtype, "h": (L, B, d_inner, N) float32, "pos": int, or (B,)
 per-row lengths after a packed prefill}; its prefill scan runs K6
 (``models/ssm.py``).
 
+The hybrid family (zamba2, the reference's ``model.py:250-263`` layout):
+n_groups = L // attn_every groups, each of attn_every - 1 Mamba-2 layers
+(each with an MLP) under ``"inner"`` (n_groups, g - 1, ...) and then ONE
+attention block whose weights, ``"shared_attn"`` (no stack dims), every
+group shares; after the groups a ``"tail"`` (tail, ...) of Mamba-2
+layers, which may be empty.  The shared block is the group's LayerSite
+with ``stack`` "shared_attn" and an empty ``idx``: its LoRA is the
+group's slice of the ``"special"`` stack (``lora_idx``) and its cache
+the group's slice of ``"attn"``, so the weights are shared and the
+adapters and caches are not.  The cache: {"inner", "tail": {"conv",
+"h"}} with their stack dims in front ("h" (..., B, H, P, N) float32),
+"attn": {"k", "v": (n_groups, B, S_a, KV, hd)} with S_a = min(max_seq,
+window) when ``ring_cache`` is set (a ring written at pos % window),
+max_seq otherwise, and "pos": int.  Its prefill scan runs K11 and its
+attention prefill K3 (``attn_type`` "sliding": the block attends within
+its window, which is longer than any prompt the port serves).  The
+engines serve it through ``SoloEngine``; the batched engine, suffix
+prefill and speculative rollback refuse it, as the reference does, and
+its packed prefill is a later slice.
+
 Every entry point takes an optional merged-LoRA bank (``lora``, the
 ``core/lora.py`` tree without metadata: {stack: {target: {"A"
 (*dims, E, r, d_in), "B" (*dims, E, d_out, r)}}} over the stacks of
@@ -74,14 +94,13 @@ and the Mamba-1 SSM family.  It runs outside ``torch.inference_mode``
 (or the parameters) through K3/K8, K6/K10 and K5/K9 on CUDA and through
 the plain versions on the CPU.
 
-The MoE, MLA, hybrid (zamba2), audio and vision layouts, the
-all-sliding layout, qkv biases and untied embeddings of a dense model
-are later slices.
+The MoE, MLA, audio and vision layouts, the all-sliding dense layout,
+qkv biases and untied embeddings of a dense model are later slices.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -107,20 +126,29 @@ class LayerSite(NamedTuple):
     """One layer, in the order the stack runs it: ``addr`` addresses its
     cache leaves (``cache_kv``; an SSM's conv and scan state at the same
     index), ``stack``/``lora`` name its parameter and LoRA stacks,
-    ``idx`` its index in both, and ``is_global`` whether it attends
-    globally."""
+    ``idx`` its index in both (in the LoRA stack ``lora_idx`` instead
+    when it is given: the hybrid's shared block, whose parameters have no
+    stack dims), ``is_global`` whether it attends globally and ``ssm``
+    whether it is a state-space layer."""
     addr: Union[int, Tuple[str, Tuple[int, ...]]]
     stack: str
     lora: str
     idx: Tuple[int, ...]
     is_global: bool
+    lora_idx: Optional[Tuple[int, ...]] = None
+    ssm: bool = False
+
+    @property
+    def lora_at(self) -> Tuple[int, ...]:
+        """The layer's index in its LoRA stack."""
+        return self.idx if self.lora_idx is None else self.lora_idx
 
 
 def cache_kv(cache, addr, name: str) -> torch.Tensor:
-    """Layer ``addr``'s ``name`` ("k" or "v") leaf of a dense cache or a
-    paged lane cache, a view: cache[name][i] for the plain layout's
-    integer address, cache[kind][name][idx] for a grouped layout's
-    (kind, idx)."""
+    """Layer ``addr``'s ``name`` ("k" or "v"; an SSM's "conv" or "h")
+    leaf of a dense cache or a paged lane cache, a view: cache[name][i]
+    for the plain layout's integer address, cache[kind][name][idx] for a
+    grouped layout's (kind, idx)."""
     if isinstance(addr, tuple):
         kind, idx = addr
         return cache[kind][name][idx]
@@ -145,26 +173,44 @@ def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
 
 
 def ssm_layer(cfg, p, x, *, mode, cache, lora=None, gates=None):
-    """Pre-norm Mamba-1 block with a residual.  Returns (x, {"conv",
-    "h"}, or None in train mode)."""
+    """Pre-norm Mamba-1 or Mamba-2 block with a residual, then, where the
+    layer has one (zamba2's), a pre-norm MLP with a residual (the
+    reference's ``model.py:132-142``).  Returns (x, {"conv", "h"}, or
+    None in train mode)."""
     h = L.norm(cfg, p["ln"], x)
-    y, state = SSM.mamba1_block(cfg, p["ssm"], h, cache=cache, mode=mode,
-                                lora=lora, gates=gates)
-    return x + y, state
+    block = SSM.mamba1_block if cfg.ssm_version == 1 else SSM.mamba2_block
+    y, state = block(cfg, p["ssm"], h, cache=cache, mode=mode, lora=lora,
+                     gates=gates)
+    x = x + y
+    if "mlp" in p:
+        get = (lora or {}).get
+        h = L.norm(cfg, p["ln2"], x)
+        x = x + L.mlp(cfg, p["mlp"], h, get("mlp_in"), get("mlp_out"),
+                      gates)
+    return x, state
 
 
 class LM:
     """Model bundle for one ModelConfig on one device: the dense family's
-    plain or grouped (gemma3) layout, or the Mamba-1 SSM family.
-    ``ring_cache``: the grouped layout's local layers keep window-sized
-    ring caches (the reference's ``LM(ring_cache=True)``)."""
+    plain or grouped (gemma3) layout, the Mamba-1 SSM family or the
+    zamba2 hybrid.  ``ring_cache``: the grouped layout's local layers
+    (the hybrid's shared attention block) keep window-sized ring caches
+    (the reference's ``LM(ring_cache=True)``)."""
 
     def __init__(self, cfg, device=None, ring_cache: bool = False):
         if cfg.family == "ssm":
             if cfg.ssm_version != 1 or cfg.norm_type != "rmsnorm":
                 raise NotImplementedError(
                     f"{cfg.name}: only Mamba-1 with RMSNorm is ported "
-                    "(Mamba-2 is the zamba2 slice)")
+                    "in the SSM family")
+        elif cfg.family == "hybrid":
+            if cfg.ssm_version != 2 or not cfg.attn_every \
+                    or cfg.attn_type not in ("full", "sliding") \
+                    or cfg.qkv_bias or cfg.use_qk_norm \
+                    or cfg.norm_type != "rmsnorm":
+                raise NotImplementedError(
+                    f"{cfg.name}: only the zamba2 hybrid (Mamba-2 groups "
+                    "under one shared attention block, RMSNorm) is ported")
         elif cfg.family != "dense" \
                 or not (cfg.attn_type == "full" or (
                     cfg.attn_type == "mixed" and cfg.global_every)) \
@@ -173,8 +219,8 @@ class LM:
             raise NotImplementedError(
                 f"{cfg.name}: only the dense layouts of the Floe pairs "
                 "(full attention, or gemma3's grouped sliding/global "
-                "layout; tied embeddings, RMSNorm) and the Mamba-1 SSM "
-                "family are ported")
+                "layout; tied embeddings, RMSNorm), the Mamba-1 SSM "
+                "family and the zamba2 hybrid are ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
@@ -183,8 +229,12 @@ class LM:
     # -------------------------------------------------------------- layout
     def _layout(self) -> Tuple[str, int, int, int]:
         """Stack layout: (kind, n_groups, group_size, tail), as the
-        reference's ``_layout`` for the dense and SSM families."""
+        reference's ``_layout`` (the hybrid's case first)."""
         cfg = self.cfg
+        if cfg.family == "hybrid" and cfg.attn_every:
+            g = cfg.attn_every
+            n_groups = cfg.num_layers // g
+            return ("grouped", n_groups, g, cfg.num_layers - n_groups * g)
         if cfg.attn_type == "mixed" and cfg.global_every:
             g = cfg.global_every
             n_groups = cfg.num_layers // g
@@ -194,26 +244,36 @@ class LM:
     def layer_sites(self) -> List[LayerSite]:
         """The layers in the order the stack runs them: the plain
         layout's (and an SSM's) 0..L-1, or in each group its g - 1 local
-        layers then its global layer, and after the groups the tail."""
+        layers (the hybrid's Mamba-2 layers) then its global layer (the
+        hybrid's shared block), and after the groups the tail."""
         kind, n_groups, g, tail = self._layout()
+        ssm = self.cfg.family == "ssm"
         if kind == "plain":
-            return [LayerSite(i, "layers", "layers", (i,), True)
+            return [LayerSite(i, "layers", "layers", (i,), True, ssm=ssm)
                     for i in range(self.cfg.num_layers)]
+        hybrid = self.cfg.family == "hybrid"
         out = []
         for gi in range(n_groups):
             out += [LayerSite(("inner", (gi, j)), "inner", "inner",
-                              (gi, j), False) for j in range(g - 1)]
-            out.append(LayerSite(("global", (gi,)), "global_layers",
-                                 "special", (gi,), True))
-        out += [LayerSite(("tail", (t,)), "tail", "tail", (t,), False)
-                for t in range(tail)]
+                              (gi, j), False, ssm=hybrid)
+                    for j in range(g - 1)]
+            if hybrid:
+                out.append(LayerSite(("attn", (gi,)), "shared_attn",
+                                     "special", (), True, lora_idx=(gi,)))
+            else:
+                out.append(LayerSite(("global", (gi,)), "global_layers",
+                                     "special", (gi,), True))
+        out += [LayerSite(("tail", (t,)), "tail", "tail", (t,), False,
+                          ssm=hybrid) for t in range(tail)]
         return out
 
     def _ring_local_len(self, max_seq: int) -> int:
         """Window extent of ring/local cache leaves (0 when every leaf
-        is full-length)."""
+        is full-length): the grouped dense layout's local layers (the
+        hybrid's shared-block rings are ``init_cache``'s)."""
         kind, *_ = self._layout()
-        if kind == "grouped" and self.ring_cache:
+        if kind == "grouped" and self.cfg.family == "dense" \
+                and self.ring_cache:
             w = min(max_seq, self.cfg.sliding_window)
             if w < max_seq:
                 return w
@@ -221,9 +281,10 @@ class LM:
 
     # -------------------------------------------------------------- params
     def param_shapes(self) -> Dict[str, Any]:
-        """The reference's spec tree for the dense layouts or the
-        Mamba-1 stack: leaves are (shape, init, scale) with init in
-        {embed, fan_in, ones, zeros}."""
+        """The reference's spec tree for the dense layouts, the Mamba-1
+        stack or the zamba2 hybrid (``model.py:285-290``, its Mamba-2
+        layers ``ssm_layer_spec`` and ``mamba2_spec``): leaves are
+        (shape, init, scale) with init in {embed, fan_in, ones, zeros}."""
         cfg = self.cfg
         n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -272,6 +333,31 @@ class LM:
 
         out = {"embed": embed, "ln_f": {"scale": _leaf((d,), "ones")}}
         kind, n_groups, g, tail = self._layout()
+        if cfg.family == "hybrid":
+            di, ns, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+            nh, ng = cfg.ssm_nheads, cfg.ssm_ngroups
+            conv = di + 2 * ng * ns
+
+            def mamba2(lead):
+                return {
+                    "ln": {"scale": _leaf(lead + (d,), "ones")},
+                    "ssm": {
+                        "in_proj": {"w": _leaf(lead + (d, di + conv + nh))},
+                        "conv_w": _leaf(lead + (k, conv)),
+                        "conv_b": _leaf(lead + (conv,), "zeros"),
+                        "A_log": _leaf(lead + (nh,), "ones"),
+                        "D": _leaf(lead + (nh,), "ones"),
+                        "dt_bias": _leaf(lead + (nh,), "zeros"),
+                        "norm": {"scale": _leaf(lead + (di,), "ones")},
+                        "out_proj": {"w": _leaf(lead + (di, d))},
+                    },
+                    "ln2": {"scale": _leaf(lead + (d,), "ones")},
+                    "mlp": {"in": {"w": _leaf(lead + (d, gate * f))},
+                            "out": {"w": _leaf(lead + (f, d))}}}
+            out["inner"] = mamba2((n_groups, g - 1))
+            out["tail"] = mamba2((tail,))
+            out["shared_attn"] = layers(())
+            return out
         if kind == "grouped":
             out["inner"] = layers((n_groups, g - 1))
             out["tail"] = layers((tail,))
@@ -343,7 +429,10 @@ class LM:
         slices the entry points take (the reference's ``lora_layout``
         for the dense layouts, whose grouped one's global layers are its
         "special" stack, and for Mamba-1: in_proj, x_proj, dt_proj and
-        out_proj as ssm_in, ssm_x, ssm_dt and ssm_out)."""
+        out_proj as ssm_in, ssm_x, ssm_dt and ssm_out; the hybrid's
+        Mamba-2 stacks take ssm_in, ssm_out and their MLP's, and its
+        "special" stack one slice a group of the shared block's attention
+        and MLP targets, ``model.py:325-343`` and ``:350-353``)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             di, n = cfg.d_inner, cfg.ssm_state
@@ -358,6 +447,14 @@ class LM:
         t = {"q": (d, h * hd), "k": (d, kv * hd), "v": (d, kv * hd),
              "o": (h * hd, d), "mlp_in": (d, gate * f), "mlp_out": (f, d)}
         kind, n_groups, g, tail = self._layout()
+        if cfg.family == "hybrid":
+            di = cfg.d_inner
+            proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state \
+                + cfg.ssm_nheads
+            st = {"ssm_in": (d, proj), "ssm_out": (di, d),
+                  "mlp_in": (d, gate * f), "mlp_out": (f, d)}
+            return {"inner": ((n_groups, g - 1), st), "tail": ((tail,), st),
+                    "special": ((n_groups,), t)}
         if kind == "grouped":
             return {"inner": ((n_groups, g - 1), t), "tail": ((tail,), t),
                     "special": ((n_groups,), t)}
@@ -389,6 +486,29 @@ class LM:
 
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            _, n_groups, g, tail = self._layout()
+            nh, hp, ns = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+            conv = cfg.d_inner + 2 * cfg.ssm_ngroups * ns
+
+            def ssm_state(lead):
+                return {"conv": torch.zeros(
+                            lead + (batch, cfg.ssm_conv - 1, conv),
+                            dtype=self.dtype, device=self.device),
+                        "h": torch.zeros(lead + (batch, nh, hp, ns),
+                                         dtype=torch.float32,
+                                         device=self.device)}
+            # the shared block's caches: window-sized rings with
+            # ring_cache on a sliding-window config (``model.py:416-428``)
+            seq = min(max_seq, cfg.sliding_window) if (
+                self.ring_cache and cfg.attn_type == "sliding") else max_seq
+            kv = (n_groups, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            return {"inner": ssm_state((n_groups, g - 1)),
+                    "tail": ssm_state((tail,)),
+                    "attn": {n: torch.zeros(kv, dtype=self.dtype,
+                                            device=self.device)
+                             for n in ("k", "v")},
+                    "pos": 0}
         if cfg.family == "ssm":
             # the recurrent state does not grow with max_seq
             nl = cfg.num_layers
@@ -414,8 +534,8 @@ class LM:
     def _lora_layer(lora, site: LayerSite):
         """The layer's slice of a LoRA bank tree ({stack: {target: {"A",
         "B"}}}), as the reference's layer scans slice it."""
-        return None if lora is None else T.map_tree(lambda t: t[site.idx],
-                                                    lora[site.lora])
+        return None if lora is None else T.map_tree(
+            lambda t: t[site.lora_at], lora[site.lora])
 
     def train_logits(self, params, batch, lora=None, gates=None):
         """Full-sequence causal logits of ``batch["tokens"]`` (B, S):
@@ -441,10 +561,11 @@ class LM:
         for site in self.layer_sites():
             l_i = None
             if lora is not None:
-                j = int(np.ravel_multi_index(site.idx, layout[site.lora][0]))
+                j = int(np.ravel_multi_index(site.lora_at,
+                                             layout[site.lora][0]))
                 l_i = T.map_tree(lambda ts: ts[j], split[site.lora])
             p_i = self._layer(params, site)
-            if cfg.family == "ssm":
+            if site.ssm:
                 x, _ = ssm_layer(cfg, p_i, x, mode="train", cache=None,
                                  lora=l_i, gates=gates)
                 continue
@@ -466,7 +587,8 @@ class LM:
         ``window`` positions, position p in slot p % window (the
         reference's ``_pad_cache`` roll).  An SSM's cache holds every
         layer's last k-1 conv inputs and final scan state; its prefill
-        scan runs K6 and keeps the reference's 128-token chunk rule
+        scan runs K6 (Mamba-1) or K11 (the hybrid's Mamba-2 layers) and
+        keeps the reference's 128- or 256-token chunk rule
         (``models/ssm.py``)."""
         cfg = self.cfg
         b, s = tokens.shape
@@ -478,11 +600,11 @@ class LM:
         for site in self.layer_sites():
             p_i, l_i = self._layer(params, site), self._lora_layer(lora,
                                                                    site)
-            if cfg.family == "ssm":
+            if site.ssm:
                 x, state = ssm_layer(cfg, p_i, x, mode="prefill",
                                      cache=None, lora=l_i, gates=gates)
-                cache["conv"][site.addr] = state["conv"]
-                cache["h"][site.addr] = state["h"]
+                for name in ("conv", "h"):
+                    cache_kv(cache, site.addr, name).copy_(state[name])
                 continue
             x, (k, v) = dense_layer(cfg, p_i, x, positions=positions,
                                     mode="prefill", cache=None, lora=l_i,
@@ -520,8 +642,14 @@ class LM:
         and scan state is the state after Lpad positions, padding
         included, with "pos" = ``lengths`` (the reference's behaviour,
         ``model.py:686-718``: its ``_pad_cache`` keeps the prefill's
-        state of every row).  Lpad follows the 128-token chunk rule."""
+        state of every row).  Lpad follows the 128-token chunk rule.  The
+        hybrid's packed prefill is a later slice (ROADMAP Queue 1 item
+        9) and raises ``NotImplementedError``."""
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                "packed prefill of the hybrid family: a later slice (its "
+                "batched engine is refused, serving/engine.py)")
         b, s = tokens.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
@@ -568,6 +696,8 @@ class LM:
 
     # ------------------------------------------------- prefix history
     def _dense_only(self, what: str):
+        """The prefix history API is the dense family's: the reference
+        refuses the others in ``prefill_suffix`` (``model.py:1015-1017``)."""
         if self.cfg.family != "dense":
             raise NotImplementedError(f"{what} of the {self.cfg.family} "
                                       "family: attention families only")
@@ -730,7 +860,8 @@ class LM:
     # ------------------------------------------- speculative rollback
     def _spec_kinds(self, max_seq: int) -> List[Tuple[str, bool]]:
         """(kind, is_ring) of the cache's KV kinds; kind "" is the plain
-        layout's top-level {"k", "v"}."""
+        layout's top-level {"k", "v"}.  Dense-family caches only, as the
+        reference's (``model.py:843-846``)."""
         if self.cfg.family != "dense":
             raise NotImplementedError(
                 "speculative rollback: dense-family caches only "
@@ -869,13 +1000,13 @@ class LM:
         for site in self.layer_sites():
             p_i, l_i = self._layer(params, site), self._lora_layer(lora,
                                                                    site)
-            if cfg.family == "ssm":
-                i = site.addr
-                x, state = ssm_layer(
-                    cfg, p_i, x, mode="decode", lora=l_i, gates=gates,
-                    cache={"conv": cache["conv"][i], "h": cache["h"][i]})
-                cache["conv"][i] = state["conv"]
-                cache["h"][i] = state["h"]
+            if site.ssm:
+                state = {n: cache_kv(cache, site.addr, n)
+                         for n in ("conv", "h")}
+                x, new = ssm_layer(cfg, p_i, x, mode="decode", lora=l_i,
+                                   gates=gates, cache=state)
+                for name in ("conv", "h"):
+                    state[name].copy_(new[name])
                 continue
             layer_cache = {n: cache_kv(cache, site.addr, n)
                            for n in ("k", "v")}

@@ -1,9 +1,9 @@
-"""Mamba-1 state-space block (falcon-mamba) — the port of the Mamba-1
-part of ``repro/models/ssm.py``.
+"""Mamba-1 (falcon-mamba) and Mamba-2/SSD (zamba2) state-space blocks —
+the port of ``repro/models/ssm.py``.
 
-Prefill runs the selective scan through K6 (``kernels/ssm_scan``: the
-CUDA kernel on a CUDA tensor, its plain step-by-step version on a CPU
-tensor); decode is the O(1) single-step recurrence against (conv
+Mamba-1 prefill runs the selective scan through K6 (``kernels/ssm_scan``:
+the CUDA kernel on a CUDA tensor, its plain step-by-step version on a
+CPU tensor); decode is the O(1) single-step recurrence against (conv
 state, ssm state) in plain torch ops, as the reference writes it in jnp
 outside any kernel.  Train mode is the prefill's scan with a gradient:
 K6 forward and K10 backward (``ssm_scan_train``), and no state.
@@ -21,8 +21,20 @@ The reference's prefill scan is chunked (``_mamba1_inner``: chunk 128)
 and asserts s % min(128, s) == 0, so it serves prompts of at most 128
 tokens or a multiple of 128, and trains on such sequences.  The port
 keeps that rule in prefill and train mode and refuses the other lengths
-with a ``ValueError``, although K6 and K10 take any length.  Mamba-2
-(the zamba2 hybrid) is a later slice.
+with a ``ValueError``, although K6 and K10 take any length.
+
+Mamba-2 (``mamba2_block``, the reference's ``ssm.py:192-247``): one
+in_proj into [z | xBC | dt], the causal conv over xBC's d_inner + 2 G N
+channels, per-head scalar decays a = -exp(A_log), and the SSD scan over
+H = d_inner / P heads of P channels and N states, through K11
+(``kernels/ssd_scan``) in prefill mode, which reads x, B and C in place
+as column slices of the conv output; decode is the O(1) recurrence in
+plain torch, as the reference's jnp.  The D skip is added in float32,
+then the gated RMSNorm over d_inner and out_proj.  LoRA on ``ssm_in``
+(in_proj) and ``ssm_out`` (out_proj).  The reference's 256-token chunk
+rule (``ssm.py:226-227``) is kept as a ``ValueError``.  Train mode
+differentiates the plain chunk loop on the CPU; on CUDA it runs K11,
+whose gradient raises until the zamba2 training slice.
 """
 from __future__ import annotations
 
@@ -31,11 +43,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan, ssd_scan_train
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan, ssm_scan_train
 from repro_torch.models import layers as L
 
-# the reference's mamba1_block default chunk
+# the reference's mamba1_block and mamba2_block default chunks
 CHUNK = 128
+SSD_CHUNK = 256
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -66,12 +80,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def check_prefill_length(s: int, chunk: int = CHUNK) -> None:
+def check_prefill_length(s: int, chunk: int = CHUNK,
+                         what: str = "Mamba-1",
+                         where: str = "_mamba1_inner") -> None:
     """The reference's chunked-scan rule: s <= chunk or s % chunk == 0."""
     if s % min(chunk, s):
         raise ValueError(
-            f"a Mamba-1 prefill of {s} tokens: the reference's chunked scan "
-            f"(models/ssm.py _mamba1_inner, chunk {chunk}) takes at most "
+            f"a {what} prefill of {s} tokens: the reference's chunked scan "
+            f"(models/ssm.py {where}, chunk {chunk}) takes at most "
             f"{chunk} tokens or a multiple of {chunk}, and the port keeps "
             "its rule")
 
@@ -123,6 +139,52 @@ def mamba1_block(cfg, p, x: torch.Tensor, *,
     return out, None if h is None else {"conv": new_conv, "h": h}
 
 
-def mamba2_block(cfg, p, x, **kw):
-    raise NotImplementedError("Mamba-2 / SSD blocks (zamba2-7b): the "
-                              "zamba2 slice")
+def mamba2_block(cfg, p, x: torch.Tensor, *,
+                 cache: Optional[Dict[str, torch.Tensor]] = None,
+                 mode: str = "prefill", lora=None, gates=None
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One Mamba-2 block in ``prefill``, ``train`` or ``decode`` mode (S =
+    1 against ``cache`` {"conv" (B, k-1, d_inner + 2 G N), "h" (B, H, P,
+    N) float32}).  ``lora`` is this layer's {"ssm_in", "ssm_out": {"A",
+    "B"}} bank slice (either may be missing) and ``gates`` its gates, as
+    ``layers.lora_delta`` takes them.  Returns (out (B, S, d), {"conv",
+    "h"}, the state after the last position; None in train mode)."""
+    if mode not in ("prefill", "decode", "train"):
+        raise ValueError(f"mamba2_block: mode {mode!r}")
+    b, s, _ = x.shape
+    di, n = cfg.d_inner, cfg.ssm_state
+    g, nh, hp = cfg.ssm_ngroups, cfg.ssm_nheads, cfg.ssm_head_dim
+    get = (lora or {}).get
+    if mode != "decode":
+        check_prefill_length(s, SSD_CHUNK, "Mamba-2", "mamba2_block")
+
+    zxbcdt = L.linear(p["in_proj"], x, get("ssm_in"), gates)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * g * n, nh], dim=-1)
+    conv_state = cache["conv"] if mode == "decode" else None
+    xbc, new_conv = causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc = F.silu(xbc)
+    xin, bm, cm = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    dt = softplus((dt_raw + p["dt_bias"].to(dt_raw.dtype)).float())
+    a = -torch.exp(p["A_log"].float())                     # (H,)
+    # (B, S, H, P) and (B, S, G, N) views of the conv output
+    xh, bh, ch = (xin.unflatten(-1, (nh, hp)), bm.unflatten(-1, (g, n)),
+                  cm.unflatten(-1, (g, n)))
+
+    if mode == "decode":
+        rep = nh // g
+        bt = bh[:, 0].float().repeat_interleave(rep, dim=1)   # (B, H, N)
+        ct = ch[:, 0].float().repeat_interleave(rep, dim=1)
+        dec = torch.exp(dt[:, 0] * a)                          # (B, H)
+        h = cache["h"].float() * dec[:, :, None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dt[:, 0], xh[:, 0].float(), bt)
+        y = torch.einsum("bhpn,bhn->bhp", h, ct)[:, None]      # (B,1,H,P)
+    elif mode == "train":
+        y, h = ssd_scan_train(xh, bh, ch, dt.contiguous(), a), None
+    else:
+        y, h = ssd_scan(xh, bh, ch, dt.contiguous(), a)
+
+    y = y + xh.float() * p["D"].float()[None, None, :, None]
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = L.linear(p["out_proj"], y, get("ssm_out"), gates)
+    return out, None if h is None else {"conv": new_conv, "h": h}

@@ -23,7 +23,7 @@ def _leaves(tree, prefix=()):
 
 
 @pytest.mark.parametrize("name", ["floe-slm-2b", "floe-llm-7b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "zamba2-7b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_round_trip_is_exact(name, dtype):
     cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype)

@@ -28,7 +28,13 @@ most) and 1e-5 in f32; h_final 1e-5 of its max (f32 recurrences whose
 updates round once more in the plain version); its chunk states the
 same.  K8 (causal and windowed) 2**-6 of each gradient's max; K10 1e-5
 on its f32 gradients (d(dt), dA) and 2**-7 on its bf16 ones (dx, dB,
-dC; 1e-5 in f32).  K7: ids and perturbed
+dC; 1e-5 in f32).  K11 (the SSD scan): y per (batch, position, head)
+row, max|out - ref| / max|ref| over P, 1e-4, and h_final 1e-5 of its
+max: the kernel runs the f32 recurrence step by step, the plain version
+the reference's chunk form (exponentials of cumulative log-decay
+differences over up to 256 steps), which part by ~1.4e-5 per row at S
+1,536 on the CPU in f32.  K3 at head_dim 112 as at 256, and with a
+window no shorter than S equal to causal bit for bit.  K7: ids and perturbed
 scores equal to the plain version's bit for bit (the kernel computes
 the plain version's integer and float steps, each rounded the same
 way)."""
@@ -41,6 +47,7 @@ from repro_torch.kernels.logit_fusion import sample as K7
 from repro_torch.kernels.moe_lora import kernel as KL
 from repro_torch.kernels.paged_attention import kernel as K2
 from repro_torch.kernels.ssm_scan import kernel as K6
+from repro_torch.kernels.ssd_scan import kernel as K11
 
 FREED_POS = 1 << 30
 NO_PAGE = 1 << 20
@@ -1268,3 +1275,81 @@ def test_training_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                     # head_dim 48
         K3.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q,
                                torch.zeros(1, 2, 8, device=cuda))
+
+
+def ssd_case(dev, g, b, s, h, p, n, grp, dtype):
+    """Inputs of one Mamba-2 prefill scan as the model hands them over:
+    x (b, s, h, p), B and C (b, s, grp, n) column slices of a conv-like
+    (b, s, h p + 2 grp n) output, dt a softplus (f32), a = -exp(.)."""
+    conv = torch.nn.functional.silu(torch.randn(
+        b, s, h * p + 2 * grp * n, device=dev, generator=g)).to(dtype)
+    x = conv[..., :h * p].unflatten(-1, (h, p))
+    bm = conv[..., h * p:h * p + grp * n].unflatten(-1, (grp, n))
+    cm = conv[..., h * p + grp * n:].unflatten(-1, (grp, n))
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, device=dev, generator=g) - 1.0)
+    a = -torch.exp(0.5 * torch.randn(h, device=dev, generator=g))
+    return x, bm, cm, dt, a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,grp,dtype", [
+    (1, 1536, 112, 64, 64, 1, torch.bfloat16),   # zamba2-7b's prefill
+    (1, 27, 112, 64, 64, 1, torch.bfloat16),     # a demo prompt
+    (1, 1, 112, 64, 64, 1, torch.bfloat16),
+    (2, 203, 5, 24, 8, 1, torch.bfloat16),       # ragged S, P < 32
+    (3, 77, 4, 20, 8, 2, torch.float32),         # two groups, P % 8 != 0
+    (2, 512, 16, 16, 8, 1, torch.float32),       # the reduced width
+])
+def test_ssd_scan_matches_plain(cuda, b, s, h, p, n, grp, dtype):
+    """K11 against the reference's chunk loop (``ssd_scan_plain``) on
+    strided x, B and C; two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    case = ssd_case(cuda, g, b, s, h, p, n, grp, dtype)
+    assert s == 1 or not (case[0].is_contiguous()
+                          or case[1].is_contiguous())
+    before = K11.ssd_scan.launches
+    y, hf = K11.ssd_scan(*case)
+    y2, hf2 = K11.ssd_scan(*case)
+    torch.cuda.synchronize()
+    assert K11.ssd_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+    ry, rh = K11.ssd_scan_plain(*case)
+    assert y.dtype == hf.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and hf.shape == (b, h, p, n)
+    assert row_rel_err(y, ry) <= 1e-4
+    assert ((hf - rh).abs().max() / rh.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_ssd_scan_gradient_raises(cuda):
+    """Train mode on the card runs K11 forward; a gradient through it
+    raises (its backward is the zamba2 training slice), never falling
+    back to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, bm, cm, dt, a = ssd_case(cuda, g, 1, 64, 4, 16, 8, 1, torch.float32)
+    x = x.detach().requires_grad_()
+    before = K11.ssd_scan.launches
+    y = K11.ssd_scan_train(x, bm, cm, dt, a)
+    assert K11.ssd_scan.launches == before + 1
+    with pytest.raises(NotImplementedError):
+        y.sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,s", [(1, 32, 32, 1536), (1, 32, 32, 27),
+                                       (2, 4, 2, 203)])
+def test_flash_attention_head_dim_112(cuda, b, h, kvh, s):
+    """K3 at zamba2's head_dim 112 on (B, H, S, D) views of (B, S, H, D)
+    tensors: within the limit of the plain version, and with the shared
+    block's window of 4,096 (longer than S) equal to causal bit for bit;
+    the output's padded columns never reach memory."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k, v = k3_inputs(cuda, g, b, h, kvh, s, 112, layout="bshd")
+    out = K3.flash_attention(q, k, v)
+    win = K3.flash_attention(q, k, v, window=4096)
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, s, 112)
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, win)
+    assert row_rel_err(out, K3.flash_attention_plain(q, k, v)) <= 2 ** -6

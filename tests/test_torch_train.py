@@ -209,6 +209,20 @@ def test_init_adapter_keyed_bit_exact(models):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def test_adapter_vectors_reuse_the_projection_bit_for_bit():
+    """E(φ)'s projection is drawn once a process: adapters of other
+    sizes, longer and shorter than the rows drawn so far, still project
+    as the reference's fresh draw."""
+    rng = np.random.default_rng(1)
+    for n in (150_000, 70_000, 1_000, 300_000):
+        flat = rng.standard_normal(n).astype(np.float32)
+        tree = {"layers": {"q": {"A": flat}}}
+        got = LORA.adapter_vectors([{"layers": {"q": {"A": torch.from_numpy(
+            flat)}}}], dim=8, seed=5)[0]
+        np.testing.assert_array_equal(
+            got, np.asarray(JLORA.adapter_vector(tree, dim=8, seed=5)))
+
+
 # ------------------------------------------------------------------- dp
 def _grad_tree(rng, scale):
     return {"layers": {t: {"A": (scale * rng.standard_normal((2, 1, 4, 8))
