@@ -56,7 +56,16 @@ Phases, in order; any failure exits non-zero before the result lines:
               reference's chunk loop (``ssd_scan_plain``), and K3 at
               head_dim 112 (H = KV = 32, window 4,096, equal to causal
               bit for bit) at the same S, both also replayed from a CUDA
-              graph, two calls bit-equal;
+              graph, two calls bit-equal; K9 at zamba2-7b's five LoRA
+              shapes (T = 160, E = 1); K12 (the SSD scan's backward, no
+              Pallas original) at zamba2-7b's width, (B, S) = (4, 40),
+              (1, 512), (1, 1,536) and (2, 203), against autograd
+              through the reference's chunk loop per gradient, from K11's
+              chunk states (K11 with them bit-equal to K11 without, the
+              states against their plain version); K8 at head_dim 112
+              (H = KV = 32, windowed at 4,096 == causal bit for bit) at
+              (4, 40) and (1, 1,536), K3's LSE there against the plain
+              log-sum-exp;
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
@@ -118,7 +127,27 @@ Phases, in order; any failure exits non-zero before the result lines:
               comparison through the plain versions, which is itself
               held to FORCED_CEIL); a profile of the
               long request; serve_ssm (c)'s slots and router runs on
-              it; the model is freed before the pair's phases;
+              it; then on the same model: (d) a LoRA client step (4 x
+              40, rank 16, the reference's threefry adapter) through
+              K11/K12, K3/K8 (windowed) and K5/K9 against the plain step
+              on the card (the loss within FED_SSM_LOSS_RTOL; every
+              leaf's gradient, which bf16 does not resolve to
+              FED_SSM_GRAD_RTOL through 81 layers, held to a float32
+              plain step: within FED_SSM_F32_RATIO times the bf16 plain
+              step's distance from it, the share of K11/K12 alone
+              within ZAMBA2_SCAN_F32_RATIO times that distance and the
+              share of K3/K8 and K5/K9 within ZAMBA2_OTHER_F32_RATIO
+              times it; K3 and K8 13, K11 and K12 68, K5 and K9 350
+              launches), (e) a kernel-only step at 1 x 512 (two
+              256-token chunks), (f) one packed prefill of the four
+              demo prompts (K11 68, K3 13): every K11 and K3 call
+              against its plain version on the same inputs (K11's y
+              per (row, head) and state K11_H_RTOL, K3 per row
+              K3_ROW_RTOL), each row's logits within
+              LOGITS_TOL of its own prefill in float32, and in bf16
+              through the kernels within FORCED_RATIO times the bf16
+              prefill's distance from float32; the model is freed
+              before the pair's phases;
   6. serve    the full-width 2b pair (floe-slm-2b + floe-llm-7b, bf16,
               random weights from a seed) through ServingDeployment and
               Scheduler.from_deployment: the four demo prompts of the
@@ -243,7 +272,9 @@ Phases, in order; any failure exits non-zero before the result lines:
               gradient within FED_LOSS_RTOL / FED_GRAD_RTOL, step ms,
               peak memory, K3 and K8 once and K5 and K9 six times a
               layer; (b) run_simulation on FED_SIM (5 clients, one
-              round): history, wall time, dropped clients, each training
+              round; E(φ)'s projection drawn by a side process from the
+              script's start, ``ProjectionDraw``): history, wall time,
+              dropped clients, each training
               client's first-batch loss before and after its steps (it
               must fall); (c) one DP client round (clip 1.0, noise 0.5),
               timed with its host noise draw apart; (d) the published
@@ -259,8 +290,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 The kernels phase also holds K3's history-offset mode (K3_OFFSET_SHAPES)
 and K2 over (8, 256) block tables against their plain versions.
 Then it prints the ``federate:`` summary, the ``{"kernels": [...]}``
-line (K1-K11, K3's offset and head_dim 112 modes and K8's windowed mode
-as entries of their own), the nvidia-smi line and,
+line (K1-K12, K3's offset and head_dim 112 modes and K8's windowed and
+head_dim 112 modes as entries of their own), the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
 import contextlib
@@ -268,6 +299,8 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -433,6 +466,68 @@ SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
 # (read 2.6e-6)
 K11_ROW_RTOL = 1e-4
 K11_H_RTOL = 1e-5
+# K12 (the SSD scan's backward, no Pallas original): per gradient,
+# max|out - ref| / max|ref| against its plain version, autograd through
+# the reference's chunk loop.  K12 runs the f32 recurrence step by step
+# from K11's chunk states, the plain version the chunk form, as K11's y
+# against its plain version (K11_ROW_RTOL): d(dt) and da in f32 at
+# K12_F32_RTOL; dx, dB and dC round their f32 sums to bf16 once (one ulp
+# is 2**-8 of a value) at K12_BF16_RTOL.  K11's chunk states against
+# their plain version at K11_H_RTOL, as h_final.  Shapes: zamba2-7b's
+# client step, a step of two reference chunks, the serving prefill's
+# length, and a ragged S that is no multiple of 64
+K12_F32_RTOL = 1e-4
+K12_BF16_RTOL = 2 ** -7
+K12_SHAPES = [(4, 40), (1, 512), (1, 1536), (2, 203)]
+# K8 at zamba2's head_dim 112 (H = KV = 32, its window of 4,096, longer
+# than S: equal to causal bit for bit) at the client step and the long
+# prompt, limits K8_RTOL and K8_LSE_TOL
+K8D_SHAPES = [(4, 40), (1, 1536)]
+# serve_zamba2 (e): a kernel-only client step of two 256-token chunks
+ZAMBA2_FED_LONG_STEP = (1, 512)
+# serve_zamba2 (d): the client step runs 81 layers (13 shared-block
+# passes among 68 Mamba-2 layers, each with an MLP) in bf16.  An H100 run
+# read every LoRA leaf's gradient 2.4-6.4% from the bf16 plain step's,
+# and the bf16 plain step itself 3.9-8.1% from a float32 plain step's
+# (``float32_params``): bf16 does not resolve these gradients to
+# FED_SSM_GRAD_RTOL, so every leaf takes the float32 route, the kernel
+# step within FED_SSM_F32_RATIO times the bf16 plain step's distance
+# from float32 (read 0.76-1.34).  The scan kernels' share (a third step
+# with K5/K9 and K3/K8 plain, K11/K12 kept) read 0.7-2.0% against
+# FED_SSM_SCAN_RTOL's 1e-3: K11's f32 y and K12's f32 dx, ~1e-6 off the
+# chunk form's, round to bf16 apart now and then, and 81 layers amplify
+# that as they amplify any bf16 rounding; so the share is held to
+# ZAMBA2_SCAN_F32_RATIO times the same distance from float32 (read 0.35
+# at most): swapping the scan kernels moves a gradient by well under
+# what bf16 arithmetic itself does.
+ZAMBA2_SCAN_F32_RATIO = 0.5
+# serve_zamba2 (d): the other kernels' share (K3/K8 and K5/K9: the kernel
+# step against the third, scan-kernels-only step) on every leaf within
+# ZAMBA2_OTHER_F32_RATIO times the same distance from float32.  An H100
+# run read 0.41-0.95 (the shared block's leaves, whose gradients pass
+# through K3/K8, highest), bit for bit the same in a second run; K5 and
+# K9 themselves are held per row at zamba2's shapes in the kernels phase
+ZAMBA2_OTHER_F32_RATIO = 1.25
+# serve_zamba2 (f): a packed row against its own B = 1 prefill.  In bf16
+# the two run their GEMMs over other row counts (4 x 49 against 27-49),
+# which round apart in the last place, and 81 layers amplify it (an H100
+# run read 2.3-3.0e-2 through the kernels, past LOGITS_TOL); so the rows
+# are held to LOGITS_TOL in float32 (the plain versions,
+# ``float32_params``), where the comparison resolves, and the bf16 run's
+# gap to FORCED_RATIO times its own B = 1 prefill's distance from the
+# float32 one.  K11 and K3 at B = 4 on ragged rows are held tightly call
+# by call, each against its plain version on the inputs the packed
+# prefill gave it.  (The whole packed prefill through the plain versions
+# in bf16, the same row counts, read 1.1-1.4e-2 from the kernels' in an
+# H100 run: K3 rounds P to bf16 where its plain version keeps f32, and
+# 81 layers amplify that past LOGITS_TOL, as they do a row count.)  K11's
+# y is held per (row, head), as a share of the head's max over its steps
+# and channels, within K11_H_RTOL: per (row, step, head) row, as the
+# kernels phase holds it on random inputs, a real activation's row can
+# be ~1e-3 of its head's median (an H100 run: 5e-9 against 4.5e-6), and
+# there both f32 forms part from a float64 recurrence by up to 3.5e-4
+# of the row (K11) and 1.3e-4 (the chunk form), the same at B = 1; per
+# head K11 lay 5.4e-7 from float64, the chunk form 1.8e-6
 # serve_zamba2: the seed of its random weights.  Its teacher-forced
 # decode step (n - 1 tokens prefilled, then one decode step, against a
 # prefill of n) is held to LOGITS_TOL, or, past it, to FORCED_RATIO times
@@ -642,6 +737,22 @@ def row_rel_err(out, ref) -> float:
     """max over rows (the last axis) of max|out - ref| / max|ref|."""
     out, ref = out.float(), ref.float()
     return ((out - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+
+def head_rel_err(out, ref) -> float:
+    """max over (batch, head) of max|out - ref| / max|ref| over the
+    head's (step, channel) values of a (B, S, H, P) scan output."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().amax((1, 3))
+            / ref.abs().amax((1, 3))).max().item()
+
+
+def share_of_max(out, ref) -> float:
+    """max|out - ref| / max|ref|, or max|out - ref| where ref is all
+    zeros (a scan's only chunk state is h_0 = 0)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    return err / scale if scale else err
 
 
 def bound(nbytes: float, flops: float, flop_rate: float):
@@ -1095,7 +1206,10 @@ def phase_lora_zamba2(torch, short_len: int):
     K4 at decode (T = 1, one user's slot), K5 at decode (T = 1, one soft
     gate row) — and K5 on that slot's one-hot gates, which must equal K4
     bit for bit — then K5 at a demo prompt's prefill (T = S, one gate row
-    over its S rows), soft (the router) and one-hot (a user's slot)."""
+    over its S rows), soft (the router) and one-hot (a user's slot); and
+    K9 (``k9_case``) at a client step's T = 160 rows, E = 1, on the five
+    shapes, K5's forward beside it.  Returns (K4 cases, K5 cases, K9
+    cases)."""
     from repro_torch.kernels.moe_lora import kernel as KL
 
     dev = torch.device("cuda")
@@ -1145,12 +1259,19 @@ def phase_lora_zamba2(torch, short_len: int):
                      gates=kind))
             k5_cases.append(c5)
         del x, a, b
+    k9_cases = [k9_case(torch, g, 160, k, n, 1, 1)
+                for k, n in ZAMBA2_LORA_SHAPES]
     bad = [c for c in k4_cases + k5_cases
-           if not c["max_rel_err"] <= LORA_ROW_RTOL]
+           if not c["max_rel_err"] <= LORA_ROW_RTOL] + \
+        [c for c in k9_cases if not (c["rel_err_dx_da_db"][0] <= K9_DX_RTOL
+                                     and max(c["rel_err_dx_da_db"][1:])
+                                     <= K9_RTOL
+                                     and c["k5_forward_row_rel_err"]
+                                     <= LORA_ROW_RTOL)]
     if bad:
-        raise SystemExit(f"K4/K5 disagree with their plain versions at "
+        raise SystemExit(f"K4/K5/K9 disagree with their plain versions at "
                          f"zamba2's shapes: {bad}")
-    return k4_cases, k5_cases
+    return k4_cases, k5_cases, k9_cases
 
 
 def phase_k6(torch, short_len: int):
@@ -1833,7 +1954,7 @@ def phase_cli():
 
 
 def all_kernels():
-    """Every kernel wrapper of the port, K1-K11."""
+    """Every kernel wrapper of the port, K1-K12."""
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.logit_fusion import sample as K7
     from repro_torch.kernels.moe_lora import kernel as KL
@@ -1841,7 +1962,8 @@ def all_kernels():
     from repro_torch.kernels.ssm_scan import kernel as K6
     return lora_kernels() + (K6.ssm_scan, K7.sample_fused,
                              K3.flash_attention_bwd, KL.moe_lora_delta_bwd,
-                             K6.ssm_scan_bwd, K11.ssd_scan)
+                             K6.ssm_scan_bwd, K11.ssd_scan,
+                             K11.ssd_scan_bwd)
 
 
 def phase_serve_ssm(torch):
@@ -2205,12 +2327,133 @@ def phase_serve_zamba2(torch):
                           {"ssd_scan": n_ssm, "flash_attention": n_groups})
     print(f"serve_zamba2 adapters and router: "
           f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    adapter = threefry_adapter(torch, lm)
+    leaves = tuple(f"{stack}.{tgt}.{ab}"
+                   for stack, (_, tgts) in lm.lora_layout().items()
+                   for tgt in tgts for ab in "AB")
+    train = {"d": fed_client_step(torch, lm, dep.slm_params,
+                                  "serve_zamba2 (d)", *SSM_FED_STEP,
+                                  (FED_SSM_LOSS_RTOL, FED_SSM_GRAD_RTOL),
+                                  scan_f32_ratio=ZAMBA2_SCAN_F32_RATIO,
+                                  other_f32_ratio=ZAMBA2_OTHER_F32_RATIO,
+                                  bf16_bound=leaves, adapter=adapter),
+             "e": fed_client_step(torch, lm, dep.slm_params,
+                                  "serve_zamba2 (e)", *ZAMBA2_FED_LONG_STEP,
+                                  None, adapter=adapter)}
+    del adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["f"] = serve_zamba2_packed(torch, dep, n_ssm, n_groups)
+    print(f"serve_zamba2 (d)-(f): {time.perf_counter() - t0:.1f} s")
     return launches, dict(wall_s=wall, tokens=tokens, peak_gib=peak,
                           params=n_params, prefill_long_ms=prefill_ms[-1],
                           decode_steps_per_s=calls["slm_decode"] / decode_s,
                           logits_rel=rel, h_rel=h_rel, forced_rel=tf_rel,
                           forced_plain_rel=tf_plain,
-                          **traced), lora
+                          **traced), lora, train
+
+
+def serve_zamba2_packed(torch, dep, n_ssm, n_groups):
+    """serve_zamba2 (f): one packed prefill (``LM.prefill_packed``) of
+    the four demo prompts, right-padded to the longest, on the
+    full-width zamba2-7b: K11 once a Mamba-2 layer and K3 (windowed)
+    once a group for the whole batch, no other kernel, "pos" the rows'
+    lengths.  Every K11 and K3 call of that prefill is held, on the
+    inputs the path gave it (B = 4 ragged rows), to its plain version:
+    K11's y per (row, head) and its final state within K11_H_RTOL, K3
+    per row within K3_ROW_RTOL.  Each row's
+    last-valid-token logits against its own B = 1 prefill: in float32
+    through the plain versions within LOGITS_TOL, and in bf16 through the
+    kernels within FORCED_RATIO times the bf16 B = 1 prefill's distance
+    from the float32 one (see the constants).  Returns the launches and
+    the gaps."""
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.ssd_scan import kernel as K11
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import ssm as SSM
+
+    lm, params = dep.slm, dep.slm_params
+    rows = [TOK.encode(p + " ") for p in DEMO_PROMPTS]
+    lengths = [len(r) for r in rows]
+    toks = torch.full((len(rows), max(lengths)), TOK.PAD, dtype=torch.int64,
+                      device=lm.device)
+    for i, r in enumerate(rows):
+        toks[i, :len(r)] = torch.tensor(r, device=lm.device)
+
+    def packed_prefill():
+        """(packed rows' logits, pos, ms, launches)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed, cache = lm.prefill_packed(params, toks, lengths, dep.max_seq)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {fn.__name__: fn.launches for fn in all_kernels()}
+        launches.update(mode_counts())
+        return packed[:, 0], cache["pos"].tolist(), ms, launches
+
+    def own():
+        return [lm.prefill(params, toks[i:i + 1, :n], dep.max_seq)[0][0]
+                for i, n in enumerate(lengths)]
+    with captured(SSM, "ssd_scan") as scans, \
+            captured(ATT, "flash_attention") as attns:
+        packed, pos, ms, launches = packed_prefill()
+    k_own = own()
+    scan_rel = [(head_rel_err(y, ry), share_of_max(h, rh))
+                for args, kw, (y, h) in scans
+                for ry, rh in [K11.ssd_scan_plain(*args, **kw)]]
+    attn_rel = [row_rel_err(out, K3.flash_attention_plain(*args, **kw))
+                for args, kw, out in attns]
+    del scans, attns
+    scan, attn = SSM.ssd_scan, ATT.flash_attention
+    SSM.ssd_scan, ATT.flash_attention = (K11.ssd_scan_plain,
+                                         K3.flash_attention_plain)
+    try:
+        with float32_params(torch, params):
+            f_packed, f_pos, _, _ = packed_prefill()
+            f_own = own()
+    finally:
+        SSM.ssd_scan, ATT.flash_attention = scan, attn
+    n = len(rows)
+    gap = [share_of_max(packed[i], k_own[i]) for i in range(n)]
+    f32_gap = [share_of_max(f_packed[i], f_own[i]) for i in range(n)]
+    bf16_err = [share_of_max(k_own[i], f_own[i]) for i in range(n)]
+    kernel_rel = dict(k11_y=max(r[0] for r in scan_rel),
+                      k11_h=max(r[1] for r in scan_rel),
+                      k3=max(attn_rel))
+    print(f"serve_zamba2 (f) packed prefill of {n} rows of {lengths} tokens "
+          f"(Lpad {max(lengths)}): {ms:.2f} ms; its {len(scan_rel)} K11 and "
+          f"{len(attn_rel)} K3 calls against their plain versions on the "
+          f"same inputs, worst: {kernel_rel}; each row's logits against "
+          f"its own B = 1 prefill, max|diff|/max|ref|: float32 (plain "
+          f"versions) {f32_gap}, bf16 (kernels) {gap}, against the bf16 "
+          f"B = 1 prefill's distance from float32 {bf16_err}; pos {pos}; "
+          f"launches {launches}")
+    want = {"ssd_scan": n_ssm, "flash_attention": n_groups,
+            "flash_attention_windowed": n_groups}
+    if any(launches[k] != c for k, c in want.items()) or any(
+            c for k, c in launches.items() if k not in want) \
+            or (len(scan_rel), len(attn_rel)) != (n_ssm, n_groups):
+        raise SystemExit(f"serve_zamba2 (f): K11 must launch {n_ssm} and "
+                         f"K3 {n_groups} times and nothing else: "
+                         f"{launches}")
+    if packed.shape != (n, lm.cfg.vocab_size) \
+            or not torch.isfinite(packed).all() or pos != lengths \
+            or f_pos != lengths or not kernel_rel["k11_y"] <= K11_H_RTOL \
+            or not kernel_rel["k11_h"] <= K11_H_RTOL \
+            or not kernel_rel["k3"] <= K3_ROW_RTOL \
+            or not max(f32_gap) <= LOGITS_TOL \
+            or not all(g <= FORCED_RATIO * e for g, e in zip(gap, bf16_err)):
+        raise SystemExit("serve_zamba2 (f): the packed prefill's kernels "
+                         "disagree with their plain versions, or its rows "
+                         "with their own prefills")
+    return dict(launches, ms=ms, rows=lengths, kernels_rel=kernel_rel,
+                logits_rel=gap, f32_logits_rel=f32_gap, bf16_to_f32=bf16_err)
 
 
 def _leaves(tree):
@@ -4495,17 +4738,175 @@ def k10_case(torch, g, b, s, sms, mhz):
     return case
 
 
+def k12_case(torch, g, b, s):
+    """K12 at zamba2-7b's width (112 heads of 64, N 64, one group) on
+    ``b`` rows of S steps (``ssd_inputs``: x, B and C bf16 strided
+    slices of a conv-like output), from K11's chunk states, against its
+    plain version per gradient (K12_F32_RTOL on d(dt) and da,
+    K12_BF16_RTOL on dx, dB, dC); K11 with its chunk states must equal
+    K11 without them bit for bit and hold the states
+    ``ssd_chunk_states_plain`` gives (K11_H_RTOL); two K12 calls the same
+    bits.  Bound: the larger of the bytes (x, B, C, dt, a, dy and the
+    chunk states read once, dx, dB, dC, d(dt) and da written once) over
+    3.35 TB/s and ~6.5 FMAs (13 f32 operations) a state-step over 67
+    TFLOP/s; its dB/dC part buffer, (H, B, S, 2N) f32, is printed apart
+    and not in the bound.  No PyTorch call computes it.  Beside it K11's
+    ms with and without its chunk states."""
+    from repro_torch.kernels.ssd_scan import kernel as K11
+    from repro_torch.kernels.time_kernels import (SSD_H, SSD_N, SSD_P,
+                                                  ssd_inputs)
+    x, bm, cm, dt, a = ssd_inputs(torch, g, s, b)
+    dy = torch.randn(b, s, SSD_H, SSD_P, device="cuda", generator=g)
+    y0, h0 = K11.ssd_scan(x, bm, cm, dt, a)
+    y1, h1, hc = K11.ssd_scan(x, bm, cm, dt, a, chunk_states=True)
+    got = K11.ssd_scan_bwd(x, bm, cm, dt, a, dy, hc)
+    again = K11.ssd_scan_bwd(x, bm, cm, dt, a, dy, hc)
+    torch.cuda.synchronize()
+    if not (torch.equal(y0, y1) and torch.equal(h0, h1)):
+        raise SystemExit("K11: its chunk-state output changed y or h_final")
+    if not all(torch.equal(u, w) for u, w in zip(got, again)):
+        raise SystemExit("K12: two calls on the same inputs differ")
+    hc_ref = K11.ssd_chunk_states_plain(x, bm, cm, dt, a)
+    ref = K11.ssd_scan_bwd_plain(x, bm, cm, dt, a, dy)
+    rel = [((u.float() - w.float()).abs().max()
+            / w.float().abs().max()).item() for u, w in zip(got, ref)]
+    steps = b * s * SSD_H * SSD_P * SSD_N
+    rows = b * s
+    nbytes = (rows * SSD_H * SSD_P * (2 + 4 + 2) + hc.numel() * 4
+              + rows * SSD_N * 2 * 2 * 2 + rows * SSD_H * 4 * 2
+              + SSD_H * 4 * 2)
+    bms, by = bound(nbytes, 13 * steps, F32_FLOP_PER_S)
+    small = rows <= 512
+    case = dict(
+        shape=dict(B=b, S=s, H=SSD_H, P=SSD_P, N=SSD_N, G=1,
+                   chunk=K11.CHUNK_STATE,
+                   layout="x, B, C strided slices of (B, S, 7296)"),
+        dtype="x/B/C/dx/dB/dC bf16, dt/a/dy/d(dt)/da f32",
+        state_steps=steps, part_buffer_bytes=SSD_H * rows * 2 * SSD_N * 4,
+        max_abs_err=max((u.float() - w.float()).abs().max().item()
+                        for u, w in zip(got, ref)),
+        max_rel_err=max(rel), rel_err_dx_db_dc_ddt_da=rel,
+        chunk_states_rel_err=share_of_max(hc, hc_ref),
+        ms=time_ms(torch, lambda: K11.ssd_scan_bwd(
+            x, bm, cm, dt, a, dy, hc), 20 if s > 512 else 50),
+        graph_ms=graph_ms(torch, lambda: K11.ssd_scan_bwd(
+            x, bm, cm, dt, a, dy, hc)) if small else None,
+        plain_ms=time_ms(torch, lambda: K11.ssd_scan_bwd_plain(
+            x, bm, cm, dt, a, dy), 2 if s > 512 else 5),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        k11_ms=time_ms(torch, lambda: K11.ssd_scan(x, bm, cm, dt, a), 20),
+        k11_chunk_states_ms=time_ms(torch, lambda: K11.ssd_scan(
+            x, bm, cm, dt, a, chunk_states=True), 20))
+    print(f"K12 ssd_scan_bwd: {case}")
+    return case
+
+
+def k8d_case(torch, g, b, s):
+    """K3 with its LSE, then K8, at zamba2-7b's shared block (H = KV =
+    32, head_dim 112) on bf16 (B, H, S, D) views of (B, S, H, D) tensors,
+    in the windowed mode the block trains in (its window of 4,096, longer
+    than S), against autograd of K3's plain version; the windowed K3 (out
+    and LSE) and K8 must equal the causal ones bit for bit, K3's output
+    is unchanged by the LSE, two K8 calls the same bits.  Timed beside
+    K8's plain version and autograd through SDPA (causal: the same
+    function here)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.time_kernels import (Z_HD, Z_HEADS, Z_WINDOW,
+                                                  k3d112_inputs)
+    q, k, v = k3d112_inputs(torch, g, s, b)
+    do = torch.randn(b, s, Z_HEADS, Z_HD, device="cuda",
+                     generator=g).bfloat16().transpose(1, 2)
+    out, lse = K3.flash_attention(q, k, v, window=Z_WINDOW, return_lse=True)
+    c_out, c_lse = K3.flash_attention(q, k, v, return_lse=True)
+    plain_out = K3.flash_attention(q, k, v, window=Z_WINDOW)
+    grads = K3.flash_attention_bwd(q, k, v, out, do, lse, window=Z_WINDOW)
+    again = K3.flash_attention_bwd(q, k, v, out, do, lse, window=Z_WINDOW)
+    causal = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, plain_out) and torch.equal(out, c_out)
+            and torch.equal(lse, c_lse)):
+        raise SystemExit("K3 at head_dim 112: the LSE output changed the "
+                         "output, or the window differs from causal")
+    if not all(torch.equal(x, y) and torch.equal(x, z)
+               for x, y, z in zip(grads, again, causal)):
+        raise SystemExit("K8 at head_dim 112: two calls, or the window and "
+                         "causal modes, differ")
+    lse_ref = K3.attention_lse_plain(q, k, window=Z_WINDOW)
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(K3.flash_attention_plain(
+        qr, kr, vr, window=Z_WINDOW), (qr, kr, vr), do)
+    rel = [((x.float() - y.float()).abs().max()
+            / y.float().abs().max()).item() for x, y in zip(grads, ref)]
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def lib():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                   retain_graph=True)
+    pairs = b * Z_HEADS * s * (s + 1) // 2
+    nbytes = 2 * 8 * b * Z_HEADS * s * Z_HD + 4 * b * Z_HEADS * s
+    bms, by = bound(nbytes, 10 * Z_HD * pairs, BF16_FLOP_PER_S)
+    iters = 20 if s > 512 else 100
+    case = dict(
+        shape=dict(B=b, H=Z_HEADS, KVH=Z_HEADS, S=s, D=Z_HD,
+                   window=Z_WINDOW, layout="(B, S, H, D) views"),
+        dtype="bfloat16", visible_pairs=pairs,
+        max_abs_err=max((x.float() - y.float()).abs().max().item()
+                        for x, y in zip(grads, ref)),
+        max_rel_err=max(rel), rel_err_dq_dk_dv=rel,
+        lse_max_abs_err=(lse - lse_ref).abs().max().item(),
+        ms=time_ms(torch, lambda: K3.flash_attention_bwd(
+            q, k, v, out, do, lse, window=Z_WINDOW), iters),
+        plain_ms=time_ms(torch, lambda: K3.flash_attention_bwd_plain(
+            q, k, v, out, do, lse, window=Z_WINDOW), max(3, iters // 10)),
+        library_ms=time_ms(torch, lib, iters),
+        forward_lse_ms=time_ms(torch, lambda: K3.flash_attention(
+            q, k, v, window=Z_WINDOW, return_lse=True), iters),
+        forward_ms=time_ms(torch, lambda: K3.flash_attention(
+            q, k, v, window=Z_WINDOW), iters),
+        bound_ms=bms, bound_by=by)
+    print(f"K8 flash_attention_bwd (head_dim 112): {case}")
+    return case
+
+
+def phase_zamba2_train_kernels(torch):
+    """K12 at K12_SHAPES (``k12_case``, K11's chunk states beside it) and
+    K8 at head_dim 112 at K8D_SHAPES (``k8d_case``), each against its
+    plain version."""
+    g = torch.Generator(device="cuda").manual_seed(28)
+    t0 = time.perf_counter()
+    k12 = [k12_case(torch, g, b, s) for b, s in K12_SHAPES]
+    k8d = [k8d_case(torch, g, b, s) for b, s in K8D_SHAPES]
+    print(f"kernels K12 and K8 at head_dim 112: "
+          f"{time.perf_counter() - t0:.1f} s")
+    bad = [c for c in k12
+           if not (max(c["rel_err_dx_db_dc_ddt_da"][3:]) <= K12_F32_RTOL
+                   and max(c["rel_err_dx_db_dc_ddt_da"][:3])
+                   <= K12_BF16_RTOL
+                   and c["chunk_states_rel_err"] <= K11_H_RTOL)] + \
+        [c for c in k8d if not (c["max_rel_err"] <= K8_RTOL
+                                and c["lse_max_abs_err"] <= K8_LSE_TOL)]
+    if bad:
+        raise SystemExit(f"K12 / K8 at head_dim 112 disagree with their "
+                         f"plain versions: {bad}")
+    return k12, k8d
+
+
 def train_counts():
     """Launch counts of the training kernels: K3 and K5 forward, K8 and
-    K9 backward, K6 and K10 (the SSM's scan and its backward), and K3's
-    and K8's windowed launches."""
+    K9 backward, K6 and K10 (the Mamba-1 scan and its backward), K11 and
+    K12 (the SSD scan and its backward), and K3's and K8's windowed
+    launches."""
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.moe_lora import kernel as KL
+    from repro_torch.kernels.ssd_scan import kernel as K11
     from repro_torch.kernels.ssm_scan import kernel as K6
     out = {fn.__name__: fn.launches
            for fn in (K3.flash_attention, KL.moe_lora_delta,
                       K3.flash_attention_bwd, KL.moe_lora_delta_bwd,
-                      K6.ssm_scan, K6.ssm_scan_bwd)}
+                      K6.ssm_scan, K6.ssm_scan_bwd, K11.ssd_scan,
+                      K11.ssd_scan_bwd)}
     out["flash_attention_windowed"] = K3.flash_attention.windowed_launches
     out["flash_attention_bwd_windowed"] = \
         K3.flash_attention_bwd.windowed_launches
@@ -4514,20 +4915,25 @@ def train_counts():
 
 def step_counts(lm):
     """``train_counts`` of one client step of ``lm``: K5 and K9 once a
-    LoRA target of every layer; K3 and K8 once an attention layer
-    (windowed on the local layers), or K6 and K10 once a Mamba-1
-    layer."""
-    n = lm.cfg.num_layers
+    LoRA target of every layer; K3 and K8 once an attention layer pass
+    (windowed where the layer has a window: gemma3's local layers,
+    zamba2's shared block), K6 and K10 once a Mamba-1 layer, K11 and K12
+    once a Mamba-2 layer."""
+    from repro_torch.models.attention import layer_window
     targets = sum(len(t) * math.prod(dims)
                   for dims, t in lm.lora_layout().values())
-    attn = 0 if lm.cfg.family == "ssm" else n
-    local = 0 if lm.cfg.family == "ssm" else sum(
-        not st.is_global for st in lm.layer_sites())
-    return {"flash_attention": attn, "moe_lora_delta": targets,
-            "flash_attention_bwd": attn, "moe_lora_delta_bwd": targets,
-            "ssm_scan": n - attn, "ssm_scan_bwd": n - attn,
-            "flash_attention_windowed": local,
-            "flash_attention_bwd_windowed": local}
+    sites = lm.layer_sites()
+    attn = [st for st in sites if not st.ssm]
+    scans = len(sites) - len(attn)
+    mamba1 = lm.cfg.family == "ssm"
+    windowed = sum(bool(layer_window(lm.cfg, st.is_global)) for st in attn)
+    return {"flash_attention": len(attn), "moe_lora_delta": targets,
+            "flash_attention_bwd": len(attn), "moe_lora_delta_bwd": targets,
+            "ssm_scan": scans * mamba1, "ssm_scan_bwd": scans * mamba1,
+            "ssd_scan": scans * (not mamba1),
+            "ssd_scan_bwd": scans * (not mamba1),
+            "flash_attention_windowed": windowed,
+            "flash_attention_bwd_windowed": windowed}
 
 
 def fed_batch(torch, seed, device, b=FED_BATCH, s=FED_SEQ):
@@ -4552,35 +4958,44 @@ def threefry_adapter(torch, lm):
 
 def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
                     s=FED_SEQ, limits=(FED_LOSS_RTOL, FED_GRAD_RTOL),
-                    scan_rtol=None, bf16_bound=(), adapter=None,
+                    scan_rtol=None, scan_f32_ratio=None,
+                    other_f32_ratio=None, bf16_bound=(), adapter=None,
                     profile=True):
     """One client step at full width (B x S = ``b`` x ``s``) two ways:
-    through the kernels (K3/K8 or K6/K10, and K5/K9), and with the plain
-    versions called on the same CUDA tensors (``flash_attention_train``,
-    ``ssm_scan_train`` and ``moe_lora_delta_train`` swapped for K3's,
-    K6's and K5's plain versions: autograd's backward, or for the scan
-    the plain backward).  A rank-16 adapter drawn with the reference's
+    through the kernels (K3/K8, K6/K10 or K11/K12, and K5/K9), and with
+    the plain versions called on the same CUDA tensors
+    (``flash_attention_train``, ``ssm_scan_train``, ``ssd_scan_train``
+    and ``moe_lora_delta_train`` swapped for K3's, K6's, K11's and K5's
+    plain versions: autograd's backward, or for the Mamba-1 scan the
+    plain backward).  A rank-16 adapter drawn with the reference's
     threefry tree (its host time is printed), B ~ N(0, 0.02^2) so that
     every A and B leaf takes a gradient (``adapter``: one drawn so
     before, ``threefry_adapter``'s pair).  The launches must be
     ``step_counts``; the loss within ``limits[0]``, every leaf's gradient
     within ``limits[1]`` of its max; the kernel step's ms (gradients and
     one AdamW update), peak memory, and a torch.profiler breakdown of one
-    more step with the device's busy share (unless not ``profile``: a
-    profiled window costs its leading margin of quiet, up to 6.4 s).
+    more step with the device's busy share (device records only; unless
+    not ``profile``: a profiled window costs its leading margin of
+    quiet, up to 6.4 s).
     ``limits`` None: the kernel step alone (a finite loss, the
-    launches).  With ``scan_rtol`` a third step swaps only the LoRA
-    kernels (K5/K9) for their plain versions and keeps the others
-    (K6/K10): its gradients must lie within ``scan_rtol`` of the plain
-    step's (the scan kernels' share); the kernel step's distance from
-    it (the LoRA kernels' share) is printed.  The ``bf16_bound`` leaves
-    (a gradient bf16 cannot resolve) are printed against the plain step
-    and held to a float32 plain step instead: the kernel step within
-    FED_SSM_F32_RATIO times the bf16 plain step's distance from it."""
+    launches).  With ``scan_rtol`` a third step swaps the LoRA kernels
+    (K5/K9) and the attention kernels (K3/K8) for their plain versions
+    and keeps only the scan kernels (K6/K10 or K11/K12): its gradients
+    must lie within ``scan_rtol`` of the plain step's (the scan kernels'
+    share); the kernel step's distance from it (the other kernels'
+    share) is printed.  The ``bf16_bound`` leaves (a gradient bf16
+    cannot resolve) are printed against the plain step and held to a
+    float32 plain step instead (``float32_params``): the kernel step
+    within FED_SSM_F32_RATIO times the bf16 plain step's distance from
+    it; with ``scan_f32_ratio`` their scan kernels' share is held to that
+    multiple of the same distance in place of ``scan_rtol`` (the third
+    step runs when either is given), and with ``other_f32_ratio`` the
+    other kernels' share (the kernel step against the third) to that
+    multiple of it."""
     from repro_torch.core import lora as LORA
-    from repro_torch.core import tree as T
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.moe_lora import kernel as KL
+    from repro_torch.kernels.ssd_scan import kernel as K11
     from repro_torch.kernels.ssm_scan import kernel as K6
     from repro_torch.models import attention as ATT
     from repro_torch.models import layers as L
@@ -4629,7 +5044,7 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
         return out
 
     def profiled_step():
-        with profiled(torch) as prof:
+        with profiled(torch, cpu=False) as prof:
             step()
         return prof
     rows = profile_rows(torch, retaken(tag, profiled_step)) if profile \
@@ -4642,10 +5057,11 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:100]}")
     swapped = (L.moe_lora_delta_train, ATT.flash_attention_train,
-               SSM.ssm_scan_train)
+               SSM.ssm_scan_train, SSM.ssd_scan_train)
     L.moe_lora_delta_train = KL.moe_lora_delta_plain
     ATT.flash_attention_train = K3.flash_attention_plain
     SSM.ssm_scan_train = K6.ssm_scan_train_plain
+    SSM.ssd_scan_train = K11.ssd_scan_train_plain
     try:
         reset_counts()
         torch.cuda.synchronize()
@@ -4655,30 +5071,34 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
         plain_ms = (time.perf_counter() - t0) * 1e3
         plain_counts = train_counts()
         if bf16_bound:
-            f_params = T.map_tree(lambda t: t.float(), params)
-            _, f_grads = TS.value_and_grad(
-                lambda b: TS.lora_loss_fn(lm, f_params, b, batch, gates),
-                body)
-            del f_params
+            t0 = time.perf_counter()
+            with float32_params(torch, params):
+                _, f_grads = TS.value_and_grad(
+                    lambda b: TS.lora_loss_fn(lm, params, b, batch, gates),
+                    body)
+            f32_s = time.perf_counter() - t0
     finally:
         (L.moe_lora_delta_train, ATT.flash_attention_train,
-         SSM.ssm_scan_train) = swapped
+         SSM.ssm_scan_train, SSM.ssd_scan_train) = swapped
     if any(plain_counts.values()):
         raise SystemExit(f"{tag}: the plain step launched {plain_counts}")
-    if scan_rtol is not None:
+    shares = scan_rtol is not None or scan_f32_ratio is not None
+    if shares:
         L.moe_lora_delta_train = KL.moe_lora_delta_plain
+        ATT.flash_attention_train = K3.flash_attention_plain
         try:
             reset_counts()
             _, l_grads, _ = step()
             lora_counts = train_counts()
         finally:
-            L.moe_lora_delta_train = swapped[0]
-        want_l = dict(want, moe_lora_delta=0, moe_lora_delta_bwd=0)
+            L.moe_lora_delta_train, ATT.flash_attention_train = swapped[:2]
+        want_l = {k: n if k.startswith(("ssm_scan", "ssd_scan")) else 0
+                  for k, n in want.items()}
         if lora_counts != want_l:
-            raise SystemExit(f"{tag}: the plain-LoRA step launched "
+            raise SystemExit(f"{tag}: the scan-kernels-only step launched "
                              f"{lora_counts}, expected {want_l}")
     loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
-    leaf_rel, lora_rel, scan_rel, f32 = {}, {}, {}, {}
+    leaf_rel, other_rel, scan_rel, f32 = {}, {}, {}, {}
 
     def rel(x, y):
         return ((x - y).abs().max() / y.abs().max()).item()
@@ -4691,9 +5111,9 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
                 if not y.numel():       # a grouped layout's empty tail
                     continue
                 leaf_rel[name] = rel(x, y)
-                if scan_rtol is not None:
+                if shares:
                     lx = l_grads[stack][tgt][ab]
-                    lora_rel[name], scan_rel[name] = rel(x, lx), rel(lx, y)
+                    other_rel[name], scan_rel[name] = rel(x, lx), rel(lx, y)
                 if name in bf16_bound:
                     f = f_grads[stack][tgt][ab]
                     f32[name] = dict(kernel_to_plain=leaf_rel.pop(name),
@@ -4702,25 +5122,134 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
                                      max_abs=y.abs().max().item())
     out.update(plain_loss=float(p_loss), loss_rel_err=loss_rel,
                grad_rel_err=leaf_rel, plain_step_ms=plain_ms)
-    if scan_rtol is not None:
-        out.update(lora_kernels_share=lora_rel, scan_kernels_share=scan_rel)
+    if shares:
+        out.update(other_kernels_share=other_rel,
+                   scan_kernels_share=scan_rel)
     if f32:
-        out["bf16_bound_leaves"] = f32
+        out.update(bf16_bound_leaves=f32, f32_step_s=f32_s)
     if profile:
         out.update(busy_ms=busy, busy_share=busy / step_ms,
                    top_kernels=[(r[0], r[1], r[2][:60]) for r in rows[:6]])
     print(f"{tag} client step: {out}")
     if sorted(f32) != sorted(bf16_bound):
         raise SystemExit(f"{tag}: no gradient for {bf16_bound}")
+    def share_ok(n, r, f32_ratio):
+        """A share within its multiple of the bf16 plain step's distance
+        from float32 where one is given for a float32-held leaf, else
+        within ``scan_rtol``."""
+        if f32_ratio is not None and n in f32:
+            return r <= f32_ratio * f32[n]["plain_to_f32"]
+        return scan_rtol is not None and r <= scan_rtol
     bad = [n for n, r in leaf_rel.items() if not r <= limits[1]] + \
         [f"{n}: scan kernels' share" for n, r in scan_rel.items()
-         if not r <= scan_rtol] + \
+         if not share_ok(n, r, scan_f32_ratio)] + \
+        [f"{n}: other kernels' share" for n, r in other_rel.items()
+         if other_f32_ratio is not None
+         and not share_ok(n, r, other_f32_ratio)] + \
         [f"{n} against f32" for n, r in f32.items()
          if not r["kernel_to_f32"] <= FED_SSM_F32_RATIO * r["plain_to_f32"]]
     if not loss_rel <= limits[0] or bad:
         raise SystemExit(f"{tag}: the kernel step disagrees with the "
                          f"plain step: {bad}")
     return out
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """``module.name`` wrapped for the block: each call's (args, kwargs,
+    result) is appended to the yielded list; the call itself is
+    unchanged (a kernel still launches and counts)."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def float32_params(torch, params):
+    """``params`` (a nested dict of CUDA tensors) in float32, in place,
+    for the block; then each leaf in its own dtype again (bf16 -> f32 ->
+    bf16 is exact).  Leaves are widened one at a time, largest first,
+    each old copy's memory released (``empty_cache``) before the next,
+    so the card holds the float32 tree alone and not beside the bf16 one
+    (zamba2-7b: 60.4 GiB in float32, 30.2 GiB in bf16, on 80 GB)."""
+    slots = []
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                slots.append((tree, k))
+    walk(params)
+    slots.sort(key=lambda slot: -slot[0][slot[1]].numel())
+    dtypes = [d[k].dtype for d, k in slots]
+
+    def cast(to):
+        for (d, k), dtype in zip(slots, to):
+            d[k] = d[k].to(dtype)
+            torch.cuda.empty_cache()
+    cast([torch.float32] * len(slots))
+    try:
+        yield
+    finally:
+        cast(dtypes)
+
+
+class ProjectionDraw:
+    """E(φ)'s random projection for federate (b) (1.2 G normals from
+    numpy's legacy generator at the 2b SLM's width, ~40 s of one core)
+    drawn from the script's start by a spawned process, off the path of
+    the phases before federate, through the port's ``save_projection``;
+    ``install`` waits for it and hands it to ``load_projection``, so
+    federate reads the bits its own draw would give."""
+
+    def __init__(self, seed: int, dim: int, n: int):
+        from repro_torch.core import lora as LORA
+        self.key = (seed, dim)
+        self.path = str(ROOT / "build" / "projection")
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=LORA.save_projection, args=(self.path, seed, dim, n),
+            daemon=True)
+        self.t0 = time.perf_counter()
+        self.proc.start()
+
+    def running(self) -> bool:
+        return self.proc.is_alive()
+
+    def install(self) -> None:
+        from repro_torch.core import lora as LORA
+        t0 = time.perf_counter()
+        self.proc.join()
+        if self.proc.exitcode != 0:
+            raise SystemExit(f"the projection draw exited "
+                             f"{self.proc.exitcode}")
+        rows = LORA.load_projection(self.path, *self.key)
+        print(f"projection: {rows} x {self.key[1]} rows drawn in a side "
+              f"process from {time.perf_counter() - self.t0:.1f} s "
+              f"before; waited {time.perf_counter() - t0:.1f} s for it")
+
+
+def projection_rows(torch) -> int:
+    """Rows of E(φ)'s projection that federate (b) reads: the flat size
+    of a rank-max adapter of the full-width 2b SLM (A and B of every
+    target)."""
+    from repro_torch.configs.floe_pair import pair_configs
+    from repro_torch.models.model import LM
+    lm = LM(pair_configs("2b", reduced=False)[0])
+    r = lm.cfg.lora_rank_max
+    return sum(math.prod(dims) * r * (k + n)
+               for dims, tgts in lm.lora_layout().values()
+               for k, n in tgts.values())
 
 
 def client_losses(torch, lm, params, sim, fleet, ups, tag):
@@ -5491,7 +6020,8 @@ def profile_step(torch, eng, what: str, sampled: bool = False):
 
 def trace(torch, engine):
     """Device time by kernel and the device's busy share over one
-    cloud-eligible request (16 tokens), from ``torch.profiler``."""
+    cloud-eligible request (16 tokens), from ``torch.profiler`` (device
+    records only, ``profiled(cpu=False)``)."""
     from repro_torch.launch.serve import DEMO_PROMPTS
 
     def one():
@@ -5502,7 +6032,7 @@ def trace(torch, engine):
         return (time.perf_counter() - t0) * 1e3
 
     wall_ms = one()
-    with profiled(torch) as prof:
+    with profiled(torch, cpu=False) as prof:
         traced_ms = one()
     rows = profile_rows(torch, prof)
     busy = sum(r[0] for r in rows)
@@ -5540,12 +6070,16 @@ def main() -> int:
     t_run = time.perf_counter()
 
     def clock(phase):
-        """The run's clock after ``phase``: where its time goes."""
-        print(f"clock: {phase} done at {time.perf_counter() - t_run:.1f} s")
+        """The run's clock after ``phase``: where its time goes, and
+        whether the projection's side process still runs beside it."""
+        note = "; projection draw running" if projection.running() else ""
+        print(f"clock: {phase} done at {time.perf_counter() - t_run:.1f} s"
+              f"{note}")
 
     t0 = time.perf_counter()
     report = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(report)}")
+    projection = ProjectionDraw(0, 64, projection_rows(torch))
     for k, r in report.items():
         used = [ln.strip() for ln in r["ptxas"].splitlines()
                 if "Used" in ln or "spill" in ln]
@@ -5557,7 +6091,7 @@ def main() -> int:
     k2_cases = phase_k2(torch)
     k4_cases, k5_cases = phase_lora(torch)
     short_len = len(TOK.encode(DEMO_PROMPTS[0] + " "))
-    z4_cases, z5_cases = phase_lora_zamba2(torch, short_len)
+    z4_cases, z5_cases, z9_cases = phase_lora_zamba2(torch, short_len)
     k4_cases += z4_cases
     k5_cases += z5_cases
     k6_cases = phase_k6(torch, short_len)
@@ -5565,6 +6099,8 @@ def main() -> int:
     k3d_cases = phase_k3_d112(torch, short_len)
     k7_cases = phase_k7(torch)
     k8_cases, k9_cases, k8w_cases, k10_cases = phase_train_kernels(torch)
+    k9_cases += z9_cases
+    k12_cases, k8d_cases = phase_zamba2_train_kernels(torch)
     clock("kernels")
     phase_check(torch)
     clock("check")
@@ -5575,7 +6111,7 @@ def main() -> int:
     # each model is freed before the next is built
     gc.collect()
     torch.cuda.empty_cache()
-    z_launches, z_run, z_lora = phase_serve_zamba2(torch)
+    z_launches, z_run, z_lora, z_train = phase_serve_zamba2(torch)
     clock("serve_zamba2")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5622,6 +6158,7 @@ def main() -> int:
     del f_dep
     clock("serve_spec")
     gc.collect()
+    projection.install()
     fed_counts, fed_serve, fed, g_fed_counts, g_fed_serve = \
         phase_federate(torch, dep)
     clock("federate")
@@ -5646,6 +6183,10 @@ def main() -> int:
              "serve_ssm_adapters": ssm_train["serve_ssm_adapters"],
              "serve_ssm_router": ssm_train["serve_ssm_router"],
              "serve_zamba2": z_launches, **z_lora,
+             "serve_zamba2_train": z_train["d"]["launches"],
+             "serve_zamba2_train_long": z_train["e"]["launches"],
+             "serve_zamba2_packed": {k: v for k, v in z_train["f"].items()
+                                     if isinstance(v, int)},
              "federate_gemma3": g_fed_counts,
              "federate_gemma3_serve": g_fed_serve}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
@@ -5846,7 +6387,11 @@ def main() -> int:
         h_rel_tol=K11_H_RTOL, shape=k11["shape"], ms=k11["ms"],
         graph_ms=k11["graph_ms"], plain_ms=k11["plain_ms"],
         bound_ms=k11["bound_ms"], bound_by=k11["bound_by"],
-        library_ms=None, cases=k11_cases, serve_zamba2=z_run))
+        library_ms=None, cases=k11_cases, serve_zamba2=z_run,
+        chunk_states=[dict(shape=c["shape"], ms=c["k11_ms"],
+                           chunk_states_ms=c["k11_chunk_states_ms"],
+                           rel_err=c["chunk_states_rel_err"])
+                      for c in k12_cases]))
     kernels.append(dict(
         name="flash_attention_d112", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5862,6 +6407,42 @@ def main() -> int:
         graph_ms=k3d["graph_ms"], plain_ms=k3d["plain_ms"],
         bound_ms=k3d["bound_ms"], bound_by=k3d["bound_by"],
         library_ms=k3d["library_ms"], cases=k3d_cases))
+    # K12 at zamba2's client step (4 x 40), K8 at head_dim 112 there;
+    # launches on serve_zamba2 (d)
+    k12, k8d = k12_cases[0], k8d_cases[0]
+    z_step = z_train["d"]["launches"]
+    kernels.append(dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/models/ssm.py:171",
+        note="no pl.pallas_call: the reference differentiates its jnp SSD "
+             "chunk loop (_ssd_chunk, src/repro/models/ssm.py:171-189, "
+             "driven at :228-240) with jax.value_and_grad",
+        launches=z_step["ssd_scan_bwd"],
+        launches_by_path=by_path["ssd_scan_bwd"],
+        max_abs_err=max(c["max_abs_err"] for c in k12_cases),
+        max_rel_err=max(c["max_rel_err"] for c in k12_cases),
+        rel_tol={"d_dt_da": K12_F32_RTOL, "dx_dB_dC": K12_BF16_RTOL},
+        shape=k12["shape"], ms=k12["ms"], graph_ms=k12["graph_ms"],
+        plain_ms=k12["plain_ms"], bound_ms=k12["bound_ms"],
+        bound_by=k12["bound_by"], library_ms=None, cases=k12_cases))
+    kernels.append(dict(
+        name="flash_attention_bwd_d112", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:82",
+        note="K8 at zamba2-7b's head_dim 112 (its shared attention block, "
+             "windowed at 4,096); no pl.pallas_call: the reference "
+             "differentiates its jnp chunked_causal_attention(window=)",
+        launches=z_step["flash_attention_bwd"],
+        launches_by_path={p: n for p, n in
+                          by_path["flash_attention_bwd"].items()
+                          if p.startswith("serve_zamba2")},
+        max_abs_err=max(c["max_abs_err"] for c in k8d_cases),
+        max_rel_err=max(c["max_rel_err"] for c in k8d_cases),
+        rel_tol=K8_RTOL, shape=k8d["shape"], ms=k8d["ms"],
+        plain_ms=k8d["plain_ms"], bound_ms=k8d["bound_ms"],
+        bound_by=k8d["bound_by"], library_ms=k8d["library_ms"],
+        cases=k8d_cases))
     print(f"federate: {json.dumps(fed)}")
     print(json.dumps({"kernels": kernels}))
     print(smi())

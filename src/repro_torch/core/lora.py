@@ -24,7 +24,9 @@ keeps a ``torch.Generator`` draw for the serving callers);
 ``rank_mask`` is the compression operator Q_r as an (E, r_max) mask;
 ``single_expert_bank`` wraps a client's adapter as an E = 1 bank;
 ``average_adapters`` is Eq. 4/5; ``adapter_vector`` the fine-tuning
-dynamics half of the aggregator's encoder E(φ).
+dynamics half of the aggregator's encoder E(φ), whose projection
+``save_projection`` draws in one process and ``load_projection`` hands
+to another.
 
 Adapters and banks are nested dicts of tensors in the reference's
 layout, so ``bridge.py`` carries them across leaf for leaf.
@@ -32,6 +34,8 @@ layout, so ``bridge.py`` carries them across leaf for leaf.
 from __future__ import annotations
 
 import math
+import os
+import pickle
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -240,6 +244,40 @@ def _projection_chunks(seed: int, dim: int, n: int):
             chunks.append(rng.standard_normal(
                 (_PROJ_CHUNK, dim)).astype(np.float32))
         yield chunks[j][:min(_PROJ_CHUNK, n - i)]
+
+
+def save_projection(path: str, seed: int, dim: int, n: int) -> None:
+    """Draw E(φ)'s projection rows [0, n) of (seed, dim) into this
+    process's cache and write them to ``path``.npy, with the generator's
+    state after them to ``path``.rng, for ``load_projection`` in another
+    process."""
+    for _ in _projection_chunks(seed, dim, n):
+        pass
+    rng, chunks = _PROJECTIONS[(seed, dim)]
+    out = np.lib.format.open_memmap(
+        path + ".npy", mode="w+", dtype=np.float32,
+        shape=(len(chunks) * _PROJ_CHUNK, dim))
+    for i, c in enumerate(chunks):
+        out[i * _PROJ_CHUNK:(i + 1) * _PROJ_CHUNK] = c
+    out.flush()
+    with open(path + ".rng", "wb") as f:
+        pickle.dump(rng, f)
+
+
+def load_projection(path: str, seed: int, dim: int) -> int:
+    """Make what ``save_projection`` wrote at ``path`` this process's
+    cached projection of (seed, dim), the rows memory-mapped, and remove
+    the files (the mapping outlives their names): every later product is
+    the one this process's own draw gives.  Returns the row count."""
+    rows = np.load(path + ".npy", mmap_mode="r")
+    with open(path + ".rng", "rb") as f:
+        rng = pickle.load(f)
+    for ext in (".npy", ".rng"):
+        os.unlink(path + ext)
+    _PROJECTIONS[(seed, dim)] = (
+        rng, [rows[i:i + _PROJ_CHUNK] for i in range(0, len(rows),
+                                                      _PROJ_CHUNK)])
+    return rows.shape[0]
 
 
 def average_adapters(adapters: List[Dict[str, Any]],

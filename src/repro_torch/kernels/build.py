@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fuse_logits", "flash_attention", "paged_attention", "moe_lora",
            "ssm_scan", "sample_fused", "flash_attention_bwd", "moe_lora_bwd",
-           "ssm_scan_bwd", "ssd_scan")
+           "ssm_scan_bwd", "ssd_scan", "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

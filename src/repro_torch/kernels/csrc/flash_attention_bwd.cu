@@ -47,7 +47,12 @@
 //  - Tiles are staged in shared memory with plain 16-byte loads (rows
 //    past S zero-filled), rows padded by 8 bf16 against bank conflicts:
 //    q, dO (64 x D), k, v (32 x D), the 64 x 32 S and dP in f32 and P
-//    and dS in bf16, 130,560 B at D = 256.  S = q k^T and dP = dO v^T
+//    and dS in bf16, 130,560 B at D = 256.  At zamba2's D = 112 (7 x 16,
+//    whole WMMA tiles) a padded row is 120 bf16 = 240 B, a multiple of
+//    16, and the tiles take 75,264 B.  Its shared block is multi-head
+//    (H = KVH = 32, a group of one), so head_splits leaves the dK/dV
+//    pass unsplit: B x 32 x ceil(S / 32) CTAs, 1,536 at S = 1,536 and
+//    256 at a client step (4 x 40), enough to fill 132 SMs without parts.  S = q k^T and dP = dO v^T
 //    are 16 x 16 x 16 WMMA products with f32 accumulators; P and dS are
 //    rounded to bf16 as the A operand of the next products, as a flash
 //    backward rounds them.
@@ -538,8 +543,9 @@ int launch(const Args& a, cudaStream_t stream) {
 // sliding window w > 0 of K3's mask.  lse (B, H, S) f32 is the
 // forward's natural-log row log-sum-exp (K3's LSE output); di is (B, H,
 // S) f32 scratch followed by flash_attention_bwd_scratch's floats for
-// the dK/dV parts.  head_dim 256 (the 2b SLM) or 32 (its reduced
-// config).  Returns 0 or a cudaError_t.
+// the dK/dV parts.  head_dim 256 (the 2b SLM), 112 (zamba2-7b's shared
+// attention block) or 32 (their reduced configs).  Returns 0 or a
+// cudaError_t.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* di, void* dq, void* dk,
@@ -548,7 +554,7 @@ extern "C" int flash_attention_bwd_bf16(
     cudaStream_t stream) {
   if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
       window < 0 ||
-      (head_dim != 32 && head_dim != 256))
+      (head_dim != 32 && head_dim != 112 && head_dim != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 24; ++i)
     if (strides[i] <= 0 || strides[i] % 8 != 0)
@@ -579,6 +585,8 @@ extern "C" int flash_attention_bwd_bf16(
   switch (head_dim) {
     case 32:
       return launch<32>(a, stream);
+    case 112:
+      return launch<112>(a, stream);
     case 256:
       return launch<256>(a, stream);
     default:

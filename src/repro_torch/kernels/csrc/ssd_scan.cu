@@ -9,7 +9,11 @@
 // with x (Bt, S, H, P) and B, C (Bt, S, G, N) in one type (bf16 or f32;
 // head h reads group h / (H / G)), dt (Bt, S, H) and a (H,) f32; it
 // returns y (Bt, S, H, P) f32 (the D skip is the caller's) and h_final
-// (Bt, H, P, N) f32 for the decode cache.  x, B and C are read in place
+// (Bt, H, P, N) f32 for the decode cache; when the optional hc pointer is
+// not null, also the state entering every chunk of 64 steps, hc (Bt,
+// ceil(S / 64), H, P, N) f32, from which K12 (csrc/ssd_scan_bwd.cu)
+// recomputes the states of the training backward.  Serving calls pass it
+// null; y and h_final do not depend on it.  x, B and C are read in place
 // with their own batch and sequence strides: in the model all three are
 // column slices of the causal conv's output (Bt, S, H * P + 2 G N), so
 // x's head stride is P and B's and C's group stride N, each with a unit
@@ -58,6 +62,7 @@ using bf16bits = uint16_t;
 constexpr int kThreads = 128;
 constexpr int kLanes = 4;                    // lanes a channel
 constexpr int kChannels = kThreads / kLanes;  // channels a CTA
+constexpr int kStateChunk = 64;              // steps between saved states
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16bits v) {
@@ -162,9 +167,9 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
     const T* __restrict__ x, const T* __restrict__ bm,
     const T* __restrict__ cm, const float* __restrict__ dt,
     const float* __restrict__ a, float* __restrict__ y,
-    float* __restrict__ h_out, int S, int H, int P, int G, long long x_sb,
-    long long x_ss, long long b_sb, long long b_ss, long long c_sb,
-    long long c_ss) {
+    float* __restrict__ h_out, float* __restrict__ hc, int S, int H, int P,
+    int G, long long x_sb, long long x_ss, long long b_sb, long long b_ss,
+    long long c_sb, long long c_ss) {
   constexpr int kSt = N / kLanes;              // states a lane
   constexpr int kSteps = chunk_steps<T, N>();
   constexpr int kPerT = 16 / sizeof(T);        // values of T in 16 bytes
@@ -257,10 +262,19 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
   for (int m = 0; m < kSt; ++m) hs[m] = 0.f;
 
   const int chunks = (S + kSteps - 1) / kSteps;
+  const int n_hc = (S + kStateChunk - 1) / kStateChunk;
+  static_assert(kStateChunk % kSteps == 0, "state chunk");
   stage(0, 0);
   cp_async_commit();
   for (int k = 0; k < chunks; ++k) {
     const int buf = k & 1, t0 = k * kSteps;
+    if (hc != nullptr && t0 % kStateChunk == 0 && p < P) {
+      // the state entering this 64-step chunk, K12's starting point
+      const size_t chunk = static_cast<size_t>(bi) * n_hc + t0 / kStateChunk;
+      float* hp = hc + ((chunk * H + hh) * P + p) * N + q * kSt;
+#pragma unroll
+      for (int m = 0; m < kSt; ++m) hp[m] = hs[m];
+    }
     // buffer buf ^ 1 was last read by chunk k - 1's scan, before the
     // barrier that ended it
     if (k + 1 < chunks) stage(buf ^ 1, t0 + kSteps);
@@ -308,9 +322,9 @@ bool aligned16(const void* p) {
 
 template <typename T, int N>
 int launch_n(const void* x, const void* bm, const void* cm, const void* dt,
-             const void* a, void* y, void* h, int batch, int S, int H, int P,
-             int G, long long x_sb, long long x_ss, long long b_sb,
-             long long b_ss, long long c_sb, long long c_ss,
+             const void* a, void* y, void* h, void* hc, int batch, int S,
+             int H, int P, int G, long long x_sb, long long x_ss,
+             long long b_sb, long long b_ss, long long c_sb, long long c_ss,
              cudaStream_t stream) {
   constexpr long long kPerT = 16 / sizeof(T);
   // 16-byte rows: P a multiple of 4 for y's float4 rows and of kPerT for
@@ -329,27 +343,27 @@ int launch_n(const void* x, const void* bm, const void* cm, const void* dt,
       static_cast<const T*>(x), static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<float*>(y),
-      static_cast<float*>(h), S, H, P, G, x_sb, x_ss, b_sb, b_ss, c_sb,
-      c_ss);
+      static_cast<float*>(h), static_cast<float*>(hc), S, H, P, G, x_sb,
+      x_ss, b_sb, b_ss, c_sb, c_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* bm, const void* cm, const void* dt,
-           const void* a, void* y, void* h, int batch, int S, int H, int P,
-           int G, int N, long long x_sb, long long x_ss, long long b_sb,
-           long long b_ss, long long c_sb, long long c_ss,
+           const void* a, void* y, void* h, void* hc, int batch, int S,
+           int H, int P, int G, int N, long long x_sb, long long x_ss,
+           long long b_sb, long long b_ss, long long c_sb, long long c_ss,
            cudaStream_t stream) {
   if (batch <= 0 || batch > 65535 || S <= 0 || H <= 0 || P <= 0 ||
       G <= 0 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (N) {     // zamba2-7b's state size and its reduced one
     case 8:
-      return launch_n<T, 8>(x, bm, cm, dt, a, y, h, batch, S, H, P, G, x_sb,
-                            x_ss, b_sb, b_ss, c_sb, c_ss, stream);
+      return launch_n<T, 8>(x, bm, cm, dt, a, y, h, hc, batch, S, H, P, G,
+                            x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, stream);
     case 64:
-      return launch_n<T, 64>(x, bm, cm, dt, a, y, h, batch, S, H, P, G, x_sb,
-                             x_ss, b_sb, b_ss, c_sb, c_ss, stream);
+      return launch_n<T, 64>(x, bm, cm, dt, a, y, h, hc, batch, S, H, P, G,
+                             x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -360,25 +374,27 @@ int launch(const void* x, const void* bm, const void* cm, const void* dt,
 // x element [b, t, h, p] at b * x_sb + t * x_ss + h * P + p; B element
 // [b, t, g, n] at b * b_sb + t * b_ss + g * N + n (likewise C); dt
 // (batch, S, H) and a (H,) f32 contiguous; y (batch, S, H, P) and h
-// (batch, H, P, N) f32 written, contiguous.  N in {8, 64}; H a multiple
-// of G; any S, H, P >= 1.  Returns 0 or a cudaError_t.
+// (batch, H, P, N) f32 written, contiguous; hc null, or (batch, ceil(S /
+// 64), H, P, N) f32 written, contiguous: the state entering each chunk
+// of 64 steps.  N in {8, 64}; H a multiple of G; any S, H, P >= 1.
+// Returns 0 or a cudaError_t.
 extern "C" int ssd_scan_f32(const void* x, const void* bm, const void* cm,
                             const void* dt, const void* a, void* y, void* h,
-                            int batch, int S, int H, int P, int G, int N,
-                            long long x_sb, long long x_ss, long long b_sb,
-                            long long b_ss, long long c_sb, long long c_ss,
-                            cudaStream_t stream) {
-  return launch<float>(x, bm, cm, dt, a, y, h, batch, S, H, P, G, N, x_sb,
-                       x_ss, b_sb, b_ss, c_sb, c_ss, stream);
+                            void* hc, int batch, int S, int H, int P, int G,
+                            int N, long long x_sb, long long x_ss,
+                            long long b_sb, long long b_ss, long long c_sb,
+                            long long c_ss, cudaStream_t stream) {
+  return launch<float>(x, bm, cm, dt, a, y, h, hc, batch, S, H, P, G, N,
+                       x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, stream);
 }
 
 // As ssd_scan_f32 with x, B and C in bf16.
 extern "C" int ssd_scan_bf16(const void* x, const void* bm, const void* cm,
                              const void* dt, const void* a, void* y, void* h,
-                             int batch, int S, int H, int P, int G, int N,
-                             long long x_sb, long long x_ss, long long b_sb,
-                             long long b_ss, long long c_sb, long long c_ss,
-                             cudaStream_t stream) {
-  return launch<bf16bits>(x, bm, cm, dt, a, y, h, batch, S, H, P, G, N,
+                             void* hc, int batch, int S, int H, int P, int G,
+                             int N, long long x_sb, long long x_ss,
+                             long long b_sb, long long b_ss, long long c_sb,
+                             long long c_ss, cudaStream_t stream) {
+  return launch<bf16bits>(x, bm, cm, dt, a, y, h, hc, batch, S, H, P, G, N,
                           x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, stream);
 }

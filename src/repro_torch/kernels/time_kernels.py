@@ -5,7 +5,8 @@ in turns.
 
     python3 src/repro_torch/kernels/time_kernels.py [--src DIR]
         [--label NAME]
-        [--kernels k1,k2,k3,k4,k5,k5adm,k6,k9,k8w,k10,k11,k3d112]
+        [--kernels k1,k2,k3,k4,k5,k5adm,k6,k9,k8w,k10,k11,k3d112,k12,
+                   k8d112]
         [--profile]
 
 ``--src`` is the ``src`` directory of the checkout to time (this
@@ -51,7 +52,13 @@ picks the groups (all by default):
          chip_smoke.py uses too);
   k3d112 K3 at zamba2-7b's shared block, H = KV = 32, head_dim 112, B =
          1, S = 1,536 and 27, causal and with its 4,096 window, on (B, H,
-         S, D) views of (B, S, H, D) tensors.
+         S, D) views of (B, S, H, D) tensors;
+  k12    K12 SSD-scan backward at zamba2-7b's width (``ssd_inputs``, dy
+         f32), (B, S) = (4, 40), (1, 512), (1, 1,536) and (2, 203), from
+         K11's chunk states; beside each, K11 with and without them;
+  k8d112 K8 attention backward at zamba2-7b's shared block (H = KV = 32,
+         head_dim 112, its window of 4,096), (B, S) = (4, 40) and (1,
+         1,536), its LSE from K3 windowed.
 
 Every input is made on the card from fixed seeds, so two checkouts time
 the same tensors.  Prints one JSON line: the card's name and power
@@ -86,7 +93,7 @@ NO_PAGE = 1 << 20
 K2_POSITIONS = [0, 15, 16, 700, 1541, 2047, FREED_POS, 1541]
 K2_TAIL_POSITIONS = [40, 47, 52, 63] + [FREED_POS] * 4
 GROUPS = ("k1", "k2", "k3", "k4", "k5", "k5adm", "k6", "k9", "k8w", "k10",
-          "k11", "k3d112")
+          "k11", "k3d112", "k12", "k8d112")
 K8W_SHAPES = [(1, 2048), (8, 640)]
 GEMMA3_WINDOW = 512
 K10_SHAPES = [(4, 40), (2, 256), (1, 1536)]
@@ -97,6 +104,8 @@ SSM_DI, SSM_N, SSM_DT_RANK = 8192, 16, 256
 SSD_H, SSD_P, SSD_N = 112, 64, 64
 Z_HEADS, Z_HD, Z_WINDOW = 32, 112, 4096
 SSD_SHAPES = (1536, 27)
+K12_SHAPES = [(4, 40), (1, 512), (1, 1536), (2, 203)]
+K8D_SHAPES = [(4, 40), (1, 1536)]
 
 
 def time_ms(torch, fn, iters):
@@ -527,6 +536,65 @@ def time_k10(torch, profile):
     return out
 
 
+def rel_errs(got, ref):
+    """max|got - ref| / max|ref| of each pair of tensors (the absolute
+    error where ref is all zeros)."""
+    out = []
+    for u, w in zip(got, ref):
+        err = (u.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        out.append(err / scale if scale else err)
+    return out
+
+
+def time_k12(torch, profile):
+    from repro_torch.kernels.ssd_scan import kernel as K11
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for b, s in K12_SHAPES:
+        x, bm, cm, dt, a = ssd_inputs(torch, g, s, b)
+        dy = torch.randn(b, s, SSD_H, SSD_P, device="cuda", generator=g)
+        _, _, hc = K11.ssd_scan(x, bm, cm, dt, a, chunk_states=True)
+        res, info = case(torch, lambda: K11.ssd_scan_bwd(
+            x, bm, cm, dt, a, dy, hc), 20 if s > 512 else 50, profile,
+            graph=b * s <= 512, B=b, S=s)
+        info["rel_err_dx_db_dc_ddt_da"] = rel_errs(
+            res, K11.ssd_scan_bwd_plain(x, bm, cm, dt, a, dy))
+        hc_ref = K11.ssd_chunk_states_plain(x, bm, cm, dt, a)
+        info["chunk_states_rel_err"] = rel_errs([hc], [hc_ref])[0]
+        info["k11_ms"] = time_ms(torch, lambda: K11.ssd_scan(
+            x, bm, cm, dt, a), 20)
+        info["k11_chunk_states_ms"] = time_ms(torch, lambda: K11.ssd_scan(
+            x, bm, cm, dt, a, chunk_states=True), 20)
+        out.append(info)
+        print(f"K12 {info}", file=sys.stderr)
+        del x, bm, cm, dt, a, dy, hc, res
+    return out
+
+
+def time_k8d112(torch, profile):
+    from repro_torch.kernels.flash_attention import kernel as K3
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(81)
+    for b, s in K8D_SHAPES:
+        q, k, v = k3d112_inputs(torch, g, s, b)
+        do = torch.randn(b, s, Z_HEADS, Z_HD, device="cuda",
+                         generator=g).bfloat16().transpose(1, 2)
+        o, lse = K3.flash_attention(q, k, v, window=Z_WINDOW,
+                                    return_lse=True)
+        res, info = case(torch, lambda: K3.flash_attention_bwd(
+            q, k, v, o, do, lse, window=Z_WINDOW), 20 if s > 512 else 100,
+            profile, B=b, S=s, H=Z_HEADS, D=Z_HD, window=Z_WINDOW)
+        info["rel_err_dq_dk_dv"] = rel_errs(res, K3.flash_attention_bwd_plain(
+            q, k, v, o, do, lse, window=Z_WINDOW))
+        info["lse_max_abs_err"] = (lse - K3.attention_lse_plain(
+            q, k, window=Z_WINDOW)).abs().max().item()
+        out.append(info)
+        print(f"K8 d112 {info}", file=sys.stderr)
+        del q, k, v, do, o, lse, res
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
@@ -553,8 +621,10 @@ def main() -> int:
                "k3": "flash_attention", "k4": "moe_lora", "k5": "moe_lora",
                "k5adm": "moe_lora", "k6": "ssm_scan", "k9": "moe_lora_bwd",
                "k8w": "flash_attention_bwd", "k10": "ssm_scan_bwd",
-               "k11": "ssd_scan", "k3d112": "flash_attention"}
-    needs = {"k8w": ("flash_attention",), "k10": ("ssm_scan",)}
+               "k11": "ssd_scan", "k3d112": "flash_attention",
+               "k12": "ssd_scan_bwd", "k8d112": "flash_attention_bwd"}
+    needs = {"k8w": ("flash_attention",), "k10": ("ssm_scan",),
+             "k12": ("ssd_scan",), "k8d112": ("flash_attention",)}
     report = build.build_all(sorted(
         {sources[g] for g in groups}
         | {n for g in groups for n in needs.get(g, ())}))
@@ -565,7 +635,8 @@ def main() -> int:
     timers = {"k1": time_k1, "k2": time_k2, "k3": time_k3, "k4": time_k4,
               "k5": time_k5, "k5adm": time_k5adm, "k6": time_k6,
               "k9": time_k9, "k8w": time_k8w, "k10": time_k10,
-              "k11": time_k11, "k3d112": time_k3d112}
+              "k11": time_k11, "k3d112": time_k3d112, "k12": time_k12,
+              "k8d112": time_k8d112}
     for name in groups:
         res[name] = timers[name](torch, args.profile)
     print(json.dumps(res))

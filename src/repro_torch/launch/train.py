@@ -4,9 +4,9 @@
 
 ``--local`` runs end-to-end federated fine-tuning (``run_simulation``) on
 the reduced config of ``--arch`` (the dense floe-slm-2b, the grouped
-floe-slm-gemma3 or the Mamba-1 falcon-mamba-7b; the zamba2 hybrid is
-refused, its training is a later slice) and prints the
-reference's per-round lines: on the card unless ``--device cpu``.  The
+floe-slm-gemma3, the Mamba-1 falcon-mamba-7b or the zamba2-7b hybrid)
+and prints the reference's per-round lines: on the card unless
+``--device cpu``.  The
 parameters are the reference launcher's, ``lm.init(jax.random.key(0))``
 bit for bit (``LM.init_keyed``), so on the CPU the lines are the
 reference's within float32 rounding.  Without ``--local`` the
@@ -37,10 +37,6 @@ def main(argv=None):
     from repro_torch.federated.simulation import SimConfig, run_simulation
     from repro_torch.models.model import LM
     cfg = get_config(args.arch).reduced()
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "training the zamba2 hybrid: K11's backward and K8 at head_dim "
-            "112 are the next slice (ROADMAP Queue 1 item 9)")
     lm = LM(cfg, device=args.device)
     params = lm.init_keyed(0)
     sim = SimConfig(num_clients=args.clients, rounds=args.rounds)

@@ -637,19 +637,17 @@ class LM:
         ``lengths``, each row placed as ``packed_rows`` places it (the
         reference's ``_pad_cache(lengths=)``).
 
-        The SSM family returns (logits, cache) and takes no ``write_kv``:
-        its scan runs over the whole padded width, so every row's conv
-        and scan state is the state after Lpad positions, padding
-        included, with "pos" = ``lengths`` (the reference's behaviour,
-        ``model.py:686-718``: its ``_pad_cache`` keeps the prefill's
-        state of every row).  Lpad follows the 128-token chunk rule.  The
-        hybrid's packed prefill is a later slice (ROADMAP Queue 1 item
-        9) and raises ``NotImplementedError``."""
+        The SSM and hybrid families return (logits, cache) and take no
+        ``write_kv``: a scan runs over the whole padded width, so every
+        row's conv and scan state is the state after Lpad positions,
+        padding included, with "pos" = ``lengths`` (the reference's
+        behaviour, ``model.py:686-718``: its ``_pad_cache`` keeps the
+        prefill's state of every row).  The hybrid's shared-block K/V
+        rows are placed as the dense family's (``row_writer``: zeros past
+        Lpad, or each row's own ring when ``ring_cache`` gives the block
+        a ring shorter than Lpad).  Lpad follows the 128-token (Mamba-1)
+        or 256-token (Mamba-2) chunk rule."""
         cfg = self.cfg
-        if cfg.family == "hybrid":
-            raise NotImplementedError(
-                "packed prefill of the hybrid family: a later slice (its "
-                "batched engine is refused, serving/engine.py)")
         b, s = tokens.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
@@ -659,11 +657,14 @@ class LM:
             raise ValueError(f"lengths {lengths.tolist()} do not fit "
                              f"(B={b}, Lpad={s})")
         cache = None
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             if write_kv is not None:
-                raise ValueError("packed prefill of an SSM: its recurrent "
-                                 "state has no K/V to write (no write_kv)")
+                raise ValueError(f"packed prefill of the {cfg.family} "
+                                 "family: no engine streams its state (no "
+                                 "write_kv)")
             cache = self.init_cache(b, max_seq)
+            if cfg.family == "hybrid":
+                write_kv = row_writer(cache, range(b), range(b), lengths)
         elif write_kv is None:
             cache = self.init_cache(b, max_seq)
             write_kv = row_writer(cache, range(b), range(b), lengths)
@@ -673,13 +674,13 @@ class LM:
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(s, device=tokens.device)
         for site in self.layer_sites():
-            if cfg.family == "ssm":
+            if site.ssm:
                 x, state = ssm_layer(cfg, self._layer(params, site), x,
                                      mode="prefill", cache=None,
                                      lora=self._lora_layer(lora, site),
                                      gates=gates)
-                cache["conv"][site.addr] = state["conv"]
-                cache["h"][site.addr] = state["h"]
+                for name in ("conv", "h"):
+                    cache_kv(cache, site.addr, name).copy_(state[name])
                 continue
             x, (k, v) = dense_layer(cfg, self._layer(params, site), x,
                                     positions=positions, mode="prefill",
@@ -1053,8 +1054,9 @@ def row_writer(full, src, dst, lengths):
     ``packed_rows`` from the prefill rows' (B,) host ``lengths``: the
     whole row is replaced, zeros past the padded prompt (the reference's
     ``insert_slm``/``insert_llm``, ``deployment.py:769``, of a
-    ``_pad_cache(lengths=)`` row).  The admitted rows' positions are
-    then the caller's to set."""
+    ``_pad_cache(lengths=)`` row, cast to the leaf's dtype as its
+    ``astype``).  The admitted rows' positions are then the caller's to
+    set."""
     gather = {}
 
     def write(addr, k, v):
@@ -1069,7 +1071,7 @@ def row_writer(full, src, dst, lengths):
                 gather[n_slots] = ring_gather(lengths, n_slots, s_len,
                                               t.device)
             leaf[gather["dst"]] = packed_rows(t, n_slots, gather.get(
-                n_slots))[gather["src"]]
+                n_slots))[gather["src"]].to(leaf.dtype)
     return write
 
 

@@ -33,8 +33,9 @@ plain torch, as the reference's jnp.  The D skip is added in float32,
 then the gated RMSNorm over d_inner and out_proj.  LoRA on ``ssm_in``
 (in_proj) and ``ssm_out`` (out_proj).  The reference's 256-token chunk
 rule (``ssm.py:226-227``) is kept as a ``ValueError``.  Train mode
-differentiates the plain chunk loop on the CPU; on CUDA it runs K11,
-whose gradient raises until the zamba2 training slice.
+differentiates the plain chunk loop on the CPU; on CUDA it runs K11 with
+its chunk states forward and K12 backward (``ssd_scan_train``), whose
+gradients reach xBC's columns through the column views autograd keeps.
 """
 from __future__ import annotations
 

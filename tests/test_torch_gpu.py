@@ -26,15 +26,20 @@ max|out - ref| / max|ref| over d_inner, 2**-7 in bf16 (the kernel and
 the plain version round their f32 y to bf16 separately, one ulp at
 most) and 1e-5 in f32; h_final 1e-5 of its max (f32 recurrences whose
 updates round once more in the plain version); its chunk states the
-same.  K8 (causal and windowed) 2**-6 of each gradient's max; K10 1e-5
-on its f32 gradients (d(dt), dA) and 2**-7 on its bf16 ones (dx, dB,
-dC; 1e-5 in f32).  K11 (the SSD scan): y per (batch, position, head)
+same.  K8 (causal and windowed, head_dim 256, 112 and 32) 2**-6 of each
+gradient's max; K10 1e-5 on its f32 gradients (d(dt), dA) and 2**-7 on
+its bf16 ones (dx, dB, dC; 1e-5 in f32).  K11 (the SSD scan): y per (batch, position, head)
 row, max|out - ref| / max|ref| over P, 1e-4, and h_final 1e-5 of its
 max: the kernel runs the f32 recurrence step by step, the plain version
 the reference's chunk form (exponentials of cumulative log-decay
 differences over up to 256 steps), which part by ~1.4e-5 per row at S
-1,536 on the CPU in f32.  K3 at head_dim 112 as at 256, and with a
-window no shorter than S equal to causal bit for bit.  K7: ids and perturbed
+1,536 on the CPU in f32.  K11's chunk states 1e-5 of their max.  K12
+(the SSD scan's backward) 1e-4 of each gradient's max on d(dt) and da
+and on every gradient in f32, 2**-7 on its bf16 dx, dB and dC (one
+rounding): K12 runs the f32 recurrence, the plain version autograd
+through the chunk form, as K11 against its plain version.  K3 at
+head_dim 112 as at 256, and with a window no shorter than S equal to
+causal bit for bit.  K7: ids and perturbed
 scores equal to the plain version's bit for bit (the kernel computes
 the plain version's integer and float steps, each rounded the same
 way)."""
@@ -1321,19 +1326,119 @@ def test_ssd_scan_matches_plain(cuda, b, s, h, p, n, grp, dtype):
     assert ((hf - rh).abs().max() / rh.abs().max()).item() <= 1e-5
 
 
+def ssd_rel(got, ref):
+    """max|got - ref| / max|ref| over the tensor (0 for an all-zero
+    pair)."""
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    return err / scale if scale else err
+
+
 @pytest.mark.gpu
-def test_ssd_scan_gradient_raises(cuda):
-    """Train mode on the card runs K11 forward; a gradient through it
-    raises (its backward is the zamba2 training slice), never falling
-    back to the plain version."""
+@pytest.mark.parametrize("b,s,h,p,n,grp,dtype", [
+    (4, 40, 112, 64, 64, 1, torch.bfloat16),     # zamba2-7b's client step
+    (1, 512, 112, 64, 64, 1, torch.bfloat16),    # two reference chunks
+    (2, 203, 5, 24, 8, 1, torch.bfloat16),       # ragged S, P < 32
+    (3, 77, 4, 40, 64, 2, torch.float32),        # two groups, P ragged > 32
+    (2, 130, 6, 20, 8, 2, torch.float32),        # N 8, two groups
+    (1, 1, 112, 64, 64, 1, torch.bfloat16),
+])
+def test_ssd_scan_bwd_matches_plain(cuda, b, s, h, p, n, grp, dtype):
+    """K11 with its chunk states returns K11's y and h_final bit for bit
+    and the states ``ssd_chunk_states_plain`` gives (1e-5 of their max);
+    K12 from them against ``ssd_scan_bwd_plain`` (autograd through the
+    reference's chunk loop) on strided x, B and C: d(dt) and da 1e-4 of
+    their max (K12 runs the recurrence, the plain version the chunk
+    form, as K11's y), dx, dB and dC 2**-7 in bf16 (one rounding) and
+    1e-4 in f32; two calls give the same bits; without ``need_da`` no
+    da."""
+    g = torch.Generator(device=cuda).manual_seed(s + h + n)
+    case = ssd_case(cuda, g, b, s, h, p, n, grp, dtype)
+    dy = torch.randn(b, s, h, p, device=cuda, generator=g)
+    y0, h0 = K11.ssd_scan(*case)
+    y1, h1, hc = K11.ssd_scan(*case, chunk_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    assert hc.shape == (b, -(-s // 64), h, p, n)
+    assert ssd_rel(hc, K11.ssd_chunk_states_plain(*case)) <= 1e-5
+    before = K11.ssd_scan_bwd.launches
+    got = K11.ssd_scan_bwd(*case, dy, hc)
+    again = K11.ssd_scan_bwd(*case, dy, hc)
+    torch.cuda.synchronize()
+    assert K11.ssd_scan_bwd.launches == before + 2
+    assert all(torch.equal(u, w) for u, w in zip(got, again))
+    ref = K11.ssd_scan_bwd_plain(*case, dy)
+    low = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    for u, w, tol in zip(got, ref, (low, low, low, 1e-4, 1e-4)):
+        assert u.shape == w.shape and u.dtype == w.dtype
+        assert ssd_rel(u, w) <= tol
+    assert K11.ssd_scan_bwd(*case, dy, hc, need_da=False)[4] is None
+
+
+@pytest.mark.gpu
+def test_ssd_scan_train_takes_the_kernels(cuda):
+    """Train mode on the card runs K11 with its chunk states forward and
+    K12 backward, never the plain versions: one launch each; the
+    gradients reach the columns of the conv output that x, B and C are
+    views of, within the limits above of autograd through the plain
+    version."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    x, bm, cm, dt, a = ssd_case(cuda, g, 1, 64, 4, 16, 8, 1, torch.float32)
-    x = x.detach().requires_grad_()
-    before = K11.ssd_scan.launches
-    y = K11.ssd_scan_train(x, bm, cm, dt, a)
-    assert K11.ssd_scan.launches == before + 1
-    with pytest.raises(NotImplementedError):
-        y.sum().backward()
+    h, p, n = 8, 16, 64
+    conv = torch.randn(2, 96, h * p + 2 * n, device=cuda,
+                       generator=g).bfloat16().requires_grad_(True)
+    dt = torch.nn.functional.softplus(
+        torch.randn(2, 96, h, device=cuda, generator=g) - 1.0)
+    a = -torch.exp(0.5 * torch.randn(h, device=cuda, generator=g))
+    dt, a = dt.requires_grad_(True), a.requires_grad_(True)
+
+    def views(t):
+        return (t[..., :h * p].unflatten(-1, (h, p)),
+                t[..., h * p:h * p + n].unflatten(-1, (1, n)),
+                t[..., h * p + n:].unflatten(-1, (1, n)))
+    dy = torch.randn(2, 96, h, p, device=cuda, generator=g)
+    before = (K11.ssd_scan.launches, K11.ssd_scan_bwd.launches)
+    y = K11.ssd_scan_train(*views(conv), dt, a)
+    got = torch.autograd.grad(y, (conv, dt, a), dy)
+    assert (K11.ssd_scan.launches, K11.ssd_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = torch.autograd.grad(K11.ssd_scan_train_plain(*views(conv), dt, a),
+                              (conv, dt, a), dy)
+    assert (K11.ssd_scan.launches, K11.ssd_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for u, w, tol in zip(got, ref, (2 ** -7, 1e-4, 1e-4)):
+        assert u.shape == w.shape and ssd_rel(u, w) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,s", [(4, 32, 32, 40), (1, 32, 32, 1536),
+                                       (2, 4, 2, 203)])
+def test_flash_attention_bwd_head_dim_112(cuda, b, h, kvh, s):
+    """K3's LSE and K8 at zamba2's head_dim 112 on (B, H, S, D) views of
+    (B, S, H, D) tensors: the LSE within 1e-4 of the plain log-sum-exp,
+    K3's output unchanged by it, K8 within 2**-6 of each gradient's max
+    of autograd through K3's plain version; with the shared block's
+    window of 4,096 (longer than S) K3's LSE and K8 equal the causal
+    mode bit for bit, and the windowed launches are counted."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k, v = k3_inputs(cuda, g, b, h, kvh, s, 112, layout="bshd")
+    do = torch.randn(b, s, h, 112, device=cuda,
+                     generator=g).bfloat16().transpose(1, 2)
+    out, lse = K3.flash_attention(q, k, v, return_lse=True)
+    wout, wlse = K3.flash_attention(q, k, v, window=4096, return_lse=True)
+    assert torch.equal(out, K3.flash_attention(q, k, v))
+    assert torch.equal(out, wout) and torch.equal(lse, wlse)
+    assert (lse - K3.attention_lse_plain(q, k)).abs().max() <= 1e-4
+    before = K3.flash_attention_bwd.windowed_launches
+    got = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    win = K3.flash_attention_bwd(q, k, v, out, do, lse, window=4096)
+    torch.cuda.synchronize()
+    assert K3.flash_attention_bwd.windowed_launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(got, win))
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(K3.flash_attention_plain(qr, kr, vr),
+                              (qr, kr, vr), do)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape and rel(x, y) <= 2 ** -6
 
 
 @pytest.mark.gpu

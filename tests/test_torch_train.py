@@ -223,6 +223,28 @@ def test_adapter_vectors_reuse_the_projection_bit_for_bit():
             got, np.asarray(JLORA.adapter_vector(tree, dim=8, seed=5)))
 
 
+def test_projection_saves_and_loads_bit_for_bit(tmp_path):
+    """A projection drawn and saved by ``save_projection``, then loaded
+    by ``load_projection`` in place of this process's own: its rows and
+    the generator's state after them are the fresh draw's, so adapters
+    shorter and longer than the saved rows project as the reference's;
+    the files are removed."""
+    seed, dim, path = 11, 8, str(tmp_path / "proj")
+    LORA._PROJECTIONS.pop((seed, dim), None)
+    LORA.save_projection(path, seed, dim, 70_000)
+    LORA._PROJECTIONS.pop((seed, dim))
+    assert LORA.load_projection(path, seed, dim) == 2 * (1 << 16)
+    assert not list(tmp_path.iterdir())
+    rng = np.random.default_rng(2)
+    for n in (1_000, 200_000):
+        flat = rng.standard_normal(n).astype(np.float32)
+        got = LORA.adapter_vectors([{"layers": {"q": {"A": torch.from_numpy(
+            flat)}}}], dim=dim, seed=seed)[0]
+        np.testing.assert_array_equal(got, np.asarray(JLORA.adapter_vector(
+            {"layers": {"q": {"A": flat}}}, dim=dim, seed=seed)))
+    LORA._PROJECTIONS.pop((seed, dim))
+
+
 # ------------------------------------------------------------------- dp
 def _grad_tree(rng, scale):
     return {"layers": {t: {"A": (scale * rng.standard_normal((2, 1, 4, 8))

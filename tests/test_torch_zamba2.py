@@ -18,8 +18,9 @@ parameters bridged, inputs from numpy seeds.
 * ``SoloEngine`` greedy ids equal to the reference's: plain, with
   per-user adapter slots and with a router-gated bank.
 * What both packages refuse for the hybrid: suffix prefill, speculative
-  rollback, the batched engine; the port's packed prefill (a later
-  slice) and its training launcher.
+  rollback, the batched engine; the port's packed prefill takes no
+  ``write_kv`` for it.  Its packed prefill and training are held to the
+  reference in ``test_torch_train_zamba2.py``.
 """
 import dataclasses
 
@@ -292,11 +293,11 @@ def test_solo_engine_matches_reference(models, token_ids):
 
 def test_hybrid_refusals(models):
     """Suffix prefill, speculative rollback and the batched engine are
-    refused by both packages; the port's packed prefill and training
-    launcher refuse the hybrid too."""
+    refused by both packages; the port's packed prefill takes no
+    ``write_kv`` for the hybrid (no engine streams its state), as for the
+    SSM family."""
     from repro.core import fusion as JFUS
     from repro.serving.engine import BatchedHybridEngine as JBatched
-    from repro_torch.launch import train as TRAIN
     jlm, jparams, lm, params = models
     toks = np.zeros((1, 4), np.int64)
     with pytest.raises(NotImplementedError):
@@ -313,8 +314,9 @@ def test_hybrid_refusals(models):
     cache = lm.init_cache(1, 16)
     with pytest.raises(NotImplementedError):
         lm.spec_snapshot(cache, torch.zeros(1, dtype=torch.int32), 2, 16)
-    with pytest.raises(NotImplementedError):
-        lm.prefill_packed(params, torch.from_numpy(toks), [4], 16)
+    with pytest.raises(ValueError, match="write_kv"):
+        lm.prefill_packed(params, torch.from_numpy(toks), [4], 16,
+                          write_kv=lambda *a: None)
     mlp = JFUS.init_alignment(jax.random.key(3), jlm.cfg.vocab_size)
     jdep = JDep(jlm, jparams, jlm, jparams, mlp, max_seq=32)
     tdep = ServingDeployment(lm, params, lm, params,
@@ -325,5 +327,3 @@ def test_hybrid_refusals(models):
     with pytest.raises(NotImplementedError, match="got hybrid") as got:
         BatchedHybridEngine(deployment=tdep)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="zamba2"):
-        TRAIN.main(["--local", "--device", "cpu", "--arch", ARCH])
