@@ -65,7 +65,15 @@ Phases, in order; any failure exits non-zero before the result lines:
               states against their plain version); K8 at head_dim 112
               (H = KV = 32, windowed at 4,096 == causal bit for bit) at
               (4, 40) and (1, 1,536), K3's LSE there against the plain
-              log-sum-exp;
+              log-sum-exp; K4, K5 and K9 at granite-moe-3b-a800m's two
+              LoRA shapes (q/o, k/v) as at zamba2's; K3 and K8 at
+              head_dim 64 (granite's H 24 over KV 8, a GQA group of 3)
+              at (1, 1,536), (4, 40) and a demo prompt's S against
+              their plain versions (K3's LSE too), timed back to back,
+              replayed from a CUDA graph, beside SDPA (autograd through
+              it for K8), two calls bit-equal; the profile rows read
+              from the profiler's raw records against key_averages' on a
+              small window (``check_profile_readers``);
   4. check    the reduced 2b pair in bf16 on the card against the same
               parameters in f32 on the CPU (the port's plain path): the
               sequential prefill/decode and engine, paged decode of a
@@ -111,7 +119,8 @@ Phases, in order; any failure exits non-zero before the result lines:
               (b) a kernel-only step at 1 x 256 (two 128-token chunks),
               (c) SoloEngine with four users' adapters over 4 slots
               (K5 at prefill, K4 at decode) and with a router-gated
-              4-expert bank, the demo prompts at 16 tokens, K4 / K5 at
+              4-expert bank, the demo prompts at SOLO_LORA_TOKENS, K4 /
+              K5 at
               4 x 64 a decode / prefill layer pass, ids moved by the
               adapters; the model is freed before the next phase;
   5c. serve_zamba2  the full-width zamba2-7b (Mamba-2 backbone: 13
@@ -147,7 +156,27 @@ Phases, in order; any failure exits non-zero before the result lines:
               LOGITS_TOL of its own prefill in float32, and in bf16
               through the kernels within FORCED_RATIO times the bf16
               prefill's distance from float32; the model is freed
-              before the pair's phases;
+              before the next phase;
+  5d. serve_granite  the full-width granite-moe-3b-a800m (the MoE
+              family: 32 layers, attention H 24 over KV 8 at head_dim
+              64, a 40-expert top-8 FFN at capacity factor 1.25; ~3.3 B
+              parameters, bf16, random weights from a seed): (a)
+              SoloEngine serves the four demo prompts and the
+              1,536-token one, 16 greedy tokens each (K3 = 32 a prefill,
+              no other kernel; dropped assignments per prefill printed),
+              every step replayed with K3 swapped for its plain version
+              (logits within GRANITE_LOGITS_TOL, ids equal or a
+              near-tie), the long prefill once more with each K3 call
+              held on its own inputs and each layer's route flips
+              against the plain run printed, a profile of the long
+              request; (b) serve_ssm (c)'s slots and router runs
+              (adapters at GRANITE_LORA_B_SCALE), replayed with K3, K4
+              and K5 swapped, the first request again with every kernel
+              call held on its own inputs; (c) a LoRA client step (4 x
+              40, rank 16, the aux loss included) through K3/K8 (32)
+              and K5/K9 (128): the loss and every leaf held to a float32
+              step (FED_SSM_F32_RATIO times the bf16 plain step's
+              distance); the model is freed before the pair's phases;
   6. serve    the full-width 2b pair (floe-slm-2b + floe-llm-7b, bf16,
               random weights from a seed) through ServingDeployment and
               Scheduler.from_deployment: the four demo prompts of the
@@ -290,8 +319,9 @@ Phases, in order; any failure exits non-zero before the result lines:
 The kernels phase also holds K3's history-offset mode (K3_OFFSET_SHAPES)
 and K2 over (8, 256) block tables against their plain versions.
 Then it prints the ``federate:`` summary, the ``{"kernels": [...]}``
-line (K1-K12, K3's offset and head_dim 112 modes and K8's windowed and
-head_dim 112 modes as entries of their own), the nvidia-smi line and,
+line (K1-K12, K3's offset, head_dim 112 and head_dim 64 modes and K8's
+windowed, head_dim 112 and head_dim 64 modes as entries of their own),
+the nvidia-smi line and,
 last, ``{"ok": true, "device": {...}}``.  Without a card it exits 2.
 """
 import contextlib
@@ -543,12 +573,49 @@ ZAMBA2_OTHER_F32_RATIO = 1.25
 FORCED_RATIO = 1.5
 FORCED_CEIL = 2 * LOGITS_TOL
 ZAMBA2_SEED = 27
+# serve_granite: granite-moe-3b-a800m's attention (H 24 over KV 8 at
+# head_dim 64, a GQA group of 3), its LoRA targets (k, n) (q and o, k and
+# v) and the seed of its random weights.  K3 and K8 at head_dim 64 run
+# in the kernels phase at its long prompt, its client step and a demo
+# prompt's S, limits K3_ROW_RTOL, K8_RTOL and K8_LSE_TOL
+GRANITE_HEADS, GRANITE_KV, GRANITE_HD = 24, 8, 64
+GRANITE_ATTN_SHAPES = [(1, 1536), (4, 40)]
+GRANITE_LORA_SHAPES = [(1536, 1536), (1536, 512)]
+GRANITE_SEED = 29
+# serve_granite (a), (b): every prefill and decode step replayed with the
+# kernels (K3; K4 and K5 under adapters) swapped for their plain
+# versions on the same bf16 parameters, the same tokens and gates (a
+# replay with nothing swapped gives the same bits).  The MoE's top-8
+# routing is discontinuous: where two experts' gate values lie within
+# bf16's rounding of each other, K3's P rounded to bf16 (its plain
+# version keeps f32) can flip a token's route, and a flipped route moves
+# that token's output by O(1) of its MoE share (an H100 run: 8-149 of
+# the long prompt's 1,536 tokens a layer).  So logits are held per step
+# to GRANITE_LOGITS_TOL (max|diff| / max|ref|; an H100 run read 7.3e-3
+# plain and 1.0-1.1e-2 under adapters, the limit over twice that), and
+# ids are equal, or where they part the plain run's own margin between
+# its pick and the kernel run's lies within the two runs' distance at
+# that step (a near-tie, not a fault); each kernel call is held on its
+# own inputs to its limit (K3_ROW_RTOL, LORA_ROW_RTOL).  The adapters'
+# B is drawn at GRANITE_LORA_B_SCALE, not LORA_B_SCALE: at 0.5 (a delta
+# ~2.8x its projection's output) the adapted model amplifies any swap,
+# K3's alone or K4/K5's alone, to 20-65% of the logits through 32 layers
+# of routing, while at 0.05-0.2 the same replay read 1.0-1.1e-2 and
+# every request still moved off the adapter-free ids
+GRANITE_LOGITS_TOL = 2.5e-2
+GRANITE_LORA_B_SCALE = 0.1
 # the router's four domains, each a few public samples (Eq. 9)
 # serve_adapters: six users and adapter-free rows over the 20 requests
 ADAPTER_OF = [None if i % 4 == 3 else f"user{i % 6}" for i in range(20)]
 # B ~ N(0, 0.5^2) at rank 16: a projection's delta is ~2.8x its output
 # (rms), enough to move a random-weight model off its own greedy tokens
 LORA_B_SCALE = 0.5
+# serve_ssm (c), serve_zamba2 and serve_granite (b): tokens a request of
+# the SLM-only adapter and router runs (16 before the granite phase, cut
+# to pay for it), and of serve_granite (b)'s request served again with
+# every kernel call held on its own inputs
+SOLO_LORA_TOKENS = 8
+SOLO_HELD_TOKENS = 4
 ROUTER_DOMAINS = [
     ("math", ["compute 2 plus 2", "what is 3 times 9", "sort ascending: 3 1"]),
     ("language", ["translate water to french", "give two synonyms for big",
@@ -1200,54 +1267,57 @@ def phase_lora(torch):
     return k4_cases, k5_cases
 
 
-def phase_lora_zamba2(torch, short_len: int):
-    """K4 and K5 against their plain versions at serve_zamba2's LoRA
-    shapes (ZAMBA2_LORA_SHAPES), as its slots and router runs give them:
+def phase_lora_model(torch, short_len: int, tag: str, shapes, seed: int):
+    """K4 and K5 against their plain versions at an SLM-only model's
+    LoRA shapes (``shapes``: ZAMBA2_LORA_SHAPES for serve_zamba2,
+    GRANITE_LORA_SHAPES for serve_granite; ``tag`` names the model), as
+    its slots and router runs give them:
     K4 at decode (T = 1, one user's slot), K5 at decode (T = 1, one soft
     gate row) — and K5 on that slot's one-hot gates, which must equal K4
     bit for bit — then K5 at a demo prompt's prefill (T = S, one gate row
     over its S rows), soft (the router) and one-hot (a user's slot); and
-    K9 (``k9_case``) at a client step's T = 160 rows, E = 1, on the five
+    K9 (``k9_case``) at a client step's T = 160 rows, E = 1, on the
     shapes, K5's forward beside it.  Returns (K4 cases, K5 cases, K9
     cases)."""
     from repro_torch.kernels.moe_lora import kernel as KL
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(27)
+    g = torch.Generator(device=dev).manual_seed(seed)
     slot = torch.tensor([2], dtype=torch.int32, device=dev)
     hot = torch.eye(LORA_E, device=dev)[2:3]
     soft = torch.rand(1, LORA_E, device=dev, generator=g)
     s = short_len
     k4_cases, k5_cases = [], []
-    for k, n in ZAMBA2_LORA_SHAPES:
+    for k, n in shapes:
         one = LORA_R * (k + n) * 4                      # one expert's A, B
         x, a, b = lora_inputs(torch, g, 1, k, n)
         out4, c4 = lora_case(
-            torch, f"K4 moe_lora_delta_slots zamba2 decode k={k} n={n}",
+            torch, f"K4 moe_lora_delta_slots {tag} decode k={k} n={n}",
             KL.moe_lora_delta_slots, KL.moe_lora_delta_slots_plain,
             lora_lib4, (x, a, b, slot),
             [0], k * 2 + one + 4 + n * 4, 2 * LORA_R * (k + n), 200,
-            dict(T=1, k=k, n=n, E=LORA_E, r=LORA_R, slots=[2]), graph=True)
+            dict(model=tag, T=1, k=k, n=n, E=LORA_E, r=LORA_R, slots=[2]),
+            graph=True)
         k4_cases.append(c4)
         hot_out = KL.moe_lora_delta(x, a, b, hot)
         torch.cuda.synchronize()
         if not torch.equal(hot_out, out4):
             raise SystemExit(f"K5 on one-hot gates differs from K4 at "
-                             f"zamba2's k={k} n={n}")
+                             f"{tag}'s k={k} n={n}")
         _, c5 = lora_case(
-            torch, f"K5 moe_lora_delta zamba2 decode k={k} n={n}",
+            torch, f"K5 moe_lora_delta {tag} decode k={k} n={n}",
             KL.moe_lora_delta, KL.moe_lora_delta_plain, lora_lib5,
             (x, a, b, soft), [0],
             k * 2 + LORA_E * one + LORA_E * 4 + n * 4,
             2 * LORA_E * LORA_R * (k + n), 200,
-            dict(T=1, k=k, n=n, E=LORA_E, r=LORA_R, gates="soft"),
-            graph=True)
+            dict(model=tag, T=1, k=k, n=n, E=LORA_E, r=LORA_R,
+                 gates="soft"), graph=True)
         k5_cases.append(c5)
         x = torch.randn(s, k, device=dev, generator=g).bfloat16()
         for gates, used, kind in ((soft, LORA_E, "soft"),
                                   (hot, 1, "one-hot")):
             _, c5 = lora_case(
-                torch, f"K5 moe_lora_delta zamba2 prefill {kind} k={k} "
+                torch, f"K5 moe_lora_delta {tag} prefill {kind} k={k} "
                 f"n={n}",
                 lambda *z: KL.moe_lora_delta(*z, rows_per_gate=s),
                 lambda *z: KL.moe_lora_delta_plain(*z, rows_per_gate=s),
@@ -1255,12 +1325,13 @@ def phase_lora_zamba2(torch, short_len: int):
                 (x, a, b, gates), list(range(s)),
                 s * k * 2 + used * one + LORA_E * 4 + s * n * 4,
                 2 * s * used * LORA_R * (k + n), 50,
-                dict(T=s, rows_per_gate=s, k=k, n=n, E=LORA_E, r=LORA_R,
-                     gates=kind))
+                dict(model=tag, T=s, rows_per_gate=s, k=k, n=n, E=LORA_E,
+                     r=LORA_R, gates=kind))
             k5_cases.append(c5)
         del x, a, b
-    k9_cases = [k9_case(torch, g, 160, k, n, 1, 1)
-                for k, n in ZAMBA2_LORA_SHAPES]
+    k9_cases = [k9_case(torch, g, 160, k, n, 1, 1) for k, n in shapes]
+    for c in k9_cases:
+        c["shape"]["model"] = tag
     bad = [c for c in k4_cases + k5_cases
            if not c["max_rel_err"] <= LORA_ROW_RTOL] + \
         [c for c in k9_cases if not (c["rel_err_dx_da_db"][0] <= K9_DX_RTOL
@@ -1270,7 +1341,7 @@ def phase_lora_zamba2(torch, short_len: int):
                                      <= LORA_ROW_RTOL)]
     if bad:
         raise SystemExit(f"K4/K5/K9 disagree with their plain versions at "
-                         f"zamba2's shapes: {bad}")
+                         f"{tag}'s shapes: {bad}")
     return k4_cases, k5_cases, k9_cases
 
 
@@ -2097,24 +2168,138 @@ def phase_serve_ssm(torch):
                           **traced), train
 
 
-def serve_ssm_lora(torch, dep, plain_ids, tag="serve_ssm", scans=None):
+class StepLog:
+    """Within the block, every ``slm_prefill`` and ``slm_decode`` call of
+    ``dep`` is logged as (kind, args, logits) for ``replay_plain`` (an
+    instance attribute shadowing each entry point, ``counted``'s included,
+    which is put back on exit)."""
+
+    NAMES = ("slm_prefill", "slm_decode")
+
+    def __init__(self, dep):
+        self.dep, self.calls, self.prev = dep, [], {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self.prev[name] = self.dep.__dict__.get(name)
+            fn = getattr(self.dep, name)
+
+            def run(*a, _fn=fn, _kind=name[4:]):
+                out = _fn(*a)
+                self.calls.append((_kind, a, out[0]))
+                return out
+            setattr(self.dep, name, run)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for name, fn in self.prev.items():
+            if fn is None:
+                delattr(self.dep, name)
+            else:
+                setattr(self.dep, name, fn)
+
+
+@contextlib.contextmanager
+def swapped(swaps):
+    """``swaps`` ((module, name, fn) triples) in place for the block."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, fn in swaps:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def replay_plain(torch, dep, log, swaps, tag):
+    """Replay a ``StepLog`` of SoloEngine requests under ``swaps`` (the
+    kernels' plain versions): each request's prefill with its own
+    tokens, LoRA and gates, then its decode steps on the replay's own
+    cache.  Each step's logits are held to the logged ones within
+    GRANITE_LOGITS_TOL (max|diff| / max|ref|), and the kernel run's pick
+    (its argmax) must be the plain run's, or lie within the two runs'
+    distance at that step of the plain run's pick (a near-tie).
+    Returns a summary."""
+    dist, equal, ties = [], 0, []
+    cache = None
+    with swapped(swaps):
+        for kind, args, lk in log:
+            if kind == "prefill":
+                lp, cache = dep.slm_prefill(*args)
+            else:
+                lp, cache = dep.slm_decode(args[0], cache, *args[2:])
+            lk, lp = lk[0, 0].float(), lp[0, 0].float()
+            gap = (lk - lp).abs().max().item()
+            dist.append(gap / lp.abs().max().item())
+            top, pick = int(torch.argmax(lp)), int(torch.argmax(lk))
+            if top == pick:
+                equal += 1
+            else:
+                ties.append(((lp[top] - lp[pick]).item(), gap))
+    out = dict(steps=len(log), ids_equal=equal, near_ties=ties,
+               logits_rel_max=max(dist),
+               logits_rel_median=sorted(dist)[len(dist) // 2])
+    print(f"{tag} held to its kernels' plain versions (a replay of every "
+          f"step on the same inputs): {out}")
+    if not out["logits_rel_max"] <= GRANITE_LOGITS_TOL \
+            or any(not m <= g for m, g in ties):
+        raise SystemExit(f"{tag}: the run disagrees with the same run "
+                         f"through the kernels' plain versions: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def held_calls(targets):
+    """Within the block every call of ``targets`` ((module, name, plain
+    version, measure) tuples) runs unchanged, its kernel launching and
+    counting, and is held on its own inputs against its plain version:
+    yields {name: [measure(out, ref), ...]}."""
+    errs = {name: [] for _, name, _, _ in targets}
+    wrapped = []
+    for mod, name, plain, measure in targets:
+        fn = getattr(mod, name)
+
+        def run(*a, _fn=fn, _plain=plain, _m=measure, _name=name, **kw):
+            out = _fn(*a, **kw)
+            errs[_name].append(_m(out, _plain(*a, **kw)))
+            return out
+        wrapped.append((mod, name, run))
+    with swapped(wrapped):
+        yield errs
+
+
+def serve_ssm_lora(torch, dep, plain_ids, tag="serve_ssm", scans=None,
+                   hold=False, b_scale=LORA_B_SCALE):
     """serve_ssm (c): SoloEngine on the full-width falcon-mamba-7b with
     four users' adapters (random B, rank 16) over 4 slots (K5 gate rows
     at prefill, K4 slot ids at decode), then with a router-gated
-    4-expert bank (K5 at both): the four demo prompts, 16 greedy tokens
-    each, one user a prompt.  K4 and
+    4-expert bank (K5 at both): the four demo prompts, SOLO_LORA_TOKENS
+    greedy tokens each, one user a prompt.  K4 and
     K5 launch 4 x 64 times (four targets a layer) per decode or prefill
     layer pass as the path says; the adapters move every request off the
     adapter-free ids (``plain_ids``).  serve_zamba2 runs the same on
     zamba2-7b (``tag``; ``scans``: each prefill kernel's launches a
-    prefill, K6's 64 by default).  Returns {path: launches}."""
+    prefill, K6's 64 by default).  With ``hold`` (serve_granite) each
+    run is also replayed with K3, K4 and K5 swapped for their plain
+    versions (``replay_plain``), and its first request served once more
+    (SOLO_HELD_TOKENS) with every K3, K4 and K5 call held on its own
+    inputs (``held_calls``);
+    ``b_scale``: the adapters' B std.  Returns {path: launches}."""
     from repro_torch.core import lora as LORA
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.moe_lora import kernel as KL
     from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
     from repro_torch.serving.deployment import ServingDeployment
     from repro_torch.serving.engine import SoloEngine
 
     lm, params = dep.slm, dep.slm_params
-    ads = random_adapters(torch, lm, 4, LORA_B_SCALE, 90, lm.device)
+    ads = random_adapters(torch, lm, 4, b_scale, 90, lm.device)
+    kernels = ((ATT, "flash_attention", K3.flash_attention_plain),
+               (L, "moe_lora_delta", KL.moe_lora_delta_plain),
+               (L, "moe_lora_delta_slots", KL.moe_lora_delta_slots_plain))
     per_pass = sum(len(t) * math.prod(d)
                    for d, t in lm.lora_layout().values())
     runs = {}
@@ -2138,15 +2323,17 @@ def serve_ssm_lora(torch, dep, plain_ids, tag="serve_ssm", scans=None):
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with TokenIds():
-            outs = [eng.generate(p, 16, adapter_id=a)
+        with TokenIds(), (StepLog(l_dep) if hold
+                          else contextlib.nullcontext()) as log:
+            outs = [eng.generate(p, SOLO_LORA_TOKENS, adapter_id=a)
                     for p, a in zip(DEMO_PROMPTS, aids)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in all_kernels()}
         uncounted(l_dep, calls)
         ids = [[int(i) for i in o.split(",") if i] for o in outs]
-        moved = sum(a != b for a, b in zip(ids, plain_ids))
+        moved = sum(a != b[:SOLO_LORA_TOKENS]
+                    for a, b in zip(ids, plain_ids))
         tokens = sum(len(i) for i in ids)
         print(f"{path}: {tokens} tokens in {wall:.3f} s = "
               f"{tokens / wall:.2f} tokens/s; {calls}; launches "
@@ -2160,12 +2347,32 @@ def serve_ssm_lora(torch, dep, plain_ids, tag="serve_ssm", scans=None):
                 **{k: n * calls["slm_prefill"] for k, n in scans.items()}}
         got = {k: launches[k] for k in want}
         if got != want or moved < len(ids) \
-                or any(not 0 < len(i) <= 16 for i in ids):
+                or any(not 0 < len(i) <= SOLO_LORA_TOKENS for i in ids):
             raise SystemExit(f"{path}: launches {got}, expected {want}; "
                              f"{moved} requests moved; ids {ids}")
         if slots:
             print(f"{path}: adapter stats {eng.adapter_stats()}")
         runs[path] = dict(launches, wall_s=wall, tokens=tokens, moved=moved)
+        if hold:
+            t0 = time.perf_counter()
+            replay_plain(torch, l_dep, log, kernels, path)
+            del log
+            t1 = time.perf_counter()
+            with held_calls([(m, n, f, row_rel_err)
+                             for m, n, f in kernels]) as errs:
+                eng.generate(DEMO_PROMPTS[0], SOLO_HELD_TOKENS,
+                             adapter_id=aids[0])
+            worst = {n: (len(e), max(e, default=0.0))
+                     for n, e in errs.items()}
+            print(f"{path}: its first request again, each kernel call "
+                  f"against its plain version on its own inputs, (calls, "
+                  f"worst per row): {worst}; replay {t1 - t0:.1f} s, held "
+                  f"request {time.perf_counter() - t1:.1f} s")
+            if not worst["flash_attention"][1] <= K3_ROW_RTOL or any(
+                    not e <= LORA_ROW_RTOL for n, (_, e) in worst.items()
+                    if n != "flash_attention"):
+                raise SystemExit(f"{path}: a kernel call disagrees with "
+                                 f"its plain version: {worst}")
         del eng, l_dep
     return runs
 
@@ -2454,6 +2661,174 @@ def serve_zamba2_packed(torch, dep, n_ssm, n_groups):
                          "with their own prefills")
     return dict(launches, ms=ms, rows=lengths, kernels_rel=kernel_rel,
                 logits_rel=gap, f32_logits_rel=f32_gap, bf16_to_f32=bf16_err)
+
+
+def phase_serve_granite(torch):
+    """SLM-only serving and a client step of the full-width
+    granite-moe-3b-a800m (the MoE family: 32 layers of GQA attention, H
+    24 over KV 8 at head_dim 64, each with a 40-expert top-8 MoE FFN at
+    capacity factor 1.25; ~3.4 B parameters, bf16, random weights from
+    GRANITE_SEED) on one deployment:
+    (a) SoloEngine serves the four demo prompts and the 1,536-token one,
+    16 greedy tokens each: K3 32 times a prefill and no other kernel (the
+    MoE's dispatch, expert products and combine and every decode step are
+    plain torch); each prefill's dropped assignments are counted; every
+    step is then replayed with K3 swapped for its plain version
+    (``replay_plain``); the long prompt's prefill runs once more through
+    K3, each call held on its own inputs (``held_calls``), and through
+    the plain version, to count each layer's route flips; a profile of
+    the long request.  (b) serve_ssm (c)'s slots and router runs, each
+    replayed with K3, K4 and K5 swapped and its first request held call
+    by call.  (c) a 4 x 40 LoRA client step (``fed_client_step``, the
+    aux loss at 0.01 included) through K3/K8 (32) and K5/K9 (128): the
+    loss and every LoRA leaf held to a float32 step.  Returns (serving
+    launches, a summary, {path: launches} of (b), (c)'s result)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokenizer as TOK
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.launch.serve import DEMO_PROMPTS
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import LM
+    from repro_torch.serving.deployment import ServingDeployment
+    from repro_torch.serving.engine import SoloEngine
+
+    cfg = get_config("granite-moe-3b-a800m")
+    prompts = list(DEMO_PROMPTS) + [SSM_LONG_PROMPT]
+    lens = [len(TOK.encode(p + " ")) for p in prompts]
+    t0 = time.perf_counter()
+    marks = [("init", t0)]
+
+    def lap(part):
+        marks.append((part, time.perf_counter()))
+    lm = LM(cfg)
+    dep = ServingDeployment(lm, lm.init(GRANITE_SEED), max_seq=SSM_MAX_SEQ)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(dep.slm_params))
+    print(f"serve_granite: {cfg.name} ({cfg.num_layers} layers; d_model "
+          f"{cfg.d_model}, attention {cfg.num_heads} over "
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, {cfg.num_experts} "
+          f"experts top-{cfg.experts_per_token} of FFN {cfg.moe_d_ff}, "
+          f"capacity factor {cfg.capacity_factor}, vocab {cfg.vocab_size}, "
+          f"{n_params} parameters) initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+          f"the expert bmms in bf16 with allow_bf16_reduced_precision_"
+          f"reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    eng = SoloEngine(deployment=dep)
+    prefill_ms, drops = [], []
+    calls = counted(dep, ("slm_prefill", "slm_decode"))
+    timed = dep.slm_prefill
+
+    def prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with MOE.record_drops() as d:
+            out = timed(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        drops.append(int(sum(d)))
+        return out
+    dep.slm_prefill = prefill
+    gc.collect()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lap("setup")
+    with TokenIds(), StepLog(dep) as log:
+        outs = [eng.generate(p, 16) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    launches.update(mode_counts())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    uncounted(dep, calls)
+
+    ids = [[int(i) for i in o.split(",") if i] for o in outs]
+    k = cfg.experts_per_token * cfg.num_layers
+    for n, (p, got) in enumerate(zip(lens, ids)):
+        print(f"[{n}] prompt {p} tokens, prefill {prefill_ms[n]:.2f} ms, "
+              f"{drops[n]} of {p * k} assignments dropped, ids={got}")
+    tokens = sum(len(i) for i in ids)
+    decode_s = wall - sum(prefill_ms) / 1e3
+    print(f"serve_granite: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.2f} tokens/s (5 requests, one at a time, prefill "
+          f"included); decode {calls['slm_decode']} steps in "
+          f"{decode_s:.3f} s = {calls['slm_decode'] / decode_s:.2f} steps/s; "
+          f"prefill of the {SSM_LONG_TOKENS}-token prompt "
+          f"{prefill_ms[-1]:.2f} ms; peak memory {peak:.2f} GiB; launches "
+          f"{launches}")
+    pre = calls["slm_prefill"]
+    want = {"flash_attention": cfg.num_layers * pre}
+    if any(not 0 < len(i) <= 16 for i in ids) or pre != 5 \
+            or lens[-1] != SSM_LONG_TOKENS:
+        raise SystemExit(f"serve_granite: bad output {ids}")
+    if any(launches[k] != n for k, n in want.items()) or any(
+            n for k, n in launches.items() if k not in want):
+        raise SystemExit(f"serve_granite: K3 must launch {want} times and "
+                         f"nothing else: {launches}")
+    k3_plain = ((ATT, "flash_attention", K3.flash_attention_plain),)
+    lap("serve")
+    held = replay_plain(torch, dep, log, k3_plain, "serve_granite (a)")
+    del log
+    lap("replay")
+    # the long prompt once more through K3, each call held on its own
+    # inputs, then through its plain version: each layer's route flips
+    toks = dep.tokens(TOK.encode(SSM_LONG_PROMPT + " "))
+    with held_calls([k3_plain[0] + (row_rel_err,)]) as errs, \
+            captured(MOE, "router") as routes:
+        logits, _ = dep.slm_prefill(dep.slm_params, toks)
+    with swapped(k3_plain), captured(MOE, "router") as p_routes:
+        ref, _ = dep.slm_prefill(dep.slm_params, toks)
+    flips = [int((a[2][0].sort(-1).values != b[2][0].sort(-1).values)
+                 .any(-1).sum()) for a, b in zip(routes, p_routes)]
+    del routes, p_routes
+    k3_rel = max(errs["flash_attention"])
+    rel = share_of_max(logits, ref)
+    print(f"serve_granite: the {SSM_LONG_TOKENS}-token prefill's "
+          f"{len(errs['flash_attention'])} K3 calls against the plain "
+          f"version on their own inputs, worst per row {k3_rel:.3e}; its "
+          f"logits against the same prefill through K3's plain version "
+          f"{rel:.3e}; tokens (of {SSM_LONG_TOKENS}) whose experts differ, "
+          f"layer by layer: {flips}")
+    if logits.shape != (1, 1, cfg.vocab_size) \
+            or not torch.isfinite(logits).all() \
+            or len(errs["flash_attention"]) != cfg.num_layers \
+            or not k3_rel <= K3_ROW_RTOL or not rel <= GRANITE_LOGITS_TOL:
+        raise SystemExit("serve_granite: K3 disagrees with its plain "
+                         "version in the long prefill")
+    lap("long_prefill_held")
+    traced = retaken("trace_solo", lambda: trace_solo(
+        torch, eng, SSM_LONG_PROMPT, {"k3": "flash_attention"}))
+    del eng
+    gc.collect()
+    lap("trace")
+    lora = serve_ssm_lora(torch, dep, ids[:len(DEMO_PROMPTS)],
+                          "serve_granite",
+                          {"flash_attention": cfg.num_layers}, hold=True,
+                          b_scale=GRANITE_LORA_B_SCALE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("adapters_router")
+    leaves = tuple(f"{tgt}.{ab}" for _, tgts in lm.lora_layout().values()
+                   for tgt in tgts for ab in "AB")
+    train = fed_client_step(torch, lm, dep.slm_params, "serve_granite (c)",
+                            FED_BATCH, FED_SEQ,
+                            (FED_LOSS_RTOL, FED_GRAD_RTOL),
+                            bf16_bound=leaves,
+                            adapter=threefry_adapter(torch, lm),
+                            loss_f32=True)
+    lap("client_step")
+    print("serve_granite: seconds by part "
+          f"{ {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])} }")
+    return launches, dict(wall_s=wall, tokens=tokens, peak_gib=peak,
+                          params=n_params, prefill_long_ms=prefill_ms[-1],
+                          prefill_ms=prefill_ms, dropped=drops,
+                          decode_steps_per_s=calls["slm_decode"] / decode_s,
+                          held=held, route_flips=flips, k3_rel=k3_rel,
+                          long_logits_rel=rel, **traced), lora, train
 
 
 def _leaves(tree):
@@ -3641,8 +4016,7 @@ def profile_spec_burst(torch, eng):
     counted = (K2_FN().launches - k2_0, fuse_logits.launches - k1_0)
     rows = profile_rows(torch, prof)
     busy = sum(r[0] for r in rows)
-    graphs = sum(e.count for e in prof.key_averages()
-                 if "GraphLaunch" in e.key)
+    graphs = graph_launches(prof)
     k2 = sum(r[1] for r in rows if "paged_decode_split" in r[2])
     k1 = [sum(r[1] for r in rows if p in r[2])
           for p in ("fuse_stats", "fuse_write")]
@@ -4893,6 +5267,111 @@ def phase_zamba2_train_kernels(torch):
     return k12, k8d
 
 
+def granite_attn_case(torch, g, b, s):
+    """K3, then K3 with its LSE and K8, at granite-moe's attention (H 24
+    over KV 8, a GQA group of 3, head_dim 64) on bf16 (B, H, S, D) views
+    of (B, S, H, D) tensors: K3 per row against its plain version and K8
+    per gradient against autograd of it, K3's LSE against the plain
+    log-sum-exp, its output unchanged by the LSE, two calls of each
+    bit-equal.  Each timed back to back and replayed from a CUDA graph,
+    beside its plain version and SDPA (``enable_gqa``; autograd through
+    it for K8), with its bound.  Returns (K3 case, K8 case)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K3
+    h, kvh, d = GRANITE_HEADS, GRANITE_KV, GRANITE_HD
+    q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=g)
+               .bfloat16().transpose(1, 2) for n in (h, kvh, kvh))
+    do = torch.randn(b, s, h, d, device="cuda",
+                     generator=g).bfloat16().transpose(1, 2)
+    out = K3.flash_attention(q, k, v)
+    again = K3.flash_attention(q, k, v)
+    l_out, lse = K3.flash_attention(q, k, v, return_lse=True)
+    grads = K3.flash_attention_bwd(q, k, v, l_out, do, lse)
+    g_again = K3.flash_attention_bwd(q, k, v, l_out, do, lse)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again) and torch.equal(out, l_out)):
+        raise SystemExit("K3 at head_dim 64: two calls differ, or the LSE "
+                         "output changed the output")
+    if not all(torch.equal(x, y) for x, y in zip(grads, g_again)):
+        raise SystemExit("K8 at head_dim 64: two calls differ")
+    ref = K3.flash_attention_plain(q, k, v)
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    g_ref = torch.autograd.grad(K3.flash_attention_plain(qr, kr, vr),
+                                (qr, kr, vr), do)
+    rel8 = [((x.float() - y.float()).abs().max()
+             / y.float().abs().max()).item() for x, y in zip(grads, g_ref)]
+
+    def sdpa(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                              enable_gqa=True)
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = sdpa(qs, ks, vs)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                   retain_graph=True)
+    pairs = b * h * s * (s + 1) // 2          # visible (query, key, head)
+    q_el, kv_el = b * h * s * d, b * kvh * s * d
+    bms3, by3 = bound(2 * (2 * q_el + 2 * kv_el), 4 * d * pairs,
+                      BF16_FLOP_PER_S)
+    bms8, by8 = bound(2 * (4 * q_el + 4 * kv_el) + 4 * b * h * s,
+                      10 * d * pairs, BF16_FLOP_PER_S)
+    iters = 20 if s > 512 else 200
+    shape = dict(B=b, H=h, KVH=kvh, S=s, D=d, layout="(B, S, H, D) views")
+    k3c = dict(
+        shape=shape, dtype="bfloat16",
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        max_rel_err=row_rel_err(out, ref),
+        lse_max_abs_err=(lse - K3.attention_lse_plain(q, k)).abs().max()
+        .item(),
+        ms=time_ms(torch, lambda: K3.flash_attention(q, k, v), iters),
+        graph_ms=graph_ms(torch, lambda: K3.flash_attention(q, k, v)),
+        lse_ms=time_ms(torch, lambda: K3.flash_attention(
+            q, k, v, return_lse=True), iters),
+        plain_ms=time_ms(torch, lambda: K3.flash_attention_plain(q, k, v),
+                         max(5, iters // 10)),
+        library_ms=time_ms(torch, lambda: sdpa(q, k, v), iters),
+        library_max_rel_err=row_rel_err(sdpa(q, k, v), ref),
+        bound_ms=bms3, bound_by=by3)
+    print(f"K3 flash_attention (head_dim 64): {k3c}")
+    k8c = dict(
+        shape=shape, dtype="bfloat16", visible_pairs=pairs,
+        max_abs_err=max((x.float() - y.float()).abs().max().item()
+                        for x, y in zip(grads, g_ref)),
+        max_rel_err=max(rel8), rel_err_dq_dk_dv=rel8,
+        lse_max_abs_err=k3c["lse_max_abs_err"],
+        ms=time_ms(torch, lambda: K3.flash_attention_bwd(
+            q, k, v, l_out, do, lse), iters // 2),
+        graph_ms=graph_ms(torch, lambda: K3.flash_attention_bwd(
+            q, k, v, l_out, do, lse)),
+        plain_ms=time_ms(torch, lambda: K3.flash_attention_bwd_plain(
+            q, k, v, l_out, do, lse), max(3, iters // 20)),
+        library_ms=time_ms(torch, sdpa_bwd, iters // 2),
+        bound_ms=bms8, bound_by=by8)
+    print(f"K8 flash_attention_bwd (head_dim 64): {k8c}")
+    return k3c, k8c
+
+
+def phase_granite_kernels(torch, short_len: int):
+    """K3 and K8 at granite-moe's head_dim 64 (``granite_attn_case``) at
+    GRANITE_ATTN_SHAPES and a demo prompt's S, each against its plain
+    version.  Returns (K3 cases, K8 cases)."""
+    g = torch.Generator(device="cuda").manual_seed(64)
+    t0 = time.perf_counter()
+    cases = [granite_attn_case(torch, g, b, s)
+             for b, s in GRANITE_ATTN_SHAPES + [(1, short_len)]]
+    print(f"kernels K3 and K8 at head_dim 64: "
+          f"{time.perf_counter() - t0:.1f} s")
+    k3, k8 = [c[0] for c in cases], [c[1] for c in cases]
+    bad = [c for c in k3 if not (c["max_rel_err"] <= K3_ROW_RTOL
+                                 and c["lse_max_abs_err"] <= K8_LSE_TOL)] + \
+        [c for c in k8 if not c["max_rel_err"] <= K8_RTOL]
+    if bad:
+        raise SystemExit(f"K3 / K8 at head_dim 64 disagree with their "
+                         f"plain versions: {bad}")
+    return k3, k8
+
+
 def train_counts():
     """Launch counts of the training kernels: K3 and K5 forward, K8 and
     K9 backward, K6 and K10 (the Mamba-1 scan and its backward), K11 and
@@ -4960,7 +5439,7 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
                     s=FED_SEQ, limits=(FED_LOSS_RTOL, FED_GRAD_RTOL),
                     scan_rtol=None, scan_f32_ratio=None,
                     other_f32_ratio=None, bf16_bound=(), adapter=None,
-                    profile=True):
+                    profile=True, loss_f32=False):
     """One client step at full width (B x S = ``b`` x ``s``) two ways:
     through the kernels (K3/K8, K6/K10 or K11/K12, and K5/K9), and with
     the plain versions called on the same CUDA tensors
@@ -4991,7 +5470,10 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
     multiple of the same distance in place of ``scan_rtol`` (the third
     step runs when either is given), and with ``other_f32_ratio`` the
     other kernels' share (the kernel step against the third) to that
-    multiple of it."""
+    multiple of it.  With ``loss_f32`` (and ``bf16_bound``) the loss is
+    held to the float32 step's instead of the plain one's: within
+    ``limits[0]``, or within FED_SSM_F32_RATIO times the bf16 plain
+    step's distance from it."""
     from repro_torch.core import lora as LORA
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.moe_lora import kernel as KL
@@ -5073,7 +5555,7 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
         if bf16_bound:
             t0 = time.perf_counter()
             with float32_params(torch, params):
-                _, f_grads = TS.value_and_grad(
+                f_loss, f_grads = TS.value_and_grad(
                     lambda b: TS.lora_loss_fn(lm, params, b, batch, gates),
                     body)
             f32_s = time.perf_counter() - t0
@@ -5126,7 +5608,12 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
         out.update(other_kernels_share=other_rel,
                    scan_kernels_share=scan_rel)
     if f32:
-        out.update(bf16_bound_leaves=f32, f32_step_s=f32_s)
+        out.update(bf16_bound_leaves=f32, f32_step_s=f32_s,
+                   f32_loss=float(f_loss),
+                   loss_to_f32=abs(float(loss) - float(f_loss))
+                   / abs(float(f_loss)),
+                   plain_loss_to_f32=abs(float(p_loss) - float(f_loss))
+                   / abs(float(f_loss)))
     if profile:
         out.update(busy_ms=busy, busy_share=busy / step_ms,
                    top_kernels=[(r[0], r[1], r[2][:60]) for r in rows[:6]])
@@ -5148,7 +5635,11 @@ def fed_client_step(torch, lm, params, tag="federate (a)", b=FED_BATCH,
          and not share_ok(n, r, other_f32_ratio)] + \
         [f"{n} against f32" for n, r in f32.items()
          if not r["kernel_to_f32"] <= FED_SSM_F32_RATIO * r["plain_to_f32"]]
-    if not loss_rel <= limits[0] or bad:
+    loss_ok = loss_rel <= limits[0]
+    if loss_f32:
+        loss_ok = out["loss_to_f32"] <= max(
+            limits[0], FED_SSM_F32_RATIO * out["plain_loss_to_f32"])
+    if not loss_ok or bad:
         raise SystemExit(f"{tag}: the kernel step disagrees with the "
                          f"plain step: {bad}")
     return out
@@ -5822,12 +6313,10 @@ def profiled(torch, cpu: bool = True):
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         time.sleep(margins["trailing"])
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-    spin = ["spin_kernel" in e.name for e in ev]
-    marker = [m and e.time_range.elapsed_us() < PROFILE_MARKER_MAX_US
-              for m, e in zip(spin, ev)]
+    ev = device_records(prof)
+    spin = ["spin_kernel" in name for _, _, name in ev]
+    marker = [m and us < PROFILE_MARKER_MAX_US
+              for m, (_, us, _) in zip(spin, ev)]
     first = spin.index(False) if False in spin else len(ev)
     if first == len(ev):        # no device record of the block
         edges = (sum(marker) >= 2, bool(marker) and marker[-1])
@@ -5839,12 +6328,12 @@ def profiled(torch, cpu: bool = True):
         for side in lost:
             PROFILE_MARGINS_S[side] = min(PROFILE_MARGIN_MAX_S, max(
                 PROFILE_MARGINS_S[side], 4 * margins[side]))
-        launches = [e.time_range.start for e in prof.events()
-                    if e.device_type == DeviceType.CPU
-                    and e.name.startswith(("cudaLaunchKernel",
-                                           "cuLaunchKernel"))]
-        seen = (f"; its first device record {ev[0].name[:32]} "
-                f"{(ev[0].time_range.start - min(launches)) / 1e3:.3f} ms "
+        launches = [e.start_ns() / 1e3 for e in raw_records(prof)
+                    if e.device_type() == DeviceType.CPU
+                    and e.name().startswith(("cudaLaunchKernel",
+                                             "cuLaunchKernel"))]
+        seen = (f"; its first device record {ev[0][2][:32]} "
+                f"{(ev[0][0] - min(launches)) / 1e3:.3f} ms "
                 f"after its first launch" if ev and launches else "")
         raise ProfileLost(f"the profiled window at margins {margins} s "
                           f"kept {sum(marker)} edge markers and "
@@ -5853,45 +6342,92 @@ def profiled(torch, cpu: bool = True):
                           f"{' and '.join(lost)} edge{seen}")
 
 
+def raw_records(prof):
+    """The profiler's own records of a finished window.  Read them, not
+    ``prof.events()`` or ``key_averages()``: those first build a Python
+    event tree over every record and link each kernel to its launch,
+    seconds for a window of a full-width SLM request, to give the same
+    starts, durations and names (``check_profile_readers``)."""
+    return prof.profiler.kineto_results.events()
+
+
+def device_records(prof):
+    """(start us, duration us, name) of a profile's device records, in
+    time order."""
+    from torch.autograd import DeviceType
+    return sorted((e.start_ns() / 1e3, e.duration_ns() / 1e3, e.name())
+                  for e in raw_records(prof)
+                  if e.device_type() == DeviceType.CUDA)
+
+
+def check_profile_readers(torch):
+    """``profile_rows`` (the raw records) against the same rows through
+    ``key_averages()`` on one small window (GEMMs, casts, a K3 call):
+    the same names and counts, the same times within 1e-9."""
+    from torch.autograd import DeviceType
+    from repro_torch.kernels.flash_attention import kernel as K3
+    x = torch.randn(256, 256, device="cuda")
+    q, k, v = (torch.randn(1, 8, 64, 64, device="cuda").bfloat16()
+               for _ in range(3))
+    with profiled(torch, cpu=False) as prof:
+        for _ in range(20):
+            (x @ x).bfloat16()
+            K3.flash_attention(q, k, v)
+    rows = profile_rows(torch, prof)
+    ref = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and "spin_kernel" not in e.key), reverse=True)
+    got = {name: (ms, n) for ms, n, name in rows}
+    want = {name: (ms, n) for ms, n, name in ref}
+    if got.keys() != want.keys() or any(
+            got[k][1] != want[k][1]
+            or abs(got[k][0] - want[k][0]) > 1e-9 * want[k][0]
+            for k in want):
+        raise SystemExit(f"profile rows from the raw records {rows} differ "
+                         f"from key_averages' {ref}")
+    print(f"profile readers: {len(rows)} rows, {sum(r[1] for r in rows)} "
+          f"kernels, equal through the raw records and key_averages")
+
+
+def graph_launches(prof) -> int:
+    """CUDA graph launches recorded in a profile."""
+    return sum("GraphLaunch" in e.name() for e in raw_records(prof))
+
+
 def profile_edges(torch, prof, n: int = 8) -> str:
     """The first and last ``n`` device kernels of a profile, in time
     order, with their start in microseconds from the first one: what a
     count that misses should be read against."""
-    from torch.autograd import DeviceType
-
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
+    ev = device_records(prof)
     if not ev:
         return "no device records"
-    t0 = ev[0].time_range.start
+    t0 = ev[0][0]
     return f"{len(ev)} device records; " + "; ".join(
-        f"{e.time_range.start - t0:.1f} us {e.name[:48]}"
+        f"{e[0] - t0:.1f} us {e[2][:48]}"
         for e in ev[:n] + [None] + ev[-n:] if e is not None)
 
 
 def kernel_offsets(prof, name: str):
     """Start times, in microseconds from the profile's first device
     record, of the device records whose name holds ``name``."""
-    from torch.autograd import DeviceType
-
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-    t0 = ev[0].time_range.start if ev else 0
-    return [round(e.time_range.start - t0) for e in ev if name in e.name]
+    ev = device_records(prof)
+    t0 = ev[0][0] if ev else 0
+    return [round(e[0] - t0) for e in ev if name in e[2]]
 
 
 def profile_rows(torch, prof):
     """Device-kernel rows (ms, count, name) of a profile, largest first:
     an operator's row repeats its kernels' time, so only kernels, and
     not the edge markers (spin kernels, ``profiled``)."""
-    from torch.autograd import DeviceType
-    return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0
-                   and "spin_kernel" not in e.key), reverse=True)
+    rows = {}
+    for _, us, name in device_records(prof):
+        row = rows.setdefault(name, [0.0, 0])
+        row[0] += us
+        row[1] += 1
+    return sorted(((us / 1e3, n, name) for name, (us, n) in rows.items()
+                   if us > 0 and "spin_kernel" not in name), reverse=True)
 
 
 def trace_batched(torch, eng, sampled=False):
@@ -5964,8 +6500,7 @@ def profile_step(torch, eng, what: str, sampled: bool = False):
         traced_ms = one()
     traced_replays = [b - a for a, b in zip(r1, macro_replays(eng))]
     rows = profile_rows(torch, prof)
-    graphs = sum(e.count for e in prof.key_averages()
-                 if "GraphLaunch" in e.key)
+    graphs = graph_launches(prof)
     busy = sum(r[0] for r in rows)
     k2 = [r for r in rows if "paged_decode" in r[2]]
     k1 = [r for r in rows if "fuse_" in r[2]]
@@ -6091,16 +6626,21 @@ def main() -> int:
     k2_cases = phase_k2(torch)
     k4_cases, k5_cases = phase_lora(torch)
     short_len = len(TOK.encode(DEMO_PROMPTS[0] + " "))
-    z4_cases, z5_cases, z9_cases = phase_lora_zamba2(torch, short_len)
-    k4_cases += z4_cases
-    k5_cases += z5_cases
+    z4_cases, z5_cases, z9_cases = phase_lora_model(
+        torch, short_len, "zamba2", ZAMBA2_LORA_SHAPES, 27)
+    g4_cases, g5_cases, g9_cases = phase_lora_model(
+        torch, short_len, "granite", GRANITE_LORA_SHAPES, 29)
+    k4_cases += z4_cases + g4_cases
+    k5_cases += z5_cases + g5_cases
     k6_cases = phase_k6(torch, short_len)
     k11_cases = phase_k11(torch, short_len)
     k3d_cases = phase_k3_d112(torch, short_len)
     k7_cases = phase_k7(torch)
     k8_cases, k9_cases, k8w_cases, k10_cases = phase_train_kernels(torch)
-    k9_cases += z9_cases
+    k9_cases += z9_cases + g9_cases
     k12_cases, k8d_cases = phase_zamba2_train_kernels(torch)
+    k3g_cases, k8g_cases = phase_granite_kernels(torch, short_len)
+    check_profile_readers(torch)
     clock("kernels")
     phase_check(torch)
     clock("check")
@@ -6113,6 +6653,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     z_launches, z_run, z_lora, z_train = phase_serve_zamba2(torch)
     clock("serve_zamba2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    g_launches, g_run, g_lora, g_train = phase_serve_granite(torch)
+    clock("serve_granite")
     gc.collect()
     torch.cuda.empty_cache()
     dep = full_pair(torch)
@@ -6187,6 +6731,8 @@ def main() -> int:
              "serve_zamba2_train_long": z_train["e"]["launches"],
              "serve_zamba2_packed": {k: v for k, v in z_train["f"].items()
                                      if isinstance(v, int)},
+             "serve_granite": g_launches, **g_lora,
+             "serve_granite_train": g_train["launches"],
              "federate_gemma3": g_fed_counts,
              "federate_gemma3_serve": g_fed_serve}
     by_path = {fn.__name__: {path: got.get(fn.__name__, 0)
@@ -6443,6 +6989,35 @@ def main() -> int:
         plain_ms=k8d["plain_ms"], bound_ms=k8d["bound_ms"],
         bound_by=k8d["bound_by"], library_ms=k8d["library_ms"],
         cases=k8d_cases))
+    # K3 and K8 at granite-moe's head_dim 64 at the 1,536-token prefill
+    # (K3) and the client step (K8); launches on serve_granite (a), (c)
+    for name, fn, cases, main_case, launched, note in (
+            ("flash_attention_d64", "flash_attention", k3g_cases,
+             k3g_cases[0], g_launches["flash_attention"],
+             "K3 at granite-moe-3b-a800m's head_dim 64 (H 24 over KV 8)"),
+            ("flash_attention_bwd_d64", "flash_attention_bwd", k8g_cases,
+             k8g_cases[1], g_train["launches"]["flash_attention_bwd"],
+             "K8 at granite-moe-3b-a800m's head_dim 64 (H 24 over KV 8); "
+             "no pl.pallas_call: the reference differentiates its jnp "
+             "chunked_causal_attention")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{fn}.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:80"
+            if fn == "flash_attention" else
+            "src/repro/models/attention.py:82",
+            note=note, launches=launched,
+            launches_by_path={p: n for p, n in by_path[fn].items()
+                              if p.startswith("serve_granite")},
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            max_rel_err=max(c["max_rel_err"] for c in cases),
+            rel_tol=K3_ROW_RTOL if fn == "flash_attention" else K8_RTOL,
+            shape=main_case["shape"], ms=main_case["ms"],
+            graph_ms=main_case["graph_ms"], plain_ms=main_case["plain_ms"],
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], cases=cases,
+            **({"serve_granite": g_run} if fn == "flash_attention"
+               else {})))
     print(f"federate: {json.dumps(fed)}")
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -1,7 +1,9 @@
 """Bridge between the JAX package's parameter trees and the port's.
 
-A JAX tree (``LM.param_specs`` layout with stacked ``layers`` leaves, or
-the ``fusion.alignment_spec`` dict), handed over as numpy arrays, maps
+A JAX tree (``LM.param_specs`` layout with stacked ``layers`` leaves,
+the MoE family's ``router``/``w_in``/``w_out``/``shared`` leaves among
+them, or the ``fusion.alignment_spec`` dict), handed over as numpy
+arrays, maps
 leaf for leaf onto the port's nested dicts of tensors: same keys, same
 shapes.  ``to_numpy`` is the reverse, for comparison.  bfloat16 leaves
 (numpy's ``ml_dtypes`` bfloat16) travel as their 16-bit patterns, so

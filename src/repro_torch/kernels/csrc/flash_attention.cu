@@ -38,7 +38,9 @@
 //    mbarriers: 192 KB of the 227 KB a block may use, one CTA per SM.
 //    At D = 112 (zamba2's shared block) every tile is padded to 128
 //    columns of 64 (96 KB in all): TMA zero-fills the entries past 112,
-//    Q K^T runs 7 k-steps of 16 and P V wgmma.m64n128k16.
+//    Q K^T runs 7 k-steps of 16 and P V wgmma.m64n128k16.  At D = 64
+//    (granite-moe, H 24 over KV 8: a GQA group of 3) a tile is one
+//    128-byte column: 48 KB in all, P V by wgmma.m64n64k16.
 //    Tiles arrive by TMA (4-D tensor maps over (D, S, H, B) built per
 //    call from the tensors' strides, so strided views are read in place)
 //    in the 128-byte swizzle (64-byte at D = 32), as columns of 64 (32)
@@ -53,7 +55,8 @@
 //    scale and log2(e) are folded into one multiply and exp2.  Only
 //    diagonal, window-edge and ragged tiles apply the element mask;
 //    tiles that no row of a warpgroup can see are skipped whole.
-//  - O += P V by wgmma.m64n256k16 (m64n32k16 at D = 32) with P converted
+//  - O += P V by wgmma.m64n256k16 (m64n64k16 at D = 64, m64n32k16 at
+//    D = 32) with P converted
 //    to bf16 in registers as the A operand (the accumulator layout of S
 //    is the register-A layout) and V MN-major in shared memory
 //    (transpose bit).  O stays in registers for the whole KV loop: 128
@@ -71,7 +74,8 @@
 // Registers and shared memory (ptxas, sm_90a, nvcc 12.9): 168 registers
 // a thread at launch (the cap of 384 threads), 0 bytes of spills, at D =
 // 256, 112 and 32; 197,672 B of dynamic shared memory at D = 256, 99,368
-// B at D = 112, 25,640 B at D = 32 (1,024 of it alignment slack).
+// B at D = 112, 50,216 B at D = 64, 25,640 B at D = 32 (1,024 of it
+// alignment slack).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -303,6 +307,30 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64); B
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 32, f32) += A (64 x 16, bf16 in registers) B (16 x 32); B
 // MN-major in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -322,7 +350,7 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// O += P V at D = 256, 112 (padded to 128) and 32, picked by the
+// O += P V at D = 256, 112 (padded to 128), 64 and 32, picked by the
 // accumulator's size.
 __device__ __forceinline__ void wgmma_pv(float (&o)[128],
                                          const uint32_t (&a)[4],
@@ -333,6 +361,11 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   wgmma_rs_n128(o, a, db);
+}
+__device__ __forceinline__ void wgmma_pv(float (&o)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n64(o, a, db);
 }
 __device__ __forceinline__ void wgmma_pv(float (&o)[16],
                                          const uint32_t (&a)[4],
@@ -675,7 +708,8 @@ int launch(const void* q, const void* k, const void* v, const void* hk,
 // (S, heads, batch) of q, k, v, out, hk and hv in turn, each a multiple
 // of 8 (16 bytes; those of the history only when hist > 0), the pointers
 // 16-byte aligned.  head_dim 256 is the 2b pair at full width, 112
-// zamba2-7b's shared attention block, 32 their reduced configs.  lse, when not null, receives each row's natural-log
+// zamba2-7b's shared attention block, 64 granite-moe-3b-a800m's, 32
+// their reduced configs.  lse, when not null, receives each row's natural-log
 // log-sum-exp as (B, H, S) f32.  Returns 0 or a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* hk,
@@ -694,6 +728,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   switch (head_dim) {
     case 32:
       return launch<32>(q, k, v, hk, hv, out, lse, strides, batch, heads,
+                        kv_heads, seq, hist, causal, window, scale,
+                        stream);
+    case 64:
+      return launch<64>(q, k, v, hk, hv, out, lse, strides, batch, heads,
                         kv_heads, seq, hist, causal, window, scale,
                         stream);
     case 112:

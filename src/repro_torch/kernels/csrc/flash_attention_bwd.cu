@@ -52,7 +52,12 @@
 //    16, and the tiles take 75,264 B.  Its shared block is multi-head
 //    (H = KVH = 32, a group of one), so head_splits leaves the dK/dV
 //    pass unsplit: B x 32 x ceil(S / 32) CTAs, 1,536 at S = 1,536 and
-//    256 at a client step (4 x 40), enough to fill 132 SMs without parts.  S = q k^T and dP = dO v^T
+//    256 at a client step (4 x 40), enough to fill 132 SMs without parts.
+//    At granite-moe's D = 64 (H 24 over KV 8, a group of 3) a padded row
+//    is 72 bf16 = 144 B and the tiles take 56,832 B; head_splits cuts
+//    the group of 3 into parts [0, 1), [1, 2), [2, 3) where it splits
+//    it at all (a client step at 4 x 40: 64 tiles, 3 splits, 192
+//    CTAs; (1, 1,536): 384 tiles, unsplit).  S = q k^T and dP = dO v^T
 //    are 16 x 16 x 16 WMMA products with f32 accumulators; P and dS are
 //    rounded to bf16 as the A operand of the next products, as a flash
 //    backward rounds them.
@@ -544,8 +549,8 @@ int launch(const Args& a, cudaStream_t stream) {
 // forward's natural-log row log-sum-exp (K3's LSE output); di is (B, H,
 // S) f32 scratch followed by flash_attention_bwd_scratch's floats for
 // the dK/dV parts.  head_dim 256 (the 2b SLM), 112 (zamba2-7b's shared
-// attention block) or 32 (their reduced configs).  Returns 0 or a
-// cudaError_t.
+// attention block), 64 (granite-moe-3b-a800m) or 32 (their reduced
+// configs).  Returns 0 or a cudaError_t.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* di, void* dq, void* dk,
@@ -554,7 +559,8 @@ extern "C" int flash_attention_bwd_bf16(
     cudaStream_t stream) {
   if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
       window < 0 ||
-      (head_dim != 32 && head_dim != 112 && head_dim != 256))
+      (head_dim != 32 && head_dim != 64 && head_dim != 112 &&
+       head_dim != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 24; ++i)
     if (strides[i] <= 0 || strides[i] % 8 != 0)
@@ -585,6 +591,8 @@ extern "C" int flash_attention_bwd_bf16(
   switch (head_dim) {
     case 32:
       return launch<32>(a, stream);
+    case 64:
+      return launch<64>(a, stream);
     case 112:
       return launch<112>(a, stream);
     case 256:

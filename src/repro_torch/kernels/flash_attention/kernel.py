@@ -8,8 +8,9 @@ q (B, H, S, D), k/v (B, KVH, S, D) -> (B, H, S, D), query head h reading
 KV head h // (H // KVH), masked scores at NEG_INF = -2**30.  Unlike the
 Pallas kernel, S need not be a multiple of a block: a prefill is exactly
 as long as its prompt.  The CUDA kernel takes bfloat16 and head_dim 256
-(the 2b pair at full width), 112 (zamba2-7b's shared attention block) or
-32 (their reduced configs).
+(the 2b pair at full width), 112 (zamba2-7b's shared attention block),
+64 (granite-moe-3b-a800m, a GQA group of 3) or 32 (their reduced
+configs).
 
 History-offset mode (``hist_k``/``hist_v`` of P positions): the queries
 sit at absolute positions P + i and attend over the P history positions
@@ -53,9 +54,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
-HEAD_DIMS = (32, 112, 256)
-# K8's head dims: the 2b SLM's, zamba2's shared block's, their reduced
-BWD_HEAD_DIMS = (32, 112, 256)
+HEAD_DIMS = (32, 64, 112, 256)
+# K8's head dims: the 2b SLM's, zamba2's shared block's, granite-moe's,
+# their reduced
+BWD_HEAD_DIMS = (32, 64, 112, 256)
 _CTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (
     ctypes.c_float, ctypes.c_void_p)
 _BWD_CTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (
@@ -289,8 +291,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     sliding ``window`` when it is > 0, from q (B, H, S, D), k/v (B, KVH,
     S, D), the forward output o, its gradient do and the forward's row
     LSE (B, H, S) f32 (K3's, with the same window).  On CUDA it launches the
-    kernel of ``csrc/flash_attention_bwd.cu`` (bf16, head_dim 32, 112 or
-    256) or raises; on the CPU it runs ``flash_attention_bwd_plain``."""
+    kernel of ``csrc/flash_attention_bwd.cu`` (bf16, head_dim 32, 64, 112
+    or 256) or raises; on the CPU it runs ``flash_attention_bwd_plain``."""
     check_layout(q, k, v)
     if o.shape != q.shape or do.shape != q.shape \
             or lse.shape != q.shape[:3]:

@@ -4,8 +4,8 @@
 
 ``--local`` runs end-to-end federated fine-tuning (``run_simulation``) on
 the reduced config of ``--arch`` (the dense floe-slm-2b, the grouped
-floe-slm-gemma3, the Mamba-1 falcon-mamba-7b or the zamba2-7b hybrid)
-and prints the reference's per-round lines: on the card unless
+floe-slm-gemma3, the Mamba-1 falcon-mamba-7b, the zamba2-7b hybrid or
+the MoE granite-moe-3b-a800m) and prints the reference's per-round lines: on the card unless
 ``--device cpu``.  The
 parameters are the reference launcher's, ``lm.init(jax.random.key(0))``
 bit for bit (``LM.init_keyed``), so on the CPU the lines are the

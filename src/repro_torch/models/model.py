@@ -94,8 +94,26 @@ and the Mamba-1 SSM family.  It runs outside ``torch.inference_mode``
 (or the parameters) through K3/K8, K6/K10 and K5/K9 on CUDA and through
 the plain versions on the CPU.
 
-The MoE, MLA, audio and vision layouts, the all-sliding dense layout,
-qkv biases and untied embeddings of a dense model are later slices.
+The MoE family (granite-moe, the reference's ``model.py:291-298``):
+``first_k_dense`` dense layers under ``"dense_layers"``, then the other
+layers under ``"layers"``, each with a ``"moe"`` FFN (``models/moe.py``:
+a router, the stacked experts ``w_in`` (L, E, d, 2f) and ``w_out`` (L,
+E, f, d), and a shared expert's MLP when ``num_shared_experts`` is set)
+in place of the MLP; GQA attention as the dense family's.  Its cache is
+{"dense", "moe": {"k", "v"}, "pos"} with the stacks' layer counts in
+front (a zero-layer "dense" stack without dense layers), and a layer's
+address is ("dense", (i,)) or ("moe", (i,)).  Its LoRA targets are q, k,
+v and o (and the shared expert's MLP), and its aux loss, the sum of
+every MoE layer's load-balance loss, comes back from ``train_logits``.
+Prefill and packed prefill run the MoE over every position of the
+batch, so padding tokens and other rows compete for an expert's
+capacity, as in the reference; decode (T = B tokens) does too.  The
+reference's moe stack hands a cache to its layers in decode only
+(``model.py:616-619``), so its suffix prefill ignores a history: the
+port refuses the history API and speculative rollback for the family.
+
+The MLA, audio and vision layouts, the all-sliding dense layout, qkv
+biases and untied embeddings of a dense model are later slices.
 """
 from __future__ import annotations
 
@@ -109,6 +127,7 @@ from repro_torch import resolve_device, to_device
 from repro_torch.core import tree as T
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -155,11 +174,25 @@ def cache_kv(cache, addr, name: str) -> torch.Tensor:
     return cache[name][addr]
 
 
+def _std(spec) -> float:
+    """The std of a random leaf's law: the embedding's scale, 0.02 ·
+    scale (``normal``), or scale / sqrt(fan-in) over every axis but the
+    last."""
+    shape, init, scale = spec
+    if init == "embed":
+        return scale
+    if init == "normal":
+        return 0.02 * scale
+    return scale / math.sqrt(max(1, math.prod(shape[:-1])))
+
+
 def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
                 ident=None, host_pos=None, lora=None, gates=None,
                 is_global=True):
-    """Pre-norm attention + MLP.  ``lora`` is this layer's slice of the
-    bank ({target: {"A", "B"}}).  Returns (x, fresh (k, v) or None)."""
+    """Pre-norm attention + MLP, or + MoE FFN where the layer has a
+    ``"moe"`` sub-tree (the reference's ``model.py:95-119``).  ``lora`` is
+    this layer's slice of the bank ({target: {"A", "B"}}).  Returns (x,
+    fresh (k, v) or None, aux loss: the MoE's, else a 0-d f32 zero)."""
     h = L.norm(cfg, p["ln1"], x)
     a, kv = ATT.attention_block(cfg, p["attn"], h, positions=positions,
                                 cache=cache, mode=mode, pages=pages,
@@ -167,9 +200,13 @@ def dense_layer(cfg, p, x, *, positions, mode, cache, pages=None,
                                 gates=gates, is_global=is_global)
     x = x + a
     h = L.norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        m, aux = MOE.moe_ffn(cfg, p["moe"], h, lora, gates,
+                             aux=mode == "train")
+        return x + m, kv, aux
     get = (lora or {}).get
     return x + L.mlp(cfg, p["mlp"], h, get("mlp_in"), get("mlp_out"),
-                     gates), kv
+                     gates), kv, torch.zeros((), device=x.device)
 
 
 def ssm_layer(cfg, p, x, *, mode, cache, lora=None, gates=None):
@@ -192,13 +229,24 @@ def ssm_layer(cfg, p, x, *, mode, cache, lora=None, gates=None):
 
 class LM:
     """Model bundle for one ModelConfig on one device: the dense family's
-    plain or grouped (gemma3) layout, the Mamba-1 SSM family or the
-    zamba2 hybrid.  ``ring_cache``: the grouped layout's local layers
-    (the hybrid's shared attention block) keep window-sized ring caches
-    (the reference's ``LM(ring_cache=True)``)."""
+    plain or grouped (gemma3) layout, the Mamba-1 SSM family, the zamba2
+    hybrid or the MoE family's GQA layout (granite-moe).  ``ring_cache``:
+    the grouped layout's local layers (the hybrid's shared attention
+    block) keep window-sized ring caches (the reference's
+    ``LM(ring_cache=True)``)."""
 
     def __init__(self, cfg, device=None, ring_cache: bool = False):
-        if cfg.family == "ssm":
+        if cfg.family == "moe":
+            if cfg.use_mla:
+                raise NotImplementedError(
+                    f"{cfg.name}: MLA attention (models/mla.py) is a later "
+                    "slice: ROADMAP Queue 1 item 9's deepseek-v3 entry")
+            if cfg.attn_type != "full" or cfg.qkv_bias or cfg.use_qk_norm \
+                    or not cfg.tie_embeddings or cfg.norm_type != "rmsnorm":
+                raise NotImplementedError(
+                    f"{cfg.name}: only the MoE family's GQA layout (full "
+                    "attention, tied embeddings, RMSNorm) is ported")
+        elif cfg.family == "ssm":
             if cfg.ssm_version != 1 or cfg.norm_type != "rmsnorm":
                 raise NotImplementedError(
                     f"{cfg.name}: only Mamba-1 with RMSNorm is ported "
@@ -245,8 +293,16 @@ class LM:
         """The layers in the order the stack runs them: the plain
         layout's (and an SSM's) 0..L-1, or in each group its g - 1 local
         layers (the hybrid's Mamba-2 layers) then its global layer (the
-        hybrid's shared block), and after the groups the tail."""
+        hybrid's shared block), and after the groups the tail; the MoE
+        family's ``first_k_dense`` dense layers, then its MoE layers."""
         kind, n_groups, g, tail = self._layout()
+        if self.cfg.family == "moe":
+            kd = self.cfg.first_k_dense
+            return [LayerSite(("dense", (i,)), "dense_layers",
+                              "dense_layers", (i,), True)
+                    for i in range(kd)] + \
+                [LayerSite(("moe", (i,)), "layers", "layers", (i,), True)
+                 for i in range(self.cfg.num_layers - kd)]
         ssm = self.cfg.family == "ssm"
         if kind == "plain":
             return [LayerSite(i, "layers", "layers", (i,), True, ssm=ssm)
@@ -282,9 +338,10 @@ class LM:
     # -------------------------------------------------------------- params
     def param_shapes(self) -> Dict[str, Any]:
         """The reference's spec tree for the dense layouts, the Mamba-1
-        stack or the zamba2 hybrid (``model.py:285-290``, its Mamba-2
-        layers ``ssm_layer_spec`` and ``mamba2_spec``): leaves are
-        (shape, init, scale) with init in {embed, fan_in, ones, zeros}."""
+        stack, the zamba2 hybrid (``model.py:285-290``, its Mamba-2
+        layers ``ssm_layer_spec`` and ``mamba2_spec``) or the MoE family
+        (``model.py:291-298``, ``moe.py:24-35``): leaves are (shape, init,
+        scale) with init in {embed, fan_in, normal, ones, zeros}."""
         cfg = self.cfg
         n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -317,7 +374,20 @@ class LM:
 
         gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
 
-        def layers(lead):
+        def mlp(lead, ff):
+            return {"in": {"w": _leaf(lead + (d, gate * ff))},
+                    "out": {"w": _leaf(lead + (ff, d))}}
+
+        def moe(lead):
+            e, mf = cfg.num_experts, cfg.moe_d_ff
+            s = {"router": {"w": _leaf(lead + (d, e), "normal")},
+                 "w_in": {"w": _leaf(lead + (e, d, 2 * mf))},
+                 "w_out": {"w": _leaf(lead + (e, mf, d))}}
+            if cfg.num_shared_experts:
+                s["shared"] = mlp(lead, mf * cfg.num_shared_experts)
+            return s
+
+        def layers(lead, use_moe=False):
             attn = {"q": {"w": _leaf(lead + (d, h * hd))},
                     "k": {"w": _leaf(lead + (d, kv * hd))},
                     "v": {"w": _leaf(lead + (d, kv * hd))},
@@ -325,14 +395,23 @@ class LM:
             if cfg.use_qk_norm:
                 attn["q_norm"] = {"scale": _leaf(lead + (hd,), "ones")}
                 attn["k_norm"] = {"scale": _leaf(lead + (hd,), "ones")}
-            return {"ln1": {"scale": _leaf(lead + (d,), "ones")},
-                    "attn": attn,
-                    "ln2": {"scale": _leaf(lead + (d,), "ones")},
-                    "mlp": {"in": {"w": _leaf(lead + (d, gate * f))},
-                            "out": {"w": _leaf(lead + (f, d))}}}
+            out = {"ln1": {"scale": _leaf(lead + (d,), "ones")},
+                   "attn": attn,
+                   "ln2": {"scale": _leaf(lead + (d,), "ones")}}
+            if use_moe:
+                out["moe"] = moe(lead)
+            else:
+                out["mlp"] = mlp(lead, f)
+            return out
 
         out = {"embed": embed, "ln_f": {"scale": _leaf((d,), "ones")}}
         kind, n_groups, g, tail = self._layout()
+        if cfg.family == "moe":
+            kd = cfg.first_k_dense
+            if kd:
+                out["dense_layers"] = layers((kd,))
+            out["layers"] = layers((n - kd,), use_moe=True)
+            return out
         if cfg.family == "hybrid":
             di, ns, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
             nh, ng = cfg.ssm_nheads, cfg.ssm_ngroups
@@ -370,8 +449,9 @@ class LM:
         """Random parameters made on the device from a seeded
         ``torch.Generator``, with the reference's initialiser laws
         (fan-in over every axis but the last, as the reference counts
-        it for stacked leaves).  The values differ from the JAX
-        package's, whose generator is threefry; tests that compare the
+        it for stacked leaves; ``normal`` at std 0.02 · scale).  The
+        values differ from the JAX package's, whose generator is
+        threefry; tests that compare the
         two bring the JAX parameters over with ``bridge.py``.  Stacked
         leaves (3-D, or 4-D in a grouped layout's inner stack) are drawn
         one layer at a time, which bounds the float32 scratch at full
@@ -383,14 +463,12 @@ class LM:
             if init in ("ones", "zeros"):
                 fill = torch.ones if init == "ones" else torch.zeros
                 return fill(shape, dtype=self.dtype, device=self.device)
-            std = scale if init == "embed" else \
-                scale / math.sqrt(max(1, math.prod(shape[:-1])))
             out = torch.empty(shape, dtype=self.dtype, device=self.device)
             slices = out.view(-1, *shape[-2:]) if len(shape) >= 3 \
                 else [out]
             for sl in slices:
                 sl.copy_(torch.randn(sl.shape, generator=gen,
-                                     device=self.device) * std)
+                                     device=self.device) * _std(spec))
             return out
 
         return T.map_tree(make, self.param_shapes())
@@ -399,8 +477,9 @@ class LM:
         """The reference's ``lm.init(jax.random.key(seed))`` bit for bit
         (``repro/models/layers.py:54``): the key split into one key a
         leaf in sorted order, each leaf ``jax.random.normal`` times its
-        law's std (the embedding's scale, or scale / sqrt(fan-in)),
-        ones or zeros, cast to the model's dtype.  The normals are
+        law's std (the embedding's scale, 0.02 then the scale for
+        ``normal``, or scale / sqrt(fan-in)), ones or zeros, cast to the
+        model's dtype.  The normals are
         threefry's on the host (``core/prng.py``), so this is for the
         reduced configs (the launcher's), not a full-width model."""
         from repro_torch.core import prng
@@ -413,11 +492,13 @@ class LM:
             if init in ("ones", "zeros"):
                 fill = np.ones if init == "ones" else np.zeros
                 arr = fill(shape, np.float32)
-            else:
-                std = scale if init == "embed" else \
-                    scale / math.sqrt(max(1, math.prod(shape[:-1])))
+            elif init == "normal":
+                # the reference's normal * 0.02 * scale, in that order
                 arr = prng.normal(prng.key_at(keys, j), shape) \
-                    * np.float32(std)
+                    * np.float32(0.02) * np.float32(scale)
+            else:
+                arr = prng.normal(prng.key_at(keys, j), shape) \
+                    * np.float32(_std(spec))
             return torch.from_numpy(arr).to(self.device, self.dtype)
 
         return T.unflatten(specs, [make(j, spec)
@@ -432,7 +513,9 @@ class LM:
         out_proj as ssm_in, ssm_x, ssm_dt and ssm_out; the hybrid's
         Mamba-2 stacks take ssm_in, ssm_out and their MLP's, and its
         "special" stack one slice a group of the shared block's attention
-        and MLP targets, ``model.py:325-343`` and ``:350-353``)."""
+        and MLP targets, ``model.py:325-343`` and ``:350-353``; the MoE
+        family's layers take the attention targets and the shared
+        expert's MLP, its dense layers the dense family's, ``:355-365``)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             di, n = cfg.d_inner, cfg.ssm_state
@@ -444,9 +527,20 @@ class LM:
         d, f = cfg.d_model, cfg.d_ff
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         gate = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
-        t = {"q": (d, h * hd), "k": (d, kv * hd), "v": (d, kv * hd),
-             "o": (h * hd, d), "mlp_in": (d, gate * f), "mlp_out": (f, d)}
+        attn = {"q": (d, h * hd), "k": (d, kv * hd), "v": (d, kv * hd),
+                "o": (h * hd, d)}
+        t = {**attn, "mlp_in": (d, gate * f), "mlp_out": (f, d)}
         kind, n_groups, g, tail = self._layout()
+        if cfg.family == "moe":
+            kd = cfg.first_k_dense
+            mt = dict(attn)
+            if cfg.num_shared_experts:
+                sf = cfg.moe_d_ff * cfg.num_shared_experts
+                mt.update(mlp_in=(d, gate * sf), mlp_out=(sf, d))
+            out = {"layers": ((cfg.num_layers - kd,), mt)}
+            if kd:
+                out["dense_layers"] = ((kd,), t)
+            return out
         if cfg.family == "hybrid":
             di = cfg.d_inner
             proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state \
@@ -468,10 +562,17 @@ class LM:
         "global": {"k", "v"}} with stack dims (n_groups, g - 1), (tail,)
         and (n_groups,) in front for the grouped one, whose local leaves
         hold ``_ring_local_len`` slots when it is not 0 (and ``rings``:
-        without, every leaf is linear over max_seq positions)."""
+        without, every leaf is linear over max_seq positions); the MoE
+        family's {"dense", "moe": {"k", "v"}} with (first_k_dense,) and
+        (L - first_k_dense,) in front (``model.py:429-438``)."""
         cfg = self.cfg
         kind, n_groups, g, tail = self._layout()
         kv_hd = (cfg.num_kv_heads, cfg.head_dim)
+        if cfg.family == "moe":
+            kd = cfg.first_k_dense
+            return {name: {c: (n, batch, max_seq) + kv_hd for c in "kv"}
+                    for name, n in (("dense", kd),
+                                    ("moe", cfg.num_layers - kd))}
         if kind == "plain":
             shape = (cfg.num_layers, batch, max_seq) + kv_hd
             return {"k": shape, "v": shape}
@@ -539,7 +640,8 @@ class LM:
 
     def train_logits(self, params, batch, lora=None, gates=None):
         """Full-sequence causal logits of ``batch["tokens"]`` (B, S):
-        (logits (B, S, V) float32, aux loss 0.0), the reference's
+        (logits (B, S, V) float32, aux loss: the sum of the MoE layers'
+        load-balance losses, 0-d f32, 0.0 without them), the reference's
         ``_run_stack`` in train mode (``model.py:568-611`` for the
         grouped layout: each layer with its window, theta and qk-norm).
         ``lora``/``gates`` as ``layers.lora_delta`` takes them; each leaf
@@ -551,6 +653,7 @@ class LM:
         tokens = batch["tokens"]
         x = L.embed(cfg, params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        aux = torch.zeros((), device=x.device)
         layout = self.lora_layout()
         split = {}
         if lora is not None:
@@ -569,12 +672,12 @@ class LM:
                 x, _ = ssm_layer(cfg, p_i, x, mode="train", cache=None,
                                  lora=l_i, gates=gates)
                 continue
-            x, _ = dense_layer(cfg, p_i, x, positions=positions,
-                               mode="train", cache=None, lora=l_i,
-                               gates=gates, is_global=site.is_global)
+            x, _, a = dense_layer(cfg, p_i, x, positions=positions,
+                                  mode="train", cache=None, lora=l_i,
+                                  gates=gates, is_global=site.is_global)
+            aux = aux + a
         x = L.norm(cfg, params["ln_f"], x)
-        return L.unembed(cfg, params["embed"], x), \
-            torch.zeros((), device=x.device)
+        return L.unembed(cfg, params["embed"], x), aux
 
     @torch.inference_mode()
     def prefill(self, params, tokens: torch.Tensor, max_seq: int,
@@ -606,9 +709,10 @@ class LM:
                 for name in ("conv", "h"):
                     cache_kv(cache, site.addr, name).copy_(state[name])
                 continue
-            x, (k, v) = dense_layer(cfg, p_i, x, positions=positions,
-                                    mode="prefill", cache=None, lora=l_i,
-                                    gates=gates, is_global=site.is_global)
+            x, (k, v), _ = dense_layer(cfg, p_i, x, positions=positions,
+                                       mode="prefill", cache=None,
+                                       lora=l_i, gates=gates,
+                                       is_global=site.is_global)
             _place(cache_kv(cache, site.addr, "k"), k)
             _place(cache_kv(cache, site.addr, "v"), v)
         cache["pos"] = s
@@ -682,11 +786,12 @@ class LM:
                 for name in ("conv", "h"):
                     cache_kv(cache, site.addr, name).copy_(state[name])
                 continue
-            x, (k, v) = dense_layer(cfg, self._layer(params, site), x,
-                                    positions=positions, mode="prefill",
-                                    cache=None,
-                                    lora=self._lora_layer(lora, site),
-                                    gates=gates, is_global=site.is_global)
+            x, (k, v), _ = dense_layer(cfg, self._layer(params, site), x,
+                                       positions=positions, mode="prefill",
+                                       cache=None,
+                                       lora=self._lora_layer(lora, site),
+                                       gates=gates,
+                                       is_global=site.is_global)
             write_kv(site.addr, k, v)
         # per-row last VALID position (x[:, -1:] would read padding)
         idx = to_device(np.asarray(lengths) - 1, tokens.device)
@@ -698,7 +803,15 @@ class LM:
     # ------------------------------------------------- prefix history
     def _dense_only(self, what: str):
         """The prefix history API is the dense family's: the reference
-        refuses the others in ``prefill_suffix`` (``model.py:1015-1017``)."""
+        refuses the SSM and hybrid families in ``prefill_suffix``
+        (``model.py:1015-1017``), and its moe stack hands a cache to its
+        layers in decode only (``model.py:616-619``), so its suffix
+        prefill would attend past no history."""
+        if self.cfg.family == "moe":
+            raise NotImplementedError(
+                f"{what} of the moe family: the reference's moe stack "
+                "passes no history to its layers in prefill "
+                "(model.py:616-619)")
         if self.cfg.family != "dense":
             raise NotImplementedError(f"{what} of the {self.cfg.family} "
                                       "family: attention families only")
@@ -736,11 +849,12 @@ class LM:
         x = L.embed(self.cfg, params["embed"], tokens)
         positions = torch.arange(s, device=tokens.device)
         for site in self.layer_sites():
-            x, (k, v) = dense_layer(self.cfg, self._layer(params, site), x,
-                                    positions=positions, mode="prefill",
-                                    cache=None,
-                                    lora=self._lora_layer(lora, site),
-                                    gates=gates, is_global=site.is_global)
+            x, (k, v), _ = dense_layer(self.cfg, self._layer(params, site),
+                                       x, positions=positions,
+                                       mode="prefill", cache=None,
+                                       lora=self._lora_layer(lora, site),
+                                       gates=gates,
+                                       is_global=site.is_global)
             cache_kv(hist, site.addr, "k").copy_(k)
             cache_kv(hist, site.addr, "v").copy_(v)
             if write_kv is not None:
@@ -778,11 +892,12 @@ class LM:
         positions = pre + torch.arange(s, device=tokens.device)
         for site in self.layer_sites():
             hist = {n: cache_kv(history, site.addr, n) for n in ("k", "v")}
-            x, (k, v) = dense_layer(cfg, self._layer(params, site), x,
-                                    positions=positions, mode="prefill",
-                                    cache=hist,
-                                    lora=self._lora_layer(lora, site),
-                                    gates=gates, is_global=site.is_global)
+            x, (k, v), _ = dense_layer(cfg, self._layer(params, site), x,
+                                       positions=positions, mode="prefill",
+                                       cache=hist,
+                                       lora=self._lora_layer(lora, site),
+                                       gates=gates,
+                                       is_global=site.is_global)
             write_kv(site.addr, k, v)
         idx = to_device(lengths - 1, tokens.device)
         last = x[torch.arange(b, device=tokens.device), idx][:, None]
@@ -794,6 +909,7 @@ class LM:
         """A new history: ``history`` followed by a chunk's fresh K/V
         (``prefill_suffix``'s suffix cache of an EXACT-width B=1 chunk,
         so positions stay contiguous: "len" grows by its width)."""
+        self._dense_only("extend_history")
         width = cache_kv(suffix_cache, self.layer_sites()[0].addr,
                          "k").shape[1]
         hist, write = history_extender(self, history, width)
@@ -1011,10 +1127,10 @@ class LM:
                 continue
             layer_cache = {n: cache_kv(cache, site.addr, n)
                            for n in ("k", "v")}
-            x, _ = dense_layer(cfg, p_i, x, positions=pos, mode="decode",
-                               cache=layer_cache, pages=pages,
-                               ident=ident, host_pos=host_pos, lora=l_i,
-                               gates=gates, is_global=site.is_global)
+            x, _, _ = dense_layer(cfg, p_i, x, positions=pos, mode="decode",
+                                  cache=layer_cache, pages=pages,
+                                  ident=ident, host_pos=host_pos, lora=l_i,
+                                  gates=gates, is_global=site.is_global)
         # parked rows hold position, so "freed" stays an exact marker
         if isinstance(pos, torch.Tensor):
             pos.add_((pos < ATT.FREED_POS).to(pos.dtype))

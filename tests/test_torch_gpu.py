@@ -39,7 +39,8 @@ and on every gradient in f32, 2**-7 on its bf16 dx, dB and dC (one
 rounding): K12 runs the f32 recurrence, the plain version autograd
 through the chunk form, as K11 against its plain version.  K3 at
 head_dim 112 as at 256, and with a window no shorter than S equal to
-causal bit for bit.  K7: ids and perturbed
+causal bit for bit; K3 and K8 at head_dim 64 (granite-moe: H 24 over
+KV 8, a group of 3) as at 256.  K7: ids and perturbed
 scores equal to the plain version's bit for bit (the kernel computes
 the plain version's integer and float steps, each rounded the same
 way)."""
@@ -1458,3 +1459,45 @@ def test_flash_attention_head_dim_112(cuda, b, h, kvh, s):
     assert out.transpose(1, 2).is_contiguous()
     assert torch.equal(out, win)
     assert row_rel_err(out, K3.flash_attention_plain(q, k, v)) <= 2 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(1, 1536), (1, 27), (4, 40), (2, 203)])
+def test_flash_attention_head_dim_64(cuda, b, s):
+    """K3 at granite-moe's head_dim 64 (H 24 over KV 8: a GQA group of
+    3) on (B, H, S, D) views of (B, S, H, D) tensors: within 2**-6 per
+    row of the plain version; two calls bit-equal; the LSE within 1e-4
+    of the plain log-sum-exp, and the output unchanged by it."""
+    g = torch.Generator(device=cuda).manual_seed(s + b)
+    q, k, v = k3_inputs(cuda, g, b, 24, 8, s, 64, layout="bshd")
+    out = K3.flash_attention(q, k, v)
+    again, lse = K3.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.shape == (b, 24, s, 64)
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, again)
+    assert row_rel_err(out, K3.flash_attention_plain(q, k, v)) <= 2 ** -6
+    assert (lse - K3.attention_lse_plain(q, k)).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(4, 40), (1, 1536), (2, 203)])
+def test_flash_attention_bwd_head_dim_64(cuda, b, s):
+    """K8 at head_dim 64 (H 24 over KV 8, the dK/dV pass's heads split
+    into parts of the group of 3 at 4 x 40) within 2**-6 of each
+    gradient's max of autograd through K3's plain version; two calls
+    bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(s + 64)
+    q, k, v = k3_inputs(cuda, g, b, 24, 8, s, 64, layout="bshd")
+    do = torch.randn(b, s, 24, 64, device=cuda,
+                     generator=g).bfloat16().transpose(1, 2)
+    out, lse = K3.flash_attention(q, k, v, return_lse=True)
+    got = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    again = K3.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(K3.flash_attention_plain(qr, kr, vr),
+                              (qr, kr, vr), do)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape and rel(x, y) <= 2 ** -6
